@@ -9,7 +9,9 @@ setup(
         "backend is a Cloud TPU pod slice and whose device plane is "
         "JAX/XLA over ICI"
     ),
-    packages=find_packages(include=["fiber_tpu", "fiber_tpu.*"]),
+    packages=find_packages(include=["fiber_tpu", "fiber_tpu.*",
+                                    "fiber_tpu_torch", "fiber_tpu_torch.*"]),
+    package_data={"fiber_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "cloudpickle",

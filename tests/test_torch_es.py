@@ -1,0 +1,193 @@
+"""The port's ES flagship (CartPole, MLPPolicy, centered rank, the ES
+step and the entry point) against the JAX package on the same inputs.
+
+Random draws differ between the two (threefry vs Philox), so the JAX
+keys are turned into numpy noise and initial states exactly as
+``EvolutionStrategy.step`` derives them, and handed to the port. The JAX
+strategy gets an explicit one-device mesh: the suite runs JAX on 8
+virtual devices, and the default mesh would split the noise over them.
+
+Tolerances: physics states and policy logits within 1e-5 (one f32 step
+with sin/cos from two libraries); episode returns, ranks and ES stats
+exactly (they are integers or derived from integers); ES parameters
+within 1e-6 (f32 sums in another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh
+
+from fiber_tpu.models import CartPole as JaxCartPole
+from fiber_tpu.models import MLPPolicy as JaxMLPPolicy
+from fiber_tpu.ops import EvolutionStrategy as JaxES
+from fiber_tpu.ops.es import apply_es_update as jax_update
+from fiber_tpu.ops.es import centered_rank as jax_rank
+
+from fiber_tpu_torch.entry import entry, run_es
+from fiber_tpu_torch.models.convert import policy_params_from_jax
+from fiber_tpu_torch.models.envs import CartPole
+from fiber_tpu_torch.models.policies import MLPPolicy
+from fiber_tpu_torch.ops.es import (
+    EvolutionStrategy,
+    apply_es_update,
+    centered_rank,
+)
+from fiber_tpu_torch.parallel.mesh import make_mesh
+
+HIDDEN = (32, 32)
+
+
+def _np(x):
+    return np.asarray(jax.device_get(x))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _policies():
+    return (JaxMLPPolicy(4, 2, hidden=HIDDEN), MLPPolicy(4, 2, hidden=HIDDEN))
+
+
+def _thetas(jpol, n, seed):
+    base = jpol.init(jax.random.PRNGKey(seed))
+    noise = jax.random.normal(jax.random.PRNGKey(seed + 1), (n, jpol.dim))
+    return base + 0.3 * noise
+
+
+def test_cartpole_step_matches_jax():
+    rng = np.random.default_rng(0)
+    states = rng.uniform(-0.2, 0.2, (64, 4)).astype(np.float32)
+    states[:4, 0] = [2.45, -2.45, 0.0, 0.0]       # out of bounds in x
+    states[2:4, 2] = [0.25, -0.25]                 # and in theta
+    actions = rng.integers(0, 2, 64)
+    want_s, want_t = jax.vmap(JaxCartPole.step)(jnp.asarray(states),
+                                                jnp.asarray(actions))
+    got_s, got_t = CartPole.step(_t(states), _t(actions))
+    assert np.abs(got_s.numpy() - _np(want_s)).max() < 1e-5
+    assert got_t.numpy().tolist() == _np(want_t).tolist()
+    assert got_t[:4].all()
+
+
+def test_policy_apply_matches_jax():
+    jpol, pol = _policies()
+    assert pol.dim == jpol.dim
+    thetas = _thetas(jpol, 16, 3)
+    obs = jax.random.normal(jax.random.PRNGKey(9), (16, 4))
+    want = jax.vmap(jpol.apply)(thetas, obs)
+    got = pol.apply(policy_params_from_jax(_np(thetas), device="cpu"),
+                    _t(_np(obs)))
+    assert got.dtype == torch.float32
+    assert np.abs(got.numpy() - _np(want)).max() < 1e-5
+
+
+def test_rollout_returns_match_jax():
+    jpol, pol = _policies()
+    thetas = _thetas(jpol, 32, 5)
+    keys = jax.random.split(jax.random.PRNGKey(4), 32)
+    want = jax.vmap(lambda th, k: JaxCartPole.rollout(
+        jpol.act, th, k, max_steps=200))(thetas, keys)
+    states = jax.vmap(JaxCartPole.reset)(keys)
+    got = CartPole.rollout(pol.act, _t(_np(thetas)), _t(_np(states)),
+                           max_steps=200)
+    assert got.numpy().tolist() == _np(want).tolist()
+    assert len(set(got.tolist())) > 3      # the policies really differ
+
+
+def test_centered_rank_keeps_tie_order_like_jax():
+    fit = np.random.default_rng(1).integers(5, 12, 64).astype(np.float32)
+    want = _np(jax_rank(jnp.asarray(fit)))
+    got = centered_rank(_t(fit)).numpy()
+    assert got.tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("adam", [False, True])
+def test_apply_es_update_matches_jax(adam):
+    rng = np.random.default_rng(2)
+    p, g, m, v = (rng.standard_normal(50).astype(np.float32)
+                  for _ in range(4))
+    v = np.abs(v)
+    kw = dict(lr=0.03, wd=0.01, adam=adam)
+    want = jax_update(*(jnp.asarray(a) for a in (p, g, m, v)), 3.0, **kw)
+    got = apply_es_update(*(_t(a) for a in (p, g, m, v)), 3.0, **kw)
+    for a, b in zip(got[:3], want[:3]):
+        assert np.abs(a.numpy() - _np(b)).max() < 1e-6
+    assert float(got[3]) == float(want[3])
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_es_step_matches_jax(optimizer):
+    jpol, pol = _policies()
+    pop, steps = 64, 100
+    mesh = Mesh(np.asarray(jax.devices()[:1]), ("pool",))
+
+    def jax_eval(theta, key):
+        return JaxCartPole.rollout(jpol.act, theta, key, max_steps=steps)
+
+    jes = JaxES(jax_eval, dim=jpol.dim, pop_size=pop, sigma=0.1, lr=0.03,
+                mesh=mesh, optimizer=optimizer)
+    params = jpol.init(jax.random.PRNGKey(0))
+    key = jax.random.PRNGKey(5)
+    want_p, want_s = jes.step(params, key)
+
+    # es.py's derivation of the noise and initial states (device 0)
+    eps_key, eval_key = jax.random.split(jax.random.fold_in(key, 0))
+    eps = jax.random.normal(eps_key, (pop // 2, jpol.dim))
+    states = jax.vmap(JaxCartPole.reset)(jax.random.split(eval_key, pop))
+
+    es = EvolutionStrategy(
+        lambda th, st: CartPole.rollout(pol.act, th, st, max_steps=steps),
+        CartPole.reset, dim=pol.dim, pop_size=pop, sigma=0.1, lr=0.03,
+        optimizer=optimizer, device="cpu")
+    assert es.pop_size == jes.pop_size and es.mesh.n_dev == 1
+    got_p, got_s = es.step(_t(_np(params)), eps=_t(_np(eps)),
+                           states=_t(_np(states)))
+    assert got_s.numpy().tolist() == _np(want_s).astype(np.float32).tolist()
+    assert np.abs(got_p.numpy() - _np(want_p)).max() < 1e-6
+
+
+def test_es_run_draws_from_its_generator():
+    pol = MLPPolicy(4, 2, hidden=(8,))
+
+    def make():
+        return EvolutionStrategy(
+            lambda th, st: CartPole.rollout(pol.act, th, st, max_steps=30),
+            CartPole.reset, dim=pol.dim, pop_size=33, device="cpu",
+            generator=torch.Generator().manual_seed(3))
+
+    es = make()
+    assert es.pop_size == 32
+    p0 = pol.init(device="cpu")
+    pa, hist = es.run(p0, 3, log_every=1)
+    pb, _ = make().run(p0, 3)
+    assert torch.equal(pa, pb) and len(hist) == 3
+    with pytest.raises(ValueError):
+        es.step(p0, eps=torch.zeros(3, pol.dim))
+
+
+def test_entry_matches_jax_entry():
+    import __graft_entry__ as graft
+
+    jfn, (jparams, jkeys) = graft.entry()
+    want = _np(jax.jit(jfn)(jparams, jkeys))
+
+    fn, (params, states) = entry(device="cpu")
+    assert params.shape == (8, MLPPolicy(4, 2, HIDDEN).dim)
+    assert states.shape == (8, 4)
+    jstates = jax.vmap(JaxCartPole.reset)(jkeys)
+    got = fn(_t(_np(jparams)), _t(_np(jstates)))
+    assert got.numpy().tolist() == want.tolist()
+    own = fn(params, states)
+    assert own.shape == (8,) and torch.isfinite(own).all()
+
+
+def test_run_es_flagship_shape_on_cpu():
+    params, stats = run_es(device="cpu", pop=16, max_steps=20,
+                           generations=2)
+    assert stats.shape == (2, 3) and torch.isfinite(stats).all()
+    assert params.shape == (MLPPolicy(4, 2, HIDDEN).dim,)
+    assert make_mesh("cpu").n_dev == 1
