@@ -7,14 +7,15 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds every CUDA kernel from ``fiber_tpu_torch/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version on the card, drives
-the port's main paths at full width (the TinyLM flash forward and greedy
-decoding; the OpenAI-ES CartPole flagship) and checks what comes out.
-Phases print one JSON line each (build, kernels, lm_forward,
-lm_generate, es); then the card's name and power limit as nvidia-smi
-reports them, the kernel summary line, and as the last line
-``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
-code is not 0 and no result line is printed; so does a machine without
-CUDA, or a directory that holds this script without the package.
+the port's main paths at full width (the TinyLM flash forward, greedy
+decoding and training; the OpenAI-ES CartPole flagship) and checks what
+comes out. Phases print one JSON line each (build, kernels,
+kernels_bwd, lm_forward, lm_generate, lm_train, es); then the card's
+name and power limit as nvidia-smi reports them, the kernel summary
+line, and as the last line ``{"ok": true, "device": {...}}``. Any
+failed check raises, so the exit code is not 0 and no result line is
+printed; so does a machine without CUDA, or a directory that holds this
+script without the package.
 
 f32 products of the plain versions run in full f32 (TF32 is switched
 off), so kernel and plain version differ only in summation order.
@@ -50,10 +51,27 @@ EDGE_SHAPES = (
 # bf16 outputs may round to neighbouring bf16 values (one ulp at |o| ~ 4).
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 LSE_TOL = 1e-4
+# Backward tolerance, max abs error over max |plain| of each gradient:
+# f32 gradients differ by summation order only, dk and dv summing up to
+# S x group rows (measured up to 7.9e-6 on an H100 at S = 16384 with GQA;
+# the bound is 5e-5); bf16 gradients may round to neighbouring bf16 values.
+BWD_TOL = {"float32": 5e-5, "bfloat16": 3e-2}
 LM_CFG = dict(vocab=256, dim=256, heads=8, layers=4, max_seq=16384)
 LM_TOL = 1e-4   # f32 logits of two attention engines, four layers
-FLASH_SOURCE = "fiber_tpu_torch/csrc/flash_fwd.cu"
-FLASH_REPLACES = "fiber_tpu/ops/pallas_attention.py:68"
+# Training: 5 timed AdamW steps after one warm-up (bench.py --lm); the
+# flash-vs-reference gradient check runs at S = 2048, where the reference
+# plane's scores under autograd fit (at 16384 they would be ~8.6 GB a
+# layer). Tolerances are the JAX package's own flash-vs-reference ones.
+TRAIN_STEPS = 5
+GRAD_SEQ = 2048
+GRAD_LOSS_TOL = 1e-4
+GRAD_TOL = 5e-4
+SOURCES = {"flash_fwd": "fiber_tpu_torch/csrc/flash_fwd.cu",
+           "flash_bwd_dq": "fiber_tpu_torch/csrc/flash_bwd.cu",
+           "flash_bwd_dkv": "fiber_tpu_torch/csrc/flash_bwd.cu"}
+REPLACES = {"flash_fwd": "fiber_tpu/ops/pallas_attention.py:68",
+            "flash_bwd_dq": "fiber_tpu/ops/pallas_attention.py:170",
+            "flash_bwd_dkv": "fiber_tpu/ops/pallas_attention.py:208"}
 
 
 def check(cond, msg):
@@ -96,7 +114,8 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
     secs = time.perf_counter() - t0
-    check("flash_fwd" in libs, "flash_fwd.cu was not built")
+    check({"flash_fwd", "flash_bwd"} <= set(libs),
+          f"kernels missing from the build: {sorted(libs)}")
     emit({"phase": "build", "seconds": secs,
           "libraries": {k: v.name for k, v in libs.items()},
           "ptxas": {k: _build.compiler_report(k) for k in libs}})
@@ -108,20 +127,38 @@ def _inputs(torch, s, h, kvh, d, dtype, seed):
                  for n in (h, kvh, kvh))
 
 
-def _sdpa(torch, q, k, v, window):
-    """The library's attention on the same inputs, for timing only."""
+def _sdpa_call(torch, window, s, gqa):
+    """The library's attention as one call on (1, heads, S, head_dim)
+    tensors, for timing only: causal, GQA by ``enable_gqa``, the window
+    by an explicit boolean mask."""
     F = torch.nn.functional
-    qt, kt, vt = (x.permute(1, 0, 2).unsqueeze(0) for x in (q, k, v))
-    gqa = k.shape[1] != q.shape[1]
     if window is None:
-        return lambda: F.scaled_dot_product_attention(
+        return lambda qt, kt, vt: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=gqa)
-    s = q.shape[0]
     pos = torch.arange(s, device="cuda")
     diff = pos[:, None] - pos[None, :]
     mask = (diff >= 0) & (diff < window)
-    return lambda: F.scaled_dot_product_attention(
+    return lambda qt, kt, vt: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
+
+
+def _sdpa(torch, q, k, v, window):
+    """The library's attention forward on the same inputs."""
+    call = _sdpa_call(torch, window, q.shape[0], k.shape[1] != q.shape[1])
+    qt, kt, vt = (x.permute(1, 0, 2).unsqueeze(0) for x in (q, k, v))
+    return lambda: call(qt, kt, vt)
+
+
+def _sdpa_bwd(torch, q, k, v, dout, window):
+    """The library's attention backward alone on the same inputs: one
+    forward with grad, then the timed call is ``autograd.grad`` of it."""
+    call = _sdpa_call(torch, window, q.shape[0], k.shape[1] != q.shape[1])
+    qt, kt, vt = (x.permute(1, 0, 2).unsqueeze(0).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = call(qt, kt, vt)
+    dot = dout.permute(1, 0, 2).unsqueeze(0)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
 
 
 def phase_kernels(torch, card):
@@ -178,6 +215,96 @@ def phase_kernels(torch, card):
         torch.cuda.empty_cache()
     emit({"phase": "kernels", "card": card, "flash_fwd_launches":
           fa.flash_fwd.launches, "shapes": rows})
+    return main
+
+
+def _bwd_errors(got, want):
+    """(max abs error, max abs error over max |plain|) over gradients."""
+    abs_err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+    rel = max((g.float() - w.float()).abs().max().item()
+              / w.float().abs().max().item() for g, w in zip(got, want))
+    return abs_err, rel
+
+
+def _bwd_times(torch, q, k, v, dout, lse, delta, window):
+    """Device times of both backward kernels, their plain versions and
+    the library's backward at one main shape, with each kernel's bound
+    (attention_bwd_flops over the peak of the inputs' type, or its bytes
+    over the memory rate: inputs read once, outputs written once)."""
+    from fiber_tpu_torch.ops import flash_attention as fa
+    from fiber_tpu_torch.utils import flops
+
+    s, h, d = q.shape
+    dt = str(q.dtype).removeprefix("torch.")
+    args, kw = (q, k, v, dout, lse, delta), dict(causal=True, window=window)
+    kernels = {"dq": fa.flash_bwd_dq, "dkv": fa.flash_bwd_dkv}
+    plain = {"dq": dict(dkv=False), "dkv": dict(dq=False)}
+    in_bytes = sum(x.nbytes for x in args)
+    out_bytes = {"dq": q.nbytes, "dkv": k.nbytes + v.nbytes}
+    row = {}
+    for part, kernel in kernels.items():
+        ms = cuda_ms(torch, lambda: kernel(*args, **kw), reps=5)
+        n_flops = flops.attention_bwd_flops(s, h, d, window=window,
+                                            part=part)
+        bound, bound_by = flops.bound_ms(n_flops, in_bytes + out_bytes[part],
+                                         dt)
+        row[part] = {
+            "ms": ms, "bound_ms": bound, "bound_by": bound_by,
+            "tflops": n_flops / ms / 1e9,
+            "plain_ms": cuda_ms(torch, lambda: fa.flash_bwd_reference(
+                *args, **kw, **plain[part]), reps=2)}
+    row["library_ms"] = cuda_ms(
+        torch, _sdpa_bwd(torch, q, k, v, dout, window), reps=3)
+    return row
+
+
+def phase_kernels_bwd(torch, card):
+    """Both backward kernels against the plain backward at every edge and
+    main shape, from the forward kernel's (O, lse) and a random dO; a
+    random lse cotangent on the edge shapes and on one main shape."""
+    from fiber_tpu_torch.ops import flash_attention as fa
+    from fiber_tpu_torch.utils import flops
+
+    shapes = [e + (True,) for e in EDGE_SHAPES]
+    shapes += [m + (True, m[0] == "lm_f32_gqa") for m in MAIN_SHAPES]
+    rows, main = [], {}
+    for name, s, h, kvh, d, dt, window, causal, with_dlse in shapes:
+        dtype = getattr(torch, dt)
+        seed = 100 + len(rows)
+        q, k, v = _inputs(torch, s, h, kvh, d, dtype, seed=seed)
+        o, lse = fa.flash_fwd(q, k, v, causal=causal, window=window)
+        g = torch.Generator(device="cuda").manual_seed(seed + 50)
+        dout = torch.randn(s, h, d, generator=g, device="cuda").to(dtype)
+        dlse = (torch.randn(h, s, generator=g, device="cuda")
+                if with_dlse else None)
+        delta = fa.flash_bwd_delta(o, dout, dlse)
+        kw = dict(causal=causal, window=window)
+        dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_reference(q, k, v, o, lse, dout, dlse,
+                                                **kw)
+        dq_err, dq_rel = _bwd_errors([dq], want[:1])
+        dkv_err, dkv_rel = _bwd_errors([dk, dv], want[1:])
+        del want
+        check(all(bool(torch.isfinite(x.float()).all())
+                  for x in (dq, dk, dv)), f"{name}: non-finite gradients")
+        check(dq_rel < BWD_TOL[dt] and dkv_rel < BWD_TOL[dt],
+              f"{name}: dq rel err {dq_rel}, dk/dv rel err {dkv_rel}")
+        row = {"shape": name, "S": s, "heads": h, "kv_heads": kvh,
+               "head_dim": d, "dtype": dt, "window": window,
+               "causal": causal, "dlse": with_dlse, "tol": BWD_TOL[dt],
+               "dq_max_abs_err": dq_err, "dq_rel_err": dq_rel,
+               "dkv_max_abs_err": dkv_err, "dkv_rel_err": dkv_rel}
+        if s == LM_CFG["max_seq"]:
+            row.update(_bwd_times(torch, q, k, v, dout, lse, delta, window))
+            main[name] = row
+        rows.append(row)
+        del q, k, v, o, lse, dout, dlse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_bwd", "card": card,
+          "peak_flops": flops.H100_PEAK_FLOPS, "shapes": rows})
     return main
 
 
@@ -258,6 +385,91 @@ def phase_lm_generate(torch, models, tokens, logits):
           "decode_max_abs_err_vs_forward": err, "tol": LM_TOL})
 
 
+def _grad_check(torch):
+    """Flash against reference TinyLM at S = GRAD_SEQ, full width, one
+    random weight tree: the loss and every parameter's gradient."""
+    from fiber_tpu_torch.models import convert
+    from fiber_tpu_torch.models.transformer import TinyLM
+
+    cfg = dict(LM_CFG, max_seq=GRAD_SEQ)
+    state = convert.tinylm_params_from_jax(
+        convert.random_tinylm_tree(**cfg, seed=0), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg["vocab"], (GRAD_SEQ,), generator=g,
+                           device="cuda")
+    losses, grads = {}, {}
+    for attention in ("flash", "reference"):
+        m = TinyLM(**cfg, attention=attention, device="cuda")
+        m.load_state_dict(state)
+        loss = m.loss(tokens)
+        loss.backward()
+        losses[attention] = loss.item()
+        grads[attention] = {n: p.grad for n, p in m.named_parameters()}
+    loss_err = abs(losses["flash"] - losses["reference"])
+    grad_err = max((grads["flash"][n] - grads["reference"][n]).abs().max()
+                   .item() for n in grads["flash"])
+    max_grad = max(x.abs().max().item() for x in grads["reference"].values())
+    check(loss_err < GRAD_LOSS_TOL,
+          f"S={GRAD_SEQ}: flash vs reference loss differ by {loss_err}")
+    check(grad_err < GRAD_TOL,
+          f"S={GRAD_SEQ}: flash vs reference gradients differ by {grad_err}")
+    return {"S": GRAD_SEQ, "loss": losses["flash"], "loss_err": loss_err,
+            "loss_tol": GRAD_LOSS_TOL, "max_grad_err": grad_err,
+            "grad_tol": GRAD_TOL, "max_abs_grad": max_grad}
+
+
+def phase_lm_train(torch):
+    from fiber_tpu_torch.entry import LM_WIDTHS, train_lm
+    from fiber_tpu_torch.models.transformer import (
+        TinyLM,
+        adamw,
+        make_train_step,
+    )
+    from fiber_tpu_torch.ops import flash_attention as fa
+    from fiber_tpu_torch.utils import flops
+
+    seq = LM_CFG["max_seq"]
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for kernel in kernels:
+        kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = train_lm(device="cuda", seq=seq, steps=TRAIN_STEPS)
+    launches = {kernel.__name__: kernel.launches for kernel in kernels}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    steps_run = TRAIN_STEPS + 1                  # the warm-up step too
+    for name, n in launches.items():
+        check(n == LM_CFG["layers"] * steps_run,
+              f"{name} launched {n} times in {steps_run} steps, want "
+              f"{LM_CFG['layers']} a step")
+    check(bool(torch.isfinite(losses).all()), f"losses {losses.tolist()}")
+    check(float(losses[-1]) < float(losses[0]),
+          f"loss did not fall on one batch: {losses.tolist()}")
+
+    # Device time of one step, same configuration, by CUDA events.
+    model = TinyLM(**LM_WIDTHS, max_seq=seq, attention="flash",
+                   device="cuda", generator=torch.Generator().manual_seed(0))
+    step = make_train_step(model, adamw(model.parameters(), 1e-3))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, LM_WIDTHS["vocab"], (seq,), generator=g,
+                           device="cuda")
+    step_ms = cuda_ms(torch, lambda: step(tokens), reps=3)
+    n_flops = flops.tinylm_flops_per_step(model, seq, train=True)
+    del model, step, tokens
+    torch.cuda.empty_cache()
+    grad = _grad_check(torch)
+    emit({"phase": "lm_train", **LM_CFG, "attention": "flash",
+          "optimizer": "adamw(1e-3)", "steps": TRAIN_STEPS,
+          "losses": losses.tolist(), "seconds": secs,
+          "tokens_per_s": seq * TRAIN_STEPS / secs, "step_ms": step_ms,
+          "model_flops_per_step": n_flops,
+          "tflops": n_flops / step_ms / 1e9,
+          "launches": launches,
+          "launches_per_step": {k: n / steps_run
+                                for k, n in launches.items()},
+          "peak_memory_bytes": peak_bytes, "grad_check": grad})
+    return launches
+
+
 def phase_es(torch):
     from fiber_tpu_torch.entry import entry, flagship_policy, run_es
     from fiber_tpu_torch.models.envs import CartPole
@@ -311,22 +523,41 @@ def main():
 
     card = card_line()
     phase_build()
-    main_rows = phase_kernels(torch, card)
-    models = _lm_models(torch)
-    launches, tokens, logits = phase_lm_forward(torch, models)
-    phase_lm_generate(torch, models, tokens, logits)
+    fwd_rows = phase_kernels(torch, card)
+    bwd_rows = phase_kernels_bwd(torch, card)
+    # The forward and decoding phases measure inference: no graph.
+    with torch.no_grad():
+        models = _lm_models(torch)
+        fwd_launches, tokens, logits = phase_lm_forward(torch, models)
+        phase_lm_generate(torch, models, tokens, logits)
     del models, tokens, logits
+    torch.cuda.empty_cache()
+    launches = phase_lm_train(torch)
     torch.cuda.empty_cache()
     phase_es(torch)
 
-    lm = main_rows["lm_f32"]
+    lm, lm_bwd = fwd_rows["lm_f32"], bwd_rows["lm_f32"]
+    summary = [{
+        "name": "flash_fwd", "max_abs_err": lm["max_abs_err"],
+        "ms": lm["ms"], "plain_ms": lm["plain_ms"],
+        "bound_ms": lm["bound_ms"], "bound_by": lm["bound_by"],
+        "library_ms": lm["library_ms"],
+        "launches_lm_forward": fwd_launches}]
+    for part in ("dq", "dkv"):
+        row = lm_bwd[part]
+        summary.append({
+            "name": f"flash_bwd_{part}",
+            "max_abs_err": lm_bwd[f"{part}_max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            # one SDPA backward call computes dq, dk and dv together
+            "library_ms": lm_bwd["library_ms"], "library_covers": "dq+dkv"})
+    for entry in summary:
+        entry.update(route="cuda", source=SOURCES[entry["name"]],
+                     replaces=REPLACES[entry["name"]],
+                     launches=launches[entry["name"]], path="lm_train")
     print(card, flush=True)
-    emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_REPLACES, "launches": launches,
-        "max_abs_err": lm["max_abs_err"], "ms": lm["ms"],
-        "plain_ms": lm["plain_ms"], "bound_ms": lm["bound_ms"],
-        "bound_by": lm["bound_by"], "library_ms": lm["library_ms"]}]})
+    emit({"kernels": summary})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

@@ -93,12 +93,13 @@ def build_all() -> dict:
 
 
 def compiler_report(name: str) -> str:
-    """The ptxas lines of the last build of ``name`` (empty if none)."""
+    """The ptxas lines of the last build of ``name``, with the stack and
+    spill line that follows each function's properties (empty if none)."""
     log = BUILD_DIR / f"{name}.log"
     if not log.is_file():
         return ""
     return "\n".join(line.strip() for line in log.read_text().splitlines()
-                     if "ptxas" in line)
+                     if "ptxas" in line or "spill" in line)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,9 +1,9 @@
-"""Carry parameters of the JAX package into the port.
+"""Carry parameters between the JAX package and the port.
 
 Parameters cross as numpy arrays (``jax.device_get`` on the JAX side),
-so this module needs no JAX. Layouts are the same in both packages:
-weights ``(in, out)``, MLP policies one flat vector in
-``MLPPolicy.init`` order.
+in both directions, so this module needs no JAX. Layouts are the same
+in both packages: weights ``(in, out)``, MLP policies one flat vector
+in ``MLPPolicy.init`` order.
 """
 
 from __future__ import annotations
@@ -32,6 +32,24 @@ def tinylm_params_from_jax(np_tree: dict, device=None) -> dict:
         for name, a in blk.items():
             state[f"blocks.{i}.{name}"] = t(a)
     return state
+
+
+def tinylm_tree_from_torch(model) -> dict:
+    """A :class:`fiber_tpu_torch.models.TinyLM` (or its state dict) -> a
+    numpy tree in the JAX ``TinyLM.init`` layout: the inverse of
+    :func:`tinylm_params_from_jax`."""
+    state = model.state_dict() if hasattr(model, "state_dict") else model
+    tree = {"blocks": []}
+    for name, t in state.items():
+        a = t.detach().cpu().numpy().copy()
+        if not name.startswith("blocks."):
+            tree[name] = a
+            continue
+        _, i, leaf = name.split(".")
+        while len(tree["blocks"]) <= int(i):
+            tree["blocks"].append({})
+        tree["blocks"][int(i)][leaf] = a
+    return tree
 
 
 def policy_params_from_jax(np_vec, device=None) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Tiny causal transformer LM: the forward pass and KV-cache decoding.
+"""Tiny causal transformer LM: the forward pass, training and KV-cache
+decoding.
 
 Counterpart of ``TinyLM`` in ``fiber_tpu/models/transformer.py``:
 embedding -> [RMSNorm -> attention -> residual -> RMSNorm -> MLP ->
@@ -7,11 +8,12 @@ and layouts (weights ``(in, out)``, applied as ``x @ W``), so
 :func:`fiber_tpu_torch.models.convert.tinylm_params_from_jax` loads a
 JAX parameter tree unchanged.
 
-``attention="flash"`` runs the flash-attention kernel once per layer;
-``"reference"`` runs the full-matrix oracle. Training (the backward
-kernels) and the multi-device planes (``"ring"``, ``"ulysses"``) are
-later slices of the port: ``apply``, ``loss`` and ``generate`` run
-without autograd until then.
+``attention="flash"`` runs the flash-attention kernel once per layer,
+and its two backward kernels once each per layer under autograd;
+``"reference"`` runs the full-matrix oracle. ``apply`` and ``loss`` are
+differentiable; :func:`make_train_step` with :func:`adamw` is the
+counterpart of the JAX package's train step. The multi-device planes
+(``"ring"``, ``"ulysses"``) are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -177,7 +179,6 @@ class TinyLM(nn.Module):
         return x + F.gelu(h @ blk.w1 + blk.b1, approximate="tanh") @ blk.w2 \
             + blk.b2
 
-    @torch.no_grad()
     def apply(self, tokens):
         """tokens (max_seq,) int -> logits (max_seq, vocab)."""
         S, H, Dh, KVH = self.max_seq, self.heads, self.head_dim, self.kv_heads
@@ -209,7 +210,6 @@ class TinyLM(nn.Module):
 
     forward = apply
 
-    @torch.no_grad()
     def loss(self, tokens):
         """Mean next-token cross-entropy over positions 0..S-2."""
         tokens = torch.as_tensor(tokens, device=self.device)
@@ -297,3 +297,35 @@ class TinyLM(nn.Module):
             if pos + 1 < n_prompt + steps:
                 tok = pick(self._decode_step(caches, pos, tok))
         return torch.cat(out)
+
+
+def adamw(params, lr: float) -> torch.optim.AdamW:
+    """``torch.optim.AdamW`` with ``optax.adamw``'s defaults written out:
+    betas (0.9, 0.999), eps 1e-8 and weight decay 1e-4 on every
+    parameter (one group; optax masks nothing). Torch's own default
+    weight decay is 1e-2."""
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def make_train_step(model: TinyLM, optimizer: torch.optim.Optimizer,
+                    batched: bool = False):
+    """``step(tokens) -> loss``: one optimizer step on the mean next-token
+    loss, the counterpart of the JAX package's ``make_train_step``. The
+    JAX step returns new parameters and optimizer state; in PyTorch's
+    idiom this one updates ``model``'s parameters and ``optimizer``'s
+    state in place and returns the (detached) loss. With
+    ``batched=True`` tokens is (B, max_seq) and the loss is the mean of
+    the per-sequence losses (a loop where JAX vmaps)."""
+
+    def step(tokens):
+        optimizer.zero_grad(set_to_none=True)
+        if batched:
+            loss = torch.stack([model.loss(t) for t in tokens]).mean()
+        else:
+            loss = model.loss(tokens)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step

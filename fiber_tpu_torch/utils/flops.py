@@ -53,6 +53,22 @@ def attention_flops(seq: int, heads: int, head_dim: int,
     return fwd * (3.0 if train else 1.0)
 
 
+def attention_bwd_flops(seq: int, heads: int, head_dim: int,
+                        causal: bool = True, window: Optional[int] = None,
+                        part: str = "dq") -> float:
+    """Operations of one backward kernel, for its bound: only the S x S x
+    D products its function needs, counted, halved by causality and
+    windowed as :func:`attention_flops` counts the forward's two. ``dq``
+    needs s, dp and dq (3 products, 1.5x the forward); ``dkv`` needs s,
+    dp, dv and dk (4 products, 2x the forward). The exponentials and the
+    elementwise ds are not counted, as softmax is not in the forward.
+    :func:`tinylm_flops_per_step` keeps the JAX package's 3x convention
+    for model FLOP/s instead."""
+    products = {"dq": 3, "dkv": 4}[part]
+    return attention_flops(seq, heads, head_dim, causal=causal,
+                           window=window) * products / 2
+
+
 def tinylm_flops_per_step(model, seq: int, train: bool = True) -> float:
     """One TinyLM forward (or train: fwd + 2x bwd) at ``seq`` tokens:
     the per-block projections, attention and the unembedding."""

@@ -52,11 +52,11 @@ def test_tinylm_matches_jax(case):
     tokens = np.random.default_rng(1).integers(0, SMALL["vocab"],
                                                SMALL["max_seq"])
     want = np.asarray(jax.device_get(jm.apply(jparams, jnp.asarray(tokens))))
-    got = model.apply(torch.from_numpy(tokens)).numpy()
+    got = model.apply(torch.from_numpy(tokens)).detach().numpy()
     assert got.shape == (SMALL["max_seq"], SMALL["vocab"])
     assert np.abs(got - want).max() < TOL
     want_loss = float(jm.loss(jparams, jnp.asarray(tokens)))
-    assert abs(float(model.loss(torch.from_numpy(tokens))) - want_loss) \
+    assert abs(model.loss(torch.from_numpy(tokens)).item() - want_loss) \
         < TOL
 
     prompt = tokens[:5]
