@@ -8,14 +8,16 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds every CUDA kernel from ``fiber_tpu_torch/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version on the card, drives
 the port's main paths at full width (the TinyLM flash forward, greedy
-decoding and training; the OpenAI-ES CartPole flagship) and checks what
-comes out. Phases print one JSON line each (build, kernels,
-kernels_bwd, lm_forward, lm_generate, lm_train, es); then the card's
-name and power limit as nvidia-smi reports them, the kernel summary
-line, and as the last line ``{"ok": true, "device": {...}}``. Any
-failed check raises, so the exit code is not 0 and no result line is
-printed; so does a machine without CUDA, or a directory that holds this
-script without the package.
+decoding and training; the OpenAI-ES CartPole flagship; ring and
+Ulysses attention and the TinyLM forward over a 4-rank mesh on the
+card; one ES step over that mesh) and checks what comes out. Phases
+print one JSON line each (build, kernels, kernels_bwd, kernels_ring,
+lm_forward, lm_generate, lm_train, es, ring_attention, lm_mesh,
+es_mesh); then the card's name and power limit as nvidia-smi reports
+them, the kernel summary line, and as the last line ``{"ok": true,
+"device": {...}}``. Any failed check raises, so the exit code is not 0
+and no result line is printed; so does a machine without CUDA, or a
+directory that holds this script without the package.
 
 f32 products of the plain versions run in full f32 (TF32 is switched
 off), so kernel and plain version differ only in summation order.
@@ -66,12 +68,50 @@ TRAIN_STEPS = 5
 GRAD_SEQ = 2048
 GRAD_LOSS_TOL = 1e-4
 GRAD_TOL = 5e-4
+# The sequence-parallel planes: 4 ranks on the one card, bench.py
+# --attention's 16384 tokens (bench.py:3141) cut into 4096-row blocks.
+RANKS = 4
+RING_SHAPE = (16384, 8, 64, "bfloat16")
+# ring_exchange: (name, ranks, per-rank block shape of each array rotated
+# together, dtype, offset in elements of every block from its buffer's
+# start; 1 makes the pointers miss 16-byte alignment).
+RING_EDGE = (
+    ("edge_n2_k1", 2, [(64, 4, 8)], "float32", 0),
+    ("edge_n3_k2_ragged", 3, [(13, 3, 5)] * 2, "float32", 0),
+    ("edge_n8_k3_mixed", 8, [(13, 3, 5), (7, 2), (1,)], "float32", 0),
+    ("edge_n8_k1_bf16", 8, [(33, 2, 3)], "bfloat16", 0),
+    ("edge_n3_k2_unaligned", 3, [(100, 3)] * 2, "float32", 1),
+)
+# The main path's blocks, timed: K and V of the bf16 ring, the LM's GQA
+# K/V, and the array each bf16 Ulysses swap rotates whole (the sequence
+# shard in, the head shard of the output back).
+RING_MAIN = (
+    ("attention_bf16_kv", RANKS, [(4096, 8, 64)] * 2, "bfloat16", 0),
+    ("lm_f32_gqa_kv", RANKS, [(4096, 2, 32)] * 2, "float32", 0),
+    ("ulysses_bf16_swap_in", RANKS, [(4096, 8, 64)], "bfloat16", 0),
+    ("ulysses_bf16_swap_out", RANKS, [(16384, 2, 64)], "bfloat16", 0),
+)
+# The blocks of lm_mesh's forwards, bitwise only: K and V of the ring and
+# multi-rank flash planes, and the arrays of the Ulysses plane's swaps.
+RING_LM = (
+    ("lm_mesh_f32_kv", RANKS, [(4096, 8, 32)] * 2, "float32", 0),
+    ("lm_mesh_f32_swap_in", RANKS, [(4096, 8, 32)], "float32", 0),
+    ("lm_mesh_f32_swap_out", RANKS, [(16384, 2, 32)], "float32", 0),
+)
+# ring_attention runs whose device time is broken down by torch.profiler
+PROFILED = ("ring_flash_dma", "ulysses_flash_dma")
+# Inputs that the ring_exchange timings cycle through: four times the
+# H100's 50 MB L2, so no call finds its inputs there.
+L2_MISS_BYTES = 4 * 50 * 10**6
+ES_RANK_TOL = 1e-5    # gradient of the 4-rank step vs a plain recomputation
 SOURCES = {"flash_fwd": "fiber_tpu_torch/csrc/flash_fwd.cu",
            "flash_bwd_dq": "fiber_tpu_torch/csrc/flash_bwd.cu",
-           "flash_bwd_dkv": "fiber_tpu_torch/csrc/flash_bwd.cu"}
+           "flash_bwd_dkv": "fiber_tpu_torch/csrc/flash_bwd.cu",
+           "ring_exchange": "fiber_tpu_torch/csrc/dma_ring.cu"}
 REPLACES = {"flash_fwd": "fiber_tpu/ops/pallas_attention.py:68",
             "flash_bwd_dq": "fiber_tpu/ops/pallas_attention.py:170",
-            "flash_bwd_dkv": "fiber_tpu/ops/pallas_attention.py:208"}
+            "flash_bwd_dkv": "fiber_tpu/ops/pallas_attention.py:208",
+            "ring_exchange": "fiber_tpu/ops/dma_ring.py:71"}
 
 
 def check(cond, msg):
@@ -98,6 +138,67 @@ def cuda_ms(torch, fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fns, reps, replays=5):
+    """Device time of one call in ms, for calls whose host-side enqueue
+    outlasts their device work: ``reps`` calls, cycling through ``fns``
+    (the same function on distinct inputs, so that inputs can be made
+    to miss the L2 cache), captured in one CUDA graph and replayed
+    ``replays`` times between CUDA events."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
+
+
+def device_breakdown(torch, fn):
+    """Where one call's device time goes, by ``torch.profiler``: ms and
+    launches of ``flash_fwd``, ``ring_exchange`` and every other device
+    activity (PyTorch's elementwise and copy kernels), their busy sum,
+    the span from the first start to the last end, and the idle share
+    of that span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    parts = {"flash_fwd": [0.0, 0], "ring_exchange": [0.0, 0],
+             "other": [0.0, 0]}
+    starts, ends = [], []
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA
+                or e.name.startswith("Activity Buffer")):
+            continue
+        part = next((k for k in ("flash_fwd", "ring_exchange")
+                     if f"{k}_kernel" in e.name), "other")
+        parts[part][0] += e.time_range.elapsed_us() / 1e3
+        parts[part][1] += 1
+        starts.append(e.time_range.start)
+        ends.append(e.time_range.end)
+    check(starts, "the profiler saw no device activity")
+    busy = sum(ms for ms, _ in parts.values())
+    span = (max(ends) - min(starts)) / 1e3
+    return {"ms": {k: v[0] for k, v in parts.items()},
+            "launches": {k: v[1] for k, v in parts.items()},
+            "busy_ms": busy, "span_ms": span, "idle_share": 1 - busy / span}
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -114,7 +215,7 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
     secs = time.perf_counter() - t0
-    check({"flash_fwd", "flash_bwd"} <= set(libs),
+    check({"flash_fwd", "flash_bwd", "dma_ring"} <= set(libs),
           f"kernels missing from the build: {sorted(libs)}")
     emit({"phase": "build", "seconds": secs,
           "libraries": {k: v.name for k, v in libs.items()},
@@ -511,6 +612,304 @@ def phase_es(torch):
           "stats": stats.tolist()})
 
 
+def _kernels():
+    """Every kernel wrapper of the port, each with its launch count."""
+    from fiber_tpu_torch.ops import dma_ring
+    from fiber_tpu_torch.ops import flash_attention as fa
+
+    return (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+            dma_ring.ring_exchange)
+
+
+def _reset_counts():
+    for kernel in _kernels():
+        kernel.launches = 0
+
+
+def _counts():
+    return {kernel.__name__: kernel.launches for kernel in _kernels()}
+
+
+def _bits(torch, x):
+    return x.contiguous().view(torch.uint8)
+
+
+def _ring_blocks(torch, n, shapes, dt, offset, seed):
+    """``arrays[j][r]``: array j's contiguous block on rank r, random,
+    starting ``offset`` elements into its own buffer."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    arrays = []
+    for shape in shapes:
+        numel = 1
+        for dim in shape:
+            numel *= dim
+        arrays.append([
+            torch.randn(offset + numel, generator=g, device="cuda")
+            .to(getattr(torch, dt))[offset:].view(shape)
+            for _ in range(n)])
+    return arrays
+
+
+def phase_kernels_ring(torch, card):
+    """``ring_exchange`` against its plain version, bit for bit, at the
+    edge, main and lm_mesh shapes; at the main shapes also its time, the
+    plain version's, one ``torch.roll`` of the rank-stacked blocks (the
+    library's single call for the same rotation, timed only) and the
+    bound: the bytes it moves (every block read once and written once)
+    over the memory rate. The three times are device times from CUDA
+    graphs (``graph_ms``) that cycle through copies of the inputs
+    holding at least L2_MISS_BYTES, so that, as the bound assumes, each
+    call reads its inputs from device memory; ``eager_ms`` is the
+    kernel's wrapper called back to back on one set of inputs, host
+    enqueue included."""
+    from fiber_tpu_torch.ops import dma_ring
+    from fiber_tpu_torch.parallel.mesh import make_mesh
+    from fiber_tpu_torch.utils import flops
+
+    rows, main = [], {}
+    for name, n, shapes, dt, offset in RING_EDGE + RING_MAIN + RING_LM:
+        mesh = make_mesh("cuda", n=n)
+        arrays = _ring_blocks(torch, n, shapes, dt, offset,
+                              seed=200 + len(rows))
+        before = [[_bits(torch, x).clone() for x in a] for a in arrays]
+        got = dma_ring.ring_exchange(arrays, mesh)
+        want = dma_ring.ring_exchange_reference(arrays, mesh)
+        torch.cuda.synchronize()
+        pairs = [(g, w) for gs, ws in zip(got, want) for g, w in zip(gs, ws)]
+        check(all(torch.equal(_bits(torch, g), _bits(torch, w))
+                  for g, w in pairs), f"{name}: not bitwise equal")
+        check(all(torch.equal(_bits(torch, got[j][(r + 1) % n]),
+                              before[j][r])
+                  for j in range(len(arrays)) for r in range(n)),
+              f"{name}: a block did not land on the next rank")
+        check(all(torch.equal(_bits(torch, x), b)
+                  for a, bs in zip(arrays, before) for x, b in zip(a, bs)),
+              f"{name}: the inputs changed")
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in pairs)
+        nbytes = flops.ring_exchange_bytes(arrays)
+        row = {"shape": name, "ranks": n, "blocks": shapes, "dtype": dt,
+               "offset": offset, "bytes_moved": nbytes,
+               "bitwise_equal": True, "max_abs_err": err}
+        if any(name == m[0] for m in RING_MAIN):
+            stacked = torch.stack([torch.stack(a) for a in arrays])
+            rolled = torch.roll(stacked, 1, dims=1)
+            check(all(torch.equal(_bits(torch, rolled[j, r]),
+                                  _bits(torch, got[j][r]))
+                      for j in range(len(arrays)) for r in range(n)),
+                  f"{name}: torch.roll disagrees with the kernel")
+            sets = [arrays] + [[[x.clone() for x in a] for a in arrays]
+                               for _ in range(L2_MISS_BYTES // (nbytes // 2))]
+            stacks = [torch.stack([torch.stack(a) for a in c]) for c in sets]
+            reps = max(24, len(sets))
+            ms = graph_ms(torch, [
+                lambda c=c: dma_ring.ring_exchange(c, mesh) for c in sets],
+                reps)
+            plain_ms = graph_ms(torch, [
+                lambda c=c: dma_ring.ring_exchange_reference(c, mesh)
+                for c in sets], reps)
+            library_ms = graph_ms(torch, [
+                lambda t=t: torch.roll(t, 1, dims=1) for t in stacks], reps)
+            eager_ms = cuda_ms(torch, lambda: dma_ring.ring_exchange(
+                arrays, mesh), reps=50, warmup=3)
+            row.update(timed_input_sets=len(sets))
+            del sets, stacks
+            bound, bound_by = flops.bound_ms(0, nbytes, dt)
+            row.update(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                       library_ms=library_ms,
+                       library_call="torch.roll", bound_ms=bound,
+                       bound_by=bound_by, gb_per_s=nbytes / ms / 1e6)
+            main[name] = row
+            del stacked, rolled
+        rows.append(row)
+        del arrays, before, got, want, pairs
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_ring", "card": card, "shapes": rows})
+    return main
+
+
+def phase_ring_attention(torch, card):
+    """Ring and Ulysses attention at full width on RANKS ranks of the
+    card, against single-device flash attention on the same inputs, with
+    every kernel's launches per call counted, and the device time of the
+    PROFILED calls broken down by kernel. Returns the counts of the main
+    path, the causal flash ring over the ``ring_exchange`` kernel."""
+    from fiber_tpu_torch.ops import flash_attention as fa
+    from fiber_tpu_torch.ops.ring_attention import ring_attention
+    from fiber_tpu_torch.ops.ulysses_attention import ulysses_attention
+    from fiber_tpu_torch.parallel.mesh import make_mesh
+
+    n = RANKS
+    mesh = make_mesh("cuda", n=n)
+    blocks = n + n * (n - 1) // 2       # diagonal and past blocks
+    runs = {}
+
+    def run(label, fn, ref, tol, flash, exchange):
+        _reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = _counts()
+        want = {"flash_fwd": flash, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "ring_exchange": exchange}
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        check(out.shape == ref.shape and bool(torch.isfinite(
+            out.float()).all()), f"{label}: shape or non-finite values")
+        err = (out.float() - ref.float()).abs().max().item()
+        check(err < tol, f"{label}: max_abs_err {err} vs single-device "
+              f"flash, tol {tol}")
+        runs[label] = {"launches": counts, "max_abs_err": err, "tol": tol,
+                       "ms": cuda_ms(torch, fn, reps=3)}
+        if label in PROFILED:
+            runs[label]["device"] = device_breakdown(torch, fn)
+        return counts
+
+    s, h, d, dt = RING_SHAPE
+    q, k, v = _inputs(torch, s, h, h, d, getattr(torch, dt), seed=300)
+    ref = fa.flash_fwd(q, k, v, causal=True)[0]
+    single_ms = cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, causal=True),
+                        reps=3)
+    main = run("ring_flash_dma", lambda: ring_attention(
+        q, k, v, mesh, causal=True, local="flash", use_dma_ring=True),
+        ref, TOL[dt], blocks, n - 1)
+    run("ring_flash_copies", lambda: ring_attention(
+        q, k, v, mesh, causal=True, local="flash", use_dma_ring=False),
+        ref, TOL[dt], blocks, 0)
+    run("ulysses_flash_dma", lambda: ulysses_attention(
+        q, k, v, mesh, causal=True, local="flash", use_dma_ring=True),
+        ref, TOL[dt], n, 4 * (n - 1))
+    del q, k, v, ref
+    q, k, v = _inputs(torch, s, 8, 2, 32, torch.float32, seed=301)
+    ref = fa.flash_fwd(q, k, v, causal=True)[0]
+    run("ring_flash_dma_lm_gqa_f32", lambda: ring_attention(
+        q, k, v, mesh, causal=True, local="flash", use_dma_ring=True),
+        ref, TOL["float32"], blocks, n - 1)
+    del q, k, v, ref
+    torch.cuda.empty_cache()
+    emit({"phase": "ring_attention", "card": card, "ranks": n,
+          "S": s, "heads": h, "head_dim": d, "dtype": dt, "causal": True,
+          "lm_gqa_shape": [s, 8, 2, 32, "float32"],
+          "single_device_flash_ms": single_ms, "runs": runs})
+    return main
+
+
+def phase_lm_mesh(torch):
+    """The full-width TinyLM forward over RANKS ranks of the card, on the
+    three mesh planes, against the single-device flash model (one weight
+    tree): logits within LM_TOL, launches per forward, tokens/s. No
+    gradient is needed, so the planes' default engine rotates through
+    ``ring_exchange``: n - 1 launches a layer on the ring and flash
+    planes, 4 (n - 1) on Ulysses."""
+    from fiber_tpu_torch.models import convert
+    from fiber_tpu_torch.models.transformer import TinyLM
+    from fiber_tpu_torch.parallel.mesh import make_mesh
+
+    n, seq = RANKS, LM_CFG["max_seq"]
+    state = convert.tinylm_params_from_jax(
+        convert.random_tinylm_tree(**LM_CFG, seed=0), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, LM_CFG["vocab"], (seq,), generator=g,
+                           device="cuda")
+    single = TinyLM(**LM_CFG, attention="flash", device="cuda")
+    single.load_state_dict(state)
+    ref = single.apply(tokens)
+    del single
+    layers = LM_CFG["layers"]
+    flash = {"flash": layers * (n + n * (n - 1) // 2), "ring": 0,
+             "ulysses": 0}
+    exchange = {"flash": layers * (n - 1), "ring": layers * (n - 1),
+                "ulysses": layers * 4 * (n - 1)}
+    rows = {}
+    for attention in ("flash", "ring", "ulysses"):
+        model = TinyLM(**LM_CFG, attention=attention,
+                       mesh=make_mesh("cuda", n=n))
+        model.load_state_dict(state)
+        model.apply(tokens)                   # warm-up, not counted
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        logits = model.apply(tokens)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        want = {"flash_fwd": flash[attention], "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0, "ring_exchange": exchange[attention]}
+        check(counts == want, f"lm_mesh {attention}: launches {counts}, "
+              f"want {want}")
+        check(tuple(logits.shape) == (seq, LM_CFG["vocab"])
+              and bool(torch.isfinite(logits).all()),
+              f"lm_mesh {attention}: shape or non-finite logits")
+        err = (logits - ref).abs().max().item()
+        check(err < LM_TOL, f"lm_mesh {attention}: logits differ from the "
+              f"single-device flash model by {err}")
+        rows[attention] = {"launches": counts, "seconds": secs,
+                           "tokens_per_s": seq / secs,
+                           "max_abs_err_vs_single_flash": err}
+        del model, logits
+        torch.cuda.empty_cache()
+    emit({"phase": "lm_mesh", **LM_CFG, "ranks": n, "tol": LM_TOL,
+          "planes": rows})
+
+
+def phase_es_mesh(torch):
+    """One flagship ES step over RANKS ranks of the card, with injected
+    noise and initial states, against a plain recomputation: the
+    gathered fitness is every rank's returns, rank-major, and the
+    gradient is the rank-shaped sum over that noise."""
+    from fiber_tpu_torch.entry import flagship_policy
+    from fiber_tpu_torch.models.envs import CartPole
+    from fiber_tpu_torch.ops.es import EvolutionStrategy
+    from fiber_tpu_torch.parallel.mesh import make_mesh
+
+    n, pop, steps, sigma = RANKS, 4096, 500, 0.1
+    policy = flagship_policy()
+
+    def rollout(thetas, states):
+        return CartPole.rollout(policy.act, thetas, states, max_steps=steps)
+
+    es = EvolutionStrategy(rollout, CartPole.reset, dim=policy.dim,
+                           pop_size=pop, sigma=sigma, lr=0.03,
+                           mesh=make_mesh("cuda", n=n))
+    g = torch.Generator(device="cuda").manual_seed(4)
+    eps = torch.randn(pop // 2, policy.dim, generator=g, device="cuda")
+    states = CartPole.reset(pop, g)
+    params = policy.init(torch.Generator().manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_params, stats = es.step(params, eps=eps, states=states)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+
+    k = pop // (2 * n)
+    fits = []
+    for r in range(n):
+        e = eps[r * k:(r + 1) * k]
+        fits.append(rollout(torch.cat([params + sigma * e,
+                                       params - sigma * e]),
+                            states[2 * r * k:2 * (r + 1) * k]))
+    want_fit = torch.stack(fits)
+    check(torch.equal(es.last_fitness, want_fit),
+          "gathered fitness is not the per-rank returns, rank-major")
+    flat = want_fit.reshape(-1)
+    ranks = torch.empty(pop, device="cuda")
+    ranks[torch.argsort(flat, stable=True)] = torch.arange(
+        pop, device="cuda", dtype=torch.float32)
+    ranks = (ranks / (pop - 1) - 0.5).reshape(n, 2 * k)
+    w = ranks[:, :k] - ranks[:, k:]
+    grad = torch.einsum("rk,rkd->d", w, eps.reshape(n, k, -1)) / (
+        pop * sigma)
+    grad_err = (es.last_grad - grad).abs().max().item()
+    check(grad_err < ES_RANK_TOL, f"gradient differs from a plain "
+          f"recomputation by {grad_err}")
+    check(bool(torch.isfinite(stats).all())
+          and bool(torch.isfinite(new_params).all()),
+          f"stats {stats.tolist()}")
+    emit({"phase": "es_mesh", "ranks": n, "pop": pop, "max_steps": steps,
+          "seconds": secs, "evals_per_s": pop / secs,
+          "distinct_returns": len(set(flat.tolist())),
+          "grad_max_abs_err": grad_err, "tol": ES_RANK_TOL,
+          "max_abs_grad": grad.abs().max().item(), "stats": stats.tolist()})
+
+
 def main():
     import torch
 
@@ -525,6 +924,7 @@ def main():
     phase_build()
     fwd_rows = phase_kernels(torch, card)
     bwd_rows = phase_kernels_bwd(torch, card)
+    ring_rows = phase_kernels_ring(torch, card)
     # The forward and decoding phases measure inference: no graph.
     with torch.no_grad():
         models = _lm_models(torch)
@@ -535,6 +935,11 @@ def main():
     launches = phase_lm_train(torch)
     torch.cuda.empty_cache()
     phase_es(torch)
+    # The mesh phases measure inference too.
+    with torch.no_grad():
+        ring_launches = phase_ring_attention(torch, card)
+        phase_lm_mesh(torch)
+    phase_es_mesh(torch)
 
     lm, lm_bwd = fwd_rows["lm_f32"], bwd_rows["lm_f32"]
     summary = [{
@@ -553,9 +958,18 @@ def main():
             # one SDPA backward call computes dq, dk and dv together
             "library_ms": lm_bwd["library_ms"], "library_covers": "dq+dkv"})
     for entry in summary:
+        entry.update(launches=launches[entry["name"]], path="lm_train")
+    ring = ring_rows["attention_bf16_kv"]
+    summary.append({
+        "name": "ring_exchange", "max_abs_err": ring["max_abs_err"],
+        "ms": ring["ms"], "plain_ms": ring["plain_ms"],
+        "bound_ms": ring["bound_ms"], "bound_by": ring["bound_by"],
+        "library_ms": ring["library_ms"], "library_call": "torch.roll",
+        "launches": ring_launches["ring_exchange"],
+        "path": "ring_attention"})
+    for entry in summary:
         entry.update(route="cuda", source=SOURCES[entry["name"]],
-                     replaces=REPLACES[entry["name"]],
-                     launches=launches[entry["name"]], path="lm_train")
+                     replaces=REPLACES[entry["name"]])
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {

@@ -7,10 +7,14 @@ default, the CPU only when asked (there every kernel wrapper runs its
 plain PyTorch version). Kernels are compiled from ``csrc/`` by ``nvcc``
 at first use.
 
-Ported so far: the one-device OpenAI-ES flagship, and TinyLM with flash
-attention, forward, KV-cache decoding and training (``flash_fwd``,
-``flash_bwd_dq`` and ``flash_bwd_dkv``; ``make_train_step``,
-``train_lm``).
+Ported so far: the OpenAI-ES flagship, on one rank or over a mesh;
+TinyLM with flash attention, forward, KV-cache decoding and training
+(``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``;
+``make_train_step``, ``train_lm``); and the sequence-parallel planes
+over a single-controller mesh of n ranks (``make_mesh``,
+``ring_attention``, ``ulysses_attention``, TinyLM's ``"ring"``,
+``"ulysses"`` and multi-rank ``"flash"``), whose rotations run the
+``ring_exchange`` kernel whenever no gradient is needed.
 """
 
 from fiber_tpu_torch.device import resolve_device
@@ -37,14 +41,28 @@ from fiber_tpu_torch.ops.flash_attention import (
     flash_bwd_dq,
     flash_fwd,
 )
-from fiber_tpu_torch.ops.ring_attention import reference_attention
+from fiber_tpu_torch.ops.dma_ring import ring_all_to_all, ring_exchange
+from fiber_tpu_torch.ops.ring_attention import (
+    blockwise_attention,
+    reference_attention,
+    ring_attention,
+    ring_attention_local,
+)
+from fiber_tpu_torch.ops.ulysses_attention import (
+    ulysses_attention,
+    ulysses_attention_local,
+)
+from fiber_tpu_torch.parallel.mesh import Mesh, make_mesh, shard, unshard
 
 __all__ = [
-    "CartPole", "EvolutionStrategy", "MLPPolicy", "TinyLM", "adamw",
-    "apply_es_update", "centered_rank", "entry", "flash_attention",
-    "flash_attention_bwd_reference", "flash_attention_lse",
-    "flash_attention_reference", "flash_bwd_dkv", "flash_bwd_dq",
-    "flash_fwd", "make_train_step", "policy_params_from_jax",
-    "reference_attention", "resolve_device", "run_es",
-    "tinylm_params_from_jax", "tinylm_tree_from_torch", "train_lm",
+    "CartPole", "EvolutionStrategy", "MLPPolicy", "Mesh", "TinyLM",
+    "adamw", "apply_es_update", "blockwise_attention", "centered_rank",
+    "entry", "flash_attention", "flash_attention_bwd_reference",
+    "flash_attention_lse", "flash_attention_reference", "flash_bwd_dkv",
+    "flash_bwd_dq", "flash_fwd", "make_mesh", "make_train_step",
+    "policy_params_from_jax", "reference_attention", "resolve_device",
+    "ring_all_to_all", "ring_attention", "ring_attention_local",
+    "ring_exchange", "run_es", "shard", "tinylm_params_from_jax",
+    "tinylm_tree_from_torch", "train_lm", "ulysses_attention",
+    "ulysses_attention_local", "unshard",
 ]

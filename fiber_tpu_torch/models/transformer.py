@@ -10,10 +10,16 @@ JAX parameter tree unchanged.
 
 ``attention="flash"`` runs the flash-attention kernel once per layer,
 and its two backward kernels once each per layer under autograd;
-``"reference"`` runs the full-matrix oracle. ``apply`` and ``loss`` are
-differentiable; :func:`make_train_step` with :func:`adamw` is the
-counterpart of the JAX package's train step. The multi-device planes
-(``"ring"``, ``"ulysses"``) are a later slice of the port.
+``"reference"`` runs the full-matrix oracle. With a ``mesh`` of n ranks
+the sequence-parallel planes shard every layer's attention over it:
+``"ring"`` (ring attention, chunked online softmax), ``"ulysses"`` (two
+all-to-all swaps around the reference attention) and ``"flash"`` (ring
+attention with the flash kernel as the per-rank block). ``apply`` and
+``loss`` are differentiable; :func:`make_train_step` with :func:`adamw`
+is the counterpart of the JAX package's train step, checked against it
+on the single-device planes (gradients through the mesh planes are not
+checked yet). Decoding runs on one device whatever the plane, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -26,7 +32,12 @@ from torch import nn
 
 from fiber_tpu_torch.device import resolve_device
 from fiber_tpu_torch.ops.flash_attention import flash_attention
-from fiber_tpu_torch.ops.ring_attention import reference_attention
+from fiber_tpu_torch.ops.ring_attention import (
+    reference_attention,
+    ring_attention,
+)
+from fiber_tpu_torch.ops.ulysses_attention import ulysses_attention
+from fiber_tpu_torch.parallel.mesh import POOL_AXIS, Mesh, make_mesh
 
 
 def _normal(gen, dtype, device, *shape):
@@ -63,8 +74,13 @@ class TinyLM(nn.Module):
     ``pos`` is ``"learned"`` (absolute table) or ``"rope"`` (rotary, half
     split, base 10000). ``kv_heads`` < ``heads`` is grouped-query
     attention; ``window`` is a causal sliding window and needs
-    ``attention="flash"``. Weights are drawn from ``generator`` (a
-    ``torch.Generator``; seed 0 when omitted) and placed on ``device``.
+    ``attention="flash"`` on one rank. ``mesh`` (a
+    :class:`~fiber_tpu_torch.parallel.mesh.Mesh` with a ``pool`` axis)
+    carries the ``"ring"`` and ``"ulysses"`` planes, and ``"flash"``
+    when it has more than one rank; it defaults to one rank on
+    ``device``. Weights are drawn from ``generator`` (a
+    ``torch.Generator``; seed 0 when omitted) and placed on ``device``
+    (the mesh's device when only a mesh is given).
     """
 
     def __init__(
@@ -75,6 +91,7 @@ class TinyLM(nn.Module):
         layers: int = 2,
         max_seq: int = 256,
         mlp_mult: int = 4,
+        mesh: Optional[Mesh] = None,
         attention: str = "flash",
         kv_heads: Optional[int] = None,
         pos: str = "learned",
@@ -86,11 +103,7 @@ class TinyLM(nn.Module):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim {dim} not divisible by heads {heads}")
-        if attention in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attention={attention!r} is the multi-GPU slice of the "
-                "port; use 'flash' or 'reference'")
-        if attention not in ("flash", "reference"):
+        if attention not in ("ring", "ulysses", "flash", "reference"):
             raise ValueError(f"unknown attention {attention!r}")
         if pos not in ("learned", "rope"):
             raise ValueError(f"unknown positional scheme {pos!r}")
@@ -109,6 +122,23 @@ class TinyLM(nn.Module):
         if heads % kv_heads:
             raise ValueError(
                 f"heads {heads} not divisible by kv_heads {kv_heads}")
+        if mesh is None:
+            mesh = make_mesh(device)
+        elif device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's device "
+                             f"{mesh.device}")
+        multi = mesh.n_dev > 1
+        if multi and mesh.axis != POOL_AXIS:
+            raise ValueError(
+                f"multi-device TinyLM needs a mesh with a {POOL_AXIS!r} "
+                f"axis; got axis {mesh.axis!r}")
+        # several ranks under "flash": ring attention with the flash
+        # kernel as the per-rank block
+        self._flash_multi = multi and attention == "flash"
+        if window is not None and self._flash_multi:
+            raise ValueError(
+                "window= is single-device (a windowed partial's lse is "
+                "not ring-mergeable); drop the mesh or the window")
         self.vocab = vocab
         self.dim = dim
         self.heads = heads
@@ -120,7 +150,8 @@ class TinyLM(nn.Module):
         self.attention = attention
         self.pos_scheme = pos
         self.window = window
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device
 
         gen = generator or torch.Generator().manual_seed(0)
         dev = self.device
@@ -138,11 +169,18 @@ class TinyLM(nn.Module):
     # ------------------------------------------------------------------
     def _attend(self, q, k, v):
         if self.attention == "flash":
+            if self._flash_multi:
+                return ring_attention(q, k, v, mesh=self.mesh, causal=True,
+                                      local="flash")
             return flash_attention(q, k, v, causal=True, window=self.window)
         reps = q.shape[1] // k.shape[1]
-        if reps > 1:  # GQA on the plain plane: repeat KV to full heads
+        if reps > 1:  # GQA off the flash plane: repeat KV to full heads
             k = k.repeat_interleave(reps, dim=1)
             v = v.repeat_interleave(reps, dim=1)
+        if self.attention == "ring":
+            return ring_attention(q, k, v, mesh=self.mesh, causal=True)
+        if self.attention == "ulysses":
+            return ulysses_attention(q, k, v, mesh=self.mesh, causal=True)
         return reference_attention(q, k, v, causal=True)
 
     @staticmethod

@@ -1,12 +1,14 @@
-"""OpenAI-ES on one device: antithetic perturbation, population rollout,
-centered-rank shaping, gradient estimate and update.
+"""OpenAI-ES over a mesh of ranks: antithetic perturbation, population
+rollout, centered-rank shaping, gradient estimate and update.
 
 Counterpart of ``fiber_tpu/ops/es.py`` (``apply_es_update``,
 ``centered_rank``, ``EvolutionStrategy.step`` and ``run``). The JAX step
-is one SPMD program over a mesh (all-gather of fitness, psum of the
-gradient); on this slice's one-device mesh both collectives are the
-identity, so the step is plain tensor code. ``run_fused``, ``AskTellES``
-and the multi-GPU collectives are later slices of the port.
+is one SPMD program over the mesh; on the port's single-controller mesh
+(``parallel/mesh.py``) its per-device body is a loop over ranks: every
+rank evaluates its own antithetic half-population, fitness is
+all-gathered rank-major before ranking, and the per-rank gradients are
+summed (``ops/collectives``). ``run_fused`` and ``AskTellES`` are later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ from typing import Callable, Optional
 
 import torch
 
-from fiber_tpu_torch.parallel.mesh import make_mesh
+from fiber_tpu_torch.device import resolve_device
+from fiber_tpu_torch.ops import collectives
+from fiber_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 
 def apply_es_update(params, grad, m, v, t, *, lr, wd, adam,
@@ -50,11 +54,17 @@ def centered_rank(x):
 class EvolutionStrategy:
     """OpenAI-ES with antithetic sampling and rank shaping.
 
-    ``eval_fn(thetas (pop, dim), env_states (pop, ...)) -> (pop,)``
-    fitness evaluates the whole population at once;
+    ``eval_fn(thetas (m, dim), env_states (m, ...)) -> (m,)`` fitness
+    evaluates one rank's population at once;
     ``reset_fn(n, generator) -> env_states`` draws initial states. Noise
     and states come from ``generator`` (a ``torch.Generator`` on the
     device; seed 0 when omitted) unless a step is handed them.
+
+    ``mesh`` (n ranks; one rank on ``device`` when omitted) splits the
+    population: rank r holds ``pop / (2n)`` antithetic pairs, evaluated
+    as ``[params + sigma * eps_r, params - sigma * eps_r]``. After a
+    step, ``last_fitness`` is the gathered (n, pop / n) fitness and
+    ``last_grad`` the gradient estimate.
     """
 
     def __init__(
@@ -69,11 +79,17 @@ class EvolutionStrategy:
         optimizer: str = "sgd",
         device=None,
         generator: Optional[torch.Generator] = None,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         if optimizer not in ("sgd", "adam"):
             raise ValueError(f"unknown optimizer {optimizer!r}")
-        self.mesh = make_mesh(device)
-        self.device = self.mesh.device
+        if mesh is None:
+            mesh = make_mesh(device)
+        elif device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's device "
+                             f"{mesh.device}")
+        self.mesh = mesh
+        self.device = mesh.device
         self.eval_fn = eval_fn
         self.reset_fn = reset_fn
         self.dim = dim
@@ -85,9 +101,12 @@ class EvolutionStrategy:
         quantum = 2 * self.mesh.n_dev
         self.pop_size = max(quantum, (pop_size // quantum) * quantum)
         self.pairs = self.pop_size // 2
+        self.pairs_per_dev = self.pop_size // quantum
         self.generator = generator or torch.Generator(
             device=self.device).manual_seed(0)
         self._opt_state = None  # adam (m, v, t)
+        self.last_fitness = None
+        self.last_grad = None
 
     def _ensure_opt_state(self, params):
         if self.optimizer != "adam":
@@ -103,9 +122,12 @@ class EvolutionStrategy:
     @torch.no_grad()
     def step(self, params, eps=None, states=None):
         """One generation: (new_params, stats) with stats the f32 tensor
-        [mean fitness, max fitness, mean fitness of this device]. ``eps``
-        (pairs, dim) and ``states`` (pop, ...) are drawn from the
-        generator when not given."""
+        [mean fitness, max fitness, mean over ranks of each rank's mean
+        fitness]. ``eps`` (pairs, dim) and ``states`` (pop, ...) are
+        drawn from the generator when not given; both are rank-major:
+        rank r takes eps rows ``r * k .. (r + 1) * k`` (k pairs a rank)
+        and state rows ``2 * r * k .. 2 * (r + 1) * k``, its "+" members
+        first. Ties in the integer returns rank in that order."""
         if eps is None:
             eps = torch.randn(self.pairs, self.dim,
                               generator=self.generator, device=self.device)
@@ -118,19 +140,30 @@ class EvolutionStrategy:
             raise ValueError(f"{states.shape[0]} env states for a "
                              f"population of {self.pop_size}")
         m, v, t = self._ensure_opt_state(params)
-        thetas = torch.cat([params + self.sigma * eps,
-                            params - self.sigma * eps])
-        fitness = self.eval_fn(thetas, states)
-        ranks = centered_rank(fitness)
-        w = ranks[:self.pairs] - ranks[self.pairs:]
-        grad = (w @ eps) / (self.pop_size * self.sigma)
+        mesh, k = self.mesh, self.pairs_per_dev
+        eps_r, fit_r = [], []
+        for r, dev in enumerate(mesh.devices):
+            e = eps[r * k:(r + 1) * k].to(dev)
+            p = params.to(dev)
+            thetas = torch.cat([p + self.sigma * e, p - self.sigma * e])
+            eps_r.append(e)
+            fit_r.append(self.eval_fn(
+                thetas, states[2 * r * k:2 * (r + 1) * k].to(dev)))
+        # rank shaping over the whole population, gathered rank-major
+        all_fit = collectives.all_gather(fit_r, mesh)
+        flat = all_fit.reshape(-1)
+        ranks = centered_rank(flat).reshape(all_fit.shape)
+        g_r = [(ranks[r, :k] - ranks[r, k:]).to(e.device) @ e
+               for r, e in enumerate(eps_r)]
+        grad = collectives.psum(g_r, mesh) / (self.pop_size * self.sigma)
         new_params, m, v, t = apply_es_update(
             params, grad, m, v, t, lr=self.lr, wd=self.weight_decay,
             adam=self.optimizer == "adam")
         if self.optimizer == "adam":
             self._opt_state = (m, v, t)
-        mean = fitness.mean()
-        stats = torch.stack([mean, fitness.max(), mean])
+        stats = torch.stack([flat.mean(), flat.max(), collectives.pmean(
+            [f.mean() for f in fit_r], mesh)])
+        self.last_fitness, self.last_grad = all_fit, grad
         return new_params, stats
 
     def run(self, params, generations: int, log_every: int = 0):

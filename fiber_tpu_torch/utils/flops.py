@@ -5,7 +5,8 @@ The counters are a copy of ``fiber_tpu/utils/flops.py``
 the same conventions: a (m, k) x (k, n) product is ``2*m*k*n``
 operations, attention counts its two S x S products (causal halves them,
 a window counts each row's min(pos+1, window) keys), softmax is not
-counted, and training is 3x the forward.
+counted, and training is 3x the forward. ``ring_exchange_bytes`` is the
+port's own count of the bytes one ring rotation moves.
 
 The peaks are one NVIDIA H100 SXM's, dense, from NVIDIA's data sheet;
 they assume the card's full 700 W power limit. :func:`bound_ms` is the
@@ -89,6 +90,13 @@ def tinylm_flops_per_step(model, seq: int, train: bool = True) -> float:
     )
     fwd = model.layers * per_block + matmul_flops(seq, d, model.vocab)
     return fwd * (3.0 if train else 1.0)
+
+
+def ring_exchange_bytes(arrays) -> int:
+    """Bytes one ``ring_exchange`` moves: every (rank, array) block read
+    once and written once. ``arrays[j][r]`` is array j on rank r; the
+    bound is ``bound_ms(0, ring_exchange_bytes(arrays), dtype)``."""
+    return sum(2 * x.nbytes for per_rank in arrays for x in per_rank)
 
 
 def bound_ms(flops: float, nbytes: float, op_type: str):

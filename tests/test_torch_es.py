@@ -36,7 +36,7 @@ from fiber_tpu_torch.ops.es import (
     apply_es_update,
     centered_rank,
 )
-from fiber_tpu_torch.parallel.mesh import make_mesh
+from fiber_tpu_torch.parallel.mesh import Mesh as TorchMesh, make_mesh
 
 HIDDEN = (32, 32)
 
@@ -150,6 +150,47 @@ def test_es_step_matches_jax(optimizer):
     assert np.abs(got_p.numpy() - _np(want_p)).max() < 1e-6
 
 
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_es_step_over_mesh_matches_jax(optimizer):
+    """The 8-rank step against the JAX step on the 8-device mesh: every
+    rank's noise and initial states are the JAX device's own
+    (``fold_in(key, device)``), handed over rank-major, so the gathered
+    fitness has the JAX layout and integer ties rank the same way."""
+    jpol, pol = _policies()
+    n, pop, steps = 8, 64, 100
+    mesh = Mesh(np.asarray(jax.devices()[:n]), ("pool",))
+
+    def jax_eval(theta, key):
+        return JaxCartPole.rollout(jpol.act, theta, key, max_steps=steps)
+
+    jes = JaxES(jax_eval, dim=jpol.dim, pop_size=pop, sigma=0.1, lr=0.03,
+                mesh=mesh, optimizer=optimizer)
+    params = jpol.init(jax.random.PRNGKey(0))
+    key = jax.random.PRNGKey(5)
+    want_p, want_s = jes.step(params, key)
+
+    eps, states = [], []
+    for dev in range(n):
+        eps_key, eval_key = jax.random.split(jax.random.fold_in(key, dev))
+        eps.append(_np(jax.random.normal(eps_key, (jes.pairs_per_dev,
+                                                   jpol.dim))))
+        states.append(_np(jax.vmap(JaxCartPole.reset)(
+            jax.random.split(eval_key, 2 * jes.pairs_per_dev))))
+
+    es = EvolutionStrategy(
+        lambda th, st: CartPole.rollout(pol.act, th, st, max_steps=steps),
+        CartPole.reset, dim=pol.dim, pop_size=pop, sigma=0.1, lr=0.03,
+        optimizer=optimizer, mesh=make_mesh("cpu", n=n))
+    assert es.pop_size == jes.pop_size
+    assert es.pairs_per_dev == jes.pairs_per_dev
+    got_p, got_s = es.step(_t(_np(params)), eps=_t(np.concatenate(eps)),
+                           states=_t(np.concatenate(states)))
+    assert es.last_fitness.shape == (n, pop // n)
+    assert len(set(es.last_fitness.flatten().tolist())) > 1
+    assert got_s.numpy().tolist() == _np(want_s).astype(np.float32).tolist()
+    assert np.abs(got_p.numpy() - _np(want_p)).max() < 1e-6
+
+
 def test_es_run_draws_from_its_generator():
     pol = MLPPolicy(4, 2, hidden=(8,))
 
@@ -167,6 +208,19 @@ def test_es_run_draws_from_its_generator():
     assert torch.equal(pa, pb) and len(hist) == 3
     with pytest.raises(ValueError):
         es.step(p0, eps=torch.zeros(3, pol.dim))
+
+
+def test_es_device_must_match_mesh():
+    """A device= that names another device than the mesh's raises, as
+    TinyLM's does; the mesh is never built on CUDA here."""
+    pol = MLPPolicy(4, 2, hidden=(8,))
+    gpu_mesh = TorchMesh((torch.device("cuda", 0),))
+    with pytest.raises(ValueError, match="not the mesh's device"):
+        EvolutionStrategy(pol.act, CartPole.reset, dim=pol.dim, pop_size=8,
+                          device="cpu", mesh=gpu_mesh)
+    es = EvolutionStrategy(pol.act, CartPole.reset, dim=pol.dim, pop_size=8,
+                           device="cpu", mesh=make_mesh("cpu", n=2))
+    assert es.device == torch.device("cpu") and es.mesh.n_dev == 2
 
 
 def test_entry_matches_jax_entry():
