@@ -6,7 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds every CUDA kernel from ``fiber_tpu_torch/csrc`` with nvcc,
-holds each kernel against its plain PyTorch version on the card, drives
+holds each kernel against its plain PyTorch version on the card (and
+counts the tensor-core instructions in the dk/dv kernel's SASS), drives
 the port's main paths at full width (the TinyLM flash forward, greedy
 decoding and training; the OpenAI-ES CartPole flagship; ring and
 Ulysses attention and the TinyLM forward over a 4-rank mesh on the
@@ -25,8 +26,10 @@ off), so kernel and plain version differ only in summation order.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -48,6 +51,15 @@ EDGE_SHAPES = (
     ("edge_d40_ragged", 77, 2, 2, 40, "float32", None, True),
     ("edge_d128_window", 1000, 3, 1, 128, "bfloat16", 100, True),
     ("edge_d16_window1", 130, 2, 1, 16, "float32", 1, True),
+)
+# Backward-only edge shapes whose inputs the dk/dv kernel cannot copy in
+# 16-byte units, so they take its scalar load path: head_dim 20 in bf16
+# (not a whole number of 8-element vectors), and f32 tensors that start
+# one element into their buffers (rows 4 bytes off 16-byte alignment).
+# (name, S, heads, kv_heads, head_dim, dtype, window, causal, offset)
+BWD_EDGE_SHAPES = (
+    ("edge_d20_bf16_scalar", 70, 2, 1, 20, "bfloat16", None, True, 0),
+    ("edge_d24_f32_unaligned", 90, 4, 2, 24, "float32", 7, True, 1),
 )
 # Output tolerance by dtype: f32 results differ by summation order only;
 # bf16 outputs may round to neighbouring bf16 values (one ulp at |o| ~ 4).
@@ -104,9 +116,13 @@ PROFILED = ("ring_flash_dma", "ulysses_flash_dma")
 # H100's 50 MB L2, so no call finds its inputs there.
 L2_MISS_BYTES = 4 * 50 * 10**6
 ES_RANK_TOL = 1e-5    # gradient of the 4-rank step vs a plain recomputation
+# The C interface's dtype codes
+DTYPE_CODE = {"float": 0, "bfloat16": 1}
+# What runs the dk/dv kernel's products, by input type
+DKV_ENGINE = {"float32": "mma.sync 3xtf32", "bfloat16": "mma.sync bf16"}
 SOURCES = {"flash_fwd": "fiber_tpu_torch/csrc/flash_fwd.cu",
            "flash_bwd_dq": "fiber_tpu_torch/csrc/flash_bwd.cu",
-           "flash_bwd_dkv": "fiber_tpu_torch/csrc/flash_bwd.cu",
+           "flash_bwd_dkv": "fiber_tpu_torch/csrc/flash_bwd_dkv.cu",
            "ring_exchange": "fiber_tpu_torch/csrc/dma_ring.cu"}
 REPLACES = {"flash_fwd": "fiber_tpu/ops/pallas_attention.py:68",
             "flash_bwd_dq": "fiber_tpu/ops/pallas_attention.py:170",
@@ -215,16 +231,40 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
     secs = time.perf_counter() - t0
-    check({"flash_fwd", "flash_bwd", "dma_ring"} <= set(libs),
-          f"kernels missing from the build: {sorted(libs)}")
+    check({"flash_fwd", "flash_bwd", "flash_bwd_dkv", "dma_ring"}
+          <= set(libs), f"kernels missing from the build: {sorted(libs)}")
+    # The dk/dv kernel's products run on the tensor cores: its SASS holds
+    # HMMA instructions (counted where the toolkit has cuobjdump).
+    hmma = {k: _build.sass_count(k, "HMMA") for k in libs}
+    check(hmma["flash_bwd_dkv"] is None or hmma["flash_bwd_dkv"] > 0,
+          "flash_bwd_dkv's SASS holds no HMMA instruction")
+    ptxas = {k: _build.ptxas_report(k) for k in libs}
+    # Every dk/dv template: no spills, and its shared memory per block.
+    smem = ctypes.CDLL(str(libs["flash_bwd_dkv"])).flash_bwd_dkv_smem_bytes
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    for row in ptxas["flash_bwd_dkv"]:
+        dtype, dp = re.search(r"<(\w+),(\d+)>", row["function"]).groups()
+        row["smem_bytes"] = smem(int(dp), DTYPE_CODE[dtype])
+        check(row["spill_stores"] == row["spill_loads"] == 0,
+              f"{row['function']} spills")
+    check(len(ptxas["flash_bwd_dkv"]) == 8,
+          f"dk/dv templates built: {ptxas['flash_bwd_dkv']}")
     emit({"phase": "build", "seconds": secs,
           "libraries": {k: v.name for k, v in libs.items()},
-          "ptxas": {k: _build.compiler_report(k) for k in libs}})
+          "sass_hmma": hmma, "ptxas": ptxas})
 
 
-def _inputs(torch, s, h, kvh, d, dtype, seed):
+def _randn(torch, shape, dtype, g, offset=0):
+    """A random (S, heads, head_dim) tensor that starts ``offset``
+    elements into its own buffer."""
+    s, n, d = shape
+    return (torch.randn(offset + s * n * d, generator=g, device="cuda")
+            .to(dtype)[offset:].view(s, n, d))
+
+
+def _inputs(torch, s, h, kvh, d, dtype, seed, offset=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return tuple(torch.randn(s, n, d, generator=g, device="cuda").to(dtype)
+    return tuple(_randn(torch, (s, n, d), dtype, g, offset)
                  for n in (h, kvh, kvh))
 
 
@@ -308,7 +348,8 @@ def phase_kernels(torch, card):
                "max_abs_err": err, "lse_err": lse_err, "tol": TOL[dt],
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound, "bound_by": bound_by,
-               "peak_flops": flops.H100_PEAK_FLOPS[dt],
+               "peak_flops": flops.op_peak(dt)[0],
+               "bound_engine": flops.op_peak(dt)[1],
                "tflops": n_flops / ms / 1e9}
         rows.append(row)
         main[name] = row
@@ -331,8 +372,9 @@ def _bwd_errors(got, want):
 def _bwd_times(torch, q, k, v, dout, lse, delta, window):
     """Device times of both backward kernels, their plain versions and
     the library's backward at one main shape, with each kernel's bound
-    (attention_bwd_flops over the peak of the inputs' type, or its bytes
-    over the memory rate: inputs read once, outputs written once)."""
+    (attention_bwd_flops over flops.op_peak's rate for the inputs' type,
+    3xTF32 for f32, or its bytes over the memory rate: inputs read once,
+    outputs written once)."""
     from fiber_tpu_torch.ops import flash_attention as fa
     from fiber_tpu_torch.utils import flops
 
@@ -352,6 +394,7 @@ def _bwd_times(torch, q, k, v, dout, lse, delta, window):
                                          dt)
         row[part] = {
             "ms": ms, "bound_ms": bound, "bound_by": bound_by,
+            "bound_engine": flops.op_peak(dt)[1],
             "tflops": n_flops / ms / 1e9,
             "plain_ms": cuda_ms(torch, lambda: fa.flash_bwd_reference(
                 *args, **kw, **plain[part]), reps=2)}
@@ -363,20 +406,24 @@ def _bwd_times(torch, q, k, v, dout, lse, delta, window):
 def phase_kernels_bwd(torch, card):
     """Both backward kernels against the plain backward at every edge and
     main shape, from the forward kernel's (O, lse) and a random dO; a
-    random lse cotangent on the edge shapes and on one main shape."""
+    random lse cotangent on the edge shapes and on one main shape. At the
+    main shapes a second ``flash_bwd_dkv`` launch on the same inputs must
+    give the same dk and dv bit for bit (no atomics, a fixed order)."""
     from fiber_tpu_torch.ops import flash_attention as fa
     from fiber_tpu_torch.utils import flops
 
-    shapes = [e + (True,) for e in EDGE_SHAPES]
-    shapes += [m + (True, m[0] == "lm_f32_gqa") for m in MAIN_SHAPES]
+    shapes = [e + (True, 0) for e in EDGE_SHAPES]
+    shapes += [e[:8] + (True, e[8]) for e in BWD_EDGE_SHAPES]
+    shapes += [m + (True, m[0] == "lm_f32_gqa", 0) for m in MAIN_SHAPES]
     rows, main = [], {}
-    for name, s, h, kvh, d, dt, window, causal, with_dlse in shapes:
+    for name, s, h, kvh, d, dt, window, causal, with_dlse, offset in shapes:
         dtype = getattr(torch, dt)
         seed = 100 + len(rows)
-        q, k, v = _inputs(torch, s, h, kvh, d, dtype, seed=seed)
+        q, k, v = _inputs(torch, s, h, kvh, d, dtype, seed=seed,
+                          offset=offset)
         o, lse = fa.flash_fwd(q, k, v, causal=causal, window=window)
         g = torch.Generator(device="cuda").manual_seed(seed + 50)
-        dout = torch.randn(s, h, d, generator=g, device="cuda").to(dtype)
+        dout = _randn(torch, (s, h, d), dtype, g, offset)
         dlse = (torch.randn(h, s, generator=g, device="cuda")
                 if with_dlse else None)
         delta = fa.flash_bwd_delta(o, dout, dlse)
@@ -395,17 +442,27 @@ def phase_kernels_bwd(torch, card):
               f"{name}: dq rel err {dq_rel}, dk/dv rel err {dkv_rel}")
         row = {"shape": name, "S": s, "heads": h, "kv_heads": kvh,
                "head_dim": d, "dtype": dt, "window": window,
-               "causal": causal, "dlse": with_dlse, "tol": BWD_TOL[dt],
+               "causal": causal, "dlse": with_dlse, "offset": offset,
+               "tol": BWD_TOL[dt],
+               "dkv_engine": DKV_ENGINE[dt],
                "dq_max_abs_err": dq_err, "dq_rel_err": dq_rel,
                "dkv_max_abs_err": dkv_err, "dkv_rel_err": dkv_rel}
         if s == LM_CFG["max_seq"]:
+            dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(_bits(torch, dk), _bits(torch, dk2))
+                  and torch.equal(_bits(torch, dv), _bits(torch, dv2)),
+                  f"{name}: two flash_bwd_dkv launches differ")
+            row["dkv_bitwise_repeat"] = True
+            del dk2, dv2
             row.update(_bwd_times(torch, q, k, v, dout, lse, delta, window))
             main[name] = row
         rows.append(row)
         del q, k, v, o, lse, dout, dlse, delta, dq, dk, dv
         torch.cuda.empty_cache()
     emit({"phase": "kernels_bwd", "card": card,
-          "peak_flops": flops.H100_PEAK_FLOPS, "shapes": rows})
+          "peak_flops": {dt: flops.op_peak(dt) for dt in BWD_TOL},
+          "shapes": rows})
     return main
 
 
@@ -946,7 +1003,7 @@ def main():
         "name": "flash_fwd", "max_abs_err": lm["max_abs_err"],
         "ms": lm["ms"], "plain_ms": lm["plain_ms"],
         "bound_ms": lm["bound_ms"], "bound_by": lm["bound_by"],
-        "library_ms": lm["library_ms"],
+        "library_ms": lm["library_ms"], "bound_engine": lm["bound_engine"],
         "launches_lm_forward": fwd_launches}]
     for part in ("dq", "dkv"):
         row = lm_bwd[part]
@@ -955,8 +1012,10 @@ def main():
             "max_abs_err": lm_bwd[f"{part}_max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
+            "bound_engine": row["bound_engine"],
             # one SDPA backward call computes dq, dk and dv together
             "library_ms": lm_bwd["library_ms"], "library_covers": "dq+dkv"})
+    summary[-1]["engine"] = lm_bwd["dkv_engine"]
     for entry in summary:
         entry.update(launches=launches[entry["name"]], path="lm_train")
     ring = ring_rows["attention_bf16_kv"]

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -92,14 +93,52 @@ def build_all() -> dict:
     return dict(zip(names, paths))
 
 
-def compiler_report(name: str) -> str:
-    """The ptxas lines of the last build of ``name``, with the stack and
-    spill line that follows each function's properties (empty if none)."""
+def ptxas_report(name: str) -> list:
+    """What ptxas said of each kernel in the last build of ``name``: one
+    ``{"function", "registers", "spill_stores", "spill_loads"}`` per
+    kernel (bytes of spills), with a template kernel named as
+    ``flash_bwd_dkv_kernel<float,32>``. Empty if ``name`` was not built."""
     log = BUILD_DIR / f"{name}.log"
     if not log.is_file():
-        return ""
-    return "\n".join(line.strip() for line in log.read_text().splitlines()
-                     if "ptxas" in line or "spill" in line)
+        return []
+    rows, row = [], None
+    for line in log.read_text().splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            row = {"function": _short_name(entry.group(1))}
+            rows.append(row)
+        elif row is not None and "spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill", line)
+            row.update(spill_stores=int(stores), spill_loads=int(loads))
+        elif row is not None and "registers" in line:
+            row["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+    return rows
+
+
+def _short_name(mangled: str) -> str:
+    """``..._kernelIfLi32EE...`` -> ``..._kernel<float,32>``: the kernel's
+    name and template arguments (element type, padded head_dim)."""
+    m = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    if m:
+        kind = "float" if m.group(2) == "f" else "bfloat16"
+        return f"{m.group(1)}<{kind},{m.group(3)}>"
+    m = re.search(r"([a-z_]+_kernel)", mangled)
+    return m.group(1) if m else mangled
+
+
+def sass_count(name: str, opcode: str):
+    """How many SASS instructions of the built library of ``name`` start
+    with ``opcode`` (e.g. ``HMMA``, the tensor cores' warp-level product),
+    by the toolkit's ``cuobjdump``; None where the toolkit has none."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    if not tool.is_file():
+        return None
+    proc = subprocess.run([str(tool), "-sass", str(build(name))],
+                          capture_output=True, text=True, check=True)
+    # an instruction line reads "/*0a40*/  HMMA.16816.F32.BF16 R4, ... ;"
+    return sum(1 for line in proc.stdout.splitlines()
+               if line.split("*/", 1)[-1].strip().startswith(opcode))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,49 +1,36 @@
-// Flash-attention backward for Hopper (sm_90a), plain CUDA C++ with a C
-// interface (loaded with ctypes by fiber_tpu_torch/ops/flash_attention.py).
+// Flash-attention backward, dq, for Hopper (sm_90a): plain CUDA C++ with
+// a C interface (loaded with ctypes by fiber_tpu_torch/ops/flash_attention.py).
+// Its partner, dk and dv, is csrc/flash_bwd_dkv.cu.
 //
-// Two kernels, the FlashAttention-2 recurrence from the forward's saved
-// (q, k, v, O, lse), with delta = rowsum(dO * O) - dlse computed outside:
+// flash_bwd_dq replaces fiber_tpu/ops/pallas_attention.py:_bwd_dq_kernel,
+// the FlashAttention-2 recurrence from the forward's saved (q, k, v, O,
+// lse), with delta = rowsum(dO * O) - dlse computed outside:
 //
 //   p_ij  = exp(s_ij * scale - lse_i)          (masked entries 0)
 //   ds_ij = p_ij * (dO_i . v_j - delta_i)
+//   dq_i  = scale * sum_j ds_ij k_j, over the KV tiles a query tile sees,
 //
-// flash_bwd_dq replaces fiber_tpu/ops/pallas_attention.py:_bwd_dq_kernel:
-//   dq_i = scale * sum_j ds_ij k_j, over the KV tiles a query tile sees.
-// flash_bwd_dkv replaces pallas_attention.py:_bwd_dkv_kernel:
-//   dv_j = sum_i p_ij dO_i and dk_j = scale * sum_i ds_ij q_i, over the
-//   query tiles of every query head of the KV head's GQA group.
-// Both recompute p and ds as _bwd_p_ds does, with _run_window's block
-// skip as loop bounds and _keep_mask's elementwise mask.
+// recomputing p and ds as _bwd_p_ds does, with _run_window's block skip as
+// loop bounds and _keep_mask's elementwise mask.
 //
-// What bounds them on this card: at the shapes the port trains (S =
-// 16384, head_dim 32) each does three (dq) or four (dk/dv) S x S x D
-// products, halved by causality, for O(S D) bytes: thousands of
-// operations per byte, far above the H100's ridge, so both are bound by
-// arithmetic. This first version does it as f32 FMA on the CUDA cores (67
-// TFLOP/s peak), which also keeps the f32 parity bound that TF32 tensor
-// cores could not; wgmma and TMA are later work. What the design does
-// about the bound: every operand is staged once per tile in shared memory
-// as f32 and each thread keeps a 4 x 4 register tile of scores, so the
-// inner loops run two FMAs per shared-memory load; tiles the mask empties
-// entirely are never visited, so causal and windowed shapes pay only for
-// the tiles they need.
+// What bounds it on this card: at the shapes the port trains (S = 16384,
+// head_dim 32) it does three S x S x D products, halved by causality, for
+// O(S D) bytes: thousands of operations per byte, far above the H100's
+// ridge, so it is bound by arithmetic. This version does it as f32 FMA on
+// the CUDA cores (67 TFLOP/s peak); the tensor-core design of
+// flash_bwd_dkv.cu is its next step. What the design does about the bound:
+// every operand is staged once per tile in shared memory as f32 and each
+// thread keeps a 4 x 4 register tile of scores, so the inner loops run two
+// FMAs per shared-memory load; tiles the mask empties entirely are never
+// visited, so causal and windowed shapes pay only for the tiles they need.
 //
-// Design. The TPU kernels carry dq (or dk and dv) in VMEM scratch across
-// a sequential innermost grid axis; CUDA blocks share nothing, so that
-// axis becomes a loop inside one block and the sums stay in registers:
-//
-// - flash_bwd_dq: one block owns one (query head, 64-row query tile). Q,
-//   dO, lse and delta of the tile are staged once; the block sweeps the
-//   KV tiles from _run_window's first to its last, recomputes s, p, dp and
-//   ds, passes ds through shared memory and adds ds K into its dq
-//   registers, then writes dq * scale once.
-// - flash_bwd_dkv: one block owns one (KV head, 64-row KV tile). K and V
-//   stay in shared memory; the block loops over the group's query heads
-//   and over their query tiles from the causal diagonal onward (with a
-//   window, only up to the last row that still sees the tile). Scores are
-//   computed transposed (KV rows by query columns), so p^T and ds^T go to
-//   shared memory in the layout the dv += p^T dO and dk += ds^T Q products
-//   read; dk * scale and dv are written once.
+// Design. The TPU kernel carries dq in VMEM scratch across a sequential
+// innermost grid axis; CUDA blocks share nothing, so that axis becomes a
+// loop inside one block and the sums stay in registers. One block owns one
+// (query head, 64-row query tile). Q, dO, lse and delta of the tile are
+// staged once; the block sweeps the KV tiles from _run_window's first to
+// its last, recomputes s, p, dp and ds, passes ds through shared memory and
+// adds ds K into its dq registers, then writes dq * scale once.
 //
 // Each block owns its outputs, so there are no atomics and the gradients
 // are the same from run to run (the JAX package's split, kept on
@@ -53,8 +40,8 @@
 // past S are masked whatever `causal` says (their zero-filled K rows give
 // s = 0, and exp(0 - lse) is not 0). Shared-memory rows have an odd
 // stride, so the column walks are free of bank conflicts. q, k, v and dO
-// are read through their (S, heads, head_dim) strides; dq, dk and dv are
-// written contiguous, dq as (S, H, D), dk and dv as (S, KVH, D).
+// are read through their (S, heads, head_dim) strides; dq is written
+// contiguous, (S, H, D).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -245,127 +232,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int KVH, int group, int D,
-                     Strides st, int causal, int window, float scale) {
-  constexpr int LD = DP + 1;
-  constexpr int CJ = DP / TX;
-  extern __shared__ float smem[];
-  float* sk = smem;             // BT x LD
-  float* sv = sk + BT * LD;     // BT x LD
-  float* sq = sv + BT * LD;     // BT x LD
-  float* sdo = sq + BT * LD;    // BT x LD
-  float* spt = sdo + BT * LD;   // BT x LDP: p^T, KV rows by query columns
-  float* sdst = spt + BT * LDP; // BT x LDP: ds^T
-  float* slse = sdst + BT * LDP;  // BT
-  float* sdelta = slse + BT;      // BT
-
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int kvh = blockIdx.y;
-  // Under causality the first KV tiles see the most query tiles; they
-  // have the lowest block index and are scheduled first.
-  const int k0 = blockIdx.x * BT;
-
-  load_tile<T, DP>(sk, k + kvh * st.k_sh, k0, S, D, st.k_ss);
-  load_tile<T, DP>(sv, v + kvh * st.v_sh, k0, S, D, st.v_ss);
-
-  float acc_k[RM][CJ], acc_v[RM][CJ];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  // The transpose of _run_window: a KV tile [k0, k0 + BT) is seen by query
-  // rows from k0 on (causal), and with a window only up to the last row
-  // whose window still reaches key k0 + BT - 1, i.e. k0 + BT - 2 + window.
-  int q_begin = 0, q_end = S;
-  if (causal) {
-    q_begin = k0;
-    if (window > 0) q_end = min(S, k0 + BT - 1 + window);
-  }
-
-  for (int g = 0; g < group; ++g) {
-    const int h = kvh * group + g;
-    const T* qh = q + h * st.q_sh;
-    const T* doh = dout + h * st.do_sh;
-    const float* lse_h = lse + (long long)h * S;
-    const float* delta_h = delta + (long long)h * S;
-    for (int q0 = q_begin; q0 < q_end; q0 += BT) {
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<T, DP>(sq, qh, q0, S, D, st.q_ss);
-      load_tile<T, DP>(sdo, doh, q0, S, D, st.do_ss);
-      for (int i = threadIdx.x; i < BT; i += NT) {
-        const int qi = q0 + i;
-        slse[i] = qi < S ? lse_h[qi] : 0.f;
-        sdelta[i] = qi < S ? delta_h[qi] : 0.f;
-      }
-      __syncthreads();
-
-      // Transposed tiles: row i of this thread is KV row ty * RM + i,
-      // column j is query row tx + TX * j.
-      float s[RM][RN], dp[RM][RN];
-      two_products<DP>(sk, sv, sq, sdo, s, dp, ty, tx);
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int kj = k0 + ty * RM + i;
-#pragma unroll
-        for (int j = 0; j < RN; ++j) {
-          const int m = tx + TX * j;
-          const float p = keep(q0 + m, kj, S, causal, window)
-                              ? expf(s[i][j] * scale - slse[m])
-                              : 0.f;
-          spt[(ty * RM + i) * LDP + m] = p;
-          sdst[(ty * RM + i) * LDP + m] = p * (dp[i][j] - sdelta[m]);
-        }
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int m = 0; m < BT; ++m) {
-        float pt[RM], dst[RM], qq[CJ], gg[CJ];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          pt[i] = spt[(ty * RM + i) * LDP + m];
-          dst[i] = sdst[(ty * RM + i) * LDP + m];
-        }
-#pragma unroll
-        for (int c = 0; c < CJ; ++c) {
-          qq[c] = sq[m * LD + tx + TX * c];
-          gg[c] = sdo[m * LD + tx + TX * c];
-        }
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int c = 0; c < CJ; ++c) {
-            acc_v[i][c] = fmaf(pt[i], gg[c], acc_v[i][c]);
-            acc_k[i][c] = fmaf(dst[i], qq[c], acc_k[i][c]);
-          }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int kj = k0 + ty * RM + i;
-    if (kj >= S) continue;
-    const long long row = ((long long)kj * KVH + kvh) * D;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) {
-      const int col = tx + TX * c;
-      if (col < D) {
-        store(dk + row + col, acc_k[i][c] * scale);
-        store(dv + row + col, acc_v[i][c]);
-      }
-    }
-  }
-}
-
-template <typename T, int DP>
 cudaError_t launch_dq(const void* const* p, int S, int H, int KVH, int D,
                       const Strides& st, int causal, int window, float scale,
                       cudaStream_t stream) {
@@ -384,27 +250,6 @@ cudaError_t launch_dq(const void* const* p, int S, int H, int KVH, int D,
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
-cudaError_t launch_dkv(const void* const* p, int S, int H, int KVH, int D,
-                       const Strides& st, int causal, int window, float scale,
-                       cudaStream_t stream) {
-  const int smem = (int)((4 * BT * (DP + 1) + 2 * BT * LDP + 2 * BT) *
-                         sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + BT - 1) / BT, KVH);
-  flash_bwd_dkv_kernel<T, DP><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
-      static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
-      static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
-      static_cast<T*>(const_cast<void*>(p[6])),
-      static_cast<T*>(const_cast<void*>(p[7])), S, KVH, H / KVH, D, st,
-      causal, window, scale);
-  return cudaGetLastError();
-}
-
 using Launcher = cudaError_t (*)(const void* const*, int, int, int, int,
                                  const Strides&, int, int, float,
                                  cudaStream_t);
@@ -417,14 +262,6 @@ Launcher dq_for(int D) {
        : D <= 32 ? &launch_dq<T, 32>
        : D <= 64 ? &launch_dq<T, 64>
                  : &launch_dq<T, 128>;
-}
-
-template <typename T>
-Launcher dkv_for(int D) {
-  return D <= 16 ? &launch_dkv<T, 16>
-       : D <= 32 ? &launch_dkv<T, 32>
-       : D <= 64 ? &launch_dkv<T, 64>
-                 : &launch_dkv<T, 128>;
 }
 
 bool bad_args(int S, int H, int KVH, int D, int dtype) {
@@ -458,27 +295,7 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
       static_cast<cudaStream_t>(stream));
 }
 
-// As flash_bwd_dq; dk and dv written (S, KVH, D) contiguous in k's type,
-// each the sum over the H / KVH query heads that share the KV head.
-int flash_bwd_dkv(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* delta,
-                  void* dk, void* dv, int S, int H, int KVH, int D,
-                  const long long* strides, int causal, int window,
-                  float scale, int dtype, void* stream) {
-  if (bad_args(S, H, KVH, D, dtype)) return (int)cudaErrorInvalidValue;
-  const void* p[] = {q, k, v, dout, lse, delta, dk, dv};
-  const Launcher f =
-      dtype == 0 ? dkv_for<float>(D) : dkv_for<__nv_bfloat16>(D);
-  return (int)f(
-      p, S, H, KVH, D, to_strides(strides), causal, window, scale,
-      static_cast<cudaStream_t>(stream));
-}
-
 const char* flash_bwd_dq_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-const char* flash_bwd_dkv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

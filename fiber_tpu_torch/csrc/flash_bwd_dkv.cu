@@ -1,0 +1,618 @@
+// Flash-attention backward, dk and dv, for Hopper (sm_90a) on the tensor
+// cores: plain CUDA C++ with a C interface, loaded with ctypes by
+// fiber_tpu_torch/ops/flash_attention.py.
+//
+// Replaces fiber_tpu/ops/pallas_attention.py:_bwd_dkv_kernel. From the
+// forward's saved (q, k, v, lse) and delta = rowsum(dO * O) - dlse:
+//
+//   p_ij  = exp(s_ij * scale - lse_i)          (masked entries 0)
+//   ds_ij = p_ij * (dO_i . v_j - delta_i)
+//   dv_j  = sum_i p_ij dO_i,   dk_j = scale * sum_i ds_ij q_i
+//
+// summed over the query tiles of every query head of the KV head's GQA
+// group, with _run_window's block skip as loop bounds and _keep_mask's
+// elementwise mask (plus the ragged edge).
+//
+// What bounds it on this card: four S x S x D products (halved by
+// causality) for O(S D) bytes, so operations. bf16 inputs run them at
+// the bf16 tensor-core rate (989 TFLOP/s dense). f32 inputs run each
+// product as three TF32 products (3xTF32, below), so at a third of the
+// 495 TFLOP/s TF32 rate, 165 TFLOP/s: still 2.5x the 67 TFLOP/s of f32
+// FMA on the CUDA cores, which the previous version of this kernel used.
+//
+// Why 3xTF32 and not plain TF32: each f32 operand x is split into big =
+// tf32(x) and small = x - big (of which the tensor core keeps the top 19
+// bits), and a product is accumulated in f32 as small*big + big*small +
+// big*big (the small*small term is below f32's rounding). An emulation of
+// this kernel's f32 arithmetic on the CPU (S = 2048, D = 32, 4 heads,
+// causal, against an f64 recomputation; tests/test_torch_flash_backward.py
+// keeps it) puts plain TF32 at 7.7e-4 (dk) and 4.7e-4 (dv) of the
+// largest gradient, ten times the 5e-5 parity bound, and 3xTF32 at 1.4e-6
+// and 1.4e-6.
+//
+// Design (FlashAttention-2's backward structure, warp-level mma.sync):
+//
+// - One block of 4 warps owns one (KV head, 64-row KV tile); each warp
+//   owns 16 KV rows. K and V are staged in shared memory once. The block
+//   loops over the group's query heads and their query tiles (64 rows; 32
+//   at head_dim 128, to keep the accumulators in registers), from the
+//   causal diagonal on and, with a window, up to k0 + 63 + window. dk and
+//   dv accumulate in registers; a block owns its outputs, so there are no
+//   atomics and the gradients repeat bit for bit.
+// - Per query tile a warp computes S^T = K Q^T and dP^T = V dO^T for its
+//   16 rows (accumulator fragments), P^T and dS^T from them in registers,
+//   then dV += P^T dO and dK += dS^T Q. P^T and dS^T never leave the
+//   registers: for bf16 the m16n8k16 accumulator layout of two adjacent
+//   8-column tiles is the A-operand layout of one 16-deep step (packed to
+//   bf16 pairs); for f32 the m16n8k8 accumulator holds columns 2t and 2t+1
+//   where the A operand wants t and t+4, so the depth index is permuted
+//   (t <-> 2t, t+4 <-> 2t+1) in both A and B, which leaves the sum as it is.
+// - Operands stay in their own type in shared memory: bf16 rows padded to
+//   D + 8 elements and read with ldmatrix (.trans for the B operand of
+//   the two accumulating products); f32 rows padded to D + 4 and read
+//   with 32-bit loads, split into big and small at each fragment load.
+//   On f32 each query tile's dV and dK products are summed from zero and
+//   then added to the running sums (accumulate(), below).
+//   Both paddings make the fragment reads free of bank conflicts.
+// - Q, dO, lse and delta of the next query tile are copied with cp.async
+//   (16 bytes a thread; 4 for lse and delta) into the second of two
+//   buffers while the current tile computes: one wait and one barrier
+//   per tile. A tensor whose pointer, strides or head_dim are not in
+//   whole 16-byte units takes a scalar load path inside the kernel
+//   instead (per tensor, chosen by the launcher).
+//
+// q, k, v and dO are read through their (S, heads, head_dim) strides; dk
+// and dv are written contiguous, (S, KVH, D), in k's type.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BKV = 64;            // KV rows per block
+constexpr int WARPS = BKV / 16;    // one warp per 16 KV rows
+constexpr int NT = 32 * WARPS;     // threads per block
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Query rows per tile: 64, or 32 at head_dim 128, where four D-wide
+// accumulators and two score tiles would not fit in 255 registers.
+__host__ __device__ constexpr int q_tile(int dp) {
+  return dp >= 128 ? 32 : 64;
+}
+
+// Blocks per SM the compiler must leave registers for: 3 (at most 170
+// registers a thread) where ptxas then still spills nothing, else 1.
+__host__ __device__ constexpr int min_blocks(bool f32, int dp) {
+  return (f32 ? dp <= 32 : dp <= 64) ? 3 : 1;
+}
+
+// Elements of padding per shared-memory row: 16 bytes of bf16 (ldmatrix
+// rows then start on distinct bank quads), 4 floats for f32.
+template <typename T> struct Pad;
+template <> struct Pad<float> { static constexpr int value = 4; };
+template <> struct Pad<bf16> { static constexpr int value = 8; };
+
+struct Strides {                   // row (ss) and head (sh) strides, elements
+  long long q_ss, q_sh, k_ss, k_sh, v_ss, v_sh, do_ss, do_sh;
+};
+
+// Bits of `vec`: the 16-byte copy path may be used for q, k, v, dO.
+constexpr int VEC_Q = 1, VEC_K = 2, VEC_V = 4, VEC_DO = 8;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of `bytes` (16 or 4) with zero fill: `src_bytes` 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a b: 16 x 8 x 16, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b: 16 x 8 x 8, TF32 operands, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = big + small: big = tf32(x), rounded to nearest with ties away from
+// zero as cvt.rna.tf32.f32 rounds (half of the last kept bit added to the
+// magnitude, the 13 dropped bits cleared), and small = x - big, exact in
+// f32, whose low 13 bits the tensor core drops. Integer adds and masks,
+// because cvt.rna compiles to a longer sequence of compares and selects
+// (SASS for sm_90a), and at several splits a product the f32 path is
+// bound by issued instructions.
+__device__ __forceinline__ uint32_t round_tf32(uint32_t bits) {
+  return (bits + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = round_tf32(__float_as_uint(x));
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// 3xTF32: d += a b in about f32 precision, from split operands.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           const uint32_t (&bb)[2],
+                                           const uint32_t (&bs)[2]) {
+  mma_tf32(d, as, bb[0], bb[1]);
+  mma_tf32(d, ab, bs[0], bs[1]);
+  mma_tf32(d, ab, bb[0], bb[1]);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float zero_of(float) { return 0.f; }
+__device__ __forceinline__ bf16 zero_of(bf16) { return __float2bfloat16(0.f); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(bf16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// Copies rows [row0, row0 + ROWS) of one head's (S, D) slice with row
+// stride ss into a ROWS x (DP + pad) tile; rows past S and columns past D
+// are zero, so they add nothing to the products. `vec`: 16-byte cp.async
+// (the pointer, ss and D are whole 16-byte units); else scalar loads.
+template <typename T, int DP, int ROWS>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
+                                          int row0, int S, int D,
+                                          long long ss, bool vec) {
+  constexpr int LD = DP + Pad<T>::value;
+  if (vec) {
+    constexpr int V = 16 / sizeof(T);   // elements per 16-byte chunk
+    constexpr int CH = DP / V;          // chunks per row
+    for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+      const int r = i / CH, c = (i % CH) * V;
+      const int s = row0 + r;
+      const bool ok = s < S && c < D;
+      cp_async16(dst + r * LD + c, ok ? src + s * ss + c : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DP; i += NT) {
+      const int r = i / DP, c = i % DP;
+      const int s = row0 + r;
+      dst[r * LD + c] = (s < S && c < D) ? src[s * ss + c] : zero_of(T());
+    }
+  }
+}
+
+// 2^x on the special-function unit (relative error about 2^-22); inputs
+// below -126 give 0, which is what a masked or negligible p is anyway.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// _keep_mask plus the ragged edge: query row qi may use key row kj.
+__device__ __forceinline__ bool keep(int qi, int kj, int S, int causal,
+                                     int window) {
+  bool k = qi < S && kj < S;
+  if (causal) k = k && qi >= kj && (window <= 0 || qi - kj < window);
+  return k;
+}
+
+// The warp's 16 x BQ tile of A B^T over head_dim: A rows wrow.. of sa
+// (KV rows), B rows of sb (query rows). acc[j] holds query columns
+// 8j..8j+7 as an m16n8 accumulator fragment.
+template <int DP, int NJ>
+__device__ __forceinline__ void scores(float (&acc)[NJ][4], const bf16* sa,
+                                       const bf16* sb, int wrow, int lane) {
+  constexpr int LD = DP + Pad<bf16>::value;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, sa + (wrow + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int jj = 0; jj < NJ / 2; ++jj) {
+      uint32_t b[4];
+      ldsm_x4(b, sb + (jj * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                     kk * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * jj], a, b[0], b[1]);
+      mma_bf16(acc[2 * jj + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int DP, int NJ>
+__device__ __forceinline__ void scores(float (&acc)[NJ][4], const float* sa,
+                                       const float* sb, int wrow, int lane) {
+  constexpr int LD = DP + Pad<float>::value;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 8; ++kk) {
+    const float* ra = sa + (wrow + g) * LD + kk * 8 + t;
+    uint32_t ab[4], as[4];
+    split(ra[0], ab[0], as[0]);
+    split(ra[8 * LD], ab[1], as[1]);
+    split(ra[4], ab[2], as[2]);
+    split(ra[8 * LD + 4], ab[3], as[3]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float* rb = sb + (j * 8 + g) * LD + kk * 8 + t;
+      uint32_t bb[2], bs[2];
+      split(rb[0], bb[0], bs[0]);
+      split(rb[4], bb[1], bs[1]);
+      mma_3xtf32(acc[j], ab, as, bb, bs);
+    }
+  }
+}
+
+// acc += X B for the warp's 16 rows: X (16 x BQ, the accumulator
+// fragments of scores()) as the A operand, B the BQ x DP tile sb (query
+// rows by head_dim). acc[n] holds head_dim columns 8n..8n+7.
+template <int DP, int NJ>
+__device__ __forceinline__ void accumulate(float (&acc)[DP / 8][4],
+                                           const float (&x)[NJ][4],
+                                           const bf16* sb, int lane) {
+  constexpr int LD = DP + Pad<bf16>::value;
+#pragma unroll
+  for (int kk = 0; kk < NJ / 2; ++kk) {
+    // Two 8-column accumulator tiles are one 16-deep A fragment.
+    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
+                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
+                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+    for (int nn = 0; nn < DP / 16; ++nn) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, sb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               LD + nn * 16 + (lane >> 4) * 8);
+      mma_bf16(acc[2 * nn], a, b[0], b[1]);
+      mma_bf16(acc[2 * nn + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int DP, int NJ>
+__device__ __forceinline__ void accumulate(float (&acc)[DP / 8][4],
+                                           const float (&x)[NJ][4],
+                                           const float* sb, int lane) {
+  constexpr int LD = DP + Pad<float>::value;
+  constexpr int ND = DP / 8;
+  constexpr int NG = ND < 4 ? ND : 4;   // accumulator tiles per pass
+  const int g = lane >> 2, t = lane & 3;
+  // The tensor cores round their f32 sums toward zero. Over the 16384
+  // query rows of a KV row that bias reached 1.2e-4 of the largest
+  // gradient on an H100 (against the 5e-5 bound), so the tile's product
+  // is summed from zero here and added to acc with round-to-nearest adds.
+#pragma unroll
+  for (int n0 = 0; n0 < ND; n0 += NG) {
+    float part[NG][4];
+#pragma unroll
+    for (int n = 0; n < NG; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      // Depth index permuted: A's k = t is query 8j + 2t, k = t + 4 is
+      // 8j + 2t + 1, the columns this thread's accumulators hold.
+      uint32_t ab[4], as[4];
+      split(x[j][0], ab[0], as[0]);
+      split(x[j][2], ab[1], as[1]);
+      split(x[j][1], ab[2], as[2]);
+      split(x[j][3], ab[3], as[3]);
+      const float* rb = sb + (j * 8 + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < NG; ++n) {
+        uint32_t bb[2], bs[2];
+        split(rb[(n0 + n) * 8], bb[0], bs[0]);
+        split(rb[LD + (n0 + n) * 8], bb[1], bs[1]);
+        mma_3xtf32(part[n], ab, as, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NG; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + n][e] += part[n][e];
+  }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(NT, min_blocks(sizeof(T) == 4, DP))
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int S, int KVH, int group, int D,
+                     Strides st, int vec, int causal, int window,
+                     float scale) {
+  constexpr int BQ = q_tile(DP);
+  constexpr int NJ = BQ / 8;        // 8-column score tiles per warp
+  constexpr int ND = DP / 8;        // 8-column accumulator tiles
+  constexpr int LD = DP + Pad<T>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sk = reinterpret_cast<T*>(smem_raw);     // BKV x LD
+  T* sv = sk + BKV * LD;                      // BKV x LD
+  T* sq = sv + BKV * LD;                      // 2 buffers of BQ x LD
+  T* sdo = sq + 2 * BQ * LD;                  // 2 buffers of BQ x LD
+  float* slse = reinterpret_cast<float*>(sdo + 2 * BQ * LD);  // 2 x BQ
+  float* sdelta = slse + 2 * BQ;                              // 2 x BQ
+
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = (threadIdx.x >> 5) * 16;   // the warp's first KV row
+  const int kvh = blockIdx.y;
+  // Under causality the first KV tiles see the most query tiles; they
+  // have the lowest block index and are scheduled first.
+  const int k0 = blockIdx.x * BKV;
+
+  // The transpose of _run_window: KV rows [k0, k0 + BKV) are seen by
+  // query rows from k0 on (causal), and with a window only up to the last
+  // row whose window still reaches key k0 + BKV - 1.
+  int q_begin = 0, q_end = S;
+  if (causal) {
+    q_begin = k0;
+    if (window > 0) q_end = min(S, k0 + BKV - 1 + window);
+  }
+  const int n_qt = (q_end - q_begin + BQ - 1) / BQ;  // per query head
+  const int n_it = group * n_qt;
+
+  // Stages query tile `it` (head it / n_qt of the group) into buffer it & 1.
+  auto stage = [&](int it) {
+    const int h = kvh * group + it / n_qt;
+    const int q0 = q_begin + (it % n_qt) * BQ;
+    const int b = it & 1;
+    load_tile<T, DP, BQ>(sq + b * BQ * LD, q + h * st.q_sh, q0, S, D,
+                         st.q_ss, vec & VEC_Q);
+    load_tile<T, DP, BQ>(sdo + b * BQ * LD, dout + h * st.do_sh, q0, S, D,
+                         st.do_ss, vec & VEC_DO);
+    for (int i = threadIdx.x; i < 2 * BQ; i += NT) {
+      const bool is_delta = i >= BQ;
+      const int c = is_delta ? i - BQ : i;
+      const float* row = (is_delta ? delta : lse) + (long long)h * S;
+      float* dst = (is_delta ? sdelta : slse) + b * BQ + c;
+      const bool ok = q0 + c < S;
+      cp_async4(dst, ok ? row + q0 + c : row, ok ? 4 : 0);
+    }
+  };
+
+  load_tile<T, DP, BKV>(sk, k + kvh * st.k_sh, k0, S, D, st.k_ss,
+                        vec & VEC_K);
+  load_tile<T, DP, BKV>(sv, v + kvh * st.v_sh, k0, S, D, st.v_ss,
+                        vec & VEC_V);
+  if (n_it > 0) stage(0);
+  cp_async_commit();
+
+  float acc_k[ND][4], acc_v[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_it; ++it) {
+    // Tile `it` has landed, and every warp is done with tile it - 1, whose
+    // buffer the copy of tile it + 1 now overwrites.
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_it) stage(it + 1);
+    cp_async_commit();
+
+    const int b = it & 1;
+    const int q0 = q_begin + (it % n_qt) * BQ;
+    const T* cq = sq + b * BQ * LD;
+    const T* cdo = sdo + b * BQ * LD;
+    const float* clse = slse + b * BQ;
+    const float* cdelta = sdelta + b * BQ;
+    // Whether any entry of this tile is masked (diagonal, window edge or
+    // ragged edge); most tiles of a long sequence have none. It is the
+    // same for the whole block, so the two loops below never diverge.
+    bool masked = q0 + BQ > S || k0 + BKV > S;
+    if (causal)
+      masked = masked || q0 < k0 + BKV - 1 ||
+               (window > 0 && q0 + BQ - 1 - k0 >= window);
+
+    // P^T = exp(S^T * scale - lse), then dV += P^T dO.
+    float p[NJ][4];
+    scores<DP, NJ>(p, sk, cq, wrow, lane);
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + 2 * t + (e & 1);
+          const int kj = k0 + wrow + g + (e >> 1) * 8;
+          p[j][e] = keep(q0 + col, kj, S, causal, window)
+                        ? ex2(fmaf(p[j][e], scale_log2, -clse[col] * LOG2E))
+                        : 0.f;
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + 2 * t + (e & 1);
+          p[j][e] = ex2(fmaf(p[j][e], scale_log2, -clse[col] * LOG2E));
+        }
+    }
+    accumulate<DP, NJ>(acc_v, p, cdo, lane);
+
+    // dS^T = P^T o (dP^T - delta), dP^T = V dO^T; then dK += dS^T Q.
+    float ds[NJ][4];
+    scores<DP, NJ>(ds, sv, cdo, wrow, lane);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + 2 * t + (e & 1);
+        ds[j][e] = p[j][e] * (ds[j][e] - cdelta[col]);
+      }
+    accumulate<DP, NJ>(acc_k, ds, cq, lane);
+  }
+
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kj = k0 + wrow + g + (e >> 1) * 8;
+      const int col = n * 8 + 2 * t + (e & 1);
+      if (kj < S && col < D) {
+        const long long at = ((long long)kj * KVH + kvh) * D + col;
+        store(dk + at, acc_k[n][e] * scale);
+        store(dv + at, acc_v[n][e]);
+      }
+    }
+}
+
+// Dynamic shared memory of one block: K, V, two Q and two dO tiles, and
+// two buffers each of lse and delta.
+template <typename T, int DP>
+constexpr int smem_bytes() {
+  return (int)((2 * BKV + 4 * q_tile(DP)) * (DP + Pad<T>::value) *
+                   sizeof(T) +
+               4 * q_tile(DP) * sizeof(float));
+}
+
+template <typename T, int DP>
+cudaError_t launch_dkv(const void* const* p, int S, int H, int KVH, int D,
+                       const Strides& st, int causal, int window, float scale,
+                       cudaStream_t stream) {
+  constexpr int smem = smem_bytes<T, DP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // The 16-byte copy path of a tensor: its pointer, row and head strides
+  // and head_dim all in whole 16-byte units.
+  constexpr long long V = 16 / sizeof(T);
+  auto whole = [&](const void* ptr, long long ss, long long sh) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && ss % V == 0 &&
+           sh % V == 0 && D % V == 0;
+  };
+  const int vec = (whole(p[0], st.q_ss, st.q_sh) ? VEC_Q : 0) |
+                  (whole(p[1], st.k_ss, st.k_sh) ? VEC_K : 0) |
+                  (whole(p[2], st.v_ss, st.v_sh) ? VEC_V : 0) |
+                  (whole(p[3], st.do_ss, st.do_sh) ? VEC_DO : 0);
+  const dim3 grid((S + BKV - 1) / BKV, KVH);
+  flash_bwd_dkv_kernel<T, DP><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
+      static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
+      static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
+      static_cast<T*>(const_cast<void*>(p[6])),
+      static_cast<T*>(const_cast<void*>(p[7])), S, KVH, H / KVH, D, st, vec,
+      causal, window, scale);
+  return cudaGetLastError();
+}
+
+using Launcher = cudaError_t (*)(const void* const*, int, int, int, int,
+                                 const Strides&, int, int, float,
+                                 cudaStream_t);
+
+// The template instances with head_dim padded to 16, 32, 64 or 128.
+template <typename T>
+Launcher dkv_for(int D) {
+  return D <= 16 ? &launch_dkv<T, 16>
+       : D <= 32 ? &launch_dkv<T, 32>
+       : D <= 64 ? &launch_dkv<T, 64>
+                 : &launch_dkv<T, 128>;
+}
+
+template <typename T>
+int smem_for(int D) {
+  return D <= 16 ? smem_bytes<T, 16>()
+       : D <= 32 ? smem_bytes<T, 32>()
+       : D <= 64 ? smem_bytes<T, 64>()
+                 : smem_bytes<T, 128>();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q and dout (S, H, D), k and v (S, KVH, D), with unit stride along D and
+// the row and head strides in `strides` (elements: q, k, v, dout, each
+// row then head); lse and delta (H, S) f32 contiguous; dk and dv written
+// (S, KVH, D) contiguous in k's type, each the sum over the H / KVH query
+// heads that share the KV head. dtype: 0 = f32, 1 = bf16. window <= 0
+// means none. Returns the CUDA error of the launch (0 on success).
+int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk, void* dv, int S, int H, int KVH, int D,
+                  const long long* strides, int causal, int window,
+                  float scale, int dtype, void* stream) {
+  if (S < 1 || H < 1 || KVH < 1 || H % KVH != 0 || D < 1 || D > 128 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const void* p[] = {q, k, v, dout, lse, delta, dk, dv};
+  const Strides st{strides[0], strides[1], strides[2], strides[3],
+                   strides[4], strides[5], strides[6], strides[7]};
+  const Launcher f = dtype == 0 ? dkv_for<float>(D) : dkv_for<bf16>(D);
+  return (int)f(p, S, H, KVH, D, st, causal, window, scale,
+                static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of dynamic shared memory a block of the instance for (D, dtype)
+// takes.
+int flash_bwd_dkv_smem_bytes(int D, int dtype) {
+  return dtype == 0 ? smem_for<float>(D) : smem_for<bf16>(D);
+}
+
+const char* flash_bwd_dkv_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

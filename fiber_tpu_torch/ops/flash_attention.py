@@ -1,6 +1,6 @@
 """Flash attention, forward and backward: the CUDA kernels
-``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` and their plain PyTorch
-versions.
+``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` (dq) and
+``csrc/flash_bwd_dkv.cu`` (dk and dv) and their plain PyTorch versions.
 
 Counterpart of ``fiber_tpu/ops/pallas_attention.py`` (``flash_attention``,
 ``flash_attention_lse``, the forward kernel ``_fwd_kernel`` and the
@@ -140,16 +140,21 @@ def _fwd_lib():
     return lib
 
 
+#: backward kernel -> (its source in ``csrc/``, its number of outputs)
+_BWD_KERNELS = {"flash_bwd_dq": ("flash_bwd", 1),
+                "flash_bwd_dkv": ("flash_bwd_dkv", 2)}
+
+
 @functools.cache
-def _bwd_lib():
-    lib = _build.load("flash_bwd")
+def _bwd_lib(name):
+    """The loaded library of backward kernel ``name``."""
+    source, n_out = _BWD_KERNELS[name]
+    lib = _build.load(source)
     p, i = ctypes.c_void_p, ctypes.c_int
     # q, k, v, dO, lse, delta, outputs..., S, H, KVH, D, strides,
     # causal, window, scale, dtype, stream
-    _declare(lib, "flash_bwd_dq", [p] * 7 + [i] * 4 + [p, i, i,
-                                                       ctypes.c_float, i, p])
-    _declare(lib, "flash_bwd_dkv", [p] * 8 + [i] * 4 + [p, i, i,
-                                                        ctypes.c_float, i, p])
+    _declare(lib, name, [p] * (6 + n_out) + [i] * 4
+             + [p, i, i, ctypes.c_float, i, p])
     return lib
 
 
@@ -286,7 +291,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, dlse=None, *,
 
 
 def _launch_bwd(name, outs, q, k, v, dout, lse, delta, causal, window):
-    """Launches backward kernel ``name`` of ``csrc/flash_bwd.cu`` on q's
+    """Launches backward kernel ``name`` (``_BWD_KERNELS``) on q's
     device and current stream, writing ``outs``; raises with the CUDA
     error string when the launch fails."""
     _check_cuda(q=q, k=k, v=v, dout=dout)
@@ -296,7 +301,7 @@ def _launch_bwd(name, outs, q, k, v, dout, lse, delta, causal, window):
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
         v.stride(1), dout.stride(0), dout.stride(1))
     ptrs = [x.data_ptr() for x in (q, k, v, dout, lse, delta, *outs)]
-    lib = _bwd_lib()
+    lib = _bwd_lib(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, name)(*ptrs, s, h, k.shape[1], d, strides,
@@ -333,7 +338,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = False,
     """The dk/dv kernel's wrapper: (dk, dv), each ``(S, kv_heads,
     head_dim)`` in k's dtype, summed over every query head of a GQA
     group. On CUDA tensors it launches ``flash_bwd_dkv`` from
-    ``csrc/flash_bwd.cu`` and counts the launch in
+    ``csrc/flash_bwd_dkv.cu`` (tensor cores: bf16 directly, f32 as
+    3xTF32) and counts the launch in
     ``flash_bwd_dkv.launches``; on CPU tensors it runs the plain
     version."""
     _check_bwd(q, k, v, dout, lse, delta, causal, window)

@@ -11,8 +11,9 @@ port's own count of the bytes one ring rotation moves.
 The peaks are one NVIDIA H100 SXM's, dense, from NVIDIA's data sheet;
 they assume the card's full 700 W power limit. :func:`bound_ms` is the
 least time the card could take for a piece of work: the larger of its
-bytes over the memory rate and its operations over the peak of the type
-that does them.
+bytes over the memory rate and its operations over the fastest rate the
+card has for inputs of their type (:func:`op_peak`: for f32 inputs that
+is 3xTF32 on the tensor cores, not FMA on the CUDA cores).
 """
 
 from __future__ import annotations
@@ -29,6 +30,11 @@ H100_PEAK_FLOPS = {
 }
 #: HBM3 bytes per second
 H100_MEM_BYTES_PER_S = 3.35e12
+#: TF32 products per f32 product under 3xTF32: each operand split into
+#: big = tf32(x) and small = tf32(x - big), summing big*big + big*small +
+#: small*big in f32, which keeps f32's precision where one TF32 product
+#: does not
+TF32_PASSES = 3
 
 
 def matmul_flops(m: int, k: int, n: int) -> float:
@@ -99,10 +105,25 @@ def ring_exchange_bytes(arrays) -> int:
     return sum(2 * x.nbytes for per_rank in arrays for x in per_rank)
 
 
+def op_peak(op_type: str):
+    """(operations per second, engine): the fastest rate the card has for
+    operations on ``op_type`` inputs. For float32 that is the lesser time
+    of FMA on the CUDA cores (67 TFLOP/s) and 3xTF32 on the tensor cores
+    (``TF32_PASSES`` TF32 products per f32 product: 495 / 3 = 165 TFLOP/s),
+    so "3xtf32"; every other type runs at its own tensor-core peak."""
+    if op_type == "float32":
+        engines = {"cuda cores": H100_PEAK_FLOPS["float32"],
+                   "3xtf32": H100_PEAK_FLOPS["tf32"] / TF32_PASSES}
+        engine = max(engines, key=engines.get)
+        return engines[engine], engine
+    return H100_PEAK_FLOPS[op_type], "tensor cores"
+
+
 def bound_ms(flops: float, nbytes: float, op_type: str):
     """(least time in ms, "bytes" or "operations") for work of ``flops``
-    operations of ``op_type`` that must move ``nbytes``."""
-    t_ops = flops / H100_PEAK_FLOPS[op_type]
+    operations on ``op_type`` inputs that must move ``nbytes``; the
+    operations run at :func:`op_peak`'s rate."""
+    t_ops = flops / op_peak(op_type)[0]
     t_mem = nbytes / H100_MEM_BYTES_PER_S
     if t_ops >= t_mem:
         return t_ops * 1e3, "operations"

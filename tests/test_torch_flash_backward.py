@@ -8,6 +8,8 @@ outputs and gradients rounded to bf16 at different places), the forward
 tests' bounds.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -183,7 +185,120 @@ def test_backward_flops_convention():
                                          part="dq") == 1.5 * fwd
         assert flops.attention_bwd_flops(*args[:4], window=args[4],
                                          part="dkv") == 2 * fwd
-    # the bounds the kernels are held to at the LM's shape, f32 peak
+    # the bounds the kernels are held to at the LM's shape: an f32 product
+    # at its fastest is three TF32 products on the tensor cores (3xTF32,
+    # 165 TFLOP/s), not FMA on the CUDA cores (67 TFLOP/s, 3.077 ms for dq)
+    assert flops.op_peak("float32") == (495e12 / 3, "3xtf32")
+    assert flops.op_peak("bfloat16") == (989e12, "tensor cores")
     dq = flops.attention_bwd_flops(16384, 8, 32, part="dq")
-    assert flops.bound_ms(dq, 0, "float32")[0] == pytest.approx(3.077,
-                                                                abs=1e-3)
+    dkv = flops.attention_bwd_flops(16384, 8, 32, part="dkv")
+    assert dq / flops.H100_PEAK_FLOPS["float32"] * 1e3 == pytest.approx(
+        3.077, abs=1e-3)
+    assert flops.bound_ms(dq, 0, "float32") == (
+        pytest.approx(1.249, abs=1e-3), "operations")
+    assert flops.bound_ms(dkv, 0, "float32") == (
+        pytest.approx(1.666, abs=1e-3), "operations")
+    assert flops.bound_ms(dkv, 0, "bfloat16")[0] == pytest.approx(0.278,
+                                                                  abs=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of csrc/flash_bwd_dkv.cu on f32 inputs, emulated: its four
+# products (S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q) run on
+# TF32 tensor cores, whose operands keep 10 of f32's 23 mantissa bits. Each
+# product of two TF32 values is exact in f32, so an f32 matmul of rounded
+# operands is the tensor core's product up to the order of the f32 sums.
+# ---------------------------------------------------------------------------
+
+
+def _tf32(x, rounded=True):
+    """f32 as a TF32 operand: rounded as cvt.rna.tf32.f32 rounds (to
+    nearest, ties away from zero: half of the last kept bit added to the
+    magnitude), then the 13 dropped bits cleared; or, for an operand
+    handed to the tensor core whole, the dropped bits cleared alone."""
+    bits = x.contiguous().view(torch.int32)
+    if rounded:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _product(a, b, scheme):
+    """a @ b in f32 as the kernel computes it: one TF32 product, or 3xTF32
+    (big = tf32(x), small = x - big, of which the tensor core keeps the
+    top bits; small*big + big*small + big*big)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if scheme == "tf32":
+        return a_big @ b_big
+    a_small = _tf32(a - a_big, rounded=False)
+    b_small = _tf32(b - b_big, rounded=False)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _dkv_emulated(q, k, v, dout, lse, delta, scheme):
+    """dk, dv (S, kv_heads, D) of the kernel's f32 path, per query head and
+    summed over each GQA group, causal; f32 elementwise work as in the
+    kernel."""
+    s, h, d = q.shape
+    group = h // k.shape[1]
+    keep = torch.ones(s, s, dtype=torch.bool).tril()     # (query, key)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for ih in range(h):
+        kvh = ih // group
+        qh, doh = q[:, ih], dout[:, ih]
+        kh, vh = k[:, kvh], v[:, kvh]
+        st = _product(kh, qh.T, scheme)                  # (key, query)
+        pt = torch.exp(st / d ** 0.5 - lse[ih][None, :]) * keep.T
+        dpt = _product(vh, doh.T, scheme)
+        dst = pt * (dpt - delta[ih][None, :])
+        dv[:, kvh] += _product(pt, doh, scheme)
+        dk[:, kvh] += _product(dst, qh, scheme) / d ** 0.5
+    return dk, dv
+
+
+@functools.cache
+def _dkv_f64_case(kv_heads):
+    """Inputs at S = 2048, D = 32 (4 query heads), causal, with lse and
+    delta rounded to f32 from an f64 forward, and dk, dv recomputed in
+    f64."""
+    s, h, d = 2048, 4, 32
+    rng = np.random.default_rng(11)
+    q, dout = (rng.standard_normal((s, h, d)) for _ in range(2))
+    k, v = (rng.standard_normal((s, kv_heads, d)) for _ in range(2))
+    q, k, v, dout = (torch.from_numpy(x) for x in (q, k, v, dout))
+    group = h // kv_heads
+    kf, vf = (x.repeat_interleave(group, dim=1).permute(1, 0, 2)
+              for x in (k, v))
+    qf, dof = q.permute(1, 0, 2), dout.permute(1, 0, 2)
+    sc = qf @ kf.transpose(1, 2) / d ** 0.5
+    sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(),
+                        -torch.inf)
+    lse = torch.logsumexp(sc, dim=-1)
+    p = torch.exp(sc - lse[..., None])
+    out = p @ vf
+    delta = (dof * out).sum(-1)
+    ds = p * (dof @ vf.transpose(1, 2) - delta[..., None])
+    dk = (ds.transpose(1, 2) @ qf / d ** 0.5).reshape(
+        kv_heads, group, s, d).sum(1).permute(1, 0, 2)
+    dv = (p.transpose(1, 2) @ dof).reshape(kv_heads, group, s, d).sum(
+        1).permute(1, 0, 2)
+    f32 = (q.float(), k.float(), v.float(), dout.float(), lse.float(),
+           delta.float())
+    return f32, (dk, dv)
+
+
+@pytest.mark.parametrize("kv_heads", [4, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("scheme", ["tf32", "3xtf32"])
+def test_dkv_f32_products_need_3xtf32(scheme, kv_heads):
+    """Why the dk/dv kernel runs f32 as 3xTF32: against an f64
+    recomputation, its emulated products stay under the card's f32 parity
+    bound (chip_smoke.py's BWD_TOL, 5e-5 of the largest gradient) with
+    3xTF32 and miss it with one TF32 product."""
+    bound = 5e-5
+    inputs, want = _dkv_f64_case(kv_heads)
+    got = _dkv_emulated(*inputs, scheme)
+    errs = [((g.double() - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(got, want)]
+    if scheme == "3xtf32":
+        assert max(errs) < bound / 10, errs
+    else:
+        assert min(errs) > bound, errs
