@@ -7,11 +7,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds every CUDA kernel from ``fiber_tpu_torch/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version on the card (and
-counts the tensor-core instructions in the dk/dv kernel's SASS), drives
-the port's main paths at full width (the TinyLM flash forward, greedy
-decoding and training; the OpenAI-ES CartPole flagship; ring and
-Ulysses attention and the TinyLM forward over a 4-rank mesh on the
-card; one ES step over that mesh) and checks what comes out. Phases
+counts the tensor-core instructions in the SASS of the forward and dk/dv
+kernels), drives the port's main paths at full width (the TinyLM flash
+forward, greedy decoding and training; the OpenAI-ES CartPole flagship;
+ring and Ulysses attention and the TinyLM forward over a 4-rank mesh on
+the card; one ES step over that mesh) and checks what comes out. Phases
 print one JSON line each (build, kernels, kernels_bwd, kernels_ring,
 lm_forward, lm_generate, lm_train, es, ring_attention, lm_mesh,
 es_mesh); then the card's name and power limit as nvidia-smi reports
@@ -52,15 +52,21 @@ EDGE_SHAPES = (
     ("edge_d128_window", 1000, 3, 1, 128, "bfloat16", 100, True),
     ("edge_d16_window1", 130, 2, 1, 16, "float32", 1, True),
 )
-# Backward-only edge shapes whose inputs the dk/dv kernel cannot copy in
-# 16-byte units, so they take its scalar load path: head_dim 20 in bf16
-# (not a whole number of 8-element vectors), and f32 tensors that start
-# one element into their buffers (rows 4 bytes off 16-byte alignment).
-# (name, S, heads, kv_heads, head_dim, dtype, window, causal, offset)
-BWD_EDGE_SHAPES = (
+# Edge shapes whose inputs the forward and dk/dv kernels cannot copy in
+# 16-byte units, so they take their scalar load paths: head_dim 20 in
+# bf16 (not a whole number of 8-element vectors), and f32 tensors that
+# start one element into their buffers (rows 4 bytes off 16-byte
+# alignment). (name, S, heads, kv_heads, head_dim, dtype, window,
+# causal, offset)
+SCALAR_EDGE_SHAPES = (
     ("edge_d20_bf16_scalar", 70, 2, 1, 20, "bfloat16", None, True, 0),
     ("edge_d24_f32_unaligned", 90, 4, 2, 24, "float32", 7, True, 1),
 )
+# The ring's off-diagonal forward launch, timed: one rank's 4096-row
+# block of bench.py --attention's shape against another rank's keys, not
+# causal. (name, S, heads, kv_heads, head_dim, dtype, window, causal)
+RING_BLOCK_SHAPE = ("ring_block_bf16_noncausal", 4096, 8, 8, 64, "bfloat16",
+                    None, False)
 # Output tolerance by dtype: f32 results differ by summation order only;
 # bf16 outputs may round to neighbouring bf16 values (one ulp at |o| ~ 4).
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -118,8 +124,12 @@ L2_MISS_BYTES = 4 * 50 * 10**6
 ES_RANK_TOL = 1e-5    # gradient of the 4-rank step vs a plain recomputation
 # The C interface's dtype codes
 DTYPE_CODE = {"float": 0, "bfloat16": 1}
-# What runs the dk/dv kernel's products, by input type
-DKV_ENGINE = {"float32": "mma.sync 3xtf32", "bfloat16": "mma.sync bf16"}
+# What runs the products of the forward and dk/dv kernels, by input type
+ENGINE = {"float32": "mma.sync 3xtf32", "bfloat16": "mma.sync bf16"}
+# The kernels on the tensor cores: HMMA in their SASS, no spills in any of
+# their 8 templates (f32 and bf16 at head_dim 16, 32, 64 and 128), and a
+# C function that gives each template's shared memory
+TENSOR_CORE_LIBS = ("flash_fwd", "flash_bwd_dkv")
 SOURCES = {"flash_fwd": "fiber_tpu_torch/csrc/flash_fwd.cu",
            "flash_bwd_dq": "fiber_tpu_torch/csrc/flash_bwd.cu",
            "flash_bwd_dkv": "fiber_tpu_torch/csrc/flash_bwd_dkv.cu",
@@ -233,22 +243,25 @@ def phase_build():
     secs = time.perf_counter() - t0
     check({"flash_fwd", "flash_bwd", "flash_bwd_dkv", "dma_ring"}
           <= set(libs), f"kernels missing from the build: {sorted(libs)}")
-    # The dk/dv kernel's products run on the tensor cores: its SASS holds
-    # HMMA instructions (counted where the toolkit has cuobjdump).
+    # The forward and dk/dv kernels' products run on the tensor cores:
+    # their SASS holds HMMA instructions (counted where the toolkit has
+    # cuobjdump).
     hmma = {k: _build.sass_count(k, "HMMA") for k in libs}
-    check(hmma["flash_bwd_dkv"] is None or hmma["flash_bwd_dkv"] > 0,
-          "flash_bwd_dkv's SASS holds no HMMA instruction")
     ptxas = {k: _build.ptxas_report(k) for k in libs}
-    # Every dk/dv template: no spills, and its shared memory per block.
-    smem = ctypes.CDLL(str(libs["flash_bwd_dkv"])).flash_bwd_dkv_smem_bytes
-    smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    for row in ptxas["flash_bwd_dkv"]:
-        dtype, dp = re.search(r"<(\w+),(\d+)>", row["function"]).groups()
-        row["smem_bytes"] = smem(int(dp), DTYPE_CODE[dtype])
-        check(row["spill_stores"] == row["spill_loads"] == 0,
-              f"{row['function']} spills")
-    check(len(ptxas["flash_bwd_dkv"]) == 8,
-          f"dk/dv templates built: {ptxas['flash_bwd_dkv']}")
+    for name in TENSOR_CORE_LIBS:
+        check(hmma[name] is None or hmma[name] > 0,
+              f"{name}'s SASS holds no HMMA instruction")
+        # Every template: no spills, and its shared memory per block.
+        smem = getattr(ctypes.CDLL(str(libs[name])), f"{name}_smem_bytes")
+        smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        for row in ptxas[name]:
+            dtype, dp = re.search(r"<(\w+),(\d+)>",
+                                  row["function"]).groups()
+            row["smem_bytes"] = smem(int(dp), DTYPE_CODE[dtype])
+            check(row["spill_stores"] == row["spill_loads"] == 0,
+                  f"{row['function']} spills")
+        check(len(ptxas[name]) == 8,
+              f"{name} templates built: {ptxas[name]}")
     emit({"phase": "build", "seconds": secs,
           "libraries": {k: v.name for k, v in libs.items()},
           "sass_hmma": hmma, "ptxas": ptxas})
@@ -268,14 +281,14 @@ def _inputs(torch, s, h, kvh, d, dtype, seed, offset=0):
                  for n in (h, kvh, kvh))
 
 
-def _sdpa_call(torch, window, s, gqa):
+def _sdpa_call(torch, window, s, gqa, causal=True):
     """The library's attention as one call on (1, heads, S, head_dim)
-    tensors, for timing only: causal, GQA by ``enable_gqa``, the window
-    by an explicit boolean mask."""
+    tensors, for timing only: causal or not, GQA by ``enable_gqa``, the
+    window by an explicit boolean mask."""
     F = torch.nn.functional
     if window is None:
         return lambda qt, kt, vt: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=gqa)
+            qt, kt, vt, is_causal=causal, enable_gqa=gqa)
     pos = torch.arange(s, device="cuda")
     diff = pos[:, None] - pos[None, :]
     mask = (diff >= 0) & (diff < window)
@@ -283,9 +296,10 @@ def _sdpa_call(torch, window, s, gqa):
         qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
 
 
-def _sdpa(torch, q, k, v, window):
+def _sdpa(torch, q, k, v, window, causal=True):
     """The library's attention forward on the same inputs."""
-    call = _sdpa_call(torch, window, q.shape[0], k.shape[1] != q.shape[1])
+    call = _sdpa_call(torch, window, q.shape[0], k.shape[1] != q.shape[1],
+                      causal)
     qt, kt, vt = (x.permute(1, 0, 2).unsqueeze(0) for x in (q, k, v))
     return lambda: call(qt, kt, vt)
 
@@ -307,9 +321,11 @@ def phase_kernels(torch, card):
     from fiber_tpu_torch.utils import flops
 
     rows = []
-    for name, s, h, kvh, d, dt, window, causal in EDGE_SHAPES:
+    edges = [e + (0,) for e in EDGE_SHAPES] + list(SCALAR_EDGE_SHAPES)
+    for name, s, h, kvh, d, dt, window, causal, offset in edges:
         dtype = getattr(torch, dt)
-        q, k, v = _inputs(torch, s, h, kvh, d, dtype, seed=len(rows))
+        q, k, v = _inputs(torch, s, h, kvh, d, dtype, seed=len(rows),
+                          offset=offset)
         o, lse = fa.flash_fwd(q, k, v, causal=causal, window=window)
         ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal,
                                                 window=window)
@@ -318,16 +334,18 @@ def phase_kernels(torch, card):
         lse_err = (lse - rlse).abs().max().item()
         check(err < TOL[dt] and lse_err < LSE_TOL,
               f"{name}: max_abs_err {err} lse_err {lse_err}")
-        rows.append({"shape": name, "max_abs_err": err, "lse_err": lse_err,
+        rows.append({"shape": name, "offset": offset, "engine": ENGINE[dt],
+                     "max_abs_err": err, "lse_err": lse_err,
                      "tol": TOL[dt]})
 
     main = {}
-    for name, s, h, kvh, d, dt, window in MAIN_SHAPES:
+    timed = [m + (True,) for m in MAIN_SHAPES] + [RING_BLOCK_SHAPE]
+    for name, s, h, kvh, d, dt, window, causal in timed:
         dtype = getattr(torch, dt)
         q, k, v = _inputs(torch, s, h, kvh, d, dtype, seed=len(rows))
-        o, lse = fa.flash_fwd(q, k, v, causal=True, window=window)
-        ro, rlse = fa.flash_attention_reference(q, k, v, causal=True,
-                                                window=window)
+        kw = dict(causal=causal, window=window)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        ro, rlse = fa.flash_attention_reference(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (o.float() - ro.float()).abs().max().item()
         lse_err = (lse - rlse).abs().max().item()
@@ -335,16 +353,17 @@ def phase_kernels(torch, card):
         check(err < TOL[dt] and lse_err < LSE_TOL,
               f"{name}: max_abs_err {err} lse_err {lse_err}")
         del ro, rlse
-        ms = cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, causal=True,
-                                                 window=window), reps=10)
+        ms = cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, **kw), reps=10)
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_reference(
-            q, k, v, causal=True, window=window), reps=3)
-        library_ms = cuda_ms(torch, _sdpa(torch, q, k, v, window), reps=5)
-        n_flops = flops.attention_flops(s, h, d, causal=True, window=window)
+            q, k, v, **kw), reps=3)
+        library_ms = cuda_ms(torch, _sdpa(torch, q, k, v, window, causal),
+                             reps=5)
+        n_flops = flops.attention_flops(s, h, d, **kw)
         nbytes = (q.nbytes + k.nbytes + v.nbytes + o.nbytes + lse.nbytes)
         bound, bound_by = flops.bound_ms(n_flops, nbytes, dt)
         row = {"shape": name, "S": s, "heads": h, "kv_heads": kvh,
                "head_dim": d, "dtype": dt, "window": window,
+               "causal": causal, "engine": ENGINE[dt],
                "max_abs_err": err, "lse_err": lse_err, "tol": TOL[dt],
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound, "bound_by": bound_by,
@@ -413,7 +432,7 @@ def phase_kernels_bwd(torch, card):
     from fiber_tpu_torch.utils import flops
 
     shapes = [e + (True, 0) for e in EDGE_SHAPES]
-    shapes += [e[:8] + (True, e[8]) for e in BWD_EDGE_SHAPES]
+    shapes += [e[:8] + (True, e[8]) for e in SCALAR_EDGE_SHAPES]
     shapes += [m + (True, m[0] == "lm_f32_gqa", 0) for m in MAIN_SHAPES]
     rows, main = [], {}
     for name, s, h, kvh, d, dt, window, causal, with_dlse, offset in shapes:
@@ -444,7 +463,7 @@ def phase_kernels_bwd(torch, card):
                "head_dim": d, "dtype": dt, "window": window,
                "causal": causal, "dlse": with_dlse, "offset": offset,
                "tol": BWD_TOL[dt],
-               "dkv_engine": DKV_ENGINE[dt],
+               "dkv_engine": ENGINE[dt],
                "dq_max_abs_err": dq_err, "dq_rel_err": dq_rel,
                "dkv_max_abs_err": dkv_err, "dkv_rel_err": dkv_rel}
         if s == LM_CFG["max_seq"]:
@@ -999,12 +1018,17 @@ def main():
     phase_es_mesh(torch)
 
     lm, lm_bwd = fwd_rows["lm_f32"], bwd_rows["lm_f32"]
+    bf16 = fwd_rows["attention_bf16"]
     summary = [{
-        "name": "flash_fwd", "max_abs_err": lm["max_abs_err"],
+        "name": "flash_fwd", "engine": lm["engine"],
+        "max_abs_err": lm["max_abs_err"],
         "ms": lm["ms"], "plain_ms": lm["plain_ms"],
         "bound_ms": lm["bound_ms"], "bound_by": lm["bound_by"],
         "library_ms": lm["library_ms"], "bound_engine": lm["bound_engine"],
-        "launches_lm_forward": fwd_launches}]
+        "launches_lm_forward": fwd_launches,
+        "bfloat16": {k: bf16[k] for k in (
+            "shape", "engine", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}}]
     for part in ("dq", "dkv"):
         row = lm_bwd[part]
         summary.append({

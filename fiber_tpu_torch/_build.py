@@ -3,10 +3,12 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes``. Libraries go into ``_build/`` beside this file, named by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing is built at import time: the
-first call of a kernel builds it, and :func:`build_all` builds every
-source at once (one ``nvcc`` process per source, all started together).
+hash of the source, every header in ``csrc/`` (``*.cuh``, which a
+source may include) and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is. Nothing is built at
+import time: the first call of a kernel builds it, and
+:func:`build_all` builds every source at once (one ``nvcc`` process per
+source, all started together).
 """
 
 from __future__ import annotations
@@ -56,8 +58,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

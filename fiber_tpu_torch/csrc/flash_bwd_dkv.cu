@@ -62,15 +62,13 @@
 //   instead (per tensor, chosen by the launcher).
 //
 // q, k, v and dO are read through their (S, heads, head_dim) strides; dk
-// and dv are written contiguous, (S, KVH, D), in k's type.
+// and dv are written contiguous, (S, KVH, D), in k's type. The copy,
+// ldmatrix, mma and split helpers are mma_sm90.cuh's, shared with the
+// forward (flash_fwd.cu).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_sm90.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int BKV = 64;            // KV rows per block
 constexpr int WARPS = BKV / 16;    // one warp per 16 KV rows
@@ -89,163 +87,12 @@ __host__ __device__ constexpr int min_blocks(bool f32, int dp) {
   return (f32 ? dp <= 32 : dp <= 64) ? 3 : 1;
 }
 
-// Elements of padding per shared-memory row: 16 bytes of bf16 (ldmatrix
-// rows then start on distinct bank quads), 4 floats for f32.
-template <typename T> struct Pad;
-template <> struct Pad<float> { static constexpr int value = 4; };
-template <> struct Pad<bf16> { static constexpr int value = 8; };
-
 struct Strides {                   // row (ss) and head (sh) strides, elements
   long long q_ss, q_sh, k_ss, k_sh, v_ss, v_sh, do_ss, do_sh;
 };
 
 // Bits of `vec`: the 16-byte copy path may be used for q, k, v, dO.
 constexpr int VEC_Q = 1, VEC_K = 2, VEC_V = 4, VEC_DO = 8;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of `bytes` (16 or 4) with zero fill: `src_bytes` 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// d += a b: 16 x 8 x 16, bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b: 16 x 8 x 8, TF32 operands, f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x = big + small: big = tf32(x), rounded to nearest with ties away from
-// zero as cvt.rna.tf32.f32 rounds (half of the last kept bit added to the
-// magnitude, the 13 dropped bits cleared), and small = x - big, exact in
-// f32, whose low 13 bits the tensor core drops. Integer adds and masks,
-// because cvt.rna compiles to a longer sequence of compares and selects
-// (SASS for sm_90a), and at several splits a product the f32 path is
-// bound by issued instructions.
-__device__ __forceinline__ uint32_t round_tf32(uint32_t bits) {
-  return (bits + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = round_tf32(__float_as_uint(x));
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// 3xTF32: d += a b in about f32 precision, from split operands.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4],
-                                           const uint32_t (&bb)[2],
-                                           const uint32_t (&bs)[2]) {
-  mma_tf32(d, as, bb[0], bb[1]);
-  mma_tf32(d, ab, bs[0], bs[1]);
-  mma_tf32(d, ab, bb[0], bb[1]);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float zero_of(float) { return 0.f; }
-__device__ __forceinline__ bf16 zero_of(bf16) { return __float2bfloat16(0.f); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(bf16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// Copies rows [row0, row0 + ROWS) of one head's (S, D) slice with row
-// stride ss into a ROWS x (DP + pad) tile; rows past S and columns past D
-// are zero, so they add nothing to the products. `vec`: 16-byte cp.async
-// (the pointer, ss and D are whole 16-byte units); else scalar loads.
-template <typename T, int DP, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
-                                          int row0, int S, int D,
-                                          long long ss, bool vec) {
-  constexpr int LD = DP + Pad<T>::value;
-  if (vec) {
-    constexpr int V = 16 / sizeof(T);   // elements per 16-byte chunk
-    constexpr int CH = DP / V;          // chunks per row
-    for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
-      const int r = i / CH, c = (i % CH) * V;
-      const int s = row0 + r;
-      const bool ok = s < S && c < D;
-      cp_async16(dst + r * LD + c, ok ? src + s * ss + c : src, ok ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * DP; i += NT) {
-      const int r = i / DP, c = i % DP;
-      const int s = row0 + r;
-      dst[r * LD + c] = (s < S && c < D) ? src[s * ss + c] : zero_of(T());
-    }
-  }
-}
-
-// 2^x on the special-function unit (relative error about 2^-22); inputs
-// below -126 give 0, which is what a masked or negligible p is anyway.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// _keep_mask plus the ragged edge: query row qi may use key row kj.
-__device__ __forceinline__ bool keep(int qi, int kj, int S, int causal,
-                                     int window) {
-  bool k = qi < S && kj < S;
-  if (causal) k = k && qi >= kj && (window <= 0 || qi - kj < window);
-  return k;
-}
 
 // The warp's 16 x BQ tile of A B^T over head_dim: A rows wrow.. of sa
 // (KV rows), B rows of sb (query rows). acc[j] holds query columns
@@ -416,10 +263,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int h = kvh * group + it / n_qt;
     const int q0 = q_begin + (it % n_qt) * BQ;
     const int b = it & 1;
-    load_tile<T, DP, BQ>(sq + b * BQ * LD, q + h * st.q_sh, q0, S, D,
-                         st.q_ss, vec & VEC_Q);
-    load_tile<T, DP, BQ>(sdo + b * BQ * LD, dout + h * st.do_sh, q0, S, D,
-                         st.do_ss, vec & VEC_DO);
+    load_tile<T, DP, BQ, NT>(sq + b * BQ * LD, q + h * st.q_sh, q0, S, D,
+                             st.q_ss, vec & VEC_Q);
+    load_tile<T, DP, BQ, NT>(sdo + b * BQ * LD, dout + h * st.do_sh, q0, S,
+                             D, st.do_ss, vec & VEC_DO);
     for (int i = threadIdx.x; i < 2 * BQ; i += NT) {
       const bool is_delta = i >= BQ;
       const int c = is_delta ? i - BQ : i;
@@ -430,10 +277,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
 
-  load_tile<T, DP, BKV>(sk, k + kvh * st.k_sh, k0, S, D, st.k_ss,
-                        vec & VEC_K);
-  load_tile<T, DP, BKV>(sv, v + kvh * st.v_sh, k0, S, D, st.v_ss,
-                        vec & VEC_V);
+  load_tile<T, DP, BKV, NT>(sk, k + kvh * st.k_sh, k0, S, D, st.k_ss,
+                            vec & VEC_K);
+  load_tile<T, DP, BKV, NT>(sv, v + kvh * st.v_sh, k0, S, D, st.v_ss,
+                            vec & VEC_V);
   if (n_it > 0) stage(0);
   cp_async_commit();
 

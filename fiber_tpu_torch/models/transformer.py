@@ -71,9 +71,12 @@ class TinyLM(nn.Module):
     vocab)`` logits; ``loss(tokens)`` is the mean next-token
     cross-entropy; ``generate`` decodes with per-layer KV caches.
 
-    ``pos`` is ``"learned"`` (absolute table) or ``"rope"`` (rotary, half
-    split, base 10000). ``kv_heads`` < ``heads`` is grouped-query
-    attention; ``window`` is a causal sliding window and needs
+    ``attention`` picks the plane: ``"ring"`` (the default, as in the
+    JAX package), ``"ulysses"``, ``"flash"`` (the flash-attention
+    kernels) or ``"reference"`` (the full score matrix). ``pos`` is
+    ``"learned"`` (absolute table) or ``"rope"`` (rotary, half split,
+    base 10000). ``kv_heads`` < ``heads`` is grouped-query attention;
+    ``window`` is a causal sliding window and needs
     ``attention="flash"`` on one rank. ``mesh`` (a
     :class:`~fiber_tpu_torch.parallel.mesh.Mesh` with a ``pool`` axis)
     carries the ``"ring"`` and ``"ulysses"`` planes, and ``"flash"``
@@ -92,7 +95,7 @@ class TinyLM(nn.Module):
         max_seq: int = 256,
         mlp_mult: int = 4,
         mesh: Optional[Mesh] = None,
-        attention: str = "flash",
+        attention: str = "ring",
         kv_heads: Optional[int] = None,
         pos: str = "learned",
         window: Optional[int] = None,

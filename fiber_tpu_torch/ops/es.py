@@ -2,13 +2,13 @@
 rollout, centered-rank shaping, gradient estimate and update.
 
 Counterpart of ``fiber_tpu/ops/es.py`` (``apply_es_update``,
-``centered_rank``, ``EvolutionStrategy.step`` and ``run``). The JAX step
-is one SPMD program over the mesh; on the port's single-controller mesh
-(``parallel/mesh.py``) its per-device body is a loop over ranks: every
-rank evaluates its own antithetic half-population, fitness is
-all-gathered rank-major before ranking, and the per-rank gradients are
-summed (``ops/collectives``). ``run_fused`` and ``AskTellES`` are later
-slices of the port.
+``centered_rank``, ``EvolutionStrategy.step``, ``run`` and
+``reset_optimizer``). The JAX step is one SPMD program over the mesh;
+on the port's single-controller mesh (``parallel/mesh.py``) its
+per-device body is a loop over ranks: every rank evaluates its own
+antithetic half-population, fitness is all-gathered rank-major before
+ranking, and the per-rank gradients are summed (``ops/collectives``).
+``run_fused`` and ``AskTellES`` are later slices of the port.
 """
 
 from __future__ import annotations
@@ -118,6 +118,12 @@ class EvolutionStrategy:
             zeros = torch.zeros_like(params)
             self._opt_state = (zeros, zeros, 0.0)
         return self._opt_state
+
+    def reset_optimizer(self) -> None:
+        """Drops the Adam state (m, v, t), so that the next step starts it
+        anew: one instance tracks one population's state, so call this
+        when switching populations."""
+        self._opt_state = None
 
     @torch.no_grad()
     def step(self, params, eps=None, states=None):

@@ -161,9 +161,10 @@ def _bwd_lib(name):
 def flash_fwd(q, k, v, *, causal: bool = False,
               window: Optional[int] = None):
     """The forward kernel's wrapper: (O, lse). On CUDA tensors it
-    launches ``flash_fwd`` from ``csrc/flash_fwd.cu`` and counts the
-    launch in ``flash_fwd.launches``; on CPU tensors it runs the plain
-    version. Not differentiable: :func:`flash_attention` is."""
+    launches ``flash_fwd`` from ``csrc/flash_fwd.cu`` (tensor cores:
+    bf16 directly, f32 as 3xTF32) and counts the launch in
+    ``flash_fwd.launches``; on CPU tensors it runs the plain version.
+    Not differentiable: :func:`flash_attention` is."""
     _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,

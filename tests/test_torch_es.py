@@ -150,6 +150,51 @@ def test_es_step_matches_jax(optimizer):
     assert np.abs(got_p.numpy() - _np(want_p)).max() < 1e-6
 
 
+def test_reset_optimizer_matches_jax():
+    """Adam-mode steps, a reset of the optimizer state, and steps again:
+    the same parameters as the JAX strategy's reset-and-rerun on the
+    same noise and initial states, within the one-step bound (1e-6) for
+    every step taken, as the f32 differences carry over. Without the
+    reset the Adam moments carry over and the parameters differ."""
+    jpol, pol = _policies()
+    pop, steps = 64, 100
+    mesh = Mesh(np.asarray(jax.devices()[:1]), ("pool",))
+
+    def jax_eval(theta, key):
+        return JaxCartPole.rollout(jpol.act, theta, key, max_steps=steps)
+
+    jes = JaxES(jax_eval, dim=jpol.dim, pop_size=pop, sigma=0.1, lr=0.03,
+                mesh=mesh, optimizer="adam")
+
+    def make():
+        return EvolutionStrategy(
+            lambda th, st: CartPole.rollout(pol.act, th, st,
+                                            max_steps=steps),
+            CartPole.reset, dim=pol.dim, pop_size=pop, sigma=0.1, lr=0.03,
+            optimizer="adam", device="cpu")
+
+    es, keep = make(), make()     # keep never resets
+    want = jpol.init(jax.random.PRNGKey(0))
+    got = kept = _t(_np(want))
+    for gen in range(4):
+        if gen == 2:
+            jes.reset_optimizer()
+            es.reset_optimizer()
+            assert es._opt_state is None
+        key = jax.random.PRNGKey(10 + gen)
+        want, _ = jes.step(want, key)
+        # es.py's derivation of the noise and initial states (device 0)
+        eps_key, eval_key = jax.random.split(jax.random.fold_in(key, 0))
+        eps = _t(_np(jax.random.normal(eps_key, (pop // 2, jpol.dim))))
+        states = _t(_np(jax.vmap(JaxCartPole.reset)(
+            jax.random.split(eval_key, pop))))
+        got, _ = es.step(got, eps=eps, states=states)
+        kept, _ = keep.step(kept, eps=eps, states=states)
+        assert np.abs(got.numpy() - _np(want)).max() < 1e-6 * (gen + 1)
+    assert es._opt_state[2] == 2.0 and keep._opt_state[2] == 4.0
+    assert np.abs(kept.numpy() - got.numpy()).max() > 1e-4
+
+
 @pytest.mark.parametrize("optimizer", ["sgd", "adam"])
 def test_es_step_over_mesh_matches_jax(optimizer):
     """The 8-rank step against the JAX step on the 8-device mesh: every

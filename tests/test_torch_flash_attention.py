@@ -7,6 +7,8 @@ Tolerances are the JAX package's own (tests/test_pallas_attention.py):
 bf16 (one rounding of inputs and outputs to bf16).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ from fiber_tpu.ops.ring_attention import reference_attention as jax_ref
 from fiber_tpu_torch.ops import flash_attention as fa
 from fiber_tpu_torch.ops import ring_attention as ra
 from fiber_tpu_torch.utils import flops
+from tests._torch_tf32 import product
 
 
 def _qkv(s, h, kvh, d, seed=7):
@@ -155,3 +158,68 @@ def test_flops_counters_match_jax_package():
     assert (ms, by) == (1e3, "operations")
     ms, by = flops.bound_ms(1.0, 3.35e12, "bfloat16")
     assert (ms, by) == (1e3, "bytes")
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of csrc/flash_fwd.cu on f32 inputs, emulated: per 64-key
+# tile, S = Q K^T and P V on TF32 tensor cores (tests/_torch_tf32.py), the
+# online softmax in f32, and each tile's P V summed from zero and folded
+# into O with rounded f32 operations.
+# ---------------------------------------------------------------------------
+
+
+def _fwd_emulated(q, k, v, scheme, tile=64):
+    """O (S, heads, D) of the kernel's f32 path, causal."""
+    s, h, d = q.shape
+    group = h // k.shape[1]
+    pos = torch.arange(s)
+    out = torch.empty_like(q)
+    for ih in range(h):
+        qh, kh, vh = q[:, ih], k[:, ih // group], v[:, ih // group]
+        m = torch.full((s, 1), -1e30)
+        l = torch.zeros(s, 1)
+        o = torch.zeros(s, d)
+        for k0 in range(0, s, tile):
+            keep = pos[:, None] >= pos[None, k0:k0 + tile]
+            sc = product(qh, kh[k0:k0 + tile].T, scheme) / d ** 0.5
+            sc = sc.masked_fill(~keep, -1e30)
+            m_new = torch.maximum(m, sc.amax(1, keepdim=True))
+            p = torch.exp(sc - m_new) * keep
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(1, keepdim=True)
+            o = o * corr + product(p, vh[k0:k0 + tile], scheme)
+            m = m_new
+        out[:, ih] = o / l
+    return out
+
+
+@functools.cache
+def _fwd_f64_case(kv_heads):
+    """f32 inputs at S = 2048, D = 32 (4 query heads), and causal attention
+    recomputed from them in f64."""
+    s, h, d = 2048, 4, 32
+    q, k, v = (torch.from_numpy(a) for a in _qkv(s, h, kv_heads, d, seed=13))
+    group = h // kv_heads
+    kf, vf = (x.double().repeat_interleave(group, dim=1).permute(1, 0, 2)
+              for x in (k, v))
+    sc = q.double().permute(1, 0, 2) @ kf.transpose(1, 2) / d ** 0.5
+    sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(),
+                        -torch.inf)
+    want = (torch.softmax(sc, dim=-1) @ vf).permute(1, 0, 2)
+    return (q, k, v), want
+
+
+@pytest.mark.parametrize("kv_heads", [4, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("scheme", ["tf32", "3xtf32"])
+def test_fwd_f32_products_need_3xtf32(scheme, kv_heads):
+    """Why the forward kernel runs f32 as 3xTF32: against an f64
+    recomputation, its emulated O stays under the card's f32 parity bound
+    (chip_smoke.py's TOL, 2e-5) by a factor of ten with 3xTF32 and misses
+    it with one TF32 product."""
+    bound = 2e-5
+    inputs, want = _fwd_f64_case(kv_heads)
+    err = (_fwd_emulated(*inputs, scheme).double() - want).abs().max().item()
+    if scheme == "3xtf32":
+        assert err < bound / 10, err
+    else:
+        assert err > bound, err

@@ -23,6 +23,7 @@ from fiber_tpu.ops.pallas_attention import (
 )
 
 from fiber_tpu_torch.ops import flash_attention as fa
+from tests._torch_tf32 import product
 from tests.test_torch_flash_attention import CASES, _both, _np, _qkv
 
 
@@ -205,33 +206,8 @@ def test_backward_flops_convention():
 # ---------------------------------------------------------------------------
 # The arithmetic of csrc/flash_bwd_dkv.cu on f32 inputs, emulated: its four
 # products (S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q) run on
-# TF32 tensor cores, whose operands keep 10 of f32's 23 mantissa bits. Each
-# product of two TF32 values is exact in f32, so an f32 matmul of rounded
-# operands is the tensor core's product up to the order of the f32 sums.
+# TF32 tensor cores (tests/_torch_tf32.py).
 # ---------------------------------------------------------------------------
-
-
-def _tf32(x, rounded=True):
-    """f32 as a TF32 operand: rounded as cvt.rna.tf32.f32 rounds (to
-    nearest, ties away from zero: half of the last kept bit added to the
-    magnitude), then the 13 dropped bits cleared; or, for an operand
-    handed to the tensor core whole, the dropped bits cleared alone."""
-    bits = x.contiguous().view(torch.int32)
-    if rounded:
-        bits = bits + 0x1000
-    return (bits & ~0x1FFF).view(torch.float32)
-
-
-def _product(a, b, scheme):
-    """a @ b in f32 as the kernel computes it: one TF32 product, or 3xTF32
-    (big = tf32(x), small = x - big, of which the tensor core keeps the
-    top bits; small*big + big*small + big*big)."""
-    a_big, b_big = _tf32(a), _tf32(b)
-    if scheme == "tf32":
-        return a_big @ b_big
-    a_small = _tf32(a - a_big, rounded=False)
-    b_small = _tf32(b - b_big, rounded=False)
-    return a_small @ b_big + a_big @ b_small + a_big @ b_big
 
 
 def _dkv_emulated(q, k, v, dout, lse, delta, scheme):
@@ -246,12 +222,12 @@ def _dkv_emulated(q, k, v, dout, lse, delta, scheme):
         kvh = ih // group
         qh, doh = q[:, ih], dout[:, ih]
         kh, vh = k[:, kvh], v[:, kvh]
-        st = _product(kh, qh.T, scheme)                  # (key, query)
+        st = product(kh, qh.T, scheme)                   # (key, query)
         pt = torch.exp(st / d ** 0.5 - lse[ih][None, :]) * keep.T
-        dpt = _product(vh, doh.T, scheme)
+        dpt = product(vh, doh.T, scheme)
         dst = pt * (dpt - delta[ih][None, :])
-        dv[:, kvh] += _product(pt, doh, scheme)
-        dk[:, kvh] += _product(dst, qh, scheme) / d ** 0.5
+        dv[:, kvh] += product(pt, doh, scheme)
+        dk[:, kvh] += product(dst, qh, scheme) / d ** 0.5
     return dk, dv
 
 

@@ -8,6 +8,8 @@ sums run in different orders; logits are O(0.1) at these weights).
 Greedy decoding must match token for token.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -63,6 +65,32 @@ def test_tinylm_matches_jax(case):
     want_gen = np.asarray(jm.generate(jparams, jnp.asarray(prompt), 20))
     got_gen = model.generate(torch.from_numpy(prompt), 20).numpy()
     assert got_gen.tolist() == want_gen.tolist()
+
+
+def test_default_plane_is_the_reference_default():
+    """``attention`` defaults to ``"ring"`` on both sides. A bare port
+    TinyLM (the ring plane on its one-rank default mesh) matches a bare
+    JAX TinyLM (the ring plane over the suite's 8-device CPU mesh) on
+    the same weights."""
+    def default(cls):
+        return inspect.signature(cls.__init__).parameters["attention"].default
+
+    assert default(TinyLM) == default(JaxTinyLM) == "ring"
+    tree = convert.random_tinylm_tree(**SMALL, seed=0)
+    model = TinyLM(**SMALL, device="cpu")
+    model.load_state_dict(convert.tinylm_params_from_jax(tree,
+                                                         device="cpu"))
+    assert model.attention == "ring" and model.mesh.n_dev == 1
+    jm = JaxTinyLM(**SMALL)
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    tokens = np.random.default_rng(3).integers(0, SMALL["vocab"],
+                                               SMALL["max_seq"])
+    want = np.asarray(jax.device_get(jm.apply(jparams, jnp.asarray(tokens))))
+    with torch.no_grad():
+        got = model.apply(torch.from_numpy(tokens)).numpy()
+        loss = model.loss(torch.from_numpy(tokens)).item()
+    assert np.abs(got - want).max() < TOL
+    assert abs(loss - float(jm.loss(jparams, jnp.asarray(tokens)))) < TOL
 
 
 def test_decode_step_matches_full_apply():
