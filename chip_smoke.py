@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds every CUDA kernel from ``fiber_tpu_torch/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version on the card (and
-counts the tensor-core instructions in the SASS of the forward and dk/dv
+counts the tensor-core instructions in the SASS of the three flash
 kernels), drives the port's main paths at full width (the TinyLM flash
 forward, greedy decoding and training; the OpenAI-ES CartPole flagship;
 ring and Ulysses attention and the TinyLM forward over a 4-rank mesh on
@@ -52,12 +52,11 @@ EDGE_SHAPES = (
     ("edge_d128_window", 1000, 3, 1, 128, "bfloat16", 100, True),
     ("edge_d16_window1", 130, 2, 1, 16, "float32", 1, True),
 )
-# Edge shapes whose inputs the forward and dk/dv kernels cannot copy in
-# 16-byte units, so they take their scalar load paths: head_dim 20 in
-# bf16 (not a whole number of 8-element vectors), and f32 tensors that
-# start one element into their buffers (rows 4 bytes off 16-byte
-# alignment). (name, S, heads, kv_heads, head_dim, dtype, window,
-# causal, offset)
+# Edge shapes whose inputs the flash kernels cannot copy in 16-byte
+# units, so they take their scalar load paths: head_dim 20 in bf16 (not
+# a whole number of 8-element vectors), and f32 tensors that start one
+# element into their buffers (rows 4 bytes off 16-byte alignment).
+# (name, S, heads, kv_heads, head_dim, dtype, window, causal, offset)
 SCALAR_EDGE_SHAPES = (
     ("edge_d20_bf16_scalar", 70, 2, 1, 20, "bfloat16", None, True, 0),
     ("edge_d24_f32_unaligned", 90, 4, 2, 24, "float32", 7, True, 1),
@@ -124,14 +123,14 @@ L2_MISS_BYTES = 4 * 50 * 10**6
 ES_RANK_TOL = 1e-5    # gradient of the 4-rank step vs a plain recomputation
 # The C interface's dtype codes
 DTYPE_CODE = {"float": 0, "bfloat16": 1}
-# What runs the products of the forward and dk/dv kernels, by input type
+# What runs the products of the flash kernels, by input type
 ENGINE = {"float32": "mma.sync 3xtf32", "bfloat16": "mma.sync bf16"}
 # The kernels on the tensor cores: HMMA in their SASS, no spills in any of
 # their 8 templates (f32 and bf16 at head_dim 16, 32, 64 and 128), and a
 # C function that gives each template's shared memory
-TENSOR_CORE_LIBS = ("flash_fwd", "flash_bwd_dkv")
+TENSOR_CORE_LIBS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SOURCES = {"flash_fwd": "fiber_tpu_torch/csrc/flash_fwd.cu",
-           "flash_bwd_dq": "fiber_tpu_torch/csrc/flash_bwd.cu",
+           "flash_bwd_dq": "fiber_tpu_torch/csrc/flash_bwd_dq.cu",
            "flash_bwd_dkv": "fiber_tpu_torch/csrc/flash_bwd_dkv.cu",
            "ring_exchange": "fiber_tpu_torch/csrc/dma_ring.cu"}
 REPLACES = {"flash_fwd": "fiber_tpu/ops/pallas_attention.py:68",
@@ -241,11 +240,10 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
     secs = time.perf_counter() - t0
-    check({"flash_fwd", "flash_bwd", "flash_bwd_dkv", "dma_ring"}
+    check({"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "dma_ring"}
           <= set(libs), f"kernels missing from the build: {sorted(libs)}")
-    # The forward and dk/dv kernels' products run on the tensor cores:
-    # their SASS holds HMMA instructions (counted where the toolkit has
-    # cuobjdump).
+    # The flash kernels' products run on the tensor cores: their SASS
+    # holds HMMA instructions (counted where the toolkit has cuobjdump).
     hmma = {k: _build.sass_count(k, "HMMA") for k in libs}
     ptxas = {k: _build.ptxas_report(k) for k in libs}
     for name in TENSOR_CORE_LIBS:
@@ -426,8 +424,9 @@ def phase_kernels_bwd(torch, card):
     """Both backward kernels against the plain backward at every edge and
     main shape, from the forward kernel's (O, lse) and a random dO; a
     random lse cotangent on the edge shapes and on one main shape. At the
-    main shapes a second ``flash_bwd_dkv`` launch on the same inputs must
-    give the same dk and dv bit for bit (no atomics, a fixed order)."""
+    main shapes a second launch of each kernel on the same inputs must
+    give the same dq, dk and dv bit for bit (no atomics, a fixed
+    order)."""
     from fiber_tpu_torch.ops import flash_attention as fa
     from fiber_tpu_torch.utils import flops
 
@@ -463,17 +462,20 @@ def phase_kernels_bwd(torch, card):
                "head_dim": d, "dtype": dt, "window": window,
                "causal": causal, "dlse": with_dlse, "offset": offset,
                "tol": BWD_TOL[dt],
-               "dkv_engine": ENGINE[dt],
+               "dq_engine": ENGINE[dt], "dkv_engine": ENGINE[dt],
                "dq_max_abs_err": dq_err, "dq_rel_err": dq_rel,
                "dkv_max_abs_err": dkv_err, "dkv_rel_err": dkv_rel}
         if s == LM_CFG["max_seq"]:
+            dq2 = fa.flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
             dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
             torch.cuda.synchronize()
+            check(torch.equal(_bits(torch, dq), _bits(torch, dq2)),
+                  f"{name}: two flash_bwd_dq launches differ")
             check(torch.equal(_bits(torch, dk), _bits(torch, dk2))
                   and torch.equal(_bits(torch, dv), _bits(torch, dv2)),
                   f"{name}: two flash_bwd_dkv launches differ")
-            row["dkv_bitwise_repeat"] = True
-            del dk2, dv2
+            row["dq_bitwise_repeat"] = row["dkv_bitwise_repeat"] = True
+            del dq2, dk2, dv2
             row.update(_bwd_times(torch, q, k, v, dout, lse, delta, window))
             main[name] = row
         rows.append(row)
@@ -1018,7 +1020,7 @@ def main():
     phase_es_mesh(torch)
 
     lm, lm_bwd = fwd_rows["lm_f32"], bwd_rows["lm_f32"]
-    bf16 = fwd_rows["attention_bf16"]
+    bf16, bf16_bwd = fwd_rows["attention_bf16"], bwd_rows["attention_bf16"]
     summary = [{
         "name": "flash_fwd", "engine": lm["engine"],
         "max_abs_err": lm["max_abs_err"],
@@ -1032,14 +1034,20 @@ def main():
     for part in ("dq", "dkv"):
         row = lm_bwd[part]
         summary.append({
-            "name": f"flash_bwd_{part}",
+            "name": f"flash_bwd_{part}", "engine": lm_bwd[f"{part}_engine"],
             "max_abs_err": lm_bwd[f"{part}_max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "bound_engine": row["bound_engine"],
             # one SDPA backward call computes dq, dk and dv together
-            "library_ms": lm_bwd["library_ms"], "library_covers": "dq+dkv"})
-    summary[-1]["engine"] = lm_bwd["dkv_engine"]
+            "library_ms": lm_bwd["library_ms"], "library_covers": "dq+dkv",
+            "bfloat16": {
+                "shape": bf16_bwd["shape"],
+                "engine": bf16_bwd[f"{part}_engine"],
+                "max_abs_err": bf16_bwd[f"{part}_max_abs_err"],
+                "library_ms": bf16_bwd["library_ms"],
+                **{k: bf16_bwd[part][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by")}}})
     for entry in summary:
         entry.update(launches=launches[entry["name"]], path="lm_train")
     ring = ring_rows["attention_bf16_kv"]

@@ -52,7 +52,7 @@
 //   the two accumulating products); f32 rows padded to D + 4 and read
 //   with 32-bit loads, split into big and small at each fragment load.
 //   On f32 each query tile's dV and dK products are summed from zero and
-//   then added to the running sums (accumulate(), below).
+//   then added to the running sums (add_xb() in mma_sm90.cuh).
 //   Both paddings make the fragment reads free of bank conflicts.
 // - Q, dO, lse and delta of the next query tile are copied with cp.async
 //   (16 bytes a thread; 4 for lse and delta) into the second of two
@@ -63,8 +63,9 @@
 //
 // q, k, v and dO are read through their (S, heads, head_dim) strides; dk
 // and dv are written contiguous, (S, KVH, D), in k's type. The copy,
-// ldmatrix, mma and split helpers are mma_sm90.cuh's, shared with the
-// forward (flash_fwd.cu).
+// ldmatrix, mma and split helpers and the two tile products (abt,
+// add_xb) are mma_sm90.cuh's, shared with the forward (flash_fwd.cu) and
+// dq (flash_bwd_dq.cu).
 
 #include "mma_sm90.cuh"
 
@@ -93,130 +94,6 @@ struct Strides {                   // row (ss) and head (sh) strides, elements
 
 // Bits of `vec`: the 16-byte copy path may be used for q, k, v, dO.
 constexpr int VEC_Q = 1, VEC_K = 2, VEC_V = 4, VEC_DO = 8;
-
-// The warp's 16 x BQ tile of A B^T over head_dim: A rows wrow.. of sa
-// (KV rows), B rows of sb (query rows). acc[j] holds query columns
-// 8j..8j+7 as an m16n8 accumulator fragment.
-template <int DP, int NJ>
-__device__ __forceinline__ void scores(float (&acc)[NJ][4], const bf16* sa,
-                                       const bf16* sb, int wrow, int lane) {
-  constexpr int LD = DP + Pad<bf16>::value;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, sa + (wrow + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int jj = 0; jj < NJ / 2; ++jj) {
-      uint32_t b[4];
-      ldsm_x4(b, sb + (jj * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                     kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[2 * jj], a, b[0], b[1]);
-      mma_bf16(acc[2 * jj + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-template <int DP, int NJ>
-__device__ __forceinline__ void scores(float (&acc)[NJ][4], const float* sa,
-                                       const float* sb, int wrow, int lane) {
-  constexpr int LD = DP + Pad<float>::value;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DP / 8; ++kk) {
-    const float* ra = sa + (wrow + g) * LD + kk * 8 + t;
-    uint32_t ab[4], as[4];
-    split(ra[0], ab[0], as[0]);
-    split(ra[8 * LD], ab[1], as[1]);
-    split(ra[4], ab[2], as[2]);
-    split(ra[8 * LD + 4], ab[3], as[3]);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float* rb = sb + (j * 8 + g) * LD + kk * 8 + t;
-      uint32_t bb[2], bs[2];
-      split(rb[0], bb[0], bs[0]);
-      split(rb[4], bb[1], bs[1]);
-      mma_3xtf32(acc[j], ab, as, bb, bs);
-    }
-  }
-}
-
-// acc += X B for the warp's 16 rows: X (16 x BQ, the accumulator
-// fragments of scores()) as the A operand, B the BQ x DP tile sb (query
-// rows by head_dim). acc[n] holds head_dim columns 8n..8n+7.
-template <int DP, int NJ>
-__device__ __forceinline__ void accumulate(float (&acc)[DP / 8][4],
-                                           const float (&x)[NJ][4],
-                                           const bf16* sb, int lane) {
-  constexpr int LD = DP + Pad<bf16>::value;
-#pragma unroll
-  for (int kk = 0; kk < NJ / 2; ++kk) {
-    // Two 8-column accumulator tiles are one 16-deep A fragment.
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int nn = 0; nn < DP / 16; ++nn) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, sb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                               LD + nn * 16 + (lane >> 4) * 8);
-      mma_bf16(acc[2 * nn], a, b[0], b[1]);
-      mma_bf16(acc[2 * nn + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-template <int DP, int NJ>
-__device__ __forceinline__ void accumulate(float (&acc)[DP / 8][4],
-                                           const float (&x)[NJ][4],
-                                           const float* sb, int lane) {
-  constexpr int LD = DP + Pad<float>::value;
-  constexpr int ND = DP / 8;
-  constexpr int NG = ND < 4 ? ND : 4;   // accumulator tiles per pass
-  const int g = lane >> 2, t = lane & 3;
-  // The tensor cores round their f32 sums toward zero. Over the 16384
-  // query rows of a KV row that bias reached 1.2e-4 of the largest
-  // gradient on an H100 (against the 5e-5 bound), so the tile's product
-  // is summed from zero here and added to acc with round-to-nearest adds.
-#pragma unroll
-  for (int n0 = 0; n0 < ND; n0 += NG) {
-    float part[NG][4];
-#pragma unroll
-    for (int n = 0; n < NG; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      // Depth index permuted: A's k = t is query 8j + 2t, k = t + 4 is
-      // 8j + 2t + 1, the columns this thread's accumulators hold.
-      uint32_t ab[4], as[4];
-      split(x[j][0], ab[0], as[0]);
-      split(x[j][2], ab[1], as[1]);
-      split(x[j][1], ab[2], as[2]);
-      split(x[j][3], ab[3], as[3]);
-      const float* rb = sb + (j * 8 + 2 * t) * LD + g;
-#pragma unroll
-      for (int n = 0; n < NG; ++n) {
-        uint32_t bb[2], bs[2];
-        split(rb[(n0 + n) * 8], bb[0], bs[0]);
-        split(rb[LD + (n0 + n) * 8], bb[1], bs[1]);
-        mma_3xtf32(part[n], ab, as, bb, bs);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NG; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n0 + n][e] += part[n][e];
-  }
-}
 
 template <typename T, int DP>
 __global__ void __launch_bounds__(NT, min_blocks(sizeof(T) == 4, DP))
@@ -284,11 +161,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (n_it > 0) stage(0);
   cp_async_commit();
 
-  float acc_k[ND][4], acc_v[ND][4];
+  // One 16-row m-tile a warp (the [1] of every fragment array).
+  float acc_k[1][ND][4], acc_v[1][ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc_k[0][n][e] = acc_v[0][n][e] = 0.f;
   const float scale_log2 = scale * LOG2E;
 
   for (int it = 0; it < n_it; ++it) {
@@ -314,8 +192,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                (window > 0 && q0 + BQ - 1 - k0 >= window);
 
     // P^T = exp(S^T * scale - lse), then dV += P^T dO.
-    float p[NJ][4];
-    scores<DP, NJ>(p, sk, cq, wrow, lane);
+    float p[1][NJ][4];
+    abt<DP, 1, NJ>(p, sk, cq, wrow, lane);
     if (masked) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
@@ -323,9 +201,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const int col = j * 8 + 2 * t + (e & 1);
           const int kj = k0 + wrow + g + (e >> 1) * 8;
-          p[j][e] = keep(q0 + col, kj, S, causal, window)
-                        ? ex2(fmaf(p[j][e], scale_log2, -clse[col] * LOG2E))
-                        : 0.f;
+          p[0][j][e] =
+              keep(q0 + col, kj, S, causal, window)
+                  ? ex2(fmaf(p[0][j][e], scale_log2, -clse[col] * LOG2E))
+                  : 0.f;
         }
     } else {
 #pragma unroll
@@ -333,22 +212,23 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = j * 8 + 2 * t + (e & 1);
-          p[j][e] = ex2(fmaf(p[j][e], scale_log2, -clse[col] * LOG2E));
+          p[0][j][e] =
+              ex2(fmaf(p[0][j][e], scale_log2, -clse[col] * LOG2E));
         }
     }
-    accumulate<DP, NJ>(acc_v, p, cdo, lane);
+    add_xb<DP, 1, NJ>(acc_v, p, cdo, lane);
 
     // dS^T = P^T o (dP^T - delta), dP^T = V dO^T; then dK += dS^T Q.
-    float ds[NJ][4];
-    scores<DP, NJ>(ds, sv, cdo, wrow, lane);
+    float ds[1][NJ][4];
+    abt<DP, 1, NJ>(ds, sv, cdo, wrow, lane);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + 2 * t + (e & 1);
-        ds[j][e] = p[j][e] * (ds[j][e] - cdelta[col]);
+        ds[0][j][e] = p[0][j][e] * (ds[0][j][e] - cdelta[col]);
       }
-    accumulate<DP, NJ>(acc_k, ds, cq, lane);
+    add_xb<DP, 1, NJ>(acc_k, ds, cq, lane);
   }
 
 #pragma unroll
@@ -359,8 +239,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = n * 8 + 2 * t + (e & 1);
       if (kj < S && col < D) {
         const long long at = ((long long)kj * KVH + kvh) * D + col;
-        store(dk + at, acc_k[n][e] * scale);
-        store(dv + at, acc_v[n][e]);
+        store(dk + at, acc_k[0][n][e] * scale);
+        store(dv + at, acc_v[0][n][e]);
       }
     }
 }

@@ -14,6 +14,8 @@ from typing import Callable, Optional
 
 import torch
 
+from fiber_tpu_torch.device import resolve_device
+
 
 def survival_rollout(step_fn: Callable, act_fn: Callable, state0,
                      steps: int):
@@ -52,8 +54,10 @@ class CartPole:
     def reset(cls, n: int, generator: Optional[torch.Generator] = None,
               device=None):
         """(n, 4) initial states, uniform in [-0.05, 0.05), drawn from
-        ``generator`` on its device (or ``device``)."""
-        dev = generator.device if generator is not None else device
+        ``generator`` on its device; without one, on ``device`` (CUDA
+        unless the caller asks for the CPU)."""
+        dev = (generator.device if generator is not None
+               else resolve_device(device))
         u = torch.rand(n, 4, generator=generator, device=dev)
         return u * 0.1 - 0.05
 

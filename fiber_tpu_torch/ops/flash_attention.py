@@ -1,5 +1,5 @@
 """Flash attention, forward and backward: the CUDA kernels
-``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` (dq) and
+``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu`` (dq) and
 ``csrc/flash_bwd_dkv.cu`` (dk and dv) and their plain PyTorch versions.
 
 Counterpart of ``fiber_tpu/ops/pallas_attention.py`` (``flash_attention``,
@@ -140,20 +140,18 @@ def _fwd_lib():
     return lib
 
 
-#: backward kernel -> (its source in ``csrc/``, its number of outputs)
-_BWD_KERNELS = {"flash_bwd_dq": ("flash_bwd", 1),
-                "flash_bwd_dkv": ("flash_bwd_dkv", 2)}
+#: backward kernel (and its source, ``csrc/<name>.cu``) -> its outputs
+_BWD_OUTPUTS = {"flash_bwd_dq": 1, "flash_bwd_dkv": 2}
 
 
 @functools.cache
 def _bwd_lib(name):
     """The loaded library of backward kernel ``name``."""
-    source, n_out = _BWD_KERNELS[name]
-    lib = _build.load(source)
+    lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     # q, k, v, dO, lse, delta, outputs..., S, H, KVH, D, strides,
     # causal, window, scale, dtype, stream
-    _declare(lib, name, [p] * (6 + n_out) + [i] * 4
+    _declare(lib, name, [p] * (6 + _BWD_OUTPUTS[name]) + [i] * 4
              + [p, i, i, ctypes.c_float, i, p])
     return lib
 
@@ -292,7 +290,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, dlse=None, *,
 
 
 def _launch_bwd(name, outs, q, k, v, dout, lse, delta, causal, window):
-    """Launches backward kernel ``name`` (``_BWD_KERNELS``) on q's
+    """Launches backward kernel ``name`` (``_BWD_OUTPUTS``) on q's
     device and current stream, writing ``outs``; raises with the CUDA
     error string when the launch fails."""
     _check_cuda(q=q, k=k, v=v, dout=dout)
@@ -318,8 +316,9 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = False,
                  window: Optional[int] = None):
     """The dq kernel's wrapper: dq ``(S, heads, head_dim)`` in q's dtype.
     On CUDA tensors it launches ``flash_bwd_dq`` from
-    ``csrc/flash_bwd.cu`` and counts the launch in
-    ``flash_bwd_dq.launches``; on CPU tensors it runs the plain version."""
+    ``csrc/flash_bwd_dq.cu`` (tensor cores: bf16 directly, f32 as
+    3xTF32) and counts the launch in ``flash_bwd_dq.launches``; on CPU
+    tensors it runs the plain version."""
     _check_bwd(q, k, v, dout, lse, delta, causal, window)
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, dout, lse, delta, causal=causal,

@@ -1,10 +1,10 @@
 """The tensor cores' TF32 arithmetic on f32 inputs, emulated on the CPU
 for the tests of the kernels that run f32 products as TF32 (one product
-per f32 product) or 3xTF32 (three): ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd_dkv.cu``. A TF32 operand keeps 10 of f32's 23 mantissa
-bits; each product of two TF32 values is exact in f32, so an f32 matmul
-of rounded operands is the tensor core's product up to the order of the
-f32 sums."""
+per f32 product) or 3xTF32 (three): ``csrc/flash_fwd.cu``,
+``csrc/flash_bwd_dkv.cu`` and ``csrc/flash_bwd_dq.cu``. A TF32 operand
+keeps 10 of f32's 23 mantissa bits; each product of two TF32 values is
+exact in f32, so an f32 matmul of rounded operands is the tensor core's
+product up to the order of the f32 sums."""
 
 import torch
 

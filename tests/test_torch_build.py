@@ -22,7 +22,7 @@ def csrc(tmp_path, monkeypatch):
 
 
 def test_sources_are_the_cu_files_alone(csrc):
-    assert _build.sources() == ["dma_ring", "flash_bwd", "flash_bwd_dkv",
+    assert _build.sources() == ["dma_ring", "flash_bwd_dkv", "flash_bwd_dq",
                                 "flash_fwd"]
     assert (csrc / "mma_sm90.cuh").is_file()
 
@@ -50,7 +50,8 @@ def test_source_edit_changes_its_own_library_name(csrc):
 
 def test_every_quoted_include_is_a_header_of_csrc():
     """The headers a source includes sit in ``csrc/``, where the hash
-    reads them; the tensor-core kernels share ``mma_sm90.cuh``."""
+    reads them; the three flash kernels, all on the tensor cores, share
+    ``mma_sm90.cuh``."""
     includes = {}
     for src in sorted(_build.SRC_DIR.glob("*.cu")):
         includes[src.stem] = re.findall(r'#include "([^"]+)"',
@@ -59,6 +60,7 @@ def test_every_quoted_include_is_a_header_of_csrc():
             assert (_build.SRC_DIR / name).is_file() and name.endswith(
                 ".cuh")
     assert "mma_sm90.cuh" in includes["flash_fwd"]
+    assert "mma_sm90.cuh" in includes["flash_bwd_dq"]
     assert "mma_sm90.cuh" in includes["flash_bwd_dkv"]
 
 

@@ -290,3 +290,24 @@ def test_run_es_flagship_shape_on_cpu():
     assert stats.shape == (2, 3) and torch.isfinite(stats).all()
     assert params.shape == (MLPPolicy(4, 2, HIDDEN).dim,)
     assert make_mesh("cpu").n_dev == 1
+
+
+@pytest.mark.parametrize("call", ["cartpole_reset", "policy_init",
+                                  "make_mesh", "evolution_strategy"])
+def test_es_entry_points_default_to_cuda(call, monkeypatch):
+    """With no device named, each entry point of the ES path runs on the
+    card: where there is none it raises rather than fall back to the CPU,
+    and it runs on the CPU when the caller asks for it by name."""
+    pol = MLPPolicy(4, 2, hidden=(8,))
+    calls = {
+        "cartpole_reset": lambda **kw: CartPole.reset(4, **kw),
+        "policy_init": lambda **kw: pol.init(**kw),
+        "make_mesh": lambda **kw: make_mesh(**kw).device,
+        "evolution_strategy": lambda **kw: EvolutionStrategy(
+            pol.act, CartPole.reset, dim=pol.dim, pop_size=8, **kw).device,
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[call]()
+    got = calls[call](device="cpu")
+    assert getattr(got, "device", got) == torch.device("cpu")

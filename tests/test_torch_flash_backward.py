@@ -204,9 +204,10 @@ def test_backward_flops_convention():
 
 
 # ---------------------------------------------------------------------------
-# The arithmetic of csrc/flash_bwd_dkv.cu on f32 inputs, emulated: its four
-# products (S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q) run on
-# TF32 tensor cores (tests/_torch_tf32.py).
+# The arithmetic of csrc/flash_bwd_dkv.cu and csrc/flash_bwd_dq.cu on f32
+# inputs, emulated: their products (dk/dv: S^T = K Q^T, dP^T = V dO^T,
+# dV += P^T dO, dK += dS^T Q; dq: S = Q K^T, dP = dO V^T, dQ += dS K) run
+# on TF32 tensor cores (tests/_torch_tf32.py).
 # ---------------------------------------------------------------------------
 
 
@@ -231,11 +232,28 @@ def _dkv_emulated(q, k, v, dout, lse, delta, scheme):
     return dk, dv
 
 
+def _dq_emulated(q, k, v, dout, lse, delta, scheme):
+    """dq (S, heads, D) of the kernel's f32 path, per query head, causal;
+    f32 elementwise work as in the kernel."""
+    s, h, d = q.shape
+    group = h // k.shape[1]
+    keep = torch.ones(s, s, dtype=torch.bool).tril()     # (query, key)
+    dq = torch.zeros_like(q)
+    for ih in range(h):
+        kh, vh = k[:, ih // group], v[:, ih // group]
+        sc = product(q[:, ih], kh.T, scheme)              # (query, key)
+        p = torch.exp(sc / d ** 0.5 - lse[ih][:, None]) * keep
+        dp = product(dout[:, ih], vh.T, scheme)
+        ds = p * (dp - delta[ih][:, None])
+        dq[:, ih] = product(ds, kh, scheme) / d ** 0.5
+    return dq
+
+
 @functools.cache
-def _dkv_f64_case(kv_heads):
+def _bwd_f64_case(kv_heads):
     """Inputs at S = 2048, D = 32 (4 query heads), causal, with lse and
-    delta rounded to f32 from an f64 forward, and dk, dv recomputed in
-    f64."""
+    delta rounded to f32 from an f64 forward, and dq, dk, dv recomputed
+    in f64."""
     s, h, d = 2048, 4, 32
     rng = np.random.default_rng(11)
     q, dout = (rng.standard_normal((s, h, d)) for _ in range(2))
@@ -257,9 +275,10 @@ def _dkv_f64_case(kv_heads):
         kv_heads, group, s, d).sum(1).permute(1, 0, 2)
     dv = (p.transpose(1, 2) @ dof).reshape(kv_heads, group, s, d).sum(
         1).permute(1, 0, 2)
+    dq = (ds @ kf / d ** 0.5).permute(1, 0, 2)
     f32 = (q.float(), k.float(), v.float(), dout.float(), lse.float(),
            delta.float())
-    return f32, (dk, dv)
+    return f32, (dq, dk, dv)
 
 
 @pytest.mark.parametrize("kv_heads", [4, 2], ids=["mha", "gqa"])
@@ -270,11 +289,29 @@ def test_dkv_f32_products_need_3xtf32(scheme, kv_heads):
     bound (chip_smoke.py's BWD_TOL, 5e-5 of the largest gradient) with
     3xTF32 and miss it with one TF32 product."""
     bound = 5e-5
-    inputs, want = _dkv_f64_case(kv_heads)
+    inputs, want = _bwd_f64_case(kv_heads)
     got = _dkv_emulated(*inputs, scheme)
     errs = [((g.double() - w).abs().max() / w.abs().max()).item()
-            for g, w in zip(got, want)]
+            for g, w in zip(got, want[1:])]
     if scheme == "3xtf32":
         assert max(errs) < bound / 10, errs
     else:
         assert min(errs) > bound, errs
+
+
+@pytest.mark.parametrize("kv_heads", [4, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("scheme", ["tf32", "3xtf32"])
+def test_dq_f32_products_need_3xtf32(scheme, kv_heads):
+    """Why the dq kernel runs f32 as 3xTF32: against an f64 recomputation,
+    its emulated products stay under a tenth of the card's f32 parity
+    bound (chip_smoke.py's BWD_TOL, 5e-5 of the largest gradient) with
+    3xTF32, and one TF32 product misses the bound."""
+    bound = 5e-5
+    inputs, want = _bwd_f64_case(kv_heads)
+    got = _dq_emulated(*inputs, scheme)
+    err = ((got.double() - want[0]).abs().max()
+           / want[0].abs().max()).item()
+    if scheme == "3xtf32":
+        assert err < bound / 10, err
+    else:
+        assert err > bound, err
