@@ -9,11 +9,12 @@ It builds every CUDA kernel from ``fiber_tpu_torch/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version on the card (and
 counts the tensor-core instructions in the SASS of the three flash
 kernels), drives the port's main paths at full width (the TinyLM flash
-forward, greedy decoding and training; the OpenAI-ES CartPole flagship;
-ring and Ulysses attention and the TinyLM forward over a 4-rank mesh on
-the card; one ES step over that mesh) and checks what comes out. Phases
-print one JSON line each (build, kernels, kernels_bwd, kernels_ring,
-lm_forward, lm_generate, lm_train, es, ring_attention, lm_mesh,
+forward, greedy decoding and training; the OpenAI-ES CartPole flagship,
+eager and as CUDA-graph replays; ring and Ulysses attention, the TinyLM
+forward and TinyLM training over a 4-rank mesh on the card; the ES step
+over that mesh) and checks what comes out. Phases print one JSON line
+each (build, kernels, kernels_bwd, kernels_ring, lm_forward,
+lm_generate, lm_train, es, ring_attention, lm_mesh, lm_mesh_train,
 es_mesh); then the card's name and power limit as nvidia-smi reports
 them, the kernel summary line, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, so the exit code is not 0
@@ -27,6 +28,7 @@ off), so kernel and plain version differ only in summation order.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import os
 import re
@@ -66,6 +68,16 @@ SCALAR_EDGE_SHAPES = (
 # causal. (name, S, heads, kv_heads, head_dim, dtype, window, causal)
 RING_BLOCK_SHAPE = ("ring_block_bf16_noncausal", 4096, 8, 8, 64, "bfloat16",
                     None, False)
+# The multi-rank flash plane's blocks in lm_mesh_train, held untimed
+# against the plain forward and backward: one rank's 4096-row f32 query
+# block against another rank's keys (not causal) and against its own
+# (causal). Their backward takes a random lse cotangent, as every block
+# gets one from the merge of partial results.
+# (name, S, heads, kv_heads, head_dim, dtype, window, causal)
+MESH_BLOCK_SHAPES = (
+    ("mesh_block_f32_noncausal", 4096, 8, 8, 32, "float32", None, False),
+    ("mesh_block_f32_causal", 4096, 8, 8, 32, "float32", None, True),
+)
 # Output tolerance by dtype: f32 results differ by summation order only;
 # bf16 outputs may round to neighbouring bf16 values (one ulp at |o| ~ 4).
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -121,6 +133,14 @@ PROFILED = ("ring_flash_dma", "ulysses_flash_dma")
 # H100's 50 MB L2, so no call finds its inputs there.
 L2_MISS_BYTES = 4 * 50 * 10**6
 ES_RANK_TOL = 1e-5    # gradient of the 4-rank step vs a plain recomputation
+# returns of a rank's 1024 members, rolled out alone, that may differ
+# from the batched step's (another batch size, another rounding)
+ES_LAYOUT_MISMATCHES = 10
+# The ES flagship as bench.py times it: run_fused over --gens generations
+# (bench.py's default 10), after a warm run_fused; Adam checked over 3.
+ES_GENS = 10
+ES_ADAM_GENS = 3
+ES_PARAM_TOL = 1e-6   # fused vs eager params (the same kernels: 0 expected)
 # The C interface's dtype codes
 DTYPE_CODE = {"float": 0, "bfloat16": 1}
 # What runs the products of the flash kernels, by input type
@@ -319,7 +339,8 @@ def phase_kernels(torch, card):
     from fiber_tpu_torch.utils import flops
 
     rows = []
-    edges = [e + (0,) for e in EDGE_SHAPES] + list(SCALAR_EDGE_SHAPES)
+    edges = [e + (0,) for e in EDGE_SHAPES + MESH_BLOCK_SHAPES]
+    edges += list(SCALAR_EDGE_SHAPES)
     for name, s, h, kvh, d, dt, window, causal, offset in edges:
         dtype = getattr(torch, dt)
         q, k, v = _inputs(torch, s, h, kvh, d, dtype, seed=len(rows),
@@ -421,16 +442,16 @@ def _bwd_times(torch, q, k, v, dout, lse, delta, window):
 
 
 def phase_kernels_bwd(torch, card):
-    """Both backward kernels against the plain backward at every edge and
-    main shape, from the forward kernel's (O, lse) and a random dO; a
-    random lse cotangent on the edge shapes and on one main shape. At the
-    main shapes a second launch of each kernel on the same inputs must
-    give the same dq, dk and dv bit for bit (no atomics, a fixed
-    order)."""
+    """Both backward kernels against the plain backward at every edge,
+    mesh-block and main shape, from the forward kernel's (O, lse) and a random dO; a
+    random lse cotangent on the edge and mesh-block shapes and on one
+    main shape. At the main shapes a second launch of each kernel on the
+    same inputs must give the same dq, dk and dv bit for bit (no
+    atomics, a fixed order)."""
     from fiber_tpu_torch.ops import flash_attention as fa
     from fiber_tpu_torch.utils import flops
 
-    shapes = [e + (True, 0) for e in EDGE_SHAPES]
+    shapes = [e + (True, 0) for e in EDGE_SHAPES + MESH_BLOCK_SHAPES]
     shapes += [e[:8] + (True, e[8]) for e in SCALAR_EDGE_SHAPES]
     shapes += [m + (True, m[0] == "lm_f32_gqa", 0) for m in MAIN_SHAPES]
     rows, main = [], {}
@@ -682,12 +703,103 @@ def phase_es(torch):
     es_secs = time.perf_counter() - t0
     check(bool(torch.isfinite(stats).all()), f"stats {stats.tolist()}")
     check(bool(torch.isfinite(new_params).all()), "non-finite params")
+    fused = _es_fused(torch, _flagship_es(torch, pop, steps), ES_GENS,
+                      profile=True)
+    adam = _es_fused(torch, _flagship_es(torch, pop, steps, optimizer="adam"),
+                     ES_ADAM_GENS)
     emit({"phase": "es", "pop": pop, "max_steps": steps, "hidden": [32, 32],
           "sigma": 0.1, "lr": 0.03, "card_vs_cpu_same_returns": same,
           "eval_seconds": eval_secs, "eval_evals_per_s": pop / eval_secs,
-          "generations": gens, "es_seconds": es_secs,
-          "es_evals_per_s": gens * pop / es_secs,
-          "stats": stats.tolist()})
+          "run_es_generations": gens, "run_es_seconds": es_secs,
+          "run_es_stats": stats.tolist(), "fused": fused,
+          "fused_adam": adam})
+
+
+def _flagship_es(torch, pop, steps, optimizer="sgd", ranks=1):
+    """The flagship strategy as ``entry.run_es`` builds it (sigma 0.1, lr
+    0.03, generator seed 1) over ``ranks`` ranks of the card, and its
+    initial params (seed 0)."""
+    from fiber_tpu_torch.entry import flagship_policy
+    from fiber_tpu_torch.models.envs import CartPole
+    from fiber_tpu_torch.ops.es import EvolutionStrategy
+    from fiber_tpu_torch.parallel.mesh import make_mesh
+
+    policy = flagship_policy()
+    es = EvolutionStrategy(
+        lambda thetas, states: CartPole.rollout(
+            policy.act, thetas, states, max_steps=steps),
+        CartPole.reset, dim=policy.dim, pop_size=pop, sigma=0.1, lr=0.03,
+        optimizer=optimizer, mesh=make_mesh("cuda", n=ranks),
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    return es, policy.init(torch.Generator().manual_seed(0), device="cuda")
+
+
+def _es_fused(torch, es_params, gens, profile=False):
+    """``run_fused`` over ``gens`` generations against as many eager
+    ``step`` calls from the same params, generator state and optimizer
+    state: stats exactly equal, params within ES_PARAM_TOL (and whether
+    bitwise), the generator's state after both equal (and Adam's). Then
+    evals/s of a timed ``run_fused`` after that warm one, and of the
+    eager steps; with ``profile``, the device busy time, span, idle
+    share and launches of one eager generation and of one replay."""
+    es, params = es_params
+    gen0 = es.generator.get_state()
+    opt0 = es._opt_state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused_p, fused_s = es.run_fused(params, gens)      # captures, warm
+    torch.cuda.synchronize()
+    first_secs = time.perf_counter() - t0
+    fused_gen, fused_opt = es.generator.get_state(), es._opt_state
+
+    es.generator.set_state(gen0)
+    es._opt_state = opt0
+    p, rows = params, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(gens):
+        p, s = es.step(p)
+        rows.append(s)
+    torch.cuda.synchronize()
+    eager_secs = time.perf_counter() - t0
+    eager_s = torch.stack(rows)
+    check(torch.equal(fused_s, eager_s), f"fused stats {fused_s.tolist()} "
+          f"differ from eager {eager_s.tolist()}")
+    err = (fused_p - p).abs().max().item()
+    check(err <= ES_PARAM_TOL, f"fused params differ from eager by {err}")
+    check(torch.equal(fused_gen, es.generator.get_state()),
+          "the generator's state differs after the fused and eager runs")
+    if es.optimizer == "adam":
+        check(all(torch.equal(a, b) for a, b in zip(fused_opt,
+                                                     es._opt_state)),
+              "Adam's state differs after the fused and eager runs")
+        check(float(es._opt_state[2]) == gens, "Adam's t did not count "
+              "the generations")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p2, s2 = es.run_fused(fused_p, gens)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(bool(torch.isfinite(s2).all()) and bool(torch.isfinite(p2).all()),
+          f"fused stats {s2.tolist()}")
+    row = {"optimizer": es.optimizer, "ranks": es.mesh.n_dev,
+           "generations": gens, "stats_equal": True,
+           "params_bitwise": bool(torch.equal(fused_p, p)),
+           "params_max_abs_err": err, "params_tol": ES_PARAM_TOL,
+           "generator_state_equal": True,
+           "first_call_seconds": first_secs, "fused_seconds": secs,
+           "fused_evals_per_s": gens * es.pop_size / secs,
+           "eager_seconds": eager_secs,
+           "eager_evals_per_s": gens * es.pop_size / eager_secs,
+           "stats": s2.tolist()}
+    if profile:
+        graph = es._fused_runner_cache[gens].graph
+        row["eager_generation"] = device_breakdown(torch,
+                                                   lambda: es.step(p2))
+        row["replay"] = device_breakdown(torch, graph.replay)
+        row["replay_ms"] = cuda_ms(torch, graph.replay, reps=5)
+    return row
 
 
 def _kernels():
@@ -931,8 +1043,12 @@ def phase_lm_mesh(torch):
 def phase_es_mesh(torch):
     """One flagship ES step over RANKS ranks of the card, with injected
     noise and initial states, against a plain recomputation: the
-    gathered fitness is every rank's returns, rank-major, and the
-    gradient is the rank-shaped sum over that noise."""
+    gathered fitness is the returns of one rollout over every rank's
+    members, rank-major (the step's own single ``eval_fn`` call, so the
+    returns must agree bit for bit), ranks 0 and n - 1 rolled out alone
+    give their own rows, and the gradient is the rank-shaped sum over
+    that noise. Then ``run_fused`` over the mesh, held against
+    eager steps as in the ``es`` phase."""
     from fiber_tpu_torch.entry import flagship_policy
     from fiber_tpu_torch.models.envs import CartPole
     from fiber_tpu_torch.ops.es import EvolutionStrategy
@@ -958,15 +1074,29 @@ def phase_es_mesh(torch):
     secs = time.perf_counter() - t0
 
     k = pop // (2 * n)
-    fits = []
-    for r in range(n):
-        e = eps[r * k:(r + 1) * k]
-        fits.append(rollout(torch.cat([params + sigma * e,
-                                       params - sigma * e]),
-                            states[2 * r * k:2 * (r + 1) * k]))
-    want_fit = torch.stack(fits)
+    e = eps.reshape(n, k, -1)
+    thetas = torch.cat([params + sigma * e, params - sigma * e], dim=1)
+    want_fit = rollout(thetas.reshape(pop, -1), states).reshape(n, 2 * k)
     check(torch.equal(es.last_fitness, want_fit),
           "gathered fitness is not the per-rank returns, rank-major")
+    # The layout, independently of the step's own: a rollout of rank r's
+    # members alone (its eps rows and its state rows, "+" then "-"). A
+    # batch of another size may round the policy's products otherwise,
+    # so a few integer returns may differ. Against another rank's row
+    # the same rollout must differ in more, or the check sees nothing.
+    own, per_rank = {}, {}
+    for r in (0, n - 1):
+        e_r = eps[r * k:(r + 1) * k]
+        own[r] = rollout(
+            torch.cat([params + sigma * e_r, params - sigma * e_r]),
+            states[2 * r * k:2 * (r + 1) * k])
+        per_rank[r] = int((own[r] != es.last_fitness[r]).sum())
+        check(per_rank[r] <= ES_LAYOUT_MISMATCHES, f"rank {r}: "
+              f"{per_rank[r]} of {2 * k} returns differ from a rollout of "
+              f"its own members")
+    other_rank = int((own[0] != es.last_fitness[n - 1]).sum())
+    check(other_rank > ES_LAYOUT_MISMATCHES, f"rank 0's own rollout "
+          f"differs from rank {n - 1}'s row in only {other_rank} returns")
     flat = want_fit.reshape(-1)
     ranks = torch.empty(pop, device="cuda")
     ranks[torch.argsort(flat, stable=True)] = torch.arange(
@@ -981,11 +1111,147 @@ def phase_es_mesh(torch):
     check(bool(torch.isfinite(stats).all())
           and bool(torch.isfinite(new_params).all()),
           f"stats {stats.tolist()}")
+    fused = _es_fused(torch, _flagship_es(torch, pop, steps, ranks=n),
+                      ES_GENS)
     emit({"phase": "es_mesh", "ranks": n, "pop": pop, "max_steps": steps,
           "seconds": secs, "evals_per_s": pop / secs,
           "distinct_returns": len(set(flat.tolist())),
+          "per_rank_rollout_mismatches": per_rank,
+          "per_rank_mismatch_allowance": ES_LAYOUT_MISMATCHES,
+          "rank0_rollout_vs_last_rank_row_mismatches": other_rank,
           "grad_max_abs_err": grad_err, "tol": ES_RANK_TOL,
-          "max_abs_grad": grad.abs().max().item(), "stats": stats.tolist()})
+          "max_abs_grad": grad.abs().max().item(), "stats": stats.tolist(),
+          "fused": fused})
+
+
+def _ring_layer_without_recompute(torch, tokens):
+    """Peak memory of one loss and backward through a one-layer TinyLM
+    at full width on the ring plane over RANKS ranks, with the plane's
+    engine keeping its score slabs (``recompute=False``): the
+    measurement behind the plane's recompute under grad."""
+    from fiber_tpu_torch.models.transformer import TinyLM
+    from fiber_tpu_torch.ops import ring_attention as ring
+    from fiber_tpu_torch.parallel.mesh import make_mesh
+
+    keep = ring._accumulate_block
+    ring._accumulate_block = functools.partial(keep, recompute=False)
+    try:
+        model = TinyLM(**dict(LM_CFG, layers=1), attention="ring",
+                       mesh=make_mesh("cuda", n=RANKS))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model.loss(tokens).backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        ring._accumulate_block = keep
+    del model
+    torch.cuda.empty_cache()
+    return peak
+
+
+def phase_lm_mesh_train(torch):
+    """TinyLM training at full width over RANKS ranks of the card, on the
+    flash, ring and Ulysses planes. One weight tree
+    (``random_tinylm_tree(seed=0)``): one step's loss within LM_TOL and
+    every gradient leaf within GRAD_TOL of the single-device flash
+    model's, beside the largest gradient, which scales the bound. Then
+    the entry point, ``train_lm(attention=..., ranks=RANKS)``: one
+    warm-up and TRAIN_STEPS AdamW steps, with a falling loss, the
+    launches of that run (under grad the rotations take plain copies: no
+    ``ring_exchange``; only the flash plane runs kernels, 10 blocks a
+    layer forward and backward), tokens/s and peak memory; and one
+    step's device time by CUDA events. Returns the flash plane's
+    launches."""
+    from fiber_tpu_torch.entry import train_lm
+    from fiber_tpu_torch.models import convert
+    from fiber_tpu_torch.models.transformer import (
+        TinyLM,
+        adamw,
+        make_train_step,
+    )
+    from fiber_tpu_torch.parallel.mesh import make_mesh
+
+    n, seq, layers = RANKS, LM_CFG["max_seq"], LM_CFG["layers"]
+    state = convert.tinylm_params_from_jax(
+        convert.random_tinylm_tree(**LM_CFG, seed=0), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, LM_CFG["vocab"], (seq,), generator=g,
+                           device="cuda")
+
+    def loss_and_grads(model):
+        model.load_state_dict(state)
+        loss = model.loss(tokens)
+        loss.backward()
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    def max_abs(grads):
+        return max(x.abs().max().item() for x in grads.values())
+
+    single = TinyLM(**LM_CFG, attention="flash", device="cuda")
+    ref_loss, ref_grads = loss_and_grads(single)
+    ref_max_grad = max_abs(ref_grads)
+    del single
+    ring_layer_bytes = _ring_layer_without_recompute(torch, tokens)
+    blocks = layers * (n + n * (n - 1) // 2)
+    steps_run = TRAIN_STEPS + 1                  # the warm-up step too
+    per_step = {"flash": {"flash_fwd": blocks, "flash_bwd_dq": blocks,
+                          "flash_bwd_dkv": blocks, "ring_exchange": 0}}
+    none = dict.fromkeys(per_step["flash"], 0)
+    rows, flash_launches = {}, None
+    for attention in ("flash", "ring", "ulysses"):
+        model = TinyLM(**LM_CFG, attention=attention,
+                       mesh=make_mesh("cuda", n=n))
+        loss, grads = loss_and_grads(model)
+        loss_err = abs(loss - ref_loss)
+        grad_err = max((grads[k] - ref_grads[k]).abs().max().item()
+                       for k in ref_grads)
+        max_grad = max_abs(grads)
+        del grads
+        check(loss_err < LM_TOL, f"lm_mesh_train {attention}: loss differs "
+              f"from the single-device flash model's by {loss_err}")
+        check(grad_err < GRAD_TOL, f"lm_mesh_train {attention}: gradients "
+              f"differ from the single-device flash model's by {grad_err}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        losses, secs = train_lm(device="cuda", seq=seq, steps=TRAIN_STEPS,
+                                attention=attention, ranks=n)
+        counts = _counts()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        want = {k: v * steps_run
+                for k, v in per_step.get(attention, none).items()}
+        check(counts == want, f"lm_mesh_train {attention}: launches "
+              f"{counts} in {steps_run} steps, want {want}")
+        check(bool(torch.isfinite(losses).all()), f"lm_mesh_train "
+              f"{attention}: losses {losses.tolist()}")
+        check(float(losses[-1]) < float(losses[0]), f"lm_mesh_train "
+              f"{attention}: loss did not fall: {losses.tolist()}")
+        step = make_train_step(model, adamw(model.parameters(), 1e-3))
+        step_ms = cuda_ms(torch, lambda: step(tokens), reps=2)
+        rows[attention] = {
+            "loss": loss, "loss_err_vs_single_flash": loss_err,
+            "max_grad_err_vs_single_flash": grad_err,
+            "max_abs_grad": max_grad,
+            "losses": losses.tolist(), "seconds": secs,
+            "tokens_per_s": seq * TRAIN_STEPS / secs, "step_ms": step_ms,
+            "launches": counts,
+            "launches_per_step": {k: v / steps_run
+                                  for k, v in counts.items()},
+            "peak_memory_bytes": peak_bytes}
+        if attention == "flash":
+            flash_launches = counts
+        del model, step
+        torch.cuda.empty_cache()
+    emit({"phase": "lm_mesh_train", **LM_CFG, "ranks": n,
+          "optimizer": "adamw(1e-3)", "steps": TRAIN_STEPS,
+          "entry": "train_lm", "single_flash_loss": ref_loss,
+          "single_flash_max_abs_grad": ref_max_grad, "loss_tol": LM_TOL,
+          "grad_tol": GRAD_TOL, "planes": rows,
+          "ring_one_layer_without_recompute_peak_bytes": ring_layer_bytes})
+    return flash_launches
 
 
 def main():
@@ -1017,6 +1283,8 @@ def main():
     with torch.no_grad():
         ring_launches = phase_ring_attention(torch, card)
         phase_lm_mesh(torch)
+    mesh_train_launches = phase_lm_mesh_train(torch)
+    torch.cuda.empty_cache()
     phase_es_mesh(torch)
 
     lm, lm_bwd = fwd_rows["lm_f32"], bwd_rows["lm_f32"]
@@ -1049,7 +1317,10 @@ def main():
                 **{k: bf16_bwd[part][k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by")}}})
     for entry in summary:
-        entry.update(launches=launches[entry["name"]], path="lm_train")
+        entry.update(launches=launches[entry["name"]], path="lm_train",
+                     launches_lm_mesh_train=mesh_train_launches[
+                         entry["name"]],
+                     lm_mesh_train_steps=TRAIN_STEPS + 1)
     ring = ring_rows["attention_bf16_kv"]
     summary.append({
         "name": "ring_exchange", "max_abs_err": ring["max_abs_err"],
@@ -1057,7 +1328,9 @@ def main():
         "bound_ms": ring["bound_ms"], "bound_by": ring["bound_by"],
         "library_ms": ring["library_ms"], "library_call": "torch.roll",
         "launches": ring_launches["ring_exchange"],
-        "path": "ring_attention"})
+        "path": "ring_attention",
+        "launches_lm_mesh_train": mesh_train_launches["ring_exchange"],
+        "lm_mesh_train_steps": TRAIN_STEPS + 1})
     for entry in summary:
         entry.update(route="cuda", source=SOURCES[entry["name"]],
                      replaces=REPLACES[entry["name"]])

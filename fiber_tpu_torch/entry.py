@@ -5,8 +5,9 @@ MLP-policy CartPole under OpenAI-ES, the flagship: counterpart of
 policy evaluations, the unit of work the device plane runs) plus
 one-device ES generations, as its multi-chip dry run takes.
 
-TinyLM training: :func:`train_lm` is the single-device flash leg of
-``bench.py --lm`` (``_lm_bench``).
+TinyLM training: :func:`train_lm` is ``bench.py --lm``
+(``_lm_bench``): its ring leg over a mesh, and the single-device flash
+leg it is compared with.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from fiber_tpu_torch.models.envs import CartPole
 from fiber_tpu_torch.models.policies import MLPPolicy
 from fiber_tpu_torch.models.transformer import TinyLM, adamw, make_train_step
 from fiber_tpu_torch.ops.es import EvolutionStrategy
+from fiber_tpu_torch.parallel.mesh import make_mesh
 
 HIDDEN = (32, 32)
 #: ``bench.py --lm``'s TinyLM widths
@@ -52,7 +54,9 @@ def run_es(device=None, pop: int = 4096, max_steps: int = 500,
            generations: int = 1, sigma: float = 0.1, lr: float = 0.03,
            seed: int = 0):
     """``generations`` ES steps of the flagship configuration (defaults:
-    ``bench.py``'s pop 4096, 500-step episodes, sigma 0.1, lr 0.03).
+    ``bench.py``'s pop 4096, 500-step episodes, sigma 0.1, lr 0.03), run
+    as ``bench.py`` runs them: through ``EvolutionStrategy.run_fused``
+    (on CUDA one captured generation replayed ``generations`` times).
     Returns ``(params, stats)`` with stats (generations, 3)."""
     dev = resolve_device(device)
     policy = flagship_policy()
@@ -63,24 +67,25 @@ def run_es(device=None, pop: int = 4096, max_steps: int = 500,
         device=dev,
         generator=torch.Generator(device=dev).manual_seed(seed + 1))
     params = policy.init(torch.Generator().manual_seed(seed), device=dev)
-    stats = []
-    for _ in range(generations):
-        params, s = es.step(params)
-        stats.append(s)
-    return params, torch.stack(stats)
+    return es.run_fused(params, generations)
 
 
-def train_lm(device=None, seq: int = 16384, steps: int = 5, seed: int = 0):
-    """The single-device flash leg of ``bench.py --lm``: TinyLM (vocab
-    256, dim 256, 8 heads, 4 layers) at ``seq`` tokens with
-    ``attention="flash"``, AdamW at lr 1e-3 (optax's defaults, see
-    :func:`adamw`), weights from ``seed`` and one batch of tokens from
-    ``seed + 1``; one warm-up step, then ``steps`` timed steps on that
-    batch. Returns ``(losses, seconds)``: the timed steps' losses as a
-    (steps,) f32 tensor and their wall time, by the host clock around
-    work that ends in a device synchronise."""
+def train_lm(device=None, seq: int = 16384, steps: int = 5, seed: int = 0,
+             attention: str = "flash", ranks: int = 1):
+    """``bench.py --lm``: TinyLM (vocab 256, dim 256, 8 heads, 4 layers)
+    at ``seq`` tokens on the ``attention`` plane over a mesh of
+    ``ranks`` ranks on ``device``, AdamW at lr 1e-3 (optax's defaults,
+    see :func:`adamw`), weights from ``seed`` and one batch of tokens
+    from ``seed + 1``; one warm-up step, then ``steps`` timed steps on
+    that batch. The defaults are the benchmark's single-device flash
+    leg; ``attention="ring"`` over the mesh is its headline leg, and
+    ``"ulysses"`` and multi-rank ``"flash"`` the other planes. Returns
+    ``(losses, seconds)``: the timed steps' losses as a (steps,) f32
+    tensor and their wall time, by the host clock around work that ends
+    in a device synchronise."""
     dev = resolve_device(device)
-    model = TinyLM(**LM_WIDTHS, max_seq=seq, attention="flash", device=dev,
+    model = TinyLM(**LM_WIDTHS, max_seq=seq, attention=attention,
+                   mesh=make_mesh(dev, n=ranks),
                    generator=torch.Generator().manual_seed(seed))
     step = make_train_step(model, adamw(model.parameters(), 1e-3))
     tokens = torch.randint(0, LM_WIDTHS["vocab"], (seq,),

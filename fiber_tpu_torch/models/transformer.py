@@ -17,9 +17,12 @@ all-to-all swaps around the reference attention) and ``"flash"`` (ring
 attention with the flash kernel as the per-rank block). ``apply`` and
 ``loss`` are differentiable; :func:`make_train_step` with :func:`adamw`
 is the counterpart of the JAX package's train step, checked against it
-on the single-device planes (gradients through the mesh planes are not
-checked yet). Decoding runs on one device whatever the plane, as in the
-JAX package.
+on the single-device planes and through all three mesh planes (loss,
+every gradient leaf and AdamW steps over 8 ranks). Under grad the planes
+rotate by plain copies, the ring plane recomputes its score slabs in
+backward, and the multi-rank flash plane runs both backward kernels on
+every block it ran forward. Decoding runs on one device whatever the
+plane, as in the JAX package.
 """
 
 from __future__ import annotations

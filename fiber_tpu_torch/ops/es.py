@@ -1,14 +1,19 @@
 """OpenAI-ES over a mesh of ranks: antithetic perturbation, population
-rollout, centered-rank shaping, gradient estimate and update.
+rollout, centered-rank shaping, gradient estimate and update, one
+generation at a time or N generations as one CUDA-graph replay.
 
-Counterpart of ``fiber_tpu/ops/es.py`` (``apply_es_update``,
-``centered_rank``, ``EvolutionStrategy.step``, ``run`` and
-``reset_optimizer``). The JAX step is one SPMD program over the mesh;
-on the port's single-controller mesh (``parallel/mesh.py``) its
-per-device body is a loop over ranks: every rank evaluates its own
-antithetic half-population, fitness is all-gathered rank-major before
-ranking, and the per-rank gradients are summed (``ops/collectives``).
-``run_fused`` and ``AskTellES`` are later slices of the port.
+Counterpart of ``fiber_tpu/ops/es.py`` (``run_steps``,
+``build_fused_runner``, ``_FusedRunMixin``, ``apply_es_update``,
+``centered_rank``, ``EvolutionStrategy.step``, ``run``, ``run_fused``
+and ``reset_optimizer``). The JAX step is one SPMD program over the
+mesh. On the port's single-controller mesh (``parallel/mesh.py``), whose
+ranks all sit on one device, the step evaluates every rank's antithetic
+half-population in one ``eval_fn`` call over the rank-major
+concatenation, splits the fitness back to (ranks, members), ranks it
+over the whole population and sums the per-rank gradients
+(``ops/collectives``). Where JAX scans N generations inside one XLA
+program, the port captures one generation in a CUDA graph and replays
+it N times. ``AskTellES`` is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -22,11 +27,153 @@ from fiber_tpu_torch.ops import collectives
 from fiber_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 
+def run_steps(step, state, generations: int):
+    """Shared generation loop: N ``step(state) -> (state, stats)``
+    calls, returning (state, stats history). :meth:`EvolutionStrategy.run`
+    drives its step with it, as the JAX package's state-tuple families
+    (PGPE, SepCMAES) drive theirs. The JAX loop splits a key per
+    generation; here each family's step draws from its own
+    ``torch.Generator``, which advances itself."""
+    history = []
+    for _ in range(generations):
+        state, stats = step(state)
+        history.append(stats)
+    return state, history
+
+
+class _GraphRunner:
+    """One generation captured in a CUDA graph over static state
+    buffers, replayed N times (see :func:`build_fused_runner`)."""
+
+    def __init__(self, device_step, device, n_state, generations,
+                 generator):
+        self.device_step = device_step
+        self.device = device
+        self.n_state = n_state
+        self.generations = generations
+        self.generator = generator
+        self.graph = None
+        self.static = None          # the state slots the graph reads
+        self.static_stats = None    # the stats the graph writes
+
+    def _capture(self, state):
+        """Warm-up on a side stream, then capture one generation whose
+        last act is to copy the new state into the static slots. The
+        generator's state is restored after both, so that the first
+        replay draws what the first eager step would."""
+        self.static = [x.detach().clone() for x in state]
+        g = self.generator
+        saved = None if g is None else g.get_state()
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self.device_step(*[x.clone() for x in self.static])
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        if g is not None:
+            graph.register_generator_state(g)
+        with torch.cuda.graph(graph):
+            *new, stats = self.device_step(*self.static)
+            for slot, x in zip(self.static, new):
+                if x is not slot:
+                    slot.copy_(x)
+        if g is not None:
+            g.set_state(saved)
+        self.graph, self.static_stats = graph, stats
+
+    def __call__(self, *state):
+        if len(state) != self.n_state:
+            raise ValueError(f"{len(state)} state slots, the runner was "
+                             f"built for {self.n_state}")
+        with torch.no_grad(), torch.cuda.device(self.device):
+            if self.graph is None:
+                self._capture(state)
+            for slot, x in zip(self.static, state):
+                if x.shape != slot.shape or x.dtype != slot.dtype:
+                    raise ValueError(
+                        f"state slot {tuple(x.shape)} {x.dtype} differs "
+                        f"from the captured {tuple(slot.shape)} "
+                        f"{slot.dtype}")
+                slot.copy_(x)
+            stats_seq = torch.empty(
+                (self.generations, *self.static_stats.shape),
+                dtype=self.static_stats.dtype, device=self.device)
+            for i in range(self.generations):
+                self.graph.replay()
+                stats_seq[i].copy_(self.static_stats)
+            return (*[slot.clone() for slot in self.static], stats_seq)
+
+
+def build_fused_runner(device_step, mesh: Mesh, n_state: int,
+                       generations: int,
+                       generator: Optional[torch.Generator] = None):
+    """N generations in one go, shared by every algorithm family.
+
+    ``device_step(*state) -> (*state, stats)`` is one generation over
+    ``n_state`` tensor slots, drawing its randomness from
+    ``generator``. The returned runner maps ``(*state) -> (*state,
+    stats_seq)`` with ``stats_seq.shape[0] == generations``: the same
+    trajectory as N ``device_step`` calls.
+
+    On CUDA the runner's first call captures one generation into a
+    ``torch.cuda.CUDAGraph`` over static copies of the state, with
+    ``generator`` registered to the graph, and every call replays it N
+    times, copying each replay's stats into its row of the result (a
+    device-to-device copy, no host sync). There is no fallback: a
+    capture that fails raises. On the CPU the runner loops
+    ``device_step``.
+    """
+    if generations < 1:
+        raise ValueError(f"generations must be >= 1, got {generations}")
+    if mesh.device.type == "cuda":
+        return _GraphRunner(device_step, mesh.device, n_state, generations,
+                            generator)
+
+    def run_loop(*state):
+        if len(state) != n_state:
+            raise ValueError(f"{len(state)} state slots, the runner was "
+                             f"built for {n_state}")
+        history = []
+        with torch.no_grad():
+            for _ in range(generations):
+                *state, stats = device_step(*state)
+                history.append(stats)
+        return (*state, torch.stack(history))
+
+    return run_loop
+
+
+class _FusedRunMixin:
+    """run_fused() for the state-tuple families. Requires
+    ``self._device_step_fn`` (one generation over the state slots),
+    ``self.mesh`` and ``self.generator``, and the ``step``/``run``
+    contract ``state = tuple``. Runners are cached per
+    instance and generation count, as the JAX package caches its
+    compiled runners: shapes and optimizer are fixed once captured."""
+
+    def run_fused(self, state, generations: int):
+        """Run N generations as one replay. Returns (state, stats_seq
+        (generations, k)): the same trajectory as N ``step`` calls."""
+        cache = self.__dict__.setdefault("_fused_runner_cache", {})
+        fn = cache.get(generations)
+        if fn is None:
+            fn = build_fused_runner(self._device_step_fn, self.mesh,
+                                    len(tuple(state)), generations,
+                                    generator=self.generator)
+            cache[generations] = fn
+        out = fn(*tuple(state))
+        return tuple(out[:-1]), out[-1]
+
+
 def apply_es_update(params, grad, m, v, t, *, lr, wd, adam,
                     b1=0.9, b2=0.999, eps=1e-8):
     """Ascent step: SGD or bias-corrected Adam on the estimated gradient,
-    with decoupled weight decay. Returns ``(new_params, m, v, t)``; in
-    SGD mode the moment slots pass through untouched."""
+    with decoupled weight decay. ``t`` is the step count, a 0-d tensor
+    on the params' device (a number works too), advanced by tensor
+    arithmetic so that a captured step counts on every replay. Returns
+    ``(new_params, m, v, t)``; in SGD mode the moment slots pass through
+    untouched."""
     if adam:
         t = t + 1.0
         m = b1 * m + (1 - b1) * grad
@@ -51,20 +198,23 @@ def centered_rank(x):
     return ranks.float() / (n - 1) - 0.5
 
 
-class EvolutionStrategy:
+class EvolutionStrategy(_FusedRunMixin):
     """OpenAI-ES with antithetic sampling and rank shaping.
 
     ``eval_fn(thetas (m, dim), env_states (m, ...)) -> (m,)`` fitness
-    evaluates one rank's population at once;
+    evaluates a population at once;
     ``reset_fn(n, generator) -> env_states`` draws initial states. Noise
     and states come from ``generator`` (a ``torch.Generator`` on the
     device; seed 0 when omitted) unless a step is handed them.
 
     ``mesh`` (n ranks; one rank on ``device`` when omitted) splits the
     population: rank r holds ``pop / (2n)`` antithetic pairs, evaluated
-    as ``[params + sigma * eps_r, params - sigma * eps_r]``. After a
-    step, ``last_fitness`` is the gathered (n, pop / n) fitness and
-    ``last_grad`` the gradient estimate.
+    as ``[params + sigma * eps_r, params - sigma * eps_r]``, and a step
+    evaluates all ranks' members in one ``eval_fn`` call, rank-major.
+    After a step, ``last_fitness`` is the gathered (n, pop / n) fitness
+    and ``last_grad`` the gradient estimate; after :meth:`run_fused` on
+    CUDA both are the graph's static buffers, which every replay
+    overwrites (clone them to keep a generation's values).
     """
 
     def __init__(
@@ -109,14 +259,18 @@ class EvolutionStrategy:
         self.last_grad = None
 
     def _ensure_opt_state(self, params):
+        """(m, v, t): Adam's moments and its 0-d f32 step count on the
+        params' device; in SGD mode zero-size placeholders, so that the
+        fused runner's state slots are tensors in both modes."""
         if self.optimizer != "adam":
-            return None, None, 0.0
+            empty = params.new_zeros(0)
+            return empty, empty, params.new_zeros(())
         if params.shape != (self.dim,):
             raise ValueError(f"params shape {tuple(params.shape)} != "
                              f"({self.dim},)")
         if self._opt_state is None:
             zeros = torch.zeros_like(params)
-            self._opt_state = (zeros, zeros, 0.0)
+            self._opt_state = (zeros, zeros, params.new_zeros(()))
         return self._opt_state
 
     def reset_optimizer(self) -> None:
@@ -124,6 +278,42 @@ class EvolutionStrategy:
         anew: one instance tracks one population's state, so call this
         when switching populations."""
         self._opt_state = None
+
+    def _noise(self):
+        """A generation's noise (pairs, dim), from the generator."""
+        return torch.randn(self.pairs, self.dim, generator=self.generator,
+                           device=self.device)
+
+    def _generation(self, params, m, v, t, eps, states):
+        """The per-device body: (new_params, m, v, t, stats)."""
+        mesh, n, k = self.mesh, self.mesh.n_dev, self.pairs_per_dev
+        # every rank sits on mesh.device: one eval_fn call over all
+        # ranks' members, rank-major (rank r: its k "+" members, then
+        # its k "-" members), split back to (n, 2k)
+        e = eps.reshape(n, k, self.dim)
+        thetas = torch.cat([params + self.sigma * e,
+                            params - self.sigma * e], dim=1)
+        all_fit = self.eval_fn(thetas.reshape(self.pop_size, self.dim),
+                               states).reshape(n, 2 * k)
+        # rank shaping over the whole population, gathered rank-major
+        flat = all_fit.reshape(-1)
+        ranks = centered_rank(flat).reshape(all_fit.shape)
+        g_r = [(ranks[r, :k] - ranks[r, k:]) @ e[r] for r in range(n)]
+        grad = collectives.psum(g_r, mesh) / (self.pop_size * self.sigma)
+        new_params, m, v, t = apply_es_update(
+            params, grad, m, v, t, lr=self.lr, wd=self.weight_decay,
+            adam=self.optimizer == "adam")
+        stats = torch.stack([flat.mean(), flat.max(), collectives.pmean(
+            [f.mean() for f in all_fit], mesh)])
+        self.last_fitness, self.last_grad = all_fit, grad
+        return new_params, m, v, t, stats
+
+    def _device_step_fn(self, params, m, v, t):
+        """One generation over the state slots, drawing its noise and
+        initial states as :meth:`step` does: the fused runner's body."""
+        eps = self._noise()
+        states = self.reset_fn(self.pop_size, self.generator)
+        return self._generation(params, m, v, t, eps, states)
 
     @torch.no_grad()
     def step(self, params, eps=None, states=None):
@@ -135,8 +325,7 @@ class EvolutionStrategy:
         and state rows ``2 * r * k .. 2 * (r + 1) * k``, its "+" members
         first. Ties in the integer returns rank in that order."""
         if eps is None:
-            eps = torch.randn(self.pairs, self.dim,
-                              generator=self.generator, device=self.device)
+            eps = self._noise()
         if states is None:
             states = self.reset_fn(self.pop_size, self.generator)
         if eps.shape != (self.pairs, self.dim):
@@ -146,40 +335,29 @@ class EvolutionStrategy:
             raise ValueError(f"{states.shape[0]} env states for a "
                              f"population of {self.pop_size}")
         m, v, t = self._ensure_opt_state(params)
-        mesh, k = self.mesh, self.pairs_per_dev
-        eps_r, fit_r = [], []
-        for r, dev in enumerate(mesh.devices):
-            e = eps[r * k:(r + 1) * k].to(dev)
-            p = params.to(dev)
-            thetas = torch.cat([p + self.sigma * e, p - self.sigma * e])
-            eps_r.append(e)
-            fit_r.append(self.eval_fn(
-                thetas, states[2 * r * k:2 * (r + 1) * k].to(dev)))
-        # rank shaping over the whole population, gathered rank-major
-        all_fit = collectives.all_gather(fit_r, mesh)
-        flat = all_fit.reshape(-1)
-        ranks = centered_rank(flat).reshape(all_fit.shape)
-        g_r = [(ranks[r, :k] - ranks[r, k:]).to(e.device) @ e
-               for r, e in enumerate(eps_r)]
-        grad = collectives.psum(g_r, mesh) / (self.pop_size * self.sigma)
-        new_params, m, v, t = apply_es_update(
-            params, grad, m, v, t, lr=self.lr, wd=self.weight_decay,
-            adam=self.optimizer == "adam")
+        new_params, m, v, t, stats = self._generation(params, m, v, t, eps,
+                                                      states)
         if self.optimizer == "adam":
             self._opt_state = (m, v, t)
-        stats = torch.stack([flat.mean(), flat.max(), collectives.pmean(
-            [f.mean() for f in fit_r], mesh)])
-        self.last_fitness, self.last_grad = all_fit, grad
         return new_params, stats
 
     def run(self, params, generations: int, log_every: int = 0):
         """N generations; returns (params, history of (gen, mean, max))
         logged every ``log_every`` generations and at the last."""
-        history = []
-        for gen in range(generations):
-            params, stats = self.step(params)
-            if log_every and (gen % log_every == 0
-                              or gen == generations - 1):
-                mean, best = stats[:2].tolist()
-                history.append((gen, mean, best))
+        params, stats = run_steps(self.step, params, generations)
+        history = [(gen, *s[:2].tolist()) for gen, s in enumerate(stats)
+                   if log_every and (gen % log_every == 0
+                                     or gen == generations - 1)]
         return params, history
+
+    def run_fused(self, params, generations: int):
+        """Run N generations as one replay (on CUDA, one captured
+        generation replayed N times; on the CPU, N steps). Returns
+        (params, stats (generations, 3)); optimizer state advances
+        exactly as with :meth:`run`."""
+        m, v, t = self._ensure_opt_state(params)
+        (params, m, v, t), stats = _FusedRunMixin.run_fused(
+            self, (params, m, v, t), generations)
+        if self.optimizer == "adam":
+            self._opt_state = (m, v, t)
+        return params, stats

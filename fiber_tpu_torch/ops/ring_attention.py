@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from fiber_tpu_torch.ops import collectives
 from fiber_tpu_torch.ops.dma_ring import pick_ring, ring_exchange
@@ -62,7 +63,7 @@ def _block_attn(q, k, mask):
 
 
 def _accumulate_block(q_blk, q_pos, k_cur, v_cur, kv_pos0: int, m, l, o,
-                      causal: bool):
+                      causal: bool, recompute: bool = True):
     """Online-softmax update of (m, l, o) with one KV block, taken in
     chunks of at most ``_KV_CHUNK`` rows (a ragged tail is one shorter
     chunk), so the score slab is bounded at (h, sq, _KV_CHUNK).
@@ -70,7 +71,15 @@ def _accumulate_block(q_blk, q_pos, k_cur, v_cur, kv_pos0: int, m, l, o,
     q_blk (sq, h, d); k_cur, v_cur (skv, h, d); q_pos (sq,) global query
     positions; kv_pos0 the global position of k_cur[0]; m, l (h, sq) and
     o (sq, h, d) in the accumulator dtype. ``m`` starts at -inf; a fully
-    masked chunk row keeps it there without NaNs."""
+    masked chunk row keeps it there without NaNs.
+
+    Under grad, autograd keeps only each chunk's inputs and recomputes
+    its score slabs in backward (``torch.utils.checkpoint``): the same
+    operations on the same values, so the same gradients bit for bit,
+    without the three (h, sq, _KV_CHUNK) slabs a chunk would otherwise
+    keep (27 GB a layer of TinyLM at S = 16384 on the ring plane).
+    ``recompute=False`` keeps them, the reference the tests hold the
+    recomputation to."""
     acc = _acc_dtype(q_blk.dtype)
 
     def one_chunk(k_c, v_c, kv0, m, l, o):
@@ -91,11 +100,16 @@ def _accumulate_block(q_blk, q_pos, k_cur, v_cur, kv_pos0: int, m, l, o,
             "hqk,khd->qhd", p.to(v_c.dtype).to(acc), v_c.to(acc))
         return m_new, l_new, o_new
 
+    recompute = recompute and torch.is_grad_enabled()
     skv = k_cur.shape[0]
     for c0 in range(0, skv, _KV_CHUNK):
         c1 = min(skv, c0 + _KV_CHUNK)
-        m, l, o = one_chunk(k_cur[c0:c1], v_cur[c0:c1], kv_pos0 + c0,
-                            m, l, o)
+        args = (k_cur[c0:c1], v_cur[c0:c1], kv_pos0 + c0, m, l, o)
+        if recompute:   # a chunk draws no random numbers: no RNG state
+            m, l, o = checkpoint(one_chunk, *args, use_reentrant=False,
+                                 preserve_rng_state=False)
+        else:
+            m, l, o = one_chunk(*args)
     return m, l, o
 
 
@@ -120,7 +134,7 @@ def _acc_finalize(o, l, out_dtype):
 def blockwise_attention(q, k, v, causal: bool = False):
     """Exact single-rank attention with the score slab bounded at
     (h, sq, _KV_CHUNK): q, k, v (S, heads, head_dim), equal head counts.
-    Differentiable."""
+    Differentiable, recomputing the slabs in backward."""
     q_pos = torch.arange(q.shape[0], device=q.device)
     m, l, o = _accumulate_block(q, q_pos, k, v, 0, *_acc_init(q), causal)
     return _acc_finalize(o, l, q.dtype)
@@ -196,9 +210,11 @@ def ring_attention_local(q_blks: Sequence[torch.Tensor],
     rows r*S/n onwards), per-rank output blocks out.
 
     ``local`` picks the per-rank engine: ``"xla"`` (chunked online
-    softmax in plain PyTorch, differentiable; ``"blockwise"`` is the
-    same engine under Ulysses' name) or ``"flash"`` (the ``flash_fwd``
-    kernel, GQA KV read natively). KV rotates through the
+    softmax in plain PyTorch, differentiable, recomputing each chunk's
+    score slabs in backward so that training at S = 16384 fits on one
+    card; ``"blockwise"`` is the same engine under Ulysses' name) or
+    ``"flash"`` (the ``flash_fwd`` kernel, GQA KV read natively, and
+    under grad its two backward kernels). KV rotates through the
     ``ring_exchange`` kernel (forward-only) unless a KV block needs a
     gradient, and then through plain copies;
     ``use_dma_ring=True`` or ``False`` forces the kernel or the copies."""
