@@ -12,14 +12,18 @@ kernels), drives the port's main paths at full width (the TinyLM flash
 forward, greedy decoding and training; the OpenAI-ES CartPole flagship,
 eager and as CUDA-graph replays; ring and Ulysses attention, the TinyLM
 forward and TinyLM training over a 4-rank mesh on the card; the ES step
-over that mesh) and checks what comes out. Phases print one JSON line
-each (build, kernels, kernels_bwd, kernels_ring, lm_forward,
-lm_generate, lm_train, es, ring_attention, lm_mesh, lm_mesh_train,
-es_mesh); then the card's name and power limit as nvidia-smi reports
-them, the kernel summary line, and as the last line ``{"ok": true,
-"device": {...}}``. Any failed check raises, so the exit code is not 0
-and no result line is printed; so does a machine without CUDA, or a
-directory that holds this script without the package.
+over that mesh; the population-search families: PGPE, SepCMAES and CMAES
+on CartPole, eager and replayed, NoveltyES and MAP-Elites on the
+deceptive maze, AskTellES with a host evaluator, and device_map) and
+checks what comes out. Phases print one JSON line each (build, kernels,
+kernels_bwd, kernels_ring, lm_forward, lm_generate, lm_train, es,
+ring_attention, lm_mesh, lm_mesh_train, es_mesh, es_families,
+es_families_smooth, novelty, map_elites, ask_tell, device_map); then the
+card's name and power limit as nvidia-smi reports them, the kernel
+summary line, and as the last line ``{"ok": true, "device": {...}}``.
+Any failed check raises, so the exit code is not 0 and no result line is
+printed; so does a machine without CUDA, or a directory that holds this
+script without the package.
 
 f32 products of the plain versions run in full f32 (TF32 is switched
 off), so kernel and plain version differ only in summation order.
@@ -141,6 +145,46 @@ ES_LAYOUT_MISMATCHES = 10
 ES_GENS = 10
 ES_ADAM_GENS = 3
 ES_PARAM_TOL = 1e-6   # fused vs eager params (the same kernels: 0 expected)
+# The population-search families (es_families, novelty, map_elites,
+# ask_tell, device_map): PGPE and SepCMAES as es_cartpole.py --algo
+# pgpe|cma at the flagship's pop 4096 (bench.py), 500-step CartPole, MLP
+# (32, 32); CMAES at es_cartpole.py --algo fullcma's default pop 1024.
+FAMILY_POP = 4096
+FAMILY_STEPS = 500
+FAMILY_GENS = 10
+FAMILY_MESH_GENS = 3
+# one step over 4 ranks vs one rank: the same returns, sums per rank
+FAMILY_MESH_TOL = 1e-5
+CMA_POP = 1024
+CMA_GENS = 3
+# every family's step, card vs CPU, on the quadratic at dim 64, pop 64
+SMOOTH_DIM = 64
+SMOOTH_POP = 64
+SMOOTH_TOL = 1e-5
+# the card's eigh of the dim-64 C (||C|| <= 2): its residual, its
+# orthogonality and its eigenvalues against the CPU's within a few
+# n eps ||C|| (1.5e-5), the backward-error scale of an f32 symmetric
+# eigensolver (measured on an H100: 6.3e-6, 1.2e-5 and 2.2e-5)
+EIGH_TOL = 4 * SMOOTH_DIM * 2.0 ** -23 * 2
+# CMAES's step with the card's own eigenvectors against the CPU's: the
+# two solvers' vectors differ by up to 2.1e-5 (measured), and the
+# evolution paths (entries up to 2) sum the weighted draws through them:
+# 5.9e-5 measured on an H100, bound 2e-4
+CMA_OWN_EIGH_TOL = 2e-4
+# novelty_maze.py: pop 256, archive 128, k 10, 30 generations, its modes
+NOVELTY_POP = 256
+NOVELTY_GENS = 30
+NOVELTY_MODES = (("NS-ES", 0.0, False), ("NSR-ES", 0.5, False),
+                 ("NSRA-ES", 1.0, True))
+NOVELTY_RATE_POP = 4096
+# map_elites_maze.py: batch 256, 12 x 12 cells, 60 generations
+MAP_ELITES_BATCH = 256
+MAP_ELITES_GENS = 60
+MAP_ELITES_RATE_BATCH = 4096
+# es_pool_gym.py: 10 generations; ask/tell timed at the flagship's size
+ASK_TELL_GENS = 10
+ASK_TELL_POP = 4096
+DMAP_ITEMS = 4096
 # The C interface's dtype codes
 DTYPE_CODE = {"float": 0, "bfloat16": 1}
 # What runs the products of the flash kernels, by input type
@@ -1254,6 +1298,627 @@ def phase_lm_mesh_train(torch):
     return flash_launches
 
 
+# -- the population-search families ------------------------------------
+
+def _cartpole_family(torch, cls, pop, ranks=1, seed=1, **kw):
+    """``cls`` (PGPE, SepCMAES or CMAES) on CartPole with the flagship's
+    MLP (32, 32), FAMILY_STEPS-step episodes, over ``ranks`` ranks of the
+    card, its generator seeded ``seed``; and its initial state from the
+    flagship's initial params (seed 0), as ``es_cartpole.py --algo``
+    builds it."""
+    from fiber_tpu_torch.entry import flagship_policy
+    from fiber_tpu_torch.models.envs import CartPole
+    from fiber_tpu_torch.parallel.mesh import make_mesh
+
+    policy = flagship_policy()
+    algo = cls(lambda thetas, states: CartPole.rollout(
+                   policy.act, thetas, states, max_steps=FAMILY_STEPS),
+               CartPole.reset, dim=policy.dim, pop_size=pop,
+               mesh=make_mesh("cuda", n=ranks),
+               generator=torch.Generator(device="cuda").manual_seed(seed),
+               **kw)
+    params = policy.init(torch.Generator().manual_seed(0), device="cuda")
+    return algo, algo.init_state(params)
+
+
+def _generation_breakdown(torch, algo, gens):
+    """The profiler's view of one captured generation of ``algo``: the
+    graph replay, after the eager prep where the family has one."""
+    runner = algo._fused_runner_cache[gens]
+
+    def one():
+        runner._run_prep()
+        runner.graph.replay()
+
+    return device_breakdown(torch, one), cuda_ms(torch, one, reps=3)
+
+
+def _family_fused(torch, algo, state, gens, profile=False):
+    """``run_fused`` over ``gens`` generations against as many eager
+    ``step`` calls from the same state and generator state: stats
+    exactly equal, every state leaf bitwise equal, the generator's state
+    after both equal (else the run fails). Then evals/s of a timed
+    ``run_fused`` after that warm one and of the eager steps; with
+    ``profile``, the device busy time, span, idle share and launches of
+    one eager generation and of one replayed generation."""
+    gen0 = algo.generator.get_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused, fused_s = algo.run_fused(state, gens)      # captures, warm
+    torch.cuda.synchronize()
+    first_secs = time.perf_counter() - t0
+    fused_gen = algo.generator.get_state()
+    algo.generator.set_state(gen0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager, rows = algo.run(state, gens)
+    torch.cuda.synchronize()
+    eager_secs = time.perf_counter() - t0
+    name = type(algo).__name__
+    eager_s = torch.stack(rows)
+    check(torch.equal(fused_s, eager_s), f"{name}: fused stats "
+          f"{fused_s.tolist()} differ from eager {eager_s.tolist()}")
+    for i, (a, b) in enumerate(zip(fused, eager)):
+        check(torch.equal(_bits(torch, a.reshape(-1)),
+                          _bits(torch, b.reshape(-1))),
+              f"{name}: fused state slot {i} differs from eager by "
+              f"{(a.double() - b.double()).abs().max().item()}")
+    check(torch.equal(fused_gen, algo.generator.get_state()),
+          f"{name}: the generator's state differs after the fused and "
+          "eager runs")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again, stats = algo.run_fused(fused, gens)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(bool(torch.isfinite(stats).all()), f"{name}: stats "
+          f"{stats.tolist()}")
+    row = {"family": name, "ranks": algo.mesh.n_dev, "pop": algo.pop_size,
+           "generations": gens, "stats_equal": True, "state_bitwise": True,
+           "generator_state_equal": True,
+           "eager_prep": algo._eager_prep is not None,
+           "first_call_seconds": first_secs, "fused_seconds": secs,
+           "fused_evals_per_s": gens * algo.pop_size / secs,
+           "eager_seconds": eager_secs,
+           "eager_evals_per_s": gens * algo.pop_size / eager_secs,
+           "stats_first": stats[0].tolist(), "stats_last": stats[-1].tolist()}
+    if profile:
+        row["eager_generation"] = device_breakdown(
+            torch, lambda: algo.step(again))
+        row["replay"], row["replay_ms"] = _generation_breakdown(torch, algo,
+                                                                gens)
+    return row
+
+
+def _family_mesh(torch, cls):
+    """One step of ``cls`` over RANKS ranks of the card on injected
+    draws, against a plain recomputation: SepCMAES against its one-rank
+    step (its population has the same member order on any mesh: the
+    returns are equal, the state within FAMILY_MESH_TOL, sums per rank
+    and then over ranks); PGPE, whose antithetic halves are per rank,
+    against mu's update recomputed from a rollout of the rank-major
+    population (stats exact, mu within FAMILY_MESH_TOL). Then
+    ``run_fused`` over the mesh against eager steps."""
+    from fiber_tpu_torch.models.envs import CartPole
+    from fiber_tpu_torch.ops.es import centered_rank
+
+    n = RANKS
+    algo, state = _cartpole_family(torch, cls, FAMILY_POP, ranks=n)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rows = algo.pairs if cls.__name__ == "PGPE" else algo.pop_size
+    z = torch.randn(rows, algo.dim, generator=g, device="cuda")
+    states = CartPole.reset(algo.pop_size, g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, got_s = algo.step(state, z=z, states=states)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if cls.__name__ == "PGPE":
+        mu, sigma = state
+        k = algo.pairs_per_dev
+        e = (sigma * z).reshape(n, k, -1)
+        fit = algo.eval_fn(torch.cat([mu + e, mu - e], dim=1).reshape(
+            algo.pop_size, -1), states)
+        ranks = centered_rank(fit).reshape(n, 2 * k)
+        want = mu + algo.lr_mu * torch.einsum(
+            "rk,rkd->d", ranks[:, :k] - ranks[:, k:], e) / algo.pop_size
+        want_s = torch.stack([fit.mean(), fit.max()])
+        err = (got[0] - want).abs().max().item()
+    else:
+        one, _ = _cartpole_family(torch, cls, FAMILY_POP)
+        want, want_s = one.step(state, z=z, states=states)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    check(torch.equal(got_s[:2], want_s[:2]), f"{cls.__name__} over {n} "
+          f"ranks: stats {got_s.tolist()} against {want_s.tolist()}")
+    check(err <= FAMILY_MESH_TOL, f"{cls.__name__} over {n} ranks: the "
+          f"state differs from the plain recomputation by {err}")
+    fused = _family_fused(torch, algo, got, FAMILY_MESH_GENS)
+    return {"ranks": n, "step_seconds": secs,
+            "step_evals_per_s": algo.pop_size / secs,
+            "max_abs_err_vs_plain": err, "tol": FAMILY_MESH_TOL,
+            "fused": fused}
+
+
+def _smooth_families(torch):
+    """Every family's step on the card and on the CPU from the same
+    state with the same draws, on the quadratic of the JAX package's
+    fused-runner test at SMOOTH_DIM and SMOOTH_POP (a seeded target):
+    every state leaf within SMOOTH_TOL. CMAES steps from C = I (both
+    libraries factor I as I) and from a seeded C whose eigenvalues lie
+    0.024 apart on [0.5, 2], and is held in three parts
+    (``_smooth_cma``): the card's eigh within EIGH_TOL, the rest of the
+    step on one factorisation within SMOOTH_TOL, and the whole step on
+    the card's own eigh, its vectors aligned by sign, within
+    CMA_OWN_EIGH_TOL. This holds the card's eigh, topk and
+    scatter_reduce apart from the chaotic rollouts."""
+    from fiber_tpu_torch.ops import (
+        CMAES,
+        PGPE,
+        MAPElites,
+        NoveltyES,
+        SepCMAES,
+    )
+
+    dim, pop = SMOOTH_DIM, SMOOTH_POP
+    g = torch.Generator().manual_seed(11)
+    target = torch.rand(dim, generator=g) - 0.5
+    start = 0.1 * torch.randn(dim, generator=g)
+    basis, _ = torch.linalg.qr(torch.randn(dim, dim, generator=g))
+    spread = basis @ torch.diag(torch.linspace(0.5, 2.0, dim)) @ basis.T
+
+    def quadratic(thetas, states):
+        return -((thetas - target.to(thetas.device)) ** 2).sum(1)
+
+    def with_bc(thetas, states):
+        return quadratic(thetas, states), thetas[:, :2]
+
+    def no_states(n, gen=None):
+        return torch.zeros(n, 1, device=gen.device if gen is not None
+                           else "cpu")
+
+    def to_card(state):
+        leaves = [t.cuda() for t in state]
+        return state._make(leaves) if hasattr(state, "_make") \
+            else tuple(leaves)
+
+    def build(dev):
+        return {
+            "PGPE": PGPE(quadratic, no_states, dim=dim, pop_size=pop,
+                         device=dev),
+            "SepCMAES": SepCMAES(quadratic, no_states, dim=dim,
+                                 pop_size=pop, device=dev),
+            "CMAES": CMAES(quadratic, no_states, dim=dim, pop_size=pop,
+                           device=dev),
+            "NoveltyES": NoveltyES(with_bc, no_states, dim=dim, bc_dim=2,
+                                   pop_size=pop, archive_size=16, k=5,
+                                   adaptive=True, device=dev),
+            "MAPElites": MAPElites(with_bc, no_states, dim=dim, bc_dim=2,
+                                   bc_low=(-1, -1), bc_high=(1, 1),
+                                   cells_per_dim=8, batch_size=pop,
+                                   sigma=0.2, device=dev)}
+
+    def leaf_err(got, want):
+        err = 0.0
+        for x, y in zip(got, want):
+            x, live = x.cpu(), torch.isfinite(y)
+            check(torch.equal(torch.isfinite(x), live),
+                  f"smooth: finite entries differ card vs CPU")
+            if live.any():
+                err = max(err, (x[live].double() - y[live].double()).abs()
+                          .max().item())
+        return err
+
+    cpu, card = build("cpu"), build("cuda")
+    rows, cma = {}, []
+    for name in cpu:
+        a, b = cpu[name], card[name]
+        if name in ("NoveltyES", "MAPElites"):
+            starts = [a.init_state(start, torch.zeros(1, 1))]
+        else:
+            starts = [a.init_state(start)]
+        if name == "CMAES":
+            starts.append(starts[0][:2] + (spread,) + starts[0][3:])
+        err = 0.0
+        for cs in starts:
+            draws = {"states": torch.zeros(pop, 1)}
+            if name == "MAPElites":
+                draws["parent_cells"] = a._draw_parents(cs.fitness)
+                draws["noise"] = torch.randn(pop, dim, generator=g)
+            else:
+                rows_ = a.pairs if hasattr(a, "pairs") else a.pop_size
+                draws["eps" if name == "NoveltyES" else "z"] = torch.randn(
+                    rows_, dim, generator=g)
+            if name == "NoveltyES":
+                draws["center_state"] = torch.zeros(1, 1)
+            card_draws = {k: v.cuda() for k, v in draws.items()}
+            gs = to_card(cs)
+            want, _ = a.step(cs, **draws)
+            if name != "CMAES":
+                got, _ = b.step(gs, **card_draws)
+                err = max(err, leaf_err(got, want))
+                continue
+            cma.append(_smooth_cma(torch, a, b, cs, gs, draws, card_draws,
+                                   want, leaf_err))
+        if name != "CMAES":
+            rows[name] = err
+    row = {"dim": dim, "pop": pop, "tol": SMOOTH_TOL, "eigh_tol": EIGH_TOL,
+           "cma_own_eigh_tol": CMA_OWN_EIGH_TOL,
+           "max_abs_err_card_vs_cpu": rows, "CMAES": cma}
+    emit({"phase": "es_families_smooth", **row})
+    for name, err in rows.items():
+        check(err <= SMOOTH_TOL, f"smooth {name}: card and CPU differ by "
+              f"{err}")
+    for r in cma:
+        check(max(r["eigenvalue_err"], r["residual"], r["orthogonality"])
+              <= EIGH_TOL, f"smooth CMAES: the card's eigh: {r}")
+        check(r["step_same_factorization_err"] <= SMOOTH_TOL,
+              f"smooth CMAES: step on one factorization: {r}")
+        check(r["step_own_eigh_err"] <= CMA_OWN_EIGH_TOL,
+              f"smooth CMAES: step with the card's own eigh: {r}")
+    return row
+
+
+def _smooth_cma(torch, a, b, cs, gs, draws, card_draws, want, leaf_err):
+    """CMAES on the card against the CPU from one state: the card's eigh
+    of the symmetrised C (its eigenvalues against the CPU's, its own
+    residual ``C B - B diag(lambda)`` and ``B^T B - I``, and its vectors
+    against the CPU's after sign alignment); the rest of the step on the
+    CPU's factorisation moved to the card; and the card's own step, with
+    z times ``S = sign(diag(B_cpu^T B_card))``, which gives the same y
+    and ``C^{-1/2} <y>_w`` where the vectors agree."""
+    c_cpu = 0.5 * (cs[2] + cs[2].T)
+    c_card = 0.5 * (gs[2] + gs[2].T)
+    vals_cpu, b_cpu = torch.linalg.eigh(c_cpu)
+    vals_card, b_card = torch.linalg.eigh(c_card)
+    eye = torch.eye(c_card.shape[0], device="cuda")
+    diag = torch.diagonal(b_cpu.T @ b_card.cpu())
+    check(bool((diag.abs() > 0.99).all()), "smooth CMAES: the card's "
+          "eigenvectors are not the CPU's up to sign")
+    sign = torch.sign(diag)
+    *same, _ = b._generation(*gs, card_draws["z"], card_draws["states"],
+                             tuple(t.cuda() for t in a._prep_cov(cs[2])))
+    own, _ = b.step(gs, z=card_draws["z"] * sign.cuda(),
+                    states=card_draws["states"])
+    return {
+        "eigenvalue_err": (vals_card.cpu() - vals_cpu).abs().max().item(),
+        "residual": (c_card @ b_card - b_card * vals_card).abs().max()
+        .item(),
+        "orthogonality": (b_card.T @ b_card - eye).abs().max().item(),
+        "eigenvector_err_after_sign": (b_card.cpu() * sign - b_cpu).abs()
+        .max().item(),
+        "step_same_factorization_err": leaf_err(same, want),
+        "step_own_eigh_err": leaf_err(own, want)}
+
+
+def phase_es_families(torch):
+    """PGPE and SepCMAES at the flagship's population (es_cartpole.py
+    --algo pgpe|cma at bench.py's pop 4096): one eager step, then
+    ``run_fused`` against eager steps (``_family_fused``) with the
+    profiler's view of a generation, and the same over RANKS ranks.
+    CMAES at es_cartpole.py --algo fullcma's defaults (pop 1024, a
+    (1282, 1282) covariance): the ms of one eigh, the capture decision
+    (an eager eigh before each replay of the captured remainder), and
+    ``run_fused`` against eager steps. Then every family on the card
+    against the CPU on a smooth objective (its own line,
+    ``es_families_smooth``)."""
+    from fiber_tpu_torch.ops import CMAES, PGPE, SepCMAES
+
+    rows = {}
+    for cls in (PGPE, SepCMAES):
+        algo, state = _cartpole_family(torch, cls, FAMILY_POP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, stats = algo.step(state)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        check(bool(torch.isfinite(stats).all()), f"{cls.__name__} stats "
+              f"{stats.tolist()}")
+        row = _family_fused(torch, algo, state, FAMILY_GENS, profile=True)
+        row.update(first_step_seconds=first, mesh=_family_mesh(torch, cls))
+        rows[cls.__name__] = row
+        del algo, state
+        torch.cuda.empty_cache()
+
+    cma, state = _cartpole_family(torch, CMAES, CMA_POP)
+    check(cma._eager_prep is not None, "CMAES does not declare its eigh "
+          "as eager prep")
+    c = state[2] + 0.01 * torch.randn(
+        state[2].shape, generator=torch.Generator(device="cuda").manual_seed(
+            3), device="cuda")
+    c = c @ c.T
+    eigh_ms = cuda_ms(torch, lambda: torch.linalg.eigh(c), reps=5)
+    row = _family_fused(torch, cma, state, CMA_GENS, profile=True)
+    row.update(dim=cma.dim, covariance=list(state[2].shape),
+               eigh_ms=eigh_ms,
+               capture="eager eigh before each replay of the captured "
+                       "remainder (torch.linalg.eigh checks its info on "
+                       "the host, which a capture refuses)")
+    rows["CMAES"] = row
+    del cma, state
+    torch.cuda.empty_cache()
+    emit({"phase": "es_families", "pop": FAMILY_POP,
+          "max_steps": FAMILY_STEPS, "hidden": [32, 32], "families": rows})
+    _smooth_families(torch)
+
+
+def _maze_eval(policy):
+    from fiber_tpu_torch.models.envs import DeceptiveMaze
+
+    def eval_bc(thetas, states):
+        return DeceptiveMaze.fitness_and_behavior(policy.apply, thetas,
+                                                  states)
+
+    return eval_bc
+
+
+def phase_novelty(torch):
+    """NoveltyES at novelty_maze.py's settings (DeceptiveMaze, MLP (16,),
+    pop 256, archive 128, k 10, sigma 0.1, lr 0.05) in each of its three
+    modes: NOVELTY_GENS eager steps, the archive's count 1 + generations
+    and ``best`` never falling; then ``run_fused`` from the same start
+    against those steps (stats and state bitwise). Then one generation
+    at pop NOVELTY_RATE_POP, eager and replayed, for the rate."""
+    from fiber_tpu_torch.models.envs import DeceptiveMaze
+    from fiber_tpu_torch.models.policies import MLPPolicy
+    from fiber_tpu_torch.ops import NoveltyES
+
+    policy = MLPPolicy(DeceptiveMaze.obs_dim, DeceptiveMaze.act_dim,
+                       hidden=(16,))
+    p0 = policy.init(torch.Generator().manual_seed(0), device="cuda")
+
+    def make(pop, w, adaptive):
+        return NoveltyES(_maze_eval(policy), DeceptiveMaze.reset,
+                         dim=policy.dim, bc_dim=2, pop_size=pop, sigma=0.1,
+                         lr=0.05, archive_size=128, k=10, reward_weight=w,
+                         adaptive=adaptive, weight_delta=0.1, patience=5,
+                         device="cuda",
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(2))
+
+    modes = {}
+    for label, w, adaptive in NOVELTY_MODES:
+        nes = make(NOVELTY_POP, w, adaptive)
+        state0 = nes.init_state(p0)
+        gen0 = nes.generator.get_state()
+        state, bests, best_gen, rows = state0, [], -float("inf"), []
+        for _ in range(NOVELTY_GENS):
+            state, stats = nes.step(state)
+            rows.append(stats)
+            bests.append(float(state.best))
+            best_gen = max(best_gen, float(stats[1]))
+        check(int(state.count) == 1 + NOVELTY_GENS, f"novelty {label}: "
+              f"count {int(state.count)} after {NOVELTY_GENS} generations")
+        check(bests == sorted(bests) and bests[-1] == best_gen,
+              f"novelty {label}: best fell: {bests}")
+        eager_gen = nes.generator.get_state()
+        nes.generator.set_state(gen0)
+        fused, fused_s = nes.run_fused(state0, NOVELTY_GENS)
+        check(all(torch.equal(_bits(torch, a.reshape(-1)),
+                              _bits(torch, b.reshape(-1)))
+                  for a, b in zip(fused, state))
+              and torch.equal(fused_s, torch.stack(rows))
+              and torch.equal(nes.generator.get_state(), eager_gen),
+              f"novelty {label}: run_fused differs from eager steps")
+        modes[label] = {"best": bests[-1], "final_w": float(state.w),
+                        "count": int(state.count),
+                        "archive_max_y": float(state.archive[:, 1].max()),
+                        "fused_equal_eager": True}
+    nes = make(NOVELTY_RATE_POP, 0.5, False)
+    state = nes.init_state(p0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = nes.step(state)
+    torch.cuda.synchronize()
+    eager_secs = time.perf_counter() - t0
+    state, _ = nes.run_fused(state, 1)
+    replay, replay_ms = _generation_breakdown(torch, nes, 1)
+    emit({"phase": "novelty", "pop": NOVELTY_POP, "archive": 128, "k": 10,
+          "generations": NOVELTY_GENS, "hidden": [16], "modes": modes,
+          "rate_pop": NOVELTY_RATE_POP, "eager_generation_seconds":
+          eager_secs, "eager_evals_per_s": NOVELTY_RATE_POP / eager_secs,
+          "replay_ms": replay_ms,
+          "replay_evals_per_s": NOVELTY_RATE_POP / replay_ms * 1e3,
+          "replay": replay})
+
+
+def phase_map_elites(torch):
+    """MAPElites at map_elites_maze.py's settings (DeceptiveMaze, MLP
+    (16,), 12 x 12 cells over [-4, 4]^2, batch 256, sigma 0.2) for
+    MAP_ELITES_GENS generations: coverage and the best fitness never
+    fall, no elite regresses in its cell, and every elite's behavior
+    maps back to its cell. Then one generation at batch
+    MAP_ELITES_RATE_BATCH for the rate, with the profiler's view."""
+    from fiber_tpu_torch.models.envs import DeceptiveMaze
+    from fiber_tpu_torch.models.policies import MLPPolicy
+    from fiber_tpu_torch.ops import MAPElites
+
+    policy = MLPPolicy(DeceptiveMaze.obs_dim, DeceptiveMaze.act_dim,
+                       hidden=(16,))
+
+    def make(batch):
+        return MAPElites(_maze_eval(policy), DeceptiveMaze.reset,
+                         dim=policy.dim, bc_dim=2, bc_low=(-4.0, -4.0),
+                         bc_high=(4.0, 4.0), cells_per_dim=12,
+                         batch_size=batch, sigma=0.2, device="cuda",
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(1))
+
+    me = make(MAP_ELITES_BATCH)
+    state = me.init_state(policy.init(torch.Generator().manual_seed(0),
+                                      device="cuda"))
+    prev_fit, prev_cov, prev_best = state.fitness, 0.0, -float("inf")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for gen in range(MAP_ELITES_GENS):
+        state, stats = me.step(state)
+        kept = torch.isfinite(prev_fit)
+        check(bool((state.fitness[kept] >= prev_fit[kept]).all()),
+              f"map_elites generation {gen}: an elite regressed")
+        cov, best = float(stats[1]), float(stats[2])
+        check(cov >= prev_cov and best >= prev_best, f"map_elites "
+              f"generation {gen}: coverage {cov} or best {best} fell")
+        prev_fit, prev_cov, prev_best = state.fitness, cov, best
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    elites = me.elites(state)
+    check(len(elites) == int(torch.isfinite(state.fitness).sum()),
+          "map_elites: elites() misses filled cells")
+    bcs = torch.stack([torch.from_numpy(bc) for _, _, bc, _ in elites])
+    check(me._cell_of(bcs.cuda()).tolist() == [c for c, *_ in elites],
+          "map_elites: an elite's behavior is not in its cell")
+    beyond = int(((state.behaviors[:, 1] > 1.0)
+                  & torch.isfinite(state.fitness)).sum())
+    big = make(MAP_ELITES_RATE_BATCH)
+    big_state = big.init_state(policy.init(torch.Generator().manual_seed(0),
+                                           device="cuda"))
+    big.step(big_state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big.step(big_state)
+    torch.cuda.synchronize()
+    rate_secs = time.perf_counter() - t0
+    emit({"phase": "map_elites", "batch": MAP_ELITES_BATCH, "cells": 144,
+          "generations": MAP_ELITES_GENS, "seconds": secs,
+          "evals_per_s": MAP_ELITES_GENS * MAP_ELITES_BATCH / secs,
+          "coverage": prev_cov, "best_fitness": prev_best, "qd":
+          float(stats[0]), "cells_beyond_wall": beyond,
+          "rate_batch": MAP_ELITES_RATE_BATCH,
+          "rate_generation_seconds": rate_secs,
+          "rate_evals_per_s": MAP_ELITES_RATE_BATCH / rate_secs,
+          "generation": device_breakdown(
+              torch, lambda: big.step(big_state))})
+
+
+def simulate_cartpole(theta) -> float:
+    """es_pool_gym.py's host evaluator: pure-Python CartPole with a
+    linear policy, 200 steps from a fixed start."""
+    import math
+    import random
+
+    rng = random.Random(12345)
+    x, v, a, w = [0.02 * (rng.random() - 0.5) for _ in range(4)]
+    g, mc, mp_, lp, dt = 9.8, 1.0, 0.1, 0.5, 0.02
+    steps = 0
+    for _ in range(200):
+        obs = (x, v, a, w)
+        score = sum(t * o for t, o in zip(theta, obs))
+        force = 10.0 if score > 0 else -10.0
+        cosa, sina = math.cos(a), math.sin(a)
+        tmp = (force + mp_ * lp * w * w * sina) / (mc + mp_)
+        aacc = (g * sina - cosa * tmp) / (
+            lp * (4.0 / 3.0 - mp_ * cosa * cosa / (mc + mp_)))
+        xacc = tmp - mp_ * lp * aacc * cosa / (mc + mp_)
+        x, v = x + dt * v, v + dt * xacc
+        a, w = a + dt * w, w + dt * aacc
+        steps += 1
+        if abs(x) > 2.4 or abs(a) > 0.209:
+            break
+    return float(steps)
+
+
+def phase_ask_tell(torch):
+    """es_pool_gym.py's loop (dim 4, pop 64, sigma 0.5, lr 0.3) with its
+    host CartPole evaluator, sampling and updating on the card: the mean
+    fitness rises. Then the ms of one ask and one tell at pop
+    ASK_TELL_POP x the flagship's dim (host clock around synchronised
+    work; ask includes copying the candidates to the host)."""
+    from fiber_tpu_torch.entry import flagship_policy
+    from fiber_tpu_torch.ops import AskTellES
+
+    es = AskTellES(dim=4, pop_size=64, sigma=0.5, lr=0.3, device="cuda")
+    means = []
+    for _ in range(ASK_TELL_GENS):
+        thetas = es.ask()
+        means.append(es.tell([simulate_cartpole(t) for t in thetas.tolist()])
+                     ["mean_fitness"])
+    final = simulate_cartpole(es.params.tolist())
+    check(means[-1] > means[0], f"ask_tell: mean fitness did not rise: "
+          f"{means}")
+    dim = flagship_policy().dim
+    big = AskTellES(dim=dim, pop_size=ASK_TELL_POP, device="cuda")
+    fits = torch.randn(ASK_TELL_POP,
+                       generator=torch.Generator().manual_seed(0)).numpy()
+    big.ask()                                             # warm
+    big.tell(fits)
+    ask_s, tell_s = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        thetas = big.ask()
+        t1 = time.perf_counter()
+        big.tell(fits)
+        torch.cuda.synchronize()
+        ask_s.append(t1 - t0)
+        tell_s.append(time.perf_counter() - t1)
+    check(thetas.shape == (ASK_TELL_POP, dim), f"ask shape {thetas.shape}")
+    emit({"phase": "ask_tell", "dim": 4, "pop": 64, "generations":
+          ASK_TELL_GENS, "mean_fitness": means, "final_policy_steps": final,
+          "big_pop": ASK_TELL_POP, "big_dim": dim,
+          "ask_ms": 1e3 * min(ask_s), "tell_ms": 1e3 * min(tell_s)})
+
+
+def phase_device_map(torch):
+    """``device_map`` of a per-item CartPole evaluation over
+    DMAP_ITEMS (theta, state) pairs at the flagship's MLP (32, 32) and
+    500 steps, on 1 and RANKS ranks of the card: the returns of
+    ``EvolutionStrategy``'s batched evaluation of the same rows, exactly
+    (the same batched products under vmap); evals/s of a warm call."""
+    from fiber_tpu_torch.entry import flagship_policy
+    from fiber_tpu_torch.models.envs import CartPole
+    from fiber_tpu_torch.ops import EvolutionStrategy
+    from fiber_tpu_torch.parallel import DeviceMapPlan
+    from fiber_tpu_torch.parallel.mesh import make_mesh
+
+    policy = flagship_policy()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    params = policy.init(torch.Generator().manual_seed(0), device="cuda")
+    thetas = params + 0.1 * torch.randn(DMAP_ITEMS, policy.dim,
+                                        generator=g, device="cuda")
+    states = CartPole.reset(DMAP_ITEMS, g)
+    es = EvolutionStrategy(
+        lambda th, st: CartPole.rollout(policy.act, th, st,
+                                        max_steps=FAMILY_STEPS),
+        CartPole.reset, dim=policy.dim, pop_size=DMAP_ITEMS, device="cuda")
+    want = es.eval_fn(thetas, states).cpu()
+
+    def evaluate(theta, state):
+        return CartPole.rollout(policy.act, theta[None], state[None],
+                                max_steps=FAMILY_STEPS)[0]
+
+    items = list(zip(thetas, states))
+    rows = {}
+    for n in (1, RANKS):
+        plan = DeviceMapPlan(evaluate, mesh=make_mesh("cuda", n=n),
+                             star=True)
+        got = plan(items)
+        check([float(x) for x in got] == want.tolist(), f"device_map over "
+              f"{n} ranks: returns differ from the batched evaluation")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan(items)
+        secs = time.perf_counter() - t0
+        rows[n] = {"seconds": secs, "evals_per_s": DMAP_ITEMS / secs}
+    emit({"phase": "device_map", "items": DMAP_ITEMS, "hidden": [32, 32],
+          "max_steps": FAMILY_STEPS, "equal_batched": True,
+          "distinct_returns": len(set(want.tolist())), "ranks": rows})
+
+
+def phase_population_search(torch):
+    """The population-search phases, with every kernel's launch count
+    set to 0 before them and read after: none of these paths runs a TPU
+    kernel's counterpart, in either package."""
+    _reset_counts()
+    phase_es_families(torch)
+    phase_novelty(torch)
+    phase_map_elites(torch)
+    phase_ask_tell(torch)
+    phase_device_map(torch)
+    counts = _counts()
+    check(not any(counts.values()), f"kernels launched on the population "
+          f"search paths: {counts}")
+    return counts
+
+
 def main():
     import torch
 
@@ -1286,6 +1951,8 @@ def main():
     mesh_train_launches = phase_lm_mesh_train(torch)
     torch.cuda.empty_cache()
     phase_es_mesh(torch)
+    torch.cuda.empty_cache()
+    search_launches = phase_population_search(torch)
 
     lm, lm_bwd = fwd_rows["lm_f32"], bwd_rows["lm_f32"]
     bf16, bf16_bwd = fwd_rows["attention_bf16"], bwd_rows["attention_bf16"]
@@ -1333,7 +2000,9 @@ def main():
         "lm_mesh_train_steps": TRAIN_STEPS + 1})
     for entry in summary:
         entry.update(route="cuda", source=SOURCES[entry["name"]],
-                     replaces=REPLACES[entry["name"]])
+                     replaces=REPLACES[entry["name"]],
+                     launches_population_search=search_launches[
+                         entry["name"]])
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {

@@ -14,20 +14,28 @@ TinyLM with flash attention, forward, KV-cache decoding and training
 over a single-controller mesh of n ranks (``make_mesh``,
 ``ring_attention``, ``ulysses_attention``, TinyLM's ``"ring"``,
 ``"ulysses"`` and multi-rank ``"flash"``), whose rotations run the
-``ring_exchange`` kernel whenever no gradient is needed.
+``ring_exchange`` kernel whenever no gradient is needed; and the
+population-search families beside the ES flagship (``AskTellES`` for
+evaluators on the host, ``device_map``/``DeviceMapPlan``, ``PGPE``,
+``SepCMAES``, ``CMAES``, ``NoveltyES`` with ``knn_novelty`` and
+``NoveltyPopulation``, ``MAPElites``, and the ``DeceptiveMaze`` that
+the novelty and MAP-Elites examples search).
 """
 
 from fiber_tpu_torch.device import resolve_device
 from fiber_tpu_torch.entry import entry, run_es, train_lm
 from fiber_tpu_torch.models.convert import (
     policy_params_from_jax,
+    state_from_jax,
     tinylm_params_from_jax,
     tinylm_tree_from_torch,
 )
-from fiber_tpu_torch.models.envs import CartPole
+from fiber_tpu_torch.models.envs import CartPole, DeceptiveMaze
 from fiber_tpu_torch.models.policies import MLPPolicy
 from fiber_tpu_torch.models.transformer import TinyLM, adamw, make_train_step
+from fiber_tpu_torch.ops.cma import CMAES, SepCMAES
 from fiber_tpu_torch.ops.es import (
+    AskTellES,
     EvolutionStrategy,
     apply_es_update,
     centered_rank,
@@ -42,6 +50,14 @@ from fiber_tpu_torch.ops.flash_attention import (
     flash_fwd,
 )
 from fiber_tpu_torch.ops.dma_ring import ring_all_to_all, ring_exchange
+from fiber_tpu_torch.ops.map_elites import MAPElites, MapElitesState
+from fiber_tpu_torch.ops.novelty import (
+    NoveltyES,
+    NoveltyPopulation,
+    NoveltyState,
+    knn_novelty,
+)
+from fiber_tpu_torch.ops.pgpe import PGPE
 from fiber_tpu_torch.ops.ring_attention import (
     blockwise_attention,
     reference_attention,
@@ -52,17 +68,21 @@ from fiber_tpu_torch.ops.ulysses_attention import (
     ulysses_attention,
     ulysses_attention_local,
 )
+from fiber_tpu_torch.parallel.dmap import DeviceMapPlan, device_map
 from fiber_tpu_torch.parallel.mesh import Mesh, make_mesh, shard, unshard
 
 __all__ = [
-    "CartPole", "EvolutionStrategy", "MLPPolicy", "Mesh", "TinyLM",
-    "adamw", "apply_es_update", "blockwise_attention", "centered_rank",
-    "entry", "flash_attention", "flash_attention_bwd_reference",
-    "flash_attention_lse", "flash_attention_reference", "flash_bwd_dkv",
-    "flash_bwd_dq", "flash_fwd", "make_mesh", "make_train_step",
+    "AskTellES", "CMAES", "CartPole", "DeceptiveMaze", "DeviceMapPlan",
+    "EvolutionStrategy", "MAPElites", "MLPPolicy", "MapElitesState", "Mesh",
+    "NoveltyES", "NoveltyPopulation", "NoveltyState", "PGPE", "SepCMAES",
+    "TinyLM", "adamw", "apply_es_update", "blockwise_attention",
+    "centered_rank", "device_map", "entry", "flash_attention",
+    "flash_attention_bwd_reference", "flash_attention_lse",
+    "flash_attention_reference", "flash_bwd_dkv", "flash_bwd_dq",
+    "flash_fwd", "knn_novelty", "make_mesh", "make_train_step",
     "policy_params_from_jax", "reference_attention", "resolve_device",
     "ring_all_to_all", "ring_attention", "ring_attention_local",
-    "ring_exchange", "run_es", "shard", "tinylm_params_from_jax",
-    "tinylm_tree_from_torch", "train_lm", "ulysses_attention",
-    "ulysses_attention_local", "unshard",
+    "ring_exchange", "run_es", "shard", "state_from_jax",
+    "tinylm_params_from_jax", "tinylm_tree_from_torch", "train_lm",
+    "ulysses_attention", "ulysses_attention_local", "unshard",
 ]

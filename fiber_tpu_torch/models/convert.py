@@ -1,9 +1,11 @@
-"""Carry parameters between the JAX package and the port.
+"""Carry parameters and search states between the JAX package and the
+port.
 
 Parameters cross as numpy arrays (``jax.device_get`` on the JAX side),
 in both directions, so this module needs no JAX. Layouts are the same
 in both packages: weights ``(in, out)``, MLP policies one flat vector
-in ``MLPPolicy.init`` order.
+in ``MLPPolicy.init`` order, and the population families' states the
+same tuples of arrays in the same order.
 """
 
 from __future__ import annotations
@@ -56,6 +58,23 @@ def policy_params_from_jax(np_vec, device=None) -> torch.Tensor:
     """A flat policy vector (or a (pop, dim) batch) -> f32 tensor."""
     return torch.as_tensor(np.array(np_vec, np.float32, copy=True),
                            device=resolve_device(device))
+
+
+def state_from_jax(np_state, device=None):
+    """A JAX search state (a tuple or NamedTuple of numpy leaves, as
+    ``jax.device_get`` gives it) -> the same tuple of tensors on
+    ``device``: floats as f32, integers as int32 (CMA's ``gen``,
+    NoveltyES's ``count`` and ``stag``). PGPE's and CMA's ``step`` take
+    the tuple; NoveltyES and MAP-Elites take it wrapped in their own
+    NamedTuple (``NoveltyState(*state)``)."""
+    dev = resolve_device(device)
+
+    def t(a):
+        a = np.asarray(a)
+        dt = np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
+        return torch.from_numpy(np.array(a, dt, copy=True)).to(dev)
+
+    return tuple(t(a) for a in np_state)
 
 
 def random_tinylm_tree(vocab: int, dim: int, heads: int, layers: int,

@@ -5,33 +5,35 @@ generation at a time or N generations as one CUDA-graph replay.
 Counterpart of ``fiber_tpu/ops/es.py`` (``run_steps``,
 ``build_fused_runner``, ``_FusedRunMixin``, ``apply_es_update``,
 ``centered_rank``, ``EvolutionStrategy.step``, ``run``, ``run_fused``
-and ``reset_optimizer``). The JAX step is one SPMD program over the
-mesh. On the port's single-controller mesh (``parallel/mesh.py``), whose
-ranks all sit on one device, the step evaluates every rank's antithetic
-half-population in one ``eval_fn`` call over the rank-major
-concatenation, splits the fitness back to (ranks, members), ranks it
-over the whole population and sums the per-rank gradients
-(``ops/collectives``). Where JAX scans N generations inside one XLA
-program, the port captures one generation in a CUDA graph and replays
-it N times. ``AskTellES`` is a later slice of the port.
+and ``reset_optimizer``, and ``AskTellES``). The JAX step is one SPMD
+program over the mesh. On the port's single-controller mesh
+(``parallel/mesh.py``), whose ranks all sit on one device, the step
+evaluates every rank's antithetic half-population in one ``eval_fn``
+call over the rank-major concatenation, splits the fitness back to
+(ranks, members), ranks it over the whole population and sums the
+per-rank gradients (``ops/collectives``). Where JAX scans N generations
+inside one XLA program, the port captures one generation in a CUDA graph
+and replays it N times. :class:`AskTellES` is the same update behind an
+ask/tell interface, for evaluators that live on the host.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from fiber_tpu_torch.device import resolve_device
 from fiber_tpu_torch.ops import collectives
-from fiber_tpu_torch.parallel.mesh import Mesh, make_mesh
+from fiber_tpu_torch.parallel.mesh import Mesh, mesh_for
 
 
 def run_steps(step, state, generations: int):
     """Shared generation loop: N ``step(state) -> (state, stats)``
     calls, returning (state, stats history). :meth:`EvolutionStrategy.run`
-    drives its step with it, as the JAX package's state-tuple families
-    (PGPE, SepCMAES) drive theirs. The JAX loop splits a key per
+    and the state-tuple families (PGPE, CMA-ES, NoveltyES, MAP-Elites)
+    drive their steps with it. The JAX loop splits a key per
     generation; here each family's step draws from its own
     ``torch.Generator``, which advances itself."""
     history = []
@@ -46,15 +48,25 @@ class _GraphRunner:
     buffers, replayed N times (see :func:`build_fused_runner`)."""
 
     def __init__(self, device_step, device, n_state, generations,
-                 generator):
+                 generator, eager_prep=None):
         self.device_step = device_step
         self.device = device
         self.n_state = n_state
         self.generations = generations
         self.generator = generator
+        self.eager_prep = eager_prep
         self.graph = None
         self.static = None          # the state slots the graph reads
+        self.static_prep = []       # eager_prep's outputs, read too
         self.static_stats = None    # the stats the graph writes
+
+    def _run_prep(self):
+        """Refreshes the prep slots from the state slots, outside the
+        graph."""
+        if self.eager_prep is not None:
+            for slot, x in zip(self.static_prep,
+                               self.eager_prep(*self.static)):
+                slot.copy_(x)
 
     def _capture(self, state):
         """Warm-up on a side stream, then capture one generation whose
@@ -62,19 +74,23 @@ class _GraphRunner:
         generator's state is restored after both, so that the first
         replay draws what the first eager step would."""
         self.static = [x.detach().clone() for x in state]
+        if self.eager_prep is not None:
+            self.static_prep = [x.detach().clone()
+                                for x in self.eager_prep(*self.static)]
         g = self.generator
         saved = None if g is None else g.get_state()
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            self.device_step(*[x.clone() for x in self.static])
+            self.device_step(*[x.clone() for x in self.static],
+                             *self.static_prep)
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         if g is not None:
             graph.register_generator_state(g)
         with torch.cuda.graph(graph):
-            *new, stats = self.device_step(*self.static)
+            *new, stats = self.device_step(*self.static, *self.static_prep)
             for slot, x in zip(self.static, new):
                 if x is not slot:
                     slot.copy_(x)
@@ -100,6 +116,7 @@ class _GraphRunner:
                 (self.generations, *self.static_stats.shape),
                 dtype=self.static_stats.dtype, device=self.device)
             for i in range(self.generations):
+                self._run_prep()
                 self.graph.replay()
                 stats_seq[i].copy_(self.static_stats)
             return (*[slot.clone() for slot in self.static], stats_seq)
@@ -107,7 +124,8 @@ class _GraphRunner:
 
 def build_fused_runner(device_step, mesh: Mesh, n_state: int,
                        generations: int,
-                       generator: Optional[torch.Generator] = None):
+                       generator: Optional[torch.Generator] = None,
+                       eager_prep: Optional[Callable] = None):
     """N generations in one go, shared by every algorithm family.
 
     ``device_step(*state) -> (*state, stats)`` is one generation over
@@ -123,12 +141,18 @@ def build_fused_runner(device_step, mesh: Mesh, n_state: int,
     device-to-device copy, no host sync). There is no fallback: a
     capture that fails raises. On the CPU the runner loops
     ``device_step``.
+
+    ``eager_prep(*state) -> tuple of tensors``, when given, is work that
+    a capture refuses (CMAES's ``eigh``, which checks its result on the
+    host): it runs outside the graph before every generation, and its
+    outputs enter ``device_step(*state, *prep)`` as further inputs,
+    which the graph reads from static slots.
     """
     if generations < 1:
         raise ValueError(f"generations must be >= 1, got {generations}")
     if mesh.device.type == "cuda":
         return _GraphRunner(device_step, mesh.device, n_state, generations,
-                            generator)
+                            generator, eager_prep)
 
     def run_loop(*state):
         if len(state) != n_state:
@@ -137,7 +161,8 @@ def build_fused_runner(device_step, mesh: Mesh, n_state: int,
         history = []
         with torch.no_grad():
             for _ in range(generations):
-                *state, stats = device_step(*state)
+                prep = () if eager_prep is None else eager_prep(*state)
+                *state, stats = device_step(*state, *prep)
                 history.append(stats)
         return (*state, torch.stack(history))
 
@@ -148,9 +173,14 @@ class _FusedRunMixin:
     """run_fused() for the state-tuple families. Requires
     ``self._device_step_fn`` (one generation over the state slots),
     ``self.mesh`` and ``self.generator``, and the ``step``/``run``
-    contract ``state = tuple``. Runners are cached per
+    contract ``state = tuple``; a family whose generation holds work
+    that a CUDA graph cannot capture names it as ``_eager_prep`` (see
+    :func:`build_fused_runner`). Runners are cached per
     instance and generation count, as the JAX package caches its
-    compiled runners: shapes and optimizer are fixed once captured."""
+    compiled runners: shapes and optimizer are fixed once captured.
+    A NamedTuple state comes back as its own type."""
+
+    _eager_prep = None
 
     def run_fused(self, state, generations: int):
         """Run N generations as one replay. Returns (state, stats_seq
@@ -160,10 +190,14 @@ class _FusedRunMixin:
         if fn is None:
             fn = build_fused_runner(self._device_step_fn, self.mesh,
                                     len(tuple(state)), generations,
-                                    generator=self.generator)
+                                    generator=self.generator,
+                                    eager_prep=self._eager_prep)
             cache[generations] = fn
         out = fn(*tuple(state))
-        return tuple(out[:-1]), out[-1]
+        new_state = tuple(out[:-1])
+        if hasattr(type(state), "_make"):
+            new_state = type(state)._make(new_state)
+        return new_state, out[-1]
 
 
 def apply_es_update(params, grad, m, v, t, *, lr, wd, adam,
@@ -233,13 +267,8 @@ class EvolutionStrategy(_FusedRunMixin):
     ) -> None:
         if optimizer not in ("sgd", "adam"):
             raise ValueError(f"unknown optimizer {optimizer!r}")
-        if mesh is None:
-            mesh = make_mesh(device)
-        elif device is not None and resolve_device(device) != mesh.device:
-            raise ValueError(f"device {device} is not the mesh's device "
-                             f"{mesh.device}")
-        self.mesh = mesh
-        self.device = mesh.device
+        self.mesh = mesh_for(device, mesh)
+        self.device = self.mesh.device
         self.eval_fn = eval_fn
         self.reset_fn = reset_fn
         self.dim = dim
@@ -361,3 +390,102 @@ class EvolutionStrategy(_FusedRunMixin):
         if self.optimizer == "adam":
             self._opt_state = (m, v, t)
         return params, stats
+
+
+class AskTellES:
+    """OpenAI-ES behind an ask/tell interface, for evaluators that are
+    not tensor programs (external simulators, subprocess rollouts, gym
+    envs farmed out through a pool)::
+
+        es = AskTellES(dim, pop_size, device="cuda")
+        thetas = es.ask()                     # (pop, dim) numpy
+        fits = pool.map(simulate, thetas)     # any Python
+        es.tell(fits)                         # rank-shape + update
+
+    Sampling and the update run on ``device`` with the math of
+    :class:`EvolutionStrategy` (antithetic pairs, centered-rank shaping,
+    :func:`apply_es_update` with a 0-d step count); only the candidate
+    matrix and the fitnesses cross to and from the host. Noise comes
+    from ``generator`` (seed 0 when omitted) unless :meth:`ask` is
+    handed it.
+    """
+
+    def __init__(
+        self,
+        dim: int,
+        pop_size: int,
+        sigma: float = 0.1,
+        lr: float = 0.02,
+        weight_decay: float = 0.0,
+        optimizer: str = "sgd",
+        params0=None,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        if optimizer not in ("sgd", "adam"):
+            raise ValueError(f"unknown optimizer {optimizer!r}")
+        if pop_size < 2:
+            raise ValueError("pop_size must be >= 2")
+        self.device = resolve_device(device)
+        self.dim = int(dim)
+        self.pairs = max(1, pop_size // 2)
+        self.pop_size = 2 * self.pairs
+        self.sigma = float(sigma)
+        self.lr = float(lr)
+        self.weight_decay = float(weight_decay)
+        self.optimizer = optimizer
+        self.params = (
+            torch.zeros(self.dim, device=self.device) if params0 is None
+            else torch.as_tensor(params0, dtype=torch.float32,
+                                 device=self.device))
+        if self.params.shape != (self.dim,):
+            raise ValueError(f"params0 shape {tuple(self.params.shape)} "
+                             f"!= ({dim},)")
+        # SGD carries zero-size moment placeholders, as EvolutionStrategy
+        zeros = (torch.zeros_like(self.params) if optimizer == "adam"
+                 else self.params.new_zeros(0))
+        self._m, self._v, self._t = zeros, zeros, self.params.new_zeros(())
+        self.generator = generator or torch.Generator(
+            device=self.device).manual_seed(0)
+        self._eps = None  # set by ask(), consumed by tell()
+
+    def ask(self, eps=None):
+        """The next antithetic population: a (pop_size, dim) f32 numpy
+        array, rows ``[params + sigma * eps; params - sigma * eps]``.
+        ``eps`` (pairs, dim) is drawn from the generator when not
+        given."""
+        if self._eps is not None:
+            raise RuntimeError("ask() called twice without tell()")
+        if eps is None:
+            eps = torch.randn(self.pairs, self.dim, generator=self.generator,
+                              device=self.device)
+        eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
+        if eps.shape != (self.pairs, self.dim):
+            raise ValueError(f"eps shape {tuple(eps.shape)} != "
+                             f"({self.pairs}, {self.dim})")
+        thetas = torch.cat([self.params + self.sigma * eps,
+                            self.params - self.sigma * eps])
+        self._eps = eps
+        return thetas.cpu().numpy()
+
+    @torch.no_grad()
+    def tell(self, fitnesses) -> dict:
+        """Reports the fitnesses (pop_size of them, in :meth:`ask`'s row
+        order; higher is better) and applies the update. Returns the
+        mean and max fitness."""
+        if self._eps is None:
+            raise RuntimeError("tell() called before ask()")
+        fits = torch.as_tensor(np.asarray(fitnesses, np.float32)).reshape(
+            -1).to(self.device)
+        if fits.shape[0] != self.pop_size:
+            raise ValueError(
+                f"need {self.pop_size} fitnesses, got {fits.shape[0]}")
+        ranks = centered_rank(fits)
+        w = ranks[:self.pairs] - ranks[self.pairs:]
+        grad = (w @ self._eps) / (self.pop_size * self.sigma)
+        self.params, self._m, self._v, self._t = apply_es_update(
+            self.params, grad, self._m, self._v, self._t, lr=self.lr,
+            wd=self.weight_decay, adam=self.optimizer == "adam")
+        self._eps = None
+        return {"mean_fitness": float(fits.mean()),
+                "max_fitness": float(fits.max())}

@@ -6,7 +6,7 @@ rank, a per-rank body becomes a loop over ranks, and a sharded array is
 a list of per-rank shards. Ranks may all sit on one device (the JAX
 package's tests run 8 virtual CPU devices the same way). A mesh whose
 ranks span several CUDA devices (peer copies over NVLink, event
-ordering between the cards) is ROADMAP item A.b and raises
+ordering between the cards) is ROADMAP item A.8 and raises
 ``NotImplementedError`` for now.
 
 :func:`shard` and :func:`unshard` stand in for ``shard_map``'s
@@ -42,7 +42,7 @@ class Mesh:
                 f"{sorted({str(d) for d in self.devices})}")
         if len(set(self.devices)) > 1:
             raise NotImplementedError(
-                "ranks on several CUDA devices are ROADMAP item A.b; put "
+                "ranks on several CUDA devices are ROADMAP item A.8; put "
                 "every rank on one device for now")
 
     @property
@@ -63,6 +63,18 @@ def make_mesh(device=None, n: int = 1) -> Mesh:
     if n < 1:
         raise ValueError(f"a mesh needs n >= 1 ranks, got {n}")
     return Mesh((resolve_device(device),) * n)
+
+
+def mesh_for(device=None, mesh: Mesh = None) -> Mesh:
+    """The mesh an entry point runs on: ``mesh``, or one rank on
+    ``device`` (CUDA unless the caller asks for the CPU) when none is
+    given. Raises when both are given and name different devices."""
+    if mesh is None:
+        return make_mesh(device)
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's device "
+                         f"{mesh.device}")
+    return mesh
 
 
 def shard(x: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:

@@ -292,19 +292,68 @@ def test_run_es_flagship_shape_on_cpu():
     assert make_mesh("cpu").n_dev == 1
 
 
-@pytest.mark.parametrize("call", ["cartpole_reset", "policy_init",
-                                  "make_mesh", "evolution_strategy"])
+ENTRY_POINTS = ["cartpole_reset", "policy_init", "make_mesh",
+                "evolution_strategy", "ask_tell_es", "device_map",
+                "device_map_plan", "pgpe", "sep_cma_es", "cma_es",
+                "novelty_es", "map_elites", "maze_reset", "state_from_jax"]
+
+
+@pytest.mark.parametrize("call", ENTRY_POINTS)
 def test_es_entry_points_default_to_cuda(call, monkeypatch):
-    """With no device named, each entry point of the ES path runs on the
-    card: where there is none it raises rather than fall back to the CPU,
-    and it runs on the CPU when the caller asks for it by name."""
+    """With no device named, each entry point of the population-search
+    path runs on the card: where there is none it raises rather than fall
+    back to the CPU, and it runs on the CPU when the caller asks for it
+    by name."""
+    from fiber_tpu_torch.models.convert import state_from_jax
+    from fiber_tpu_torch.models.envs import DeceptiveMaze
+    from fiber_tpu_torch.ops import (
+        CMAES,
+        PGPE,
+        AskTellES,
+        MAPElites,
+        NoveltyES,
+        SepCMAES,
+    )
+    from fiber_tpu_torch.parallel import DeviceMapPlan, device_map
+
     pol = MLPPolicy(4, 2, hidden=(8,))
+
+    def bc_eval(thetas, states):
+        return thetas.sum(1), thetas[:, :2]
+
+    def map_device(**kw):
+        """The device that device_map ran its function on."""
+        seen = []
+        device_map(lambda x: seen.append(x.device) or x, [1.0, 2.0], **kw)
+        return seen[0]
+
+    family = dict(dim=pol.dim, pop_size=8)
     calls = {
         "cartpole_reset": lambda **kw: CartPole.reset(4, **kw),
         "policy_init": lambda **kw: pol.init(**kw),
         "make_mesh": lambda **kw: make_mesh(**kw).device,
         "evolution_strategy": lambda **kw: EvolutionStrategy(
             pol.act, CartPole.reset, dim=pol.dim, pop_size=8, **kw).device,
+        "ask_tell_es": lambda **kw: AskTellES(pol.dim, 8, **kw).params,
+        "device_map": lambda **kw: map_device(**kw),
+        "device_map_plan": lambda **kw: DeviceMapPlan(
+            lambda x: x, **kw).mesh.device,
+        "pgpe": lambda **kw: PGPE(pol.act, CartPole.reset, **family,
+                                  **kw).init_state()[0],
+        "sep_cma_es": lambda **kw: SepCMAES(
+            pol.act, CartPole.reset, **family, **kw).init_state()[2],
+        "cma_es": lambda **kw: CMAES(pol.act, CartPole.reset, **family,
+                                     **kw).init_state()[2],
+        "novelty_es": lambda **kw: NoveltyES(
+            bc_eval, DeceptiveMaze.reset, bc_dim=2, archive_size=4,
+            **family, **kw).init_state(torch.zeros(pol.dim)).archive,
+        "map_elites": lambda **kw: MAPElites(
+            bc_eval, DeceptiveMaze.reset, dim=pol.dim, bc_dim=2,
+            bc_low=(-1, -1), bc_high=(1, 1), cells_per_dim=3, batch_size=8,
+            **kw).init_state(torch.zeros(pol.dim)).fitness,
+        "maze_reset": lambda **kw: DeceptiveMaze.reset(4, **kw),
+        "state_from_jax": lambda **kw: state_from_jax(
+            [np.zeros(3), np.int32(1)], **kw)[1],
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
