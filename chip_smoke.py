@@ -14,11 +14,13 @@ eager and as CUDA-graph replays; ring and Ulysses attention, the TinyLM
 forward and TinyLM training over a 4-rank mesh on the card; the ES step
 over that mesh; the population-search families: PGPE, SepCMAES and CMAES
 on CartPole, eager and replayed, NoveltyES and MAP-Elites on the
-deceptive maze, AskTellES with a host evaluator, and device_map) and
-checks what comes out. Phases print one JSON line each (build, kernels,
+deceptive maze, AskTellES with a host evaluator, device_map, POET on
+ParamCartPole, and ES on the biped and the pixel chase) and checks what
+comes out. Phases print one JSON line each (build, kernels,
 kernels_bwd, kernels_ring, lm_forward, lm_generate, lm_train, es,
 ring_attention, lm_mesh, lm_mesh_train, es_mesh, es_families,
-es_families_smooth, novelty, map_elites, ask_tell, device_map); then the
+es_families_smooth, novelty, map_elites, ask_tell, device_map, poet,
+es_envs); then the
 card's name and power limit as nvidia-smi reports them, the kernel
 summary line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the exit code is not 0 and no result line is
@@ -31,9 +33,11 @@ off), so kernel and plain version differ only in summation order.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import json
+import math
 import os
 import re
 import subprocess
@@ -185,6 +189,31 @@ MAP_ELITES_RATE_BATCH = 4096
 ASK_TELL_GENS = 10
 ASK_TELL_POP = 4096
 DMAP_ITEMS = 4096
+# bench.py --poet (ParamCartPole, MLP (16,), pop 4096, 500 steps, 6
+# pairs, 4 ES steps a pair), cut from bench.py's 10 iterations to 3;
+# the card against the CPU on a small POET
+POET_ITERS = 3
+POET_ES_STEPS = 4
+POET_SMALL = dict(pop=64, max_steps=60, max_pairs=6)
+POET_SMALL_ITERS = 2
+# bench.py --biped (pop 4096, 400 steps) and --pixels (pop 1024, 60
+# steps) through run_fused, bench.py's default 10 generations
+ES_ENV_GENS = 10
+# the other envs and policies, one ES step each, card against CPU at
+# pop 4096 (CartPole episodes of 200 steps): survival returns that agree
+# exactly on ENV_SURVIVAL_SHARE of the members (as phase_es); continuous
+# ones within ENV_RETURN_TOL relative on ENV_CONTINUOUS_SHARE. The hill
+# walker's terrain amplifies f32 differences about tenfold every 20
+# steps (tests/test_torch_envs.py), so some of its 200-step episodes
+# part: 95.9% within 1e-3 on an H100 (GRU and bf16 MLP 100%, Pendulum
+# 99.98%)
+ENV_CHECK_POP = 4096
+ENV_CHECK_STEPS = 200
+ENV_SURVIVAL_SHARE = 0.95
+ENV_CONTINUOUS_SHARE = 0.9
+ENV_RETURN_TOL = 1e-3
+# the biped's 400 steps, card against CPU, on 1024 members (reported)
+BIPED_CHECK_POP = 1024
 # The C interface's dtype codes
 DTYPE_CODE = {"float": 0, "bfloat16": 1}
 # What runs the products of the flash kernels, by input type
@@ -1903,6 +1932,300 @@ def phase_device_map(torch):
           "distinct_returns": len(set(want.tolist())), "ranks": rows})
 
 
+# -- POET and bench.py's other ES envs --------------------------------------
+
+def _record_poet_draws(poet):
+    """Wraps ``poet``'s draw methods so that every draw it takes is kept
+    on the host, each kind in its order: the minimal criterion's,
+    transfer's and proposal's states, the parent picks, the mutation
+    noise, and each ES step's noise and initial states. The last two
+    are drawn inside the captured step: the wrappers keep the tensors
+    that the capture drew into, which every replay overwrites, and the
+    runner's wrapper copies them after each replay."""
+    draws = {"es": [], "reset": [], "parent": [], "mutation": []}
+    es, live = poet._es, {}
+    noise, reset_fn, runner = es._noise, es.reset_fn, poet._runner
+
+    def rec_noise():
+        live["eps"] = noise()
+        return live["eps"]
+
+    def rec_reset_fn(n, generator):
+        live["states"] = reset_fn(n, generator)
+        return live["states"]
+
+    def rec_runner(combined):
+        out = runner(combined)
+        draws["es"].append((live["eps"].cpu(), live["states"].cpu()))
+        return out
+
+    def recorded(fn, kind):
+        def rec(*args):
+            out = fn(*args)
+            draws[kind].append(out.cpu() if hasattr(out, "cpu") else out)
+            return out
+        return rec
+
+    es._noise, es.reset_fn = rec_noise, rec_reset_fn
+    poet._runner = rec_runner
+    poet._reset = recorded(poet._reset, "reset")
+    poet._pick_parent = recorded(poet._pick_parent, "parent")
+    poet._mutation_noise = recorded(poet._mutation_noise, "mutation")
+    return draws
+
+
+def _feed_poet_draws(poet, draws):
+    """Points ``poet``'s draw methods at recorded ``draws``; returns the
+    queues, which a run must empty."""
+    q = {k: list(v) for k, v in draws.items()}
+    pending = []
+
+    def noise():
+        eps, states = q["es"].pop(0)
+        pending.append(states)
+        return eps
+
+    poet._es._noise = noise
+    poet._es.reset_fn = lambda n, generator: pending.pop()
+    poet._reset = lambda n: q["reset"].pop(0)
+    poet._pick_parent = lambda n: q["parent"].pop(0)
+    poet._mutation_noise = lambda: q["mutation"].pop(0)
+    return q
+
+
+def _poet_finetune(torch):
+    """One pair's ES_STEPS-generation fine-tune of bench.py --poet's POET
+    through its runner (the first call captures the pinned ES step)
+    against as many eager pinned steps from the same generator state:
+    the agent bitwise, the stats equal, the env tail pinned, the
+    generator's state equal. Then the profiler's view of one replayed
+    ES generation, and its time by CUDA events."""
+    from fiber_tpu_torch.entry import make_poet
+
+    poet = make_poet(device="cuda")
+    dim, theta0, env = poet.policy.dim, poet.agents[0], poet.envs[0]
+    gen0 = poet.generator.get_state()
+    theta, stats = poet._finetune(theta0, env, POET_ES_STEPS)
+    fused_gen = poet.generator.get_state()
+    poet.generator.set_state(gen0)
+    with torch.no_grad():
+        combined = torch.cat([theta0, env])
+        for _ in range(POET_ES_STEPS):
+            combined, eager_stats = poet._pinned_step(combined)
+    check(torch.equal(_bits(torch, theta), _bits(torch, combined[:dim]))
+          and torch.equal(stats, eager_stats)
+          and torch.equal(combined[dim:], env)
+          and torch.equal(fused_gen, poet.generator.get_state()),
+          "poet: the replayed fine-tune differs from eager pinned steps")
+    graph = poet._runner.graph
+    return {"es_steps": POET_ES_STEPS, "agent_bitwise": True,
+            "stats_equal": True, "stats": stats.tolist(),
+            "replay": device_breakdown(torch, graph.replay),
+            "replay_ms": cuda_ms(torch, graph.replay, reps=3)}
+
+
+def _poet_card_vs_cpu(torch):
+    """A small POET (POET_SMALL) for POET_SMALL_ITERS iterations on the
+    card, every draw recorded, then the same POET on the CPU fed those
+    draws: histories with the same counts (pairs, spawned, transfers,
+    transfer evals, archive), every draw used; the mean fitness and the
+    agents beside them."""
+    from fiber_tpu_torch.entry import make_poet
+
+    card = make_poet(device="cuda", **POET_SMALL)
+    cpu = make_poet(device="cpu", **POET_SMALL)
+    draws = _record_poet_draws(card)
+    want = card.run(POET_SMALL_ITERS, es_steps=POET_ES_STEPS)
+    queues = _feed_poet_draws(cpu, draws)
+    got = cpu.run(POET_SMALL_ITERS, es_steps=POET_ES_STEPS)
+    check(not any(queues.values()), "poet card vs cpu: draws left over: "
+          f"{ {k: len(v) for k, v in queues.items()} }")
+    check(got == want, f"poet card vs cpu: histories differ: {want} "
+          f"against {got}")
+    err = max((a.cpu() - b).abs().max().item()
+              for a, b in zip(card.agents, cpu.agents))
+    return {**POET_SMALL, "iterations": POET_SMALL_ITERS,
+            "histories_equal": True, "agents_max_abs_err": err,
+            "draws": {k: len(v) for k, v in draws.items()},
+            "history": want}
+
+
+@contextlib.contextmanager
+def _timed(torch, cls, names):
+    """Times every call of ``cls``'s methods ``names`` (host clock
+    around work that ends in a device synchronise) while the block
+    runs; yields the seconds and calls by method name."""
+    split = {name: {"seconds": 0.0, "calls": 0} for name in names}
+    saved = {name: getattr(cls, name) for name in names}
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            split[name]["seconds"] += time.perf_counter() - t0
+            split[name]["calls"] += 1
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(cls, name, timed(name, fn))
+    try:
+        yield split
+    finally:
+        for name, fn in saved.items():
+            setattr(cls, name, fn)
+
+
+def phase_poet(torch):
+    """bench.py --poet through ``run_poet`` (ParamCartPole, MLP (16,), pop
+    4096, 500 steps, 6 pairs, 4 ES steps a pair) for POET_ITERS
+    iterations: evals/s as bench.py counts them, the co-evolution's
+    pairs, transfers and archive. Then one fine-tune replayed against
+    eager steps, and a small POET on the card against the CPU."""
+    from fiber_tpu_torch.entry import run_poet
+    from fiber_tpu_torch.ops.poet import POET
+
+    start = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _timed(torch, POET, ("optimize_pair", "try_spawn_envs",
+                              "transfer")) as split:
+        history, evals = run_poet(device="cuda", iterations=POET_ITERS,
+                                  es_steps=POET_ES_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(len(history) == POET_ITERS
+          and all(math.isfinite(h["mean_fitness"]) for h in history)
+          and all(1 <= h["pairs"] <= 6 and h["archive_size"] >= h["pairs"]
+                  for h in history), f"poet history {history}")
+    emit({"phase": "poet", "pop": 4096, "max_steps": 500, "max_pairs": 6,
+          "es_steps": POET_ES_STEPS, "iterations": POET_ITERS,
+          "hidden": [16], "seconds": secs, "evals": evals,
+          "poet_policy_evals_per_sec": evals / secs,
+          "seconds_by_stage": split,
+          "final_pairs": history[-1]["pairs"],
+          "total_transfers": sum(h["transfers"] for h in history),
+          "archive_size": history[-1]["archive_size"], "history": history,
+          "finetune": _poet_finetune(torch),
+          "card_vs_cpu": _poet_card_vs_cpu(torch),
+          "phase_seconds": time.perf_counter() - start})
+
+
+def _env_cases(torch):
+    """(name, policy, eval_fn, reset_fn, survival) of the envs and
+    policies beside bench.py's, each one ES step card against CPU."""
+    from fiber_tpu_torch.models.envs import (
+        CartPole,
+        ParamHillWalker,
+        Pendulum,
+        rollout_recurrent,
+    )
+    from fiber_tpu_torch.models.policies import GRUPolicy, MLPPolicy
+
+    gru = GRUPolicy(4, 2, hidden=32)
+    bf16 = MLPPolicy(4, 2, hidden=(32, 32), compute_dtype="bfloat16")
+    pend = MLPPolicy(3, 1, hidden=(32, 32))
+    hill = MLPPolicy(4, 3, hidden=(32, 32))
+    terrain = (0.3, -0.2, 0.15, 0.1, -0.05, 0.05)
+    return [
+        ("gru_cartpole", gru, lambda th, st: rollout_recurrent(
+            CartPole, gru, th, st, max_steps=ENV_CHECK_STEPS),
+         CartPole.reset, True),
+        ("mlp_bf16_cartpole", bf16, lambda th, st: CartPole.rollout(
+            bf16.act, th, st, max_steps=ENV_CHECK_STEPS),
+         CartPole.reset, True),
+        ("pendulum", pend, lambda th, st: Pendulum.rollout(
+            lambda p, o: pend.apply(p, o)[:, 0], th, st),
+         Pendulum.reset, False),
+        ("hill_walker", hill, lambda th, st: ParamHillWalker.rollout_p(
+            hill.act, torch.tensor(terrain, device=th.device), th, st),
+         ParamHillWalker.reset, False),
+    ]
+
+
+def _env_card_vs_cpu(torch):
+    """For each of ``_env_cases``: one ES step at pop ENV_CHECK_POP on the
+    card and on the CPU from the same params, noise and initial states
+    (drawn on the card): at least ENV_SURVIVAL_SHARE of the survival
+    returns agree exactly, and ENV_CONTINUOUS_SHARE of the continuous
+    ones within ENV_RETURN_TOL relative. Then the biped over its 400 steps, card against
+    CPU on BIPED_CHECK_POP members: the share of returns within
+    ENV_RETURN_TOL, reported, not held (the biped is chaotic)."""
+    from fiber_tpu_torch.entry import make_es
+    from fiber_tpu_torch.ops.es import EvolutionStrategy
+
+    rows = {}
+    for name, policy, eval_fn, reset_fn, survival in _env_cases(torch):
+        g = torch.Generator(device="cuda").manual_seed(3)
+        params = policy.init(torch.Generator().manual_seed(0),
+                             device="cuda")
+        eps = torch.randn(ENV_CHECK_POP // 2, policy.dim, generator=g,
+                          device="cuda")
+        states = reset_fn(ENV_CHECK_POP, g)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            es = EvolutionStrategy(eval_fn, reset_fn, dim=policy.dim,
+                                   pop_size=ENV_CHECK_POP, sigma=0.1,
+                                   lr=0.03, device=dev)
+            p, s = es.step(params.to(dev), eps=eps.to(dev),
+                           states=states.to(dev))
+            out[dev] = (p.cpu(), s.cpu(), es.last_fitness.reshape(-1).cpu())
+        (pc, sc, fc), (pp, sp, fp) = out["cuda"], out["cpu"]
+        rel = ((fc - fp).abs() / fp.abs().clamp(min=1.0))
+        agree = ((fc == fp) if survival else (rel <= ENV_RETURN_TOL))
+        agree = agree.float().mean().item()
+        share = ENV_SURVIVAL_SHARE if survival else ENV_CONTINUOUS_SHARE
+        check(agree >= share, f"{name}: only {agree} of the card's returns "
+              "agree with the CPU's")
+        rows[name] = {"returns_agree": agree,
+                      "returns_max_rel_err": rel.max().item(),
+                      "stats_card": sc.tolist(),
+                      "stats_cpu": sp.tolist(),
+                      "params_max_abs_err": (pc - pp).abs().max().item()}
+    es, params = make_es("biped", device="cuda", pop=BIPED_CHECK_POP)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    thetas = params + 0.1 * torch.randn(es.pop_size, es.dim, generator=g,
+                                        device="cuda")
+    states = es.reset_fn(es.pop_size, g)
+    card = es.eval_fn(thetas, states).cpu()
+    cpu_es, _ = make_es("biped", device="cpu", pop=BIPED_CHECK_POP)
+    cpu = cpu_es.eval_fn(thetas.cpu(), states.cpu())
+    rows["biped_400_steps"] = {"members": BIPED_CHECK_POP,
+        "returns_agree": ((card - cpu).abs() <= ENV_RETURN_TOL
+                          * cpu.abs().clamp(min=1.0)).float().mean().item(),
+        "held": False}
+    return rows
+
+
+def phase_es_envs(torch):
+    """bench.py --biped and --pixels as ``run_es(env=...)`` runs them
+    (``make_es``, then ``run_fused``): ES_ENV_GENS generations against as
+    many eager steps (``_es_fused``: stats exact, params bitwise), then
+    the profiler's view and the CUDA-event time of one replayed
+    generation. Then the other envs and policies, card against CPU."""
+    from fiber_tpu_torch.entry import make_es
+
+    start, rows = time.perf_counter(), {}
+    for env in ("biped", "pixels"):
+        t0 = time.perf_counter()
+        es, params = make_es(env, device="cuda")
+        row = _es_fused(torch, (es, params), ES_ENV_GENS)
+        graph = es._fused_runner_cache[ES_ENV_GENS].graph
+        row.update(pop=es.pop_size, dim=es.dim,
+                   replay=device_breakdown(torch, graph.replay),
+                   replay_ms=cuda_ms(torch, graph.replay, reps=3),
+                   seconds=time.perf_counter() - t0)
+        rows[env] = row
+        del es, params, graph
+        torch.cuda.empty_cache()
+    emit({"phase": "es_envs", "generations": ES_ENV_GENS, "envs": rows,
+          "card_vs_cpu": _env_card_vs_cpu(torch),
+          "phase_seconds": time.perf_counter() - start})
+
+
 def phase_population_search(torch):
     """The population-search phases, with every kernel's launch count
     set to 0 before them and read after: none of these paths runs a TPU
@@ -1913,6 +2236,8 @@ def phase_population_search(torch):
     phase_map_elites(torch)
     phase_ask_tell(torch)
     phase_device_map(torch)
+    phase_poet(torch)
+    phase_es_envs(torch)
     counts = _counts()
     check(not any(counts.values()), f"kernels launched on the population "
           f"search paths: {counts}")

@@ -19,19 +19,42 @@ population-search families beside the ES flagship (``AskTellES`` for
 evaluators on the host, ``device_map``/``DeviceMapPlan``, ``PGPE``,
 ``SepCMAES``, ``CMAES``, ``NoveltyES`` with ``knn_novelty`` and
 ``NoveltyPopulation``, ``MAPElites``, and the ``DeceptiveMaze`` that
-the novelty and MAP-Elites examples search).
+the novelty and MAP-Elites examples search); and POET (``POET``,
+``run_poet``) with the evolvable envs (``ParamCartPole``,
+``ParamHillWalker``, ``ParamBipedWalker``), ``Pendulum``, ``PixelChase``
+with ``ConvPolicy``, ``GRUPolicy`` with ``rollout_recurrent``, and the
+policies' ``compute_dtype``; ``run_es(env=...)`` runs ``bench.py``'s
+``--biped`` and ``--pixels`` ES.
 """
 
 from fiber_tpu_torch.device import resolve_device
-from fiber_tpu_torch.entry import entry, run_es, train_lm
+from fiber_tpu_torch.entry import (
+    entry,
+    make_es,
+    make_poet,
+    run_es,
+    run_poet,
+    train_lm,
+)
 from fiber_tpu_torch.models.convert import (
+    poet_state_from_jax,
     policy_params_from_jax,
     state_from_jax,
     tinylm_params_from_jax,
     tinylm_tree_from_torch,
 )
-from fiber_tpu_torch.models.envs import CartPole, DeceptiveMaze
-from fiber_tpu_torch.models.policies import MLPPolicy
+from fiber_tpu_torch.models.envs import (
+    CartPole,
+    DeceptiveMaze,
+    ParamBipedWalker,
+    ParamCartPole,
+    ParamHillWalker,
+    Pendulum,
+    PixelChase,
+    mutate_bounded,
+    rollout_recurrent,
+)
+from fiber_tpu_torch.models.policies import ConvPolicy, GRUPolicy, MLPPolicy
 from fiber_tpu_torch.models.transformer import TinyLM, adamw, make_train_step
 from fiber_tpu_torch.ops.cma import CMAES, SepCMAES
 from fiber_tpu_torch.ops.es import (
@@ -58,6 +81,7 @@ from fiber_tpu_torch.ops.novelty import (
     knn_novelty,
 )
 from fiber_tpu_torch.ops.pgpe import PGPE
+from fiber_tpu_torch.ops.poet import POET
 from fiber_tpu_torch.ops.ring_attention import (
     blockwise_attention,
     reference_attention,
@@ -72,17 +96,21 @@ from fiber_tpu_torch.parallel.dmap import DeviceMapPlan, device_map
 from fiber_tpu_torch.parallel.mesh import Mesh, make_mesh, shard, unshard
 
 __all__ = [
-    "AskTellES", "CMAES", "CartPole", "DeceptiveMaze", "DeviceMapPlan",
-    "EvolutionStrategy", "MAPElites", "MLPPolicy", "MapElitesState", "Mesh",
-    "NoveltyES", "NoveltyPopulation", "NoveltyState", "PGPE", "SepCMAES",
+    "AskTellES", "CMAES", "CartPole", "ConvPolicy", "DeceptiveMaze",
+    "DeviceMapPlan", "EvolutionStrategy", "GRUPolicy", "MAPElites",
+    "MLPPolicy", "MapElitesState", "Mesh", "NoveltyES", "NoveltyPopulation",
+    "NoveltyState", "PGPE", "POET", "ParamBipedWalker", "ParamCartPole",
+    "ParamHillWalker", "Pendulum", "PixelChase", "SepCMAES",
     "TinyLM", "adamw", "apply_es_update", "blockwise_attention",
     "centered_rank", "device_map", "entry", "flash_attention",
     "flash_attention_bwd_reference", "flash_attention_lse",
     "flash_attention_reference", "flash_bwd_dkv", "flash_bwd_dq",
-    "flash_fwd", "knn_novelty", "make_mesh", "make_train_step",
+    "flash_fwd", "knn_novelty", "make_es", "make_mesh", "make_poet",
+    "make_train_step", "mutate_bounded", "poet_state_from_jax",
     "policy_params_from_jax", "reference_attention", "resolve_device",
     "ring_all_to_all", "ring_attention", "ring_attention_local",
-    "ring_exchange", "run_es", "shard", "state_from_jax",
+    "ring_exchange", "rollout_recurrent", "run_es", "run_poet", "shard",
+    "state_from_jax",
     "tinylm_params_from_jax", "tinylm_tree_from_torch", "train_lm",
     "ulysses_attention", "ulysses_attention_local", "unshard",
 ]

@@ -3,7 +3,10 @@
 MLP-policy CartPole under OpenAI-ES, the flagship: counterpart of
 ``entry()`` in the JAX package's ``__graft_entry__.py`` (a batch of
 policy evaluations, the unit of work the device plane runs) plus
-one-device ES generations, as its multi-chip dry run takes.
+one-device ES generations, as its multi-chip dry run takes, and
+``bench.py``'s other ES modes (``--biped``, ``--pixels``) through
+:func:`run_es`'s ``env``. POET: :func:`run_poet` is ``bench.py --poet``
+(``_poet_bench``).
 
 TinyLM training: :func:`train_lm` is ``bench.py --lm``
 (``_lm_bench``): its ring leg over a mesh, and the single-device flash
@@ -17,10 +20,16 @@ import time
 import torch
 
 from fiber_tpu_torch.device import resolve_device
-from fiber_tpu_torch.models.envs import CartPole
-from fiber_tpu_torch.models.policies import MLPPolicy
+from fiber_tpu_torch.models.envs import (
+    CartPole,
+    ParamBipedWalker,
+    ParamCartPole,
+    PixelChase,
+)
+from fiber_tpu_torch.models.policies import ConvPolicy, MLPPolicy
 from fiber_tpu_torch.models.transformer import TinyLM, adamw, make_train_step
 from fiber_tpu_torch.ops.es import EvolutionStrategy
+from fiber_tpu_torch.ops.poet import POET
 from fiber_tpu_torch.parallel.mesh import make_mesh
 
 HIDDEN = (32, 32)
@@ -50,24 +59,92 @@ def entry(device=None, pop: int = 8, max_steps: int = 100, seed: int = 0):
     return eval_batch, (base.expand(pop, -1).contiguous(), states)
 
 
-def run_es(device=None, pop: int = 4096, max_steps: int = 500,
-           generations: int = 1, sigma: float = 0.1, lr: float = 0.03,
-           seed: int = 0):
-    """``generations`` ES steps of the flagship configuration (defaults:
-    ``bench.py``'s pop 4096, 500-step episodes, sigma 0.1, lr 0.03), run
-    as ``bench.py`` runs them: through ``EvolutionStrategy.run_fused``
-    (on CUDA one captured generation replayed ``generations`` times).
-    Returns ``(params, stats)`` with stats (generations, 3)."""
+#: ``bench.py``'s per-env ES defaults: (pop, max_steps)
+ES_ENV_DEFAULTS = {"cartpole": (4096, 500), "biped": (4096, 400),
+                   "pixels": (1024, PixelChase.max_steps)}
+
+
+def make_es(env: str = "cartpole", device=None, pop=None, max_steps=None,
+            sigma: float = 0.1, lr: float = 0.03, seed: int = 0):
+    """The strategy and initial params that :func:`run_es` runs:
+    ``bench.py``'s ES on ``env`` (``"cartpole"``: the flagship, MLP (32,
+    32); ``"biped"``: ``ParamBipedWalker`` on its flat ``DEFAULT``
+    course, MLP (32, 32); ``"pixels"``: ``PixelChase`` with
+    ``ConvPolicy((24, 24, 1), 5)``), with ``pop`` and ``max_steps`` from
+    :data:`ES_ENV_DEFAULTS` when not given; params from ``seed``, noise
+    and initial states from ``seed + 1``. Returns ``(es, params)``."""
+    if env not in ES_ENV_DEFAULTS:
+        raise ValueError(f"unknown env {env!r}: one of "
+                         f"{sorted(ES_ENV_DEFAULTS)}")
     dev = resolve_device(device)
-    policy = flagship_policy()
+    pop = pop or ES_ENV_DEFAULTS[env][0]
+    steps = max_steps or ES_ENV_DEFAULTS[env][1]
+    if env == "cartpole":
+        policy, env_cls = flagship_policy(), CartPole
+
+        def eval_fn(thetas, states):
+            return CartPole.rollout(policy.act, thetas, states,
+                                    max_steps=steps)
+    elif env == "biped":
+        env_cls = ParamBipedWalker
+        policy = MLPPolicy(env_cls.obs_dim, env_cls.act_dim, hidden=HIDDEN)
+        course = torch.tensor(env_cls.DEFAULT, device=dev)
+
+        def eval_fn(thetas, states):
+            return ParamBipedWalker.rollout_p(policy.act, course, thetas,
+                                              states, max_steps=steps)
+    else:
+        env_cls = PixelChase
+        policy = ConvPolicy(env_cls.obs_shape, env_cls.act_dim)
+
+        def eval_fn(thetas, states):
+            return PixelChase.rollout(policy.act, thetas, states,
+                                      max_steps=steps)
     es = EvolutionStrategy(
-        lambda thetas, states: CartPole.rollout(
-            policy.act, thetas, states, max_steps=max_steps),
-        CartPole.reset, dim=policy.dim, pop_size=pop, sigma=sigma, lr=lr,
-        device=dev,
+        eval_fn, env_cls.reset, dim=policy.dim, pop_size=pop, sigma=sigma,
+        lr=lr, device=dev,
         generator=torch.Generator(device=dev).manual_seed(seed + 1))
-    params = policy.init(torch.Generator().manual_seed(seed), device=dev)
+    return es, policy.init(torch.Generator().manual_seed(seed), device=dev)
+
+
+def run_es(device=None, pop=None, max_steps=None, generations: int = 1,
+           sigma: float = 0.1, lr: float = 0.03, seed: int = 0,
+           env: str = "cartpole"):
+    """``generations`` ES steps of ``bench.py``'s ES on ``env`` (see
+    :func:`make_es`; by default the flagship at pop 4096 and 500-step
+    episodes), run as ``bench.py`` runs them: through
+    ``EvolutionStrategy.run_fused`` (on CUDA one captured generation
+    replayed ``generations`` times). Returns ``(params, stats)`` with
+    stats (generations, 3)."""
+    es, params = make_es(env, device, pop, max_steps, sigma, lr, seed)
     return es.run_fused(params, generations)
+
+
+def make_poet(device=None, pop: int = 4096, max_steps: int = 500,
+              max_pairs: int = 6, seed: int = 0) -> POET:
+    """``bench.py --poet``'s POET: ``ParamCartPole`` with an MLP (16,),
+    sigma 0.1, lr 0.03, its device and pick generators seeded ``seed``."""
+    dev = resolve_device(device)
+    policy = MLPPolicy(ParamCartPole.obs_dim, ParamCartPole.act_dim,
+                       hidden=(16,))
+    return POET(ParamCartPole, policy, pop_size=pop, max_pairs=max_pairs,
+                rollout_steps=max_steps, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(seed),
+                pick_generator=torch.Generator().manual_seed(seed))
+
+
+def run_poet(device=None, pop: int = 4096, max_steps: int = 500,
+             iterations: int = 10, es_steps: int = 4, max_pairs: int = 6,
+             seed: int = 0):
+    """``bench.py --poet``: :func:`make_poet`'s POET run for
+    ``iterations`` rounds of ``es_steps`` ES generations a pair. Returns
+    ``(history, evals)``, the evaluations counted as ``bench.py`` counts
+    them: ``pairs * pop * es_steps + transfer_evals`` a round."""
+    poet = make_poet(device, pop, max_steps, max_pairs, seed)
+    history = poet.run(iterations, es_steps=es_steps)
+    evals = sum(h["pairs"] * poet.pop_size * es_steps + h["transfer_evals"]
+                for h in history)
+    return history, evals
 
 
 def train_lm(device=None, seq: int = 16384, steps: int = 5, seed: int = 0,

@@ -3,9 +3,10 @@ port.
 
 Parameters cross as numpy arrays (``jax.device_get`` on the JAX side),
 in both directions, so this module needs no JAX. Layouts are the same
-in both packages: weights ``(in, out)``, MLP policies one flat vector
-in ``MLPPolicy.init`` order, and the population families' states the
-same tuples of arrays in the same order.
+in both packages: weights ``(in, out)``, policies one flat vector in
+their ``init`` order (MLP, conv with HWIO kernels, GRU), the population
+families' states the same tuples of arrays in the same order, and a
+POET's envs, agents and archive the same lists.
 """
 
 from __future__ import annotations
@@ -75,6 +76,18 @@ def state_from_jax(np_state, device=None):
         return torch.from_numpy(np.array(a, dt, copy=True)).to(dev)
 
     return tuple(t(a) for a in np_state)
+
+
+def poet_state_from_jax(envs, agents, archive, device=None):
+    """A JAX ``POET``'s ``envs``, ``agents`` (lists of arrays, as
+    ``jax.device_get`` gives them) and ``archive`` (float64 numpy) ->
+    the port's: ``(envs, agents, archive)``, the first two lists of f32
+    tensors on ``device``, the archive float64 numpy arrays. Assign
+    them to a :class:`fiber_tpu_torch.ops.poet.POET`'s attributes of the
+    same names."""
+    return ([policy_params_from_jax(e, device) for e in envs],
+            [policy_params_from_jax(a, device) for a in agents],
+            [np.array(a, dtype=float, copy=True) for a in archive])
 
 
 def random_tinylm_tree(vocab: int, dim: int, heads: int, layers: int,

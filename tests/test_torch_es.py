@@ -295,7 +295,12 @@ def test_run_es_flagship_shape_on_cpu():
 ENTRY_POINTS = ["cartpole_reset", "policy_init", "make_mesh",
                 "evolution_strategy", "ask_tell_es", "device_map",
                 "device_map_plan", "pgpe", "sep_cma_es", "cma_es",
-                "novelty_es", "map_elites", "maze_reset", "state_from_jax"]
+                "novelty_es", "map_elites", "maze_reset", "state_from_jax",
+                "param_cartpole_reset", "pendulum_reset",
+                "pixel_chase_reset", "hill_walker_reset", "biped_reset",
+                "conv_policy_init", "gru_policy_init", "gru_init_carry",
+                "poet", "make_poet", "run_poet", "poet_state_from_jax",
+                "make_es_biped", "run_es_biped", "run_es_pixels"]
 
 
 @pytest.mark.parametrize("call", ENTRY_POINTS)
@@ -304,11 +309,24 @@ def test_es_entry_points_default_to_cuda(call, monkeypatch):
     path runs on the card: where there is none it raises rather than fall
     back to the CPU, and it runs on the CPU when the caller asks for it
     by name."""
-    from fiber_tpu_torch.models.convert import state_from_jax
-    from fiber_tpu_torch.models.envs import DeceptiveMaze
+    from fiber_tpu_torch.entry import make_es, make_poet, run_poet
+    from fiber_tpu_torch.models.convert import (
+        poet_state_from_jax,
+        state_from_jax,
+    )
+    from fiber_tpu_torch.models.envs import (
+        DeceptiveMaze,
+        ParamBipedWalker,
+        ParamCartPole,
+        ParamHillWalker,
+        Pendulum,
+        PixelChase,
+    )
+    from fiber_tpu_torch.models.policies import ConvPolicy, GRUPolicy
     from fiber_tpu_torch.ops import (
         CMAES,
         PGPE,
+        POET,
         AskTellES,
         MAPElites,
         NoveltyES,
@@ -354,6 +372,30 @@ def test_es_entry_points_default_to_cuda(call, monkeypatch):
         "maze_reset": lambda **kw: DeceptiveMaze.reset(4, **kw),
         "state_from_jax": lambda **kw: state_from_jax(
             [np.zeros(3), np.int32(1)], **kw)[1],
+        "param_cartpole_reset": lambda **kw: ParamCartPole.reset(4, **kw),
+        "pendulum_reset": lambda **kw: Pendulum.reset(4, **kw),
+        "pixel_chase_reset": lambda **kw: PixelChase.reset(4, **kw),
+        "hill_walker_reset": lambda **kw: ParamHillWalker.reset(4, **kw),
+        "biped_reset": lambda **kw: ParamBipedWalker.reset(4, **kw),
+        "conv_policy_init": lambda **kw: ConvPolicy(
+            (8, 8, 1), 5, channels=(2,), hidden=4).init(**kw),
+        "gru_policy_init": lambda **kw: GRUPolicy(4, 2, 4).init(**kw),
+        "gru_init_carry": lambda **kw: GRUPolicy(4, 2, 4).init_carry(
+            3, **kw),
+        "poet": lambda **kw: POET(ParamCartPole, pol, pop_size=8,
+                                  **kw).agents[0],
+        "make_poet": lambda **kw: make_poet(pop=8, **kw).envs[0],
+        # the history holds no tensor: the device is the one it ran on
+        "run_poet": lambda **kw: run_poet(
+            pop=8, max_steps=5, iterations=1, es_steps=1, **kw) and (
+            torch.device(kw["device"])),
+        "poet_state_from_jax": lambda **kw: poet_state_from_jax(
+            [np.zeros(4)], [np.zeros(3)], [np.zeros(4)], **kw)[1][0],
+        "make_es_biped": lambda **kw: make_es("biped", pop=4, **kw)[1],
+        "run_es_biped": lambda **kw: run_es(
+            env="biped", pop=4, max_steps=3, **kw)[0],
+        "run_es_pixels": lambda **kw: run_es(
+            env="pixels", pop=4, max_steps=2, **kw)[0],
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -39,6 +39,11 @@ def forbidden_imports(source: str) -> list:
 def test_port_files_exist():
     assert len(FILES) > 10
     assert all(f.is_file() for f in FILES)
+    # the modules of every slice are among those checked
+    names = {str(f.relative_to(ROOT)) for f in FILES}
+    assert {"fiber_tpu_torch/ops/poet.py", "fiber_tpu_torch/models/envs.py",
+            "fiber_tpu_torch/models/policies.py", "fiber_tpu_torch/entry.py",
+            "fiber_tpu_torch/ops/es.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
