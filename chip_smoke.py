@@ -15,12 +15,16 @@ forward and TinyLM training over a 4-rank mesh on the card; the ES step
 over that mesh; the population-search families: PGPE, SepCMAES and CMAES
 on CartPole, eager and replayed, NoveltyES and MAP-Elites on the
 deceptive maze, AskTellES with a host evaluator, device_map, POET on
-ParamCartPole, and ES on the biped and the pixel chase) and checks what
-comes out. Phases print one JSON line each (build, kernels,
-kernels_bwd, kernels_ring, lm_forward, lm_generate, lm_train, es,
-ring_attention, lm_mesh, lm_mesh_train, es_mesh, es_families,
-es_families_smooth, novelty, map_elites, ask_tell, device_map, poet,
-es_envs); then the
+ParamCartPole on one rank and over 4, runs resumed from checkpoint
+files, and ES on the biped and the pixel chase; ring and Ulysses
+attention on a 2 x 2 data x sequence grid) and checks what comes out;
+the ES, POET and env lines carry model FLOP/s and MFU, and the es
+phase writes one generation's profiler trace under TRACE_DIR. Phases
+print one JSON line each (build, kernels, kernels_bwd, kernels_ring,
+lm_forward, lm_generate, lm_train, es, ring_attention, mesh_2d,
+lm_mesh, lm_mesh_train, es_mesh, es_families, es_families_smooth,
+novelty, map_elites, ask_tell, device_map, poet, poet_mesh,
+checkpoint, es_envs); then the
 card's name and power limit as nvidia-smi reports them, the kernel
 summary line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the exit code is not 0 and no result line is
@@ -86,6 +90,17 @@ MESH_BLOCK_SHAPES = (
     ("mesh_block_f32_noncausal", 4096, 8, 8, 32, "float32", None, False),
     ("mesh_block_f32_causal", 4096, 8, 8, 32, "float32", None, True),
 )
+# The 2-D data x sequence planes' forward launches in mesh_2d (a data
+# row's batch of 1 folded into the heads), held untimed against the
+# plain forward: the ring's 8192-row blocks against their own keys
+# (causal) and the other rank's (not causal), and Ulysses' whole
+# sequence over half the heads (causal).
+GRID_BLOCK_SHAPES = (
+    ("grid_ring_block_bf16_causal", 8192, 8, 8, 64, "bfloat16", None, True),
+    ("grid_ring_block_bf16_noncausal", 8192, 8, 8, 64, "bfloat16", None,
+     False),
+    ("grid_ulysses_bf16_causal", 16384, 4, 4, 64, "bfloat16", None, True),
+)
 # Output tolerance by dtype: f32 results differ by summation order only;
 # bf16 outputs may round to neighbouring bf16 values (one ulp at |o| ~ 4).
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -109,6 +124,11 @@ GRAD_TOL = 5e-4
 # --attention's 16384 tokens (bench.py:3141) cut into 4096-row blocks.
 RANKS = 4
 RING_SHAPE = (16384, 8, 64, "bfloat16")
+# __graft_entry__.py's 2-D data x sequence composition at the ring
+# phase's width: a 2 x 2 ("data", "seq") grid of the card's ranks,
+# (batch, S, heads, head_dim) bf16 causal
+GRID = (2, 2)
+GRID_SHAPE = (2, 16384, 8, 64, "bfloat16")
 # ring_exchange: (name, ranks, per-rank block shape of each array rotated
 # together, dtype, offset in elements of every block from its buffer's
 # start; 1 makes the pointers miss 16-byte alignment).
@@ -196,6 +216,16 @@ POET_ITERS = 3
 POET_ES_STEPS = 4
 POET_SMALL = dict(pop=64, max_steps=60, max_pairs=6)
 POET_SMALL_ITERS = 2
+# POET over 4 ranks of the card: the small POET card against CPU, and
+# one bench.py --poet iteration at full width
+POET_MESH_ITERS = 1
+# checkpoints: the flagship ES (Adam) resumed after 2 of 4 generations,
+# the small POET after 1 of 2 iterations
+CKPT_ES_GENS = 2
+CKPT_POET_ITERS = 1
+# bench.py --profile: one timed run_fused generation of the flagship in
+# a torch.profiler trace, written under TRACE_DIR (gitignored)
+TRACE_DIR = ".traces"
 # bench.py --biped (pop 4096, 400 steps) and --pixels (pop 1024, 60
 # steps) through run_fused, bench.py's default 10 generations
 ES_ENV_GENS = 10
@@ -412,7 +442,8 @@ def phase_kernels(torch, card):
     from fiber_tpu_torch.utils import flops
 
     rows = []
-    edges = [e + (0,) for e in EDGE_SHAPES + MESH_BLOCK_SHAPES]
+    edges = [e + (0,)
+             for e in EDGE_SHAPES + MESH_BLOCK_SHAPES + GRID_BLOCK_SHAPES]
     edges += list(SCALAR_EDGE_SHAPES)
     for name, s, h, kvh, d, dt, window, causal, offset in edges:
         dtype = getattr(torch, dt)
@@ -770,22 +801,83 @@ def phase_es(torch):
     check(bool(((fit >= 1) & (fit <= steps)).all()), "returns out of range")
 
     t0 = time.perf_counter()
-    new_params, stats = run_es(device="cuda", pop=pop, max_steps=steps,
-                               generations=gens)
+    new_params, stats, perf = run_es(device="cuda", pop=pop,
+                                     max_steps=steps, generations=gens)
     torch.cuda.synchronize()
     es_secs = time.perf_counter() - t0
     check(bool(torch.isfinite(stats).all()), f"stats {stats.tolist()}")
     check(bool(torch.isfinite(new_params).all()), "non-finite params")
+    _check_mfu(perf, "run_es")
     fused = _es_fused(torch, _flagship_es(torch, pop, steps), ES_GENS,
                       profile=True)
+    fused.update(_es_rates(torch, "cartpole", fused, pop, steps))
     adam = _es_fused(torch, _flagship_es(torch, pop, steps, optimizer="adam"),
                      ES_ADAM_GENS)
     emit({"phase": "es", "pop": pop, "max_steps": steps, "hidden": [32, 32],
           "sigma": 0.1, "lr": 0.03, "card_vs_cpu_same_returns": same,
           "eval_seconds": eval_secs, "eval_evals_per_s": pop / eval_secs,
           "run_es_generations": gens, "run_es_seconds": es_secs,
-          "run_es_stats": stats.tolist(), "fused": fused,
-          "fused_adam": adam})
+          "run_es_stats": stats.tolist(), "run_es_perf": perf,
+          "fused": fused,
+          "fused_adam": adam, "trace": _traced_generation(torch, pop, steps)})
+
+
+def _check_mfu(perf, label):
+    """On an H100 the rate fields carry an MFU against the table's H100
+    row (or FIBER_PEAK_FLOPS's override)."""
+    check(perf["mfu"] is not None and perf["mfu"] > 0
+          and perf["peak_row"] is not None, f"{label}: no MFU on the card: "
+          f"{perf}")
+
+
+def _es_rates(torch, env, row, pop=None, steps=None):
+    """bench.py's rate fields (``entry.throughput``) of a ``_es_fused``
+    row's timed run_fused of ``make_es(env, pop=pop,
+    max_steps=steps)``: ``es_flops_per_gen`` of its policy a
+    generation, over the card's peak."""
+    from fiber_tpu_torch.entry import _es_setup, throughput
+    from fiber_tpu_torch.utils import flops
+
+    es, _, policy, env_name, steps = _es_setup(
+        env, "cpu", pop, steps, 0.1, 0.03, 0)
+    gens = row["generations"]
+    perf = throughput(
+        es.pop_size * gens, gens * flops.es_flops_per_gen(
+            policy, env_name, steps, es.pop_size, policy.dim),
+        row["fused_seconds"], [torch.device("cuda")])
+    _check_mfu(perf, f"{env} run_fused")
+    del perf["seconds"]             # the row's fused_seconds
+    return perf
+
+
+def _traced_generation(torch, pop, steps):
+    """bench.py --profile: one timed ``run_fused`` generation of the
+    flagship (captured before) inside ``profiling.trace``, with a
+    ``profiling.annotate`` region around it. The Chrome trace under
+    TRACE_DIR must hold the annotation and the generation's kernels."""
+    from fiber_tpu_torch.utils.profiling import TRACE_FILE, annotate, trace
+
+    start = time.perf_counter()
+    es, params = _flagship_es(torch, pop, steps)
+    es.run_fused(params, 1)
+    log_dir = os.path.join(TRACE_DIR, "es")
+    with trace(log_dir):
+        with annotate("es.run_fused"):
+            t0 = time.perf_counter()
+            es.run_fused(params, 1)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    path = os.path.join(log_dir, TRACE_FILE)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    check(kernels > 0, f"the trace {path} holds no kernel event")
+    check(any(e.get("name") == "es.run_fused" for e in events),
+          f"the trace {path} lacks its annotation")
+    return {"path": path, "bytes": os.path.getsize(path),
+            "events": len(events), "kernel_events": kernels,
+            "traced_seconds": secs,
+            "phase_seconds": time.perf_counter() - start}
 
 
 def _flagship_es(torch, pop, steps, optimizer="sgd", ranks=1):
@@ -1053,6 +1145,66 @@ def phase_ring_attention(torch, card):
           "lm_gqa_shape": [s, 8, 2, 32, "float32"],
           "single_device_flash_ms": single_ms, "runs": runs})
     return main
+
+
+def phase_mesh_2d(torch, card):
+    """Ring and Ulysses attention (``local="flash"``) on a GRID
+    ``("data", "seq")`` mesh of the card's ranks at GRID_SHAPE causal,
+    each data row's batch folded into the heads: every batch element
+    against single-device ``flash_fwd`` on it, within the ring phase's
+    tolerance, with every kernel's launches per call (each row: the
+    ring's diagonal and past blocks and s - 1 rotations; Ulysses' s
+    local launches and 4 (s - 1) rotations)."""
+    from fiber_tpu_torch.ops import flash_attention as fa
+    from fiber_tpu_torch.ops.ring_attention import ring_attention
+    from fiber_tpu_torch.ops.ulysses_attention import ulysses_attention
+    from fiber_tpu_torch.parallel.mesh import make_mesh
+
+    start = time.perf_counter()
+    d, s_ranks = GRID
+    mesh = make_mesh("cuda", shape=GRID, names=("data", "seq"))
+    b, s, h, hd, dt = GRID_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(310)
+    q, k, v = (torch.randn(b, s, h, hd, generator=g, device="cuda")
+               .to(getattr(torch, dt)) for _ in range(3))
+    refs = [fa.flash_fwd(q[i], k[i], v[i], causal=True)[0] for i in range(b)]
+    single_ms = cuda_ms(torch, lambda: [fa.flash_fwd(
+        q[i], k[i], v[i], causal=True) for i in range(b)], reps=3)
+    runs, launches = {}, {}
+    planes = (
+        ("ring_flash", lambda: ring_attention(q, k, v, mesh, causal=True,
+                                              local="flash"),
+         d * (s_ranks + s_ranks * (s_ranks - 1) // 2), d * (s_ranks - 1)),
+        ("ulysses_flash", lambda: ulysses_attention(
+            q, k, v, mesh, causal=True, local="flash"),
+         d * s_ranks, d * 4 * (s_ranks - 1)))
+    for label, fn, flash, exchange in planes:
+        _reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = _counts()
+        want = {"flash_fwd": flash, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "ring_exchange": exchange}
+        check(counts == want, f"mesh_2d {label}: launches {counts}, want "
+              f"{want}")
+        check(tuple(out.shape) == (b, s, h, hd)
+              and bool(torch.isfinite(out.float()).all()),
+              f"mesh_2d {label}: shape or non-finite values")
+        err = max((out[i].float() - refs[i].float()).abs().max().item()
+                  for i in range(b))
+        check(err < TOL[dt], f"mesh_2d {label}: max_abs_err {err} vs "
+              f"single-device flash, tol {TOL[dt]}")
+        runs[label] = {"launches": counts, "max_abs_err": err,
+                       "tol": TOL[dt], "ms": cuda_ms(torch, fn, reps=3)}
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    del q, k, v, refs
+    torch.cuda.empty_cache()
+    emit({"phase": "mesh_2d", "card": card, "grid": list(GRID),
+          "axes": ["data", "seq"], "shape": list(GRID_SHAPE),
+          "causal": True, "single_device_flash_ms": single_ms,
+          "runs": runs, "phase_seconds": time.perf_counter() - start})
+    return launches
 
 
 def phase_lm_mesh(torch):
@@ -2024,16 +2176,16 @@ def _poet_finetune(torch):
             "replay_ms": cuda_ms(torch, graph.replay, reps=3)}
 
 
-def _poet_card_vs_cpu(torch):
-    """A small POET (POET_SMALL) for POET_SMALL_ITERS iterations on the
-    card, every draw recorded, then the same POET on the CPU fed those
-    draws: histories with the same counts (pairs, spawned, transfers,
-    transfer evals, archive), every draw used; the mean fitness and the
-    agents beside them."""
+def _poet_card_vs_cpu(torch, ranks=1):
+    """A small POET (POET_SMALL) for POET_SMALL_ITERS iterations on
+    ``ranks`` ranks of the card, every draw recorded, then the same POET
+    on as many CPU ranks fed those draws: histories with the same counts
+    (pairs, spawned, transfers, transfer evals, archive), every draw
+    used; the mean fitness and the agents beside them."""
     from fiber_tpu_torch.entry import make_poet
 
-    card = make_poet(device="cuda", **POET_SMALL)
-    cpu = make_poet(device="cpu", **POET_SMALL)
+    card = make_poet(device="cuda", ranks=ranks, **POET_SMALL)
+    cpu = make_poet(device="cpu", ranks=ranks, **POET_SMALL)
     draws = _record_poet_draws(card)
     want = card.run(POET_SMALL_ITERS, es_steps=POET_ES_STEPS)
     queues = _feed_poet_draws(cpu, draws)
@@ -2044,7 +2196,7 @@ def _poet_card_vs_cpu(torch):
           f"against {got}")
     err = max((a.cpu() - b).abs().max().item()
               for a, b in zip(card.agents, cpu.agents))
-    return {**POET_SMALL, "iterations": POET_SMALL_ITERS,
+    return {**POET_SMALL, "ranks": ranks, "iterations": POET_SMALL_ITERS,
             "histories_equal": True, "agents_max_abs_err": err,
             "draws": {k: len(v) for k, v in draws.items()},
             "history": want}
@@ -2093,8 +2245,9 @@ def phase_poet(torch):
     t0 = time.perf_counter()
     with _timed(torch, POET, ("optimize_pair", "try_spawn_envs",
                               "transfer")) as split:
-        history, evals = run_poet(device="cuda", iterations=POET_ITERS,
-                                  es_steps=POET_ES_STEPS)
+        history, evals, perf = run_poet(device="cuda",
+                                        iterations=POET_ITERS,
+                                        es_steps=POET_ES_STEPS)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     check(len(history) == POET_ITERS
@@ -2104,13 +2257,131 @@ def phase_poet(torch):
     emit({"phase": "poet", "pop": 4096, "max_steps": 500, "max_pairs": 6,
           "es_steps": POET_ES_STEPS, "iterations": POET_ITERS,
           "hidden": [16], "seconds": secs, "evals": evals,
-          "poet_policy_evals_per_sec": evals / secs,
+          "poet_policy_evals_per_sec": evals / secs, "run_poet_perf": perf,
           "seconds_by_stage": split,
           "final_pairs": history[-1]["pairs"],
           "total_transfers": sum(h["transfers"] for h in history),
           "archive_size": history[-1]["archive_size"], "history": history,
           "finetune": _poet_finetune(torch),
           "card_vs_cpu": _poet_card_vs_cpu(torch),
+          "phase_seconds": time.perf_counter() - start})
+    _check_mfu(perf, "run_poet")
+
+
+def phase_poet_mesh(torch):
+    """POET with every ES generation over RANKS ranks of the card: the
+    small POET card against CPU (both on RANKS ranks), then
+    POET_MESH_ITERS iteration of bench.py --poet at full width through
+    ``run_poet(ranks=RANKS)``, timed as ``run_poet`` times it."""
+    from fiber_tpu_torch.entry import run_poet
+
+    start = time.perf_counter()
+    small = _poet_card_vs_cpu(torch, ranks=RANKS)
+    history, evals, perf = run_poet(device="cuda", iterations=POET_MESH_ITERS,
+                                    es_steps=POET_ES_STEPS, ranks=RANKS)
+    check(len(history) == POET_MESH_ITERS
+          and all(math.isfinite(h["mean_fitness"]) for h in history),
+          f"poet over {RANKS} ranks: history {history}")
+    _check_mfu(perf, "run_poet(ranks)")
+    emit({"phase": "poet_mesh", "ranks": RANKS, "pop": 4096,
+          "max_steps": 500, "max_pairs": 6, "es_steps": POET_ES_STEPS,
+          "iterations": POET_MESH_ITERS, "evals": evals, **perf,
+          "history": history, "card_vs_cpu": small,
+          "phase_seconds": time.perf_counter() - start})
+
+
+def _resumed_es(torch, path):
+    """The flagship ES with Adam: CKPT_ES_GENS replayed generations, a
+    checkpoint (params, the generator's state, Adam's (m, v, t) in
+    ``extra``), then CKPT_ES_GENS more twice: on a fresh strategy of
+    another seed restored from the file, and on the first strategy,
+    whose captured graph has the generator registered, with its state
+    set back from the file. Both against 2 * CKPT_ES_GENS generations
+    in one run: params, stats, Adam's state and the generator's state
+    bit for bit."""
+    from fiber_tpu_torch.utils import checkpoint
+
+    pop, steps, n = 4096, 500, CKPT_ES_GENS
+    first, p0 = _flagship_es(torch, pop, steps, optimizer="adam")
+    p_mid, s_first = first.run_fused(p0, n)
+    checkpoint.save_es_state(path, p_mid, first.generator, generation=n,
+                             extra=first._opt_state)
+    whole, _ = _flagship_es(torch, pop, steps, optimizer="adam")
+    want_p, want_s = whole.run_fused(p0, 2 * n)
+
+    fresh, _ = _flagship_es(torch, pop, steps, optimizer="adam")
+    rows = {}
+    for label, es in (("fresh_strategy", fresh), ("captured_graph", first)):
+        params, key, gen, extra = checkpoint.load_es_state(path, "cuda")
+        check(gen == n, f"checkpoint generation {gen}")
+        es.generator.manual_seed(99)     # a state the file must replace
+        es.generator.set_state(key)
+        es._opt_state = extra
+        p, s = es.run_fused(params, n)
+        same = (torch.equal(_bits(torch, p), _bits(torch, want_p))
+                and torch.equal(torch.cat([s_first, s]), want_s)
+                and all(torch.equal(a, b) for a, b in zip(es._opt_state,
+                                                          whole._opt_state))
+                and torch.equal(es.generator.get_state(),
+                                whole.generator.get_state()))
+        check(same, f"es resumed on the {label} differs from the "
+              "uninterrupted run")
+        rows[label] = {"bitwise": True}
+    return {"pop": pop, "max_steps": steps, "optimizer": "adam",
+            "generations": [n, n], "file_bytes": os.path.getsize(path),
+            "stats": want_s.tolist(), **rows}
+
+
+def _resumed_poet(torch, path):
+    """The small POET on the card: CKPT_POET_ITERS iteration, a
+    checkpoint, a fresh POET of another seed restored from it and as
+    many more, against 2 * CKPT_POET_ITERS iterations in one run: the
+    later records (all but their index), the pairs bit for bit, the
+    archive, and both generators' states equal."""
+    from fiber_tpu_torch.entry import make_poet
+    from fiber_tpu_torch.utils import checkpoint
+
+    n = CKPT_POET_ITERS
+    first = make_poet(device="cuda", **POET_SMALL)
+    first.run(n, es_steps=POET_ES_STEPS)
+    checkpoint.save_poet_state(path, first, iteration=n)
+    fresh = make_poet(device="cuda", seed=7, **POET_SMALL)
+    _, it = checkpoint.load_poet_state(path, fresh)
+    got = fresh.run(n, es_steps=POET_ES_STEPS)
+    whole = make_poet(device="cuda", **POET_SMALL)
+    want = whole.run(2 * n, es_steps=POET_ES_STEPS)
+
+    def drop(h):
+        return {k: v for k, v in h.items() if k != "iteration"}
+
+    same = (it == n and [drop(h) for h in got] == [drop(h)
+                                                  for h in want[n:]]
+            and len(fresh.agents) == len(whole.agents)
+            and all(torch.equal(_bits(torch, a), _bits(torch, b))
+                    for a, b in zip(fresh.agents + fresh.envs,
+                                    whole.agents + whole.envs))
+            and [a.tolist() for a in fresh.archive] == [
+                a.tolist() for a in whole.archive]
+            and torch.equal(fresh.generator.get_state(),
+                            whole.generator.get_state())
+            and torch.equal(fresh.pick_generator.get_state(),
+                            whole.pick_generator.get_state()))
+    check(same, f"poet resumed from a checkpoint differs: {got} against "
+          f"{want[n:]}")
+    return {**POET_SMALL, "iterations": [n, n], "bitwise": True,
+            "file_bytes": os.path.getsize(path), "history": want}
+
+
+def phase_checkpoint(torch):
+    """Runs resumed from checkpoint files on the card against the
+    uninterrupted runs (``_resumed_es``, ``_resumed_poet``)."""
+    import tempfile
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        es = _resumed_es(torch, os.path.join(tmp, "es.npz"))
+        poet = _resumed_poet(torch, os.path.join(tmp, "poet.npz"))
+    emit({"phase": "checkpoint", "es": es, "poet": poet,
           "phase_seconds": time.perf_counter() - start})
 
 
@@ -2215,6 +2486,7 @@ def phase_es_envs(torch):
         row = _es_fused(torch, (es, params), ES_ENV_GENS)
         graph = es._fused_runner_cache[ES_ENV_GENS].graph
         row.update(pop=es.pop_size, dim=es.dim,
+                   **_es_rates(torch, env, row),
                    replay=device_breakdown(torch, graph.replay),
                    replay_ms=cuda_ms(torch, graph.replay, reps=3),
                    seconds=time.perf_counter() - t0)
@@ -2237,6 +2509,8 @@ def phase_population_search(torch):
     phase_ask_tell(torch)
     phase_device_map(torch)
     phase_poet(torch)
+    phase_poet_mesh(torch)
+    phase_checkpoint(torch)
     phase_es_envs(torch)
     counts = _counts()
     check(not any(counts.values()), f"kernels launched on the population "
@@ -2272,6 +2546,7 @@ def main():
     # The mesh phases measure inference too.
     with torch.no_grad():
         ring_launches = phase_ring_attention(torch, card)
+        grid_launches = phase_mesh_2d(torch, card)
         phase_lm_mesh(torch)
     mesh_train_launches = phase_lm_mesh_train(torch)
     torch.cuda.empty_cache()
@@ -2323,6 +2598,8 @@ def main():
         "path": "ring_attention",
         "launches_lm_mesh_train": mesh_train_launches["ring_exchange"],
         "lm_mesh_train_steps": TRAIN_STEPS + 1})
+    summary[0]["launches_mesh_2d"] = grid_launches["flash_fwd"]
+    summary[-1]["launches_mesh_2d"] = grid_launches["ring_exchange"]
     for entry in summary:
         entry.update(route="cuda", source=SOURCES[entry["name"]],
                      replaces=REPLACES[entry["name"]],

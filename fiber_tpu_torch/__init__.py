@@ -24,7 +24,12 @@ the novelty and MAP-Elites examples search); and POET (``POET``,
 ``ParamHillWalker``, ``ParamBipedWalker``), ``Pendulum``, ``PixelChase``
 with ``ConvPolicy``, ``GRUPolicy`` with ``rollout_recurrent``, and the
 policies' ``compute_dtype``; ``run_es(env=...)`` runs ``bench.py``'s
-``--biped`` and ``--pixels`` ES.
+``--biped`` and ``--pixels`` ES. Beside them: ``POET`` over a mesh
+(``run_poet(ranks=)``), the rate fields of ``run_es``/``run_poet``
+(model FLOP/s and MFU, ``utils/flops.py``), checkpoints of ES and POET
+state (``utils/checkpoint.py``), the profiling hooks
+(``utils/profiling.py``) and grid meshes (``make_mesh(shape=,
+names=)``) with data x sequence ring and Ulysses attention.
 """
 
 from fiber_tpu_torch.device import resolve_device
@@ -93,7 +98,15 @@ from fiber_tpu_torch.ops.ulysses_attention import (
     ulysses_attention_local,
 )
 from fiber_tpu_torch.parallel.dmap import DeviceMapPlan, device_map
-from fiber_tpu_torch.parallel.mesh import Mesh, make_mesh, shard, unshard
+from fiber_tpu_torch.parallel.mesh import (
+    Mesh,
+    make_mesh,
+    mesh_shape,
+    shard,
+    shard_grid,
+    unshard,
+    unshard_grid,
+)
 
 __all__ = [
     "AskTellES", "CMAES", "CartPole", "ConvPolicy", "DeceptiveMaze",
@@ -106,11 +119,13 @@ __all__ = [
     "flash_attention_bwd_reference", "flash_attention_lse",
     "flash_attention_reference", "flash_bwd_dkv", "flash_bwd_dq",
     "flash_fwd", "knn_novelty", "make_es", "make_mesh", "make_poet",
-    "make_train_step", "mutate_bounded", "poet_state_from_jax",
+    "make_train_step", "mesh_shape", "mutate_bounded",
+    "poet_state_from_jax",
     "policy_params_from_jax", "reference_attention", "resolve_device",
     "ring_all_to_all", "ring_attention", "ring_attention_local",
     "ring_exchange", "rollout_recurrent", "run_es", "run_poet", "shard",
-    "state_from_jax",
+    "shard_grid", "state_from_jax",
     "tinylm_params_from_jax", "tinylm_tree_from_torch", "train_lm",
     "ulysses_attention", "ulysses_attention_local", "unshard",
+    "unshard_grid",
 ]

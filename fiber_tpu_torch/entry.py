@@ -8,6 +8,9 @@ one-device ES generations, as its multi-chip dry run takes, and
 :func:`run_es`'s ``env``. POET: :func:`run_poet` is ``bench.py --poet``
 (``_poet_bench``).
 
+:func:`run_es` and :func:`run_poet` report ``bench.py``'s rate fields
+(:func:`throughput`: evals/s, model FLOP/s and MFU).
+
 TinyLM training: :func:`train_lm` is ``bench.py --lm``
 (``_lm_bench``): its ring leg over a mesh, and the single-device flash
 leg it is compared with.
@@ -31,6 +34,7 @@ from fiber_tpu_torch.models.transformer import TinyLM, adamw, make_train_step
 from fiber_tpu_torch.ops.es import EvolutionStrategy
 from fiber_tpu_torch.ops.poet import POET
 from fiber_tpu_torch.parallel.mesh import make_mesh
+from fiber_tpu_torch.utils import flops as flopsmod
 
 HIDDEN = (32, 32)
 #: ``bench.py --lm``'s TinyLM widths
@@ -73,6 +77,12 @@ def make_es(env: str = "cartpole", device=None, pop=None, max_steps=None,
     ``ConvPolicy((24, 24, 1), 5)``), with ``pop`` and ``max_steps`` from
     :data:`ES_ENV_DEFAULTS` when not given; params from ``seed``, noise
     and initial states from ``seed + 1``. Returns ``(es, params)``."""
+    return _es_setup(env, device, pop, max_steps, sigma, lr, seed)[:2]
+
+
+def _es_setup(env, device, pop, max_steps, sigma, lr, seed):
+    """:func:`make_es`'s ``(es, params)`` and the policy, the env's name
+    and the episode length that its FLOP count needs."""
     if env not in ES_ENV_DEFAULTS:
         raise ValueError(f"unknown env {env!r}: one of "
                          f"{sorted(ES_ENV_DEFAULTS)}")
@@ -104,7 +114,20 @@ def make_es(env: str = "cartpole", device=None, pop=None, max_steps=None,
         eval_fn, env_cls.reset, dim=policy.dim, pop_size=pop, sigma=sigma,
         lr=lr, device=dev,
         generator=torch.Generator(device=dev).manual_seed(seed + 1))
-    return es, policy.init(torch.Generator().manual_seed(seed), device=dev)
+    params = policy.init(torch.Generator().manual_seed(seed), device=dev)
+    return es, params, policy, env_cls.__name__, steps
+
+
+def throughput(evals: int, flops: float, seconds: float, devices) -> dict:
+    """``bench.py``'s rate fields for ``evals`` evaluations of ``flops``
+    model operations in ``seconds`` on ``devices`` (a mesh's ranks):
+    evals/s, model FLOP/s, MFU against the cards' bf16 peak (None on the
+    CPU), the device kind and the peak row it resolved to."""
+    model_fps = flops / seconds
+    return {"seconds": seconds, "evals_per_sec": evals / seconds,
+            "model_flops_per_sec": model_fps,
+            "mfu": flopsmod.mfu(model_fps, devices),
+            **flopsmod.peak_report(devices)}
 
 
 def run_es(device=None, pop=None, max_steps=None, generations: int = 1,
@@ -112,39 +135,63 @@ def run_es(device=None, pop=None, max_steps=None, generations: int = 1,
            env: str = "cartpole"):
     """``generations`` ES steps of ``bench.py``'s ES on ``env`` (see
     :func:`make_es`; by default the flagship at pop 4096 and 500-step
-    episodes), run as ``bench.py`` runs them: through
-    ``EvolutionStrategy.run_fused`` (on CUDA one captured generation
-    replayed ``generations`` times). Returns ``(params, stats)`` with
-    stats (generations, 3)."""
-    es, params = make_es(env, device, pop, max_steps, sigma, lr, seed)
-    return es.run_fused(params, generations)
+    episodes), run and timed as ``bench.py`` runs them: a warm-up
+    ``EvolutionStrategy.run_fused`` of ``generations`` (on CUDA it
+    captures one generation), then a timed one of ``generations`` more
+    from its params (replayed ``generations`` times). Returns ``(params,
+    stats, perf)``: the timed run's params and (generations, 3) stats,
+    and its :func:`throughput` with ``es_flops_per_gen`` a
+    generation."""
+    es, params, policy, env_name, steps = _es_setup(
+        env, device, pop, max_steps, sigma, lr, seed)
+    params, stats = es.run_fused(params, generations)
+    _sync(es.device)
+    t0 = time.perf_counter()
+    params, stats = es.run_fused(params, generations)
+    _sync(es.device)
+    secs = time.perf_counter() - t0
+    gen_flops = flopsmod.es_flops_per_gen(policy, env_name, steps,
+                                          es.pop_size, policy.dim)
+    return params, stats, throughput(es.pop_size * generations,
+                                     gen_flops * generations, secs,
+                                     es.mesh.devices)
 
 
 def make_poet(device=None, pop: int = 4096, max_steps: int = 500,
-              max_pairs: int = 6, seed: int = 0) -> POET:
+              max_pairs: int = 6, seed: int = 0, ranks: int = 1) -> POET:
     """``bench.py --poet``'s POET: ``ParamCartPole`` with an MLP (16,),
-    sigma 0.1, lr 0.03, its device and pick generators seeded ``seed``."""
+    sigma 0.1, lr 0.03, its device and pick generators seeded ``seed``,
+    every ES generation over a mesh of ``ranks`` ranks on ``device``."""
     dev = resolve_device(device)
     policy = MLPPolicy(ParamCartPole.obs_dim, ParamCartPole.act_dim,
                        hidden=(16,))
     return POET(ParamCartPole, policy, pop_size=pop, max_pairs=max_pairs,
-                rollout_steps=max_steps, device=dev,
+                rollout_steps=max_steps, mesh=make_mesh(dev, n=ranks),
                 generator=torch.Generator(device=dev).manual_seed(seed),
                 pick_generator=torch.Generator().manual_seed(seed))
 
 
 def run_poet(device=None, pop: int = 4096, max_steps: int = 500,
              iterations: int = 10, es_steps: int = 4, max_pairs: int = 6,
-             seed: int = 0):
+             seed: int = 0, ranks: int = 1):
     """``bench.py --poet``: :func:`make_poet`'s POET run for
-    ``iterations`` rounds of ``es_steps`` ES generations a pair. Returns
-    ``(history, evals)``, the evaluations counted as ``bench.py`` counts
-    them: ``pairs * pop * es_steps + transfer_evals`` a round."""
-    poet = make_poet(device, pop, max_steps, max_pairs, seed)
+    ``iterations`` rounds of ``es_steps`` ES generations a pair, timed
+    as ``bench.py`` times it (no warm-up). Returns ``(history, evals,
+    perf)``, the evaluations counted as ``bench.py`` counts them
+    (``pairs * pop * es_steps + transfer_evals`` a round) and ``perf``
+    their :func:`throughput` at ``rollout_flops_per_eval`` each."""
+    poet = make_poet(device, pop, max_steps, max_pairs, seed, ranks)
+    _sync(poet.device)
+    t0 = time.perf_counter()
     history = poet.run(iterations, es_steps=es_steps)
+    _sync(poet.device)
+    secs = time.perf_counter() - t0
     evals = sum(h["pairs"] * poet.pop_size * es_steps + h["transfer_evals"]
                 for h in history)
-    return history, evals
+    flops = evals * flopsmod.rollout_flops_per_eval(
+        poet.policy, "ParamCartPole", max_steps)
+    return history, evals, throughput(evals, flops, secs,
+                                      poet.mesh.devices)
 
 
 def train_lm(device=None, seq: int = 16384, steps: int = 5, seed: int = 0,

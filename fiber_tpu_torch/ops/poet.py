@@ -37,8 +37,8 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from fiber_tpu_torch.device import resolve_device
 from fiber_tpu_torch.ops.es import EvolutionStrategy, build_fused_runner
+from fiber_tpu_torch.parallel.mesh import Mesh, mesh_for
 
 
 def _host(env_params) -> np.ndarray:
@@ -54,7 +54,13 @@ class POET:
     env_params, thetas, states, max_steps=)``, ``mutate(env_params,
     noise=)``) and a policy with ``init``/``act``/``dim``. The active
     pairs are ``envs`` and ``agents`` (lists of tensors on ``device``),
-    ``archive`` every environment ever admitted (float64 numpy)."""
+    ``archive`` every environment ever admitted (float64 numpy).
+
+    ``mesh`` (one rank on ``device`` when omitted) spreads every ES
+    generation over its ranks, as the JAX package's POET hands its mesh
+    to its shared ES; the population must then divide by twice the
+    ranks. The transfer matrix and the single-pair evaluations run on
+    ``mesh.device``."""
 
     def __init__(
         self,
@@ -70,8 +76,10 @@ class POET:
         device=None,
         generator: Optional[torch.Generator] = None,
         pick_generator: Optional[torch.Generator] = None,
+        mesh: Optional[Mesh] = None,
     ) -> None:
-        self.device = resolve_device(device)
+        self.mesh = mesh_for(device, mesh)
+        self.device = self.mesh.device
         self.env_cls = env_cls
         self.policy = policy
         self.max_pairs = max_pairs
@@ -97,7 +105,7 @@ class POET:
         self._es = EvolutionStrategy(
             self._eval_members, env_cls.reset,
             dim=policy.dim + self.env_dim, pop_size=pop_size, sigma=sigma,
-            lr=lr, device=self.device, generator=self.generator)
+            lr=lr, mesh=self.mesh, generator=self.generator)
         self.pop_size = self._es.pop_size
         self._runner = build_fused_runner(self._pinned_step, self._es.mesh,
                                           1, 1, generator=self.generator)

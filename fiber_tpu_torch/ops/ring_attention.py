@@ -20,10 +20,20 @@ the per-rank block is the ``flash_fwd`` kernel; the JAX package's
 index, so a block that lies wholly in a rank's future launches nothing.
 The JAX package's ``interpret=`` has no counterpart: the tensors'
 device decides between kernels and their plain versions.
+
+Data x sequence parallelism (``__graft_entry__.py``'s 2-D composition):
+on a ``("data", "seq")`` grid mesh, :func:`ring_attention` takes
+(B, S, heads, head_dim) inputs, gives every rank its (B/d, S/s) block,
+and runs the per-rank body of each data row on that row's ``seq``
+sub-mesh. The body folds a batched block into the heads, (b, S/s, h, d)
+-> (S/s, b*h, d), so that one kernel launch serves the row's batch;
+query head ``bi*h + j`` reads KV head ``bi*kvh + j // (h // kvh)``, the
+same grouping as the unfolded block.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence
 
 import torch
@@ -32,7 +42,14 @@ from torch.utils.checkpoint import checkpoint
 from fiber_tpu_torch.ops import collectives
 from fiber_tpu_torch.ops.dma_ring import pick_ring, ring_exchange
 from fiber_tpu_torch.ops.flash_attention import flash_attention_lse
-from fiber_tpu_torch.parallel.mesh import Mesh, make_mesh, shard, unshard
+from fiber_tpu_torch.parallel.mesh import (
+    Mesh,
+    make_mesh,
+    shard,
+    shard_grid,
+    unshard,
+    unshard_grid,
+)
 
 #: elements of one (heads, rows, S) score tile of ``reference_attention``;
 #: query rows are processed in chunks of at most this many scores, so
@@ -42,6 +59,8 @@ _CHUNK_ELEMS = 1 << 26
 _KV_CHUNK = 1024
 #: lse of a skipped block: its weight exp(-1e30 - m) in a merge is 0
 _SKIP_LSE = -1e30
+#: the axes of a data x sequence grid mesh
+DATA_AXIS, SEQ_AXIS = "data", "seq"
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -199,6 +218,56 @@ def _ring_flash_local(q_blks, k_blks, v_blks, mesh: Mesh, causal: bool,
     return [o.to(q.dtype) for (o, _), q in zip(parts, q_blks)]
 
 
+def _fold_batch(blks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """(b, s, h, d) blocks -> (s, b*h, d): the batch folded into the
+    heads, batch-major (head ``bi*h + j``)."""
+    return [x.permute(1, 0, 2, 3).reshape(x.shape[1], -1, x.shape[3])
+            for x in blks]
+
+
+def _unfold_batch(blks: Sequence[torch.Tensor], b: int) -> List[torch.Tensor]:
+    """The inverse of :func:`_fold_batch` for a batch of ``b``."""
+    return [x.reshape(x.shape[0], b, -1, x.shape[2]).permute(1, 0, 2, 3)
+            .contiguous() for x in blks]
+
+
+def batched(local_fn):
+    """Lets a per-rank body take batched (b, S/n, h, d) blocks as well:
+    they are folded into the heads for one run of the body and unfolded
+    after it."""
+    @functools.wraps(local_fn)
+    def body(q_blks, k_blks, v_blks, mesh, **kw):
+        q_blks = list(q_blks)
+        if not q_blks or q_blks[0].dim() != 4:
+            return local_fn(q_blks, k_blks, v_blks, mesh, **kw)
+        out = local_fn(_fold_batch(q_blks), _fold_batch(k_blks),
+                       _fold_batch(v_blks), mesh, **kw)
+        return _unfold_batch(out, q_blks[0].shape[0])
+    return body
+
+
+def over_data_rows(local_fn, q, k, v, mesh: Mesh, **kw):
+    """Runs a per-rank body over a ``("data", "seq")`` grid: (B, S, h,
+    d) inputs cut into (B/d, S/s) blocks (``shard_grid``), each data
+    row's blocks through ``local_fn`` on the row's ``seq`` sub-mesh, the
+    output joined on ``mesh.device``. ``shard_map`` over the grid with a
+    ``vmap`` of the body inside, as the JAX package composes it."""
+    if mesh.names != (DATA_AXIS, SEQ_AXIS):
+        raise ValueError(f"a 2-D attention mesh has axes "
+                         f"{(DATA_AXIS, SEQ_AXIS)}, got {mesh.names}")
+    if q.dim() != 4:
+        raise ValueError(f"a {(DATA_AXIS, SEQ_AXIS)} mesh takes (batch, "
+                         f"seq, heads, head_dim) inputs, got {q.dim()}-D")
+    blocks = [shard_grid(x, mesh) for x in (q, k, v)]
+    s = mesh.axis_size(SEQ_AXIS)
+    out = []
+    for i, row in enumerate(mesh.sub_meshes(SEQ_AXIS)):
+        cut = slice(i * s, (i + 1) * s)
+        out += local_fn(*(b[cut] for b in blocks), row, **kw)
+    return unshard_grid(out, mesh)
+
+
+@batched
 def ring_attention_local(q_blks: Sequence[torch.Tensor],
                          k_blks: Sequence[torch.Tensor],
                          v_blks: Sequence[torch.Tensor], mesh: Mesh, *,
@@ -207,7 +276,8 @@ def ring_attention_local(q_blks: Sequence[torch.Tensor],
                          ) -> List[torch.Tensor]:
     """The per-rank ring body, for composition: per-rank lists of
     (S/n, heads, head_dim) blocks in rank order (rank r holds sequence
-    rows r*S/n onwards), per-rank output blocks out.
+    rows r*S/n onwards), or batched (b, S/n, heads, head_dim) blocks
+    (see :func:`batched`), per-rank output blocks out.
 
     ``local`` picks the per-rank engine: ``"xla"`` (chunked online
     softmax in plain PyTorch, differentiable, recomputing each chunk's
@@ -259,13 +329,16 @@ def ring_attention(q, k, v, mesh: Optional[Mesh] = None,
     ranks. The inputs are cut into contiguous per-rank blocks
     (``parallel.mesh.shard``), the ring runs, and the output (S, heads,
     head_dim) is gathered on ``mesh.device``. ``mesh`` defaults to one
-    rank on q's device. See :func:`ring_attention_local` for ``local``
-    and ``use_dma_ring``."""
+    rank on q's device. On a ``("data", "seq")`` grid the inputs are
+    (B, S, heads, head_dim), B sharded on ``data`` and S on ``seq``
+    (:func:`over_data_rows`). See :func:`ring_attention_local` for
+    ``local`` and ``use_dma_ring``."""
     mesh = mesh or make_mesh(q.device)
+    kw = dict(causal=causal, local=local, use_dma_ring=use_dma_ring)
+    if len(mesh.shape) > 1:
+        return over_data_rows(ring_attention_local, q, k, v, mesh, **kw)
     blocks = [shard(x, mesh) for x in (q, k, v)]
-    out = ring_attention_local(*blocks, mesh, causal=causal, local=local,
-                               use_dma_ring=use_dma_ring)
-    return unshard(out, mesh)
+    return unshard(ring_attention_local(*blocks, mesh, **kw), mesh)
 
 
 def reference_attention(q, k, v, causal: bool = False):

@@ -12,7 +12,9 @@ On the single-controller mesh (``parallel/mesh.py``) a swap moves every
 rank's block at once: through ``ring_all_to_all`` (n - 1 launches of
 the ``ring_exchange`` kernel per swap) when no block needs a gradient,
 else through ``ops/collectives.all_to_all`` (plain copies,
-differentiable); ``use_dma_ring=True`` or ``False`` forces one.
+differentiable); ``use_dma_ring=True`` or ``False`` forces one. On a
+``("data", "seq")`` grid mesh, as on the ring plane, each data row runs
+the body on its ``seq`` sub-mesh over its batch folded into the heads.
 """
 
 from __future__ import annotations
@@ -25,7 +27,9 @@ from fiber_tpu_torch.ops import collectives
 from fiber_tpu_torch.ops.dma_ring import pick_ring, ring_all_to_all
 from fiber_tpu_torch.ops.flash_attention import flash_attention
 from fiber_tpu_torch.ops.ring_attention import (
+    batched,
     blockwise_attention,
+    over_data_rows,
     reference_attention,
 )
 from fiber_tpu_torch.parallel.mesh import Mesh, make_mesh, shard, unshard
@@ -43,6 +47,7 @@ def _a2a(xs, mesh: Mesh, split_axis: int, concat_axis: int,
                                   concat_axis=concat_axis)
 
 
+@batched
 def ulysses_attention_local(q_blks: Sequence[torch.Tensor],
                             k_blks: Sequence[torch.Tensor],
                             v_blks: Sequence[torch.Tensor], mesh: Mesh, *,
@@ -50,8 +55,9 @@ def ulysses_attention_local(q_blks: Sequence[torch.Tensor],
                             use_dma_ring: Optional[bool] = None
                             ) -> List[torch.Tensor]:
     """The per-rank Ulysses body, for composition: per-rank lists of
-    (S/n, heads, head_dim) blocks in, per-rank output blocks out; heads
-    must divide by n.
+    (S/n, heads, head_dim) blocks in, or batched (b, S/n, heads,
+    head_dim) blocks (b*heads must then divide by n), per-rank output
+    blocks out; heads must divide by n.
 
     ``local`` picks the attention over the gathered sequence:
     ``"reference"`` (whole-row softmax, query rows in chunks),
@@ -80,11 +86,17 @@ def ulysses_attention(q, k, v, mesh: Optional[Mesh] = None,
 
     q, k, v (S, heads, head_dim); S and heads must both divide by the
     number of ranks. Returns (S, heads, head_dim) on ``mesh.device``;
-    ``mesh`` defaults to one rank on q's device. See
-    :func:`ulysses_attention_local` for ``local``; the swaps run over the
-    ``ring_exchange`` kernel (forward-only) unless a block needs a
-    gradient, or as ``use_dma_ring=True`` or ``False`` forces."""
+    ``mesh`` defaults to one rank on q's device. On a ``("data",
+    "seq")`` grid the inputs are (B, S, heads, head_dim), B sharded on
+    ``data`` and S on ``seq``, and (B/d)*heads must divide by the
+    ``seq`` axis. See :func:`ulysses_attention_local` for ``local``; the
+    swaps run over the ``ring_exchange`` kernel (forward-only) unless a
+    block needs a gradient, or as ``use_dma_ring=True`` or ``False``
+    forces."""
     mesh = mesh or make_mesh(q.device)
+    kw = dict(causal=causal, local=local, use_dma_ring=use_dma_ring)
+    if len(mesh.shape) > 1:
+        return over_data_rows(ulysses_attention_local, q, k, v, mesh, **kw)
     n = mesh.n_dev
     seq, heads = q.shape[0], q.shape[1]
     if seq % n:
@@ -95,6 +107,4 @@ def ulysses_attention(q, k, v, mesh: Optional[Mesh] = None,
             f"ulysses needs heads % n_dev == 0 (got {heads} heads over "
             f"{n} devices); use ring_attention for odd head counts")
     blocks = [shard(x, mesh) for x in (q, k, v)]
-    out = ulysses_attention_local(*blocks, mesh, causal=causal, local=local,
-                                  use_dma_ring=use_dma_ring)
-    return unshard(out, mesh)
+    return unshard(ulysses_attention_local(*blocks, mesh, **kw), mesh)

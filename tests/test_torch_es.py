@@ -285,9 +285,10 @@ def test_entry_matches_jax_entry():
 
 
 def test_run_es_flagship_shape_on_cpu():
-    params, stats = run_es(device="cpu", pop=16, max_steps=20,
-                           generations=2)
+    params, stats, perf = run_es(device="cpu", pop=16, max_steps=20,
+                                 generations=2)
     assert stats.shape == (2, 3) and torch.isfinite(stats).all()
+    assert perf["evals_per_sec"] > 0 and perf["mfu"] is None
     assert params.shape == (MLPPolicy(4, 2, HIDDEN).dim,)
     assert make_mesh("cpu").n_dev == 1
 
@@ -300,7 +301,8 @@ ENTRY_POINTS = ["cartpole_reset", "policy_init", "make_mesh",
                 "pixel_chase_reset", "hill_walker_reset", "biped_reset",
                 "conv_policy_init", "gru_policy_init", "gru_init_carry",
                 "poet", "make_poet", "run_poet", "poet_state_from_jax",
-                "make_es_biped", "run_es_biped", "run_es_pixels"]
+                "make_es_biped", "run_es_biped", "run_es_pixels",
+                "make_grid_mesh", "make_poet_ranks"]
 
 
 @pytest.mark.parametrize("call", ENTRY_POINTS)
@@ -396,6 +398,10 @@ def test_es_entry_points_default_to_cuda(call, monkeypatch):
             env="biped", pop=4, max_steps=3, **kw)[0],
         "run_es_pixels": lambda **kw: run_es(
             env="pixels", pop=4, max_steps=2, **kw)[0],
+        "make_grid_mesh": lambda **kw: make_mesh(
+            shape=(2, 2), names=("data", "seq"), **kw).device,
+        "make_poet_ranks": lambda **kw: make_poet(
+            pop=8, ranks=2, **kw).mesh.device,
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

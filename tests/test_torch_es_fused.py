@@ -243,12 +243,12 @@ def test_run_steps_drives_a_state_tuple():
 
 
 def test_run_es_returns_params_and_stats():
-    params, stats = run_es(device="cpu", pop=16, max_steps=20,
-                           generations=3, seed=2)
+    params, stats, _ = run_es(device="cpu", pop=16, max_steps=20,
+                              generations=3, seed=2)
     assert params.shape == (MLPPolicy(4, 2, (32, 32)).dim,)
     assert stats.shape == (3, 3) and bool(torch.isfinite(stats).all())
-    again, stats2 = run_es(device="cpu", pop=16, max_steps=20,
-                           generations=3, seed=2)
+    again, stats2, _ = run_es(device="cpu", pop=16, max_steps=20,
+                              generations=3, seed=2)
     assert torch.equal(params, again) and torch.equal(stats, stats2)
 
 

@@ -43,7 +43,9 @@ def test_port_files_exist():
     names = {str(f.relative_to(ROOT)) for f in FILES}
     assert {"fiber_tpu_torch/ops/poet.py", "fiber_tpu_torch/models/envs.py",
             "fiber_tpu_torch/models/policies.py", "fiber_tpu_torch/entry.py",
-            "fiber_tpu_torch/ops/es.py", "chip_smoke.py"} <= names
+            "fiber_tpu_torch/ops/es.py", "chip_smoke.py",
+            "fiber_tpu_torch/utils/checkpoint.py",
+            "fiber_tpu_torch/utils/profiling.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -4,11 +4,12 @@ CPU.
 Random draws differ between the two (threefry vs Philox), so the JAX
 POET runs first with every draw it takes recorded where it is derived
 from a key: each ES step's noise and initial states as
-``EvolutionStrategy.step`` derives them (``fold_in(key, 0)`` split into
-the noise key and the evaluation key, on a one-device mesh, since the
-suite runs JAX on 8 virtual devices and the default mesh would split
-the noise), the minimal criterion's and the proposal's initial state
-(``reset`` of the key handed to ``_eval_pair``), the transfer matrix's
+``EvolutionStrategy.step`` derives them (``fold_in(key, device)`` split
+into the noise key and the evaluation key, for each device of the
+mesh: one device, or the default mesh over the suite's 8 virtual
+devices against the port on 8 ranks), the minimal criterion's and the
+proposal's initial state (``reset`` of the key handed to
+``_eval_pair``), the transfer matrix's
 states (``reset`` of each agent's key handed to ``_cross``), the parent
 pick (``jax.random.randint``) and the mutation noise (``normal(key,
 (4,))``). The port then takes those draws, each kind in its order,
@@ -42,6 +43,7 @@ from fiber_tpu_torch.models.convert import poet_state_from_jax
 from fiber_tpu_torch.models.envs import ParamCartPole
 from fiber_tpu_torch.models.policies import MLPPolicy
 from fiber_tpu_torch.ops.poet import POET
+from fiber_tpu_torch.parallel.mesh import Mesh as TorchMesh, make_mesh
 
 HIDDEN = (16,)
 
@@ -55,8 +57,9 @@ def _t(a):
 
 
 def _jax_poet(monkeypatch, pop=32, steps=60, max_pairs=3, parents=None,
-              noises=None, **kw):
-    """A JAX POET on a one-device mesh whose every draw is recorded in
+              noises=None, default_mesh=False, **kw):
+    """A JAX POET on a one-device mesh (with ``default_mesh``, on the
+    default mesh over all 8 devices) whose every draw is recorded in
     ``draws``; ``parents`` and ``noises``, when given, replace the parent
     picks and mutation draws (and are recorded as such)."""
     draws = {"es": [], "reset": [], "parent": [], "mutation": []}
@@ -81,18 +84,24 @@ def _jax_poet(monkeypatch, pop=32, steps=60, max_pairs=3, parents=None,
 
     monkeypatch.setattr(jax.random, "randint", randint)
     jpol = JaxMLPPolicy(4, 2, hidden=HIDDEN)
+    mesh = (None if default_mesh
+            else Mesh(np.asarray(jax.devices()[:1]), ("pool",)))
     jp = JaxPOET(Env, jpol, pop_size=pop, max_pairs=max_pairs,
-                 rollout_steps=steps,
-                 mesh=Mesh(np.asarray(jax.devices()[:1]), ("pool",)), **kw)
+                 rollout_steps=steps, mesh=mesh, **kw)
     es = jp._get_es()
     es_step, eval_pair, cross = es.step, jp._eval_pair, jp._cross
 
     def rec_step(params, key):
-        eps_key, eval_key = jax.random.split(jax.random.fold_in(key, 0))
-        draws["es"].append((
-            _np(jax.random.normal(eps_key, (es.pop_size // 2, es.dim))),
-            _np(jax.vmap(Env.reset)(jax.random.split(eval_key,
-                                                     es.pop_size)))))
+        # every device's own draws (fold_in(key, device)), rank-major
+        eps, states = [], []
+        for dev in range(es.n_dev):
+            eps_key, eval_key = jax.random.split(jax.random.fold_in(key,
+                                                                    dev))
+            eps.append(_np(jax.random.normal(
+                eps_key, (es.pairs_per_dev, es.dim))))
+            states.append(_np(jax.vmap(Env.reset)(jax.random.split(
+                eval_key, 2 * es.pairs_per_dev))))
+        draws["es"].append((np.concatenate(eps), np.concatenate(states)))
         return es_step(params, key)
 
     def rec_eval(env, theta, key):
@@ -108,12 +117,13 @@ def _jax_poet(monkeypatch, pop=32, steps=60, max_pairs=3, parents=None,
     return jp, draws
 
 
-def _port_like(jp):
-    """The port's POET on the CPU, in ``jp``'s current state."""
+def _port_like(jp, ranks=1):
+    """The port's POET on ``ranks`` CPU ranks, in ``jp``'s current
+    state."""
     poet = POET(ParamCartPole, MLPPolicy(4, 2, hidden=HIDDEN),
                 pop_size=jp.pop_size, max_pairs=jp.max_pairs,
                 rollout_steps=jp.rollout_steps, mc_low=jp.mc_low,
-                mc_high=jp.mc_high, device="cpu")
+                mc_high=jp.mc_high, mesh=make_mesh("cpu", n=ranks))
     poet.envs, poet.agents, poet.archive = poet_state_from_jax(
         [_np(e) for e in jp.envs], [_np(a) for a in jp.agents], jp.archive,
         device="cpu")
@@ -245,6 +255,42 @@ def test_run_matches_jax(monkeypatch):
     assert len(draws["es"]) > 8
 
 
+def test_run_over_8_ranks_matches_jax_default_mesh(monkeypatch):
+    """Two iterations at pop 64 on 8 ranks against the JAX POET on its
+    default mesh over the 8 virtual devices: every ES step takes each
+    device's own noise and initial states, rank-major, so the members,
+    their gathered fitness and the tie order are JAX's. The same
+    histories, environments and archive; agents within the 1-rank
+    test's 1e-5. (About 10 s: the JAX POET compiles its 8-device step.)"""
+    jp, draws = _jax_poet(monkeypatch, pop=64, default_mesh=True)
+    assert jp._get_es().n_dev == 8
+    poet = _port_like(jp, ranks=8)
+    assert poet._es.mesh.n_dev == 8 and poet.pop_size == jp.pop_size
+    want = jp.run(jax.random.PRNGKey(0), 2, es_steps=4)
+    q = _feed(poet, draws)
+    got = poet.run(2, es_steps=4)
+    assert got == want
+    assert not any(q.values())
+    _assert_same_population(poet, jp)
+    assert sum(h["spawned"] for h in got) > 0
+    assert poet._es.last_fitness.shape == (8, 8)
+
+
+def test_make_poet_spreads_the_es_over_ranks():
+    """``ranks=`` builds the mesh that every pair's ES step runs on; the
+    fine-tune sees the whole [theta, env] vector and pins the tail."""
+    poet = make_poet(device="cpu", pop=16, max_steps=20, ranks=4)
+    assert poet.mesh.n_dev == 4 and poet._es.mesh is poet.mesh
+    assert poet._es.pairs_per_dev == 2
+    env = poet.envs[0]
+    combined, stats = poet._pinned_step(torch.cat([poet.agents[0], env]))
+    assert torch.equal(combined[poet.policy.dim:], env)
+    assert poet._es.last_fitness.shape == (4, 4)
+    with pytest.raises(ValueError, match="not the mesh's device"):
+        POET(ParamCartPole, poet.policy, device="cpu",
+             mesh=TorchMesh((torch.device("cuda", 0),)))
+
+
 def test_finetune_pins_the_env_tail():
     """ES perturbs the env tail (the members see perturbed physics), and
     every step pins it back."""
@@ -268,9 +314,11 @@ def test_finetune_pins_the_env_tail():
 
 
 def test_run_poet_counts_evals_as_bench():
-    history, evals = run_poet(device="cpu", pop=16, max_steps=30,
-                              iterations=2, es_steps=2, max_pairs=3)
+    history, evals, perf = run_poet(device="cpu", pop=16, max_steps=30,
+                                    iterations=2, es_steps=2, max_pairs=3)
     assert [h["iteration"] for h in history] == [0, 1]
     assert evals == sum(h["pairs"] * 16 * 2 + h["transfer_evals"]
                         for h in history)
     assert all(np.isfinite(h["mean_fitness"]) for h in history)
+    assert perf["evals_per_sec"] == evals / perf["seconds"]
+    assert perf["mfu"] is None and perf["device_kind"] == "cpu"
