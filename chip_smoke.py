@@ -19,14 +19,18 @@ ParamCartPole on one rank and over 4, runs resumed from checkpoint
 files, and ES on the biped and the pixel chase; ring and Ulysses
 attention on a 2 x 2 data x sequence grid; the user API: a
 ``@meta(device=True)`` map through ``Pool`` and host workers passing
-CUDA tensors) and checks what comes out;
+CUDA tensors; a managed dict holding a CUDA tensor, a ``Ring``'s
+``HostRing`` allreduce of CUDA tensors, the ES across ``Ring`` processes
+joined over gloo, and POET with its ES steps farmed out to ``Pool``
+workers) and checks what comes out;
 the ES, POET and env lines carry model FLOP/s and MFU, and the es
 phase writes one generation's profiler trace under TRACE_DIR. Phases
 print one JSON line each (build, kernels, kernels_bwd, kernels_ring,
 lm_forward, lm_generate, lm_train, es, ring_attention, mesh_2d,
 lm_mesh, lm_mesh_train, es_mesh, es_families, es_families_smooth,
 novelty, map_elites, ask_tell, device_map, poet, poet_mesh,
-checkpoint, es_envs, pool); then the
+checkpoint, es_envs, pool, managers, host_ring, ring_es, poet_pool);
+then the
 card's name and power limit as nvidia-smi reports them, the kernel
 summary line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the exit code is not 0 and no result line is
@@ -225,6 +229,22 @@ POOL_REPEATS = 3
 POOL_HOST_WORKERS = 2
 POOL_TENSOR_MB = 8
 POOL_TENSOR_ITEMS = 4
+# The managers, the ring and the Pool-driven POET: a managed dict
+# round-trips a MANAGER_TENSOR_MB MB CUDA tensor; RING_RANKS rank
+# processes allreduce a HOST_RING_MB MB f32 CUDA tensor through HostRing
+# HOST_RING_REPS times (after one warm-up), then run the flagship ES over
+# a gloo process mesh for RING_ES_GENS generations, held against the
+# single-process mesh of as many ranks under ES_LAYOUT_MISMATCHES a rank
+# and generation; POET_POOL_WORKERS pool workers run bench.py --poet's
+# width (POET_ES_STEPS ES steps a pair) for POET_POOL_ITERS iterations,
+# held against the same loop in this process.
+MANAGER_TENSOR_MB = 8
+RING_RANKS = 2
+HOST_RING_MB = 8
+HOST_RING_REPS = 5
+RING_ES_GENS = 3
+POET_POOL_WORKERS = 2
+POET_POOL_ITERS = 2
 # bench.py --poet (ParamCartPole, MLP (16,), pop 4096, 500 steps, 6
 # pairs, 4 ES steps a pair), cut from bench.py's 10 iterations to 3;
 # the card against the CPU on a small POET
@@ -2336,6 +2356,298 @@ def phase_pool(torch):
     return counts
 
 
+# -- the managers, the ring and the Pool-driven POET on the card ------------
+
+def phase_managers(torch):
+    """A managed dict round-trips a CUDA tensor: by value through the
+    manager's server, back on the card, equal."""
+    import fiber_tpu_torch
+
+    t = torch.randn(MANAGER_TENSOR_MB << 18, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(21))
+    t0 = time.perf_counter()
+    manager = fiber_tpu_torch.Manager()
+    start_s = time.perf_counter() - t0
+    try:
+        d = manager.dict()
+        t1 = time.perf_counter()
+        d["t"] = t
+        put_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        back = d["t"]
+        get_s = time.perf_counter() - t2
+        t3 = time.perf_counter()
+        again = d["t"]
+        warm_get_s = time.perf_counter() - t3
+    finally:
+        manager.shutdown()
+    for got in (back, again):
+        check(got.device.type == "cuda" and got.dtype == t.dtype,
+              f"a managed tensor came back on {got.device}, {got.dtype}")
+        check(torch.equal(got, t), "a managed CUDA tensor came back "
+              "changed")
+    row = {"tensor_mb": MANAGER_TENSOR_MB, "manager_start_s": start_s,
+           "first_put_s": put_s, "first_get_s": get_s,
+           "warm_get_s": warm_get_s,
+           "warm_get_mb_per_s": t.nbytes / 2**20 / warm_get_s,
+           "device": str(back.device), "equal": True}
+    emit({"phase": "managers", **row})
+    return row
+
+
+def _host_ring_rank(rank, size, results):
+    """A ring rank: HOST_RING_REPS timed allreduces of an HOST_RING_MB
+    MB f32 CUDA tensor of integer values (so that the sum is exact),
+    after one warm-up. Its report holds numpy arrays, not tensors, so
+    that the manager's server need not import torch to keep it."""
+    entered = time.time()
+    # the rank's process reached its ring without torch (light root)
+    torch_at_entry = "torch" in sys.modules
+    import torch
+
+    from fiber_tpu_torch.parallel.ring import current_ring
+
+    ring = current_ring()
+    g = torch.Generator(device="cuda").manual_seed(30 + rank)
+    t = torch.randint(-1000, 1000, (HOST_RING_MB << 18,), generator=g,
+                      device="cuda").float()
+    mine = t.clone()
+    ring.allreduce(t)
+    secs, outs = [], []
+    for _ in range(HOST_RING_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ring.allreduce(t)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        outs.append(out)
+    ring.barrier()
+    ring.close()
+    first = outs[0]
+    results[rank] = {
+        "entered": entered, "torch_at_entry": torch_at_entry,
+        "secs": secs, "device": str(first.device),
+        "dtype": str(first.dtype),
+        "same_every_time": all(torch.equal(o, first) for o in outs),
+        "input_untouched": torch.equal(t, mine),
+        "out": first.cpu().numpy(), "done": time.time()}
+
+
+def phase_host_ring(torch):
+    """``Ring(RING_RANKS)`` with the default initializer: every rank's
+    allreduce equals the sum of the ranks' tensors, on ``cuda``."""
+    import fiber_tpu_torch
+    from fiber_tpu_torch.parallel import Ring
+
+    manager = fiber_tpu_torch.Manager()
+    try:
+        results = manager.dict()
+        t0 = time.time()
+        Ring(RING_RANKS, functools.partial(_host_ring_rank,
+                                           results=results)).run()
+        ring_s = time.time() - t0
+        got = {r: results[r] for r in range(RING_RANKS)}
+    finally:
+        manager.shutdown()
+    want = sum(torch.randint(-1000, 1000, (HOST_RING_MB << 18,),
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(30 + r),
+                             device="cuda").float()
+               for r in range(RING_RANKS)).cpu()
+    for r, row in got.items():
+        check(row["device"].startswith("cuda") and row["dtype"]
+              == "torch.float32", f"rank {r}: {row['device']} {row['dtype']}")
+        check(not row["torch_at_entry"], f"rank {r} had torch loaded "
+              "before its function ran")
+        check(row["same_every_time"] and row["input_untouched"],
+              f"rank {r}: allreduce results vary or the input changed")
+        check(torch.equal(torch.from_numpy(row["out"]), want),
+              f"rank {r}: allreduce is not the sum of the ranks' tensors")
+    secs = [s for row in got.values() for s in row["secs"]]
+    mb = HOST_RING_MB << 20
+    out = {"ranks": RING_RANKS, "tensor_mb": HOST_RING_MB,
+           "reps": HOST_RING_REPS, "allreduce_s": secs,
+           "mb_per_s": mb / 2**20 / (sum(secs) / len(secs)),
+           "best_mb_per_s": mb / 2**20 / min(secs),
+           "rank_start_s": [got[r]["entered"] - t0
+                            for r in range(RING_RANKS)],
+           "rank_done_s": [got[r]["done"] - t0 for r in range(RING_RANKS)],
+           "ring_run_s": ring_s, "equal_sum": True}
+    emit({"phase": "host_ring", **out})
+    return out
+
+
+def _ring_es_rank(rank, size, results):
+    """A gloo rank: the flagship ES over the process mesh for
+    RING_ES_GENS eager generations, each generation's input params and
+    gathered fitness kept (as numpy) for the master's check."""
+    import torch
+    import torch.distributed as dist
+
+    from fiber_tpu_torch.examples.pod_es_ring import (flagship_es,
+                                                      params_spread)
+    from fiber_tpu_torch.parallel.mesh import make_mesh
+
+    entered = time.time()
+    try:
+        mesh = make_mesh("cuda", group=dist.group.WORLD)
+        es, params = flagship_es(mesh, 4096, 500)
+        # gloo's broadcast takes a CUDA tensor as it is (its all_gather
+        # and all_reduce do in every step): rank 0's initial params must
+        # equal every rank's own, drawn from the same seed
+        start = params.clone()
+        dist.broadcast(start, 0)
+        same_start = start.is_cuda and torch.equal(start, params)
+        params_in, fitness, stats = [], [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RING_ES_GENS):
+            params_in.append(params.cpu().numpy())
+            params, st = es.step(params)
+            fitness.append(es.last_fitness.cpu().numpy())
+            stats.append(st.cpu().numpy())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        results[rank] = {
+            "entered": entered, "secs": secs, "params_in": params_in,
+            "fitness": fitness, "stats": stats,
+            "params": params.cpu().numpy(), "device": str(params.device),
+            "mesh": (mesh.n_dev, mesh.rank), "same_start": same_start,
+            "spread": params_spread(params, mesh), "pop": es.pop_size,
+            "done": time.time()}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ring_es(torch):
+    """``Ring(RING_RANKS, torch_distributed_initializer)``: the flagship
+    ES across processes. The params are replicated; each generation,
+    from the ranks' input params and the same draws, the single-process
+    mesh of RING_RANKS ranks on the card gives every rank's fitness row
+    within ES_LAYOUT_MISMATCHES returns (a rank rolls out 2048 members
+    where the single process rolls out 4096 in one call) and, where
+    every return agrees, the same params bit for bit."""
+    import numpy as np
+
+    import fiber_tpu_torch
+    from fiber_tpu_torch.examples.pod_es_ring import flagship_es
+    from fiber_tpu_torch.parallel import Ring
+    from fiber_tpu_torch.parallel.mesh import make_mesh
+    from fiber_tpu_torch.parallel.ring import torch_distributed_initializer
+
+    manager = fiber_tpu_torch.Manager()
+    try:
+        results = manager.dict()
+        t0 = time.time()
+        Ring(RING_RANKS, functools.partial(_ring_es_rank, results=results),
+             initializer=torch_distributed_initializer).run()
+        ring_s = time.time() - t0
+        got = {r: results[r] for r in range(RING_RANKS)}
+    finally:
+        manager.shutdown()
+    for r, row in got.items():
+        check(row["device"].startswith("cuda") and row["mesh"]
+              == (RING_RANKS, r), f"rank {r}: {row['device']} {row['mesh']}")
+        check(row["same_start"], f"rank {r}: rank 0's broadcast initial "
+              "params differ from its own")
+        check(row["spread"] == 0.0 and np.array_equal(row["params"],
+                                                      got[0]["params"]),
+              f"rank {r}: params not replicated (spread {row['spread']})")
+    es, _ = flagship_es(make_mesh("cuda", n=RING_RANKS), 4096, 500)
+    k2 = es.pop_size // RING_RANKS
+    gens, steps_s = [], []
+    for g in range(RING_ES_GENS):
+        params_in = torch.from_numpy(got[0]["params_in"][g]).cuda()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new, _ = es.step(params_in)
+        torch.cuda.synchronize()
+        steps_s.append(time.perf_counter() - t1)
+        want_fit = es.last_fitness.cpu()
+        fit = torch.from_numpy(got[0]["fitness"][g])
+        check(fit.shape == want_fit.shape == (RING_RANKS, k2),
+              f"fitness {tuple(fit.shape)} vs {tuple(want_fit.shape)}")
+        per_rank = [int((fit[r] != want_fit[r]).sum())
+                    for r in range(RING_RANKS)]
+        check(max(per_rank) <= ES_LAYOUT_MISMATCHES, f"generation {g}: "
+              f"{per_rank} returns a rank differ from the single process")
+        following = (got[0]["params_in"][g + 1] if g + 1 < RING_ES_GENS
+                     else got[0]["params"])
+        err = (new.cpu() - torch.from_numpy(following)).abs().max().item()
+        if max(per_rank) == 0:
+            check(err == 0.0, f"generation {g}: equal returns, params "
+                  f"differ by {err}")
+        gens.append({"mismatches_per_rank": per_rank,
+                     "params_max_abs_diff": err,
+                     "distinct_returns": len(set(fit.reshape(-1).tolist()))})
+    row = {"ranks": RING_RANKS, "pop": es.pop_size, "max_steps": 500,
+           "generations": RING_ES_GENS,
+           "evals_per_s": es.pop_size * RING_ES_GENS / got[0]["secs"],
+           "single_process_evals_per_s": es.pop_size * RING_ES_GENS
+           / sum(steps_s),
+           "rank_seconds": [got[r]["secs"] for r in range(RING_RANKS)],
+           "rank_start_s": [got[r]["entered"] - t0
+                            for r in range(RING_RANKS)],
+           "rank_done_s": [got[r]["done"] - t0 for r in range(RING_RANKS)],
+           "ring_run_s": ring_s, "per_generation": gens,
+           "mismatch_allowance": ES_LAYOUT_MISMATCHES,
+           "stats": [s.tolist() for s in got[0]["stats"]]}
+    emit({"phase": "ring_es", **row})
+    return row
+
+
+def phase_poet_pool(torch):
+    """``examples/poet_distributed.py`` at ``bench.py --poet``'s width:
+    the per-pair ES steps through ``Pool(POET_POOL_WORKERS)`` workers on
+    the card, then the same loop in this process, equal."""
+    from fiber_tpu_torch.examples import poet_distributed
+
+    kw = dict(iterations=POET_POOL_ITERS, workers=POET_POOL_WORKERS,
+              pop=4096, pairs=6, steps=500, es_steps=POET_ES_STEPS)
+    runs = {}
+    for route in ("pool", "in_process"):
+        marks = [time.perf_counter()]
+        runs[route] = poet_distributed.run(
+            in_process=route == "in_process",
+            log=lambda _: marks.append(time.perf_counter()), **kw)
+        runs[route] += ([b - a for a, b in zip(marks, marks[1:])],)
+    (hist, evals, secs, poet, iter_s), local = runs["pool"], runs["in_process"]
+    check(hist == local[0], f"pool history {hist} != in-process {local[0]}")
+    check(evals == local[1], f"evals {evals} vs {local[1]}")
+    for a, b in zip(poet.agents + poet.envs,
+                    local[3].agents + local[3].envs):
+        check(a.device.type == "cuda" and torch.equal(a, b),
+              "a pair differs between the pool and the in-process loop")
+    check(all(math.isfinite(f) for h in hist for f in h["fitness"]),
+          f"fitness {hist}")
+    row = {"workers": POET_POOL_WORKERS, "iterations": POET_POOL_ITERS,
+           "pop": poet.pop_size, "max_steps": 500,
+           "es_steps": POET_ES_STEPS, "history": hist, "evals": evals,
+           "pool_seconds": secs, "pool_evals_per_s": evals / secs,
+           "pool_iteration_s": iter_s,
+           "in_process_seconds": local[2],
+           "in_process_evals_per_s": evals / local[2],
+           "in_process_iteration_s": local[4], "equal_in_process": True}
+    emit({"phase": "poet_pool", **row})
+    return row
+
+
+def phase_host_plane(torch):
+    """The managers, the ring and the Pool-driven POET, with every
+    kernel's launch count set to 0 before them and required to stay 0
+    (these paths run no TPU kernel's counterpart; launches in rank and
+    worker processes count there, not here)."""
+    _reset_counts()
+    phase_managers(torch)
+    phase_host_ring(torch)
+    phase_ring_es(torch)
+    phase_poet_pool(torch)
+    counts = _counts()
+    check(not any(counts.values()), f"kernels launched on the managers, "
+          f"ring and pool-POET paths: {counts}")
+    return counts
+
+
 # -- POET and bench.py's other ES envs --------------------------------------
 
 def _record_poet_draws(poet):
@@ -2808,6 +3120,8 @@ def main():
     search_launches = phase_population_search(torch)
     torch.cuda.empty_cache()
     pool_launches = phase_pool(torch)
+    torch.cuda.empty_cache()
+    host_plane_launches = phase_host_plane(torch)
 
     lm, lm_bwd = fwd_rows["lm_f32"], bwd_rows["lm_f32"]
     bf16, bf16_bwd = fwd_rows["attention_bf16"], bwd_rows["attention_bf16"]
@@ -2860,7 +3174,8 @@ def main():
                      replaces=REPLACES[entry["name"]],
                      launches_population_search=search_launches[
                          entry["name"]],
-                     launches_pool=pool_launches[entry["name"]])
+                     launches_pool=pool_launches[entry["name"]],
+                     launches_host_plane=host_plane_launches[entry["name"]])
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {

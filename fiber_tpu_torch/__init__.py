@@ -37,8 +37,14 @@ and ``init``. A ``Pool`` runs plain functions on local worker processes
 (``python -m fiber_tpu_torch.worker``), and a function marked
 ``@meta(device=True)`` through ``device_map`` on the pool's device,
 with no worker process. Torch tensors cross the wire as tensors
-(``serialization``). ``Manager``, ``Ring`` and the ``tpu`` backend are
-not ported yet.
+(``serialization``). ``Manager`` and ``AsyncManager`` serve shared
+objects to every process. ``parallel.Ring`` runs one function in n rank
+processes, joined by a ``HostRing`` (``current_ring().allreduce``) or
+by ``torch.distributed`` over gloo (``torch_distributed_initializer``),
+whose default group a process mesh (``make_mesh(group=)``) spans, so
+that the ES runs across the ranks. ``fiber_tpu_torch.examples`` holds
+the Pool-driven POET and the ring examples. The ``tpu`` backend is not
+ported yet.
 
 Importing the package imports no torch: the device-plane names below
 resolve at their first use, so that a worker whose tasks need only
@@ -62,6 +68,8 @@ _default_context = _FiberContext()
 # The context API, hoisted as the JAX package hoists it.
 Process = _default_context.Process
 Pool = _default_context.Pool
+Manager = _default_context.Manager
+AsyncManager = _default_context.AsyncManager
 SimpleQueue = _default_context.SimpleQueue
 Pipe = _default_context.Pipe
 cpu_count = _default_context.cpu_count
@@ -152,7 +160,8 @@ def __getattr__(name):
 _sys.modules[__name__].__class__ = _Package
 
 __all__ = [
-    "CostBudget", "Pipe", "Pool", "Process", "SimpleQueue",
+    "AsyncManager", "CostBudget", "Manager", "Pipe", "Pool", "Process",
+    "SimpleQueue",
     "active_children", "config", "cpu_count", "current_process",
     "get_context", "init", "meta", "reset", *sorted(_LAZY),
 ]

@@ -13,8 +13,12 @@ call over the rank-major concatenation, splits the fitness back to
 (ranks, members), ranks it over the whole population and sums the
 per-rank gradients (``ops/collectives``). Where JAX scans N generations
 inside one XLA program, the port captures one generation in a CUDA graph
-and replays it N times. :class:`AskTellES` is the same update behind an
-ask/tell interface, for evaluators that live on the host.
+and replays it N times. On a process mesh (``make_mesh(group=)``, the
+ranks of a ``Ring`` joined by ``torch_distributed_initializer``) each
+process rolls out its own rank's members and the fitness and gradient
+cross processes through gloo; there generations run one ``step`` at a
+time. :class:`AskTellES` is the same update behind an ask/tell
+interface, for evaluators that live on the host.
 """
 
 from __future__ import annotations
@@ -245,6 +249,11 @@ class EvolutionStrategy(_FusedRunMixin):
     population: rank r holds ``pop / (2n)`` antithetic pairs, evaluated
     as ``[params + sigma * eps_r, params - sigma * eps_r]``, and a step
     evaluates all ranks' members in one ``eval_fn`` call, rank-major.
+    On a process mesh (``make_mesh(group=)``) every process draws the
+    whole generation from its generator (seed every rank's alike),
+    evaluates its own rank's members, gathers the fitness and sums the
+    gradient across the processes: the step of the single-process mesh
+    of as many ranks.
     After a step, ``last_fitness`` is the gathered (n, pop / n) fitness
     and ``last_grad`` the gradient estimate; after :meth:`run_fused` on
     CUDA both are the graph's static buffers, which every replay
@@ -316,24 +325,36 @@ class EvolutionStrategy(_FusedRunMixin):
     def _generation(self, params, m, v, t, eps, states):
         """The per-device body: (new_params, m, v, t, stats)."""
         mesh, n, k = self.mesh, self.mesh.n_dev, self.pairs_per_dev
-        # every rank sits on mesh.device: one eval_fn call over all
-        # ranks' members, rank-major (rank r: its k "+" members, then
-        # its k "-" members), split back to (n, 2k)
         e = eps.reshape(n, k, self.dim)
-        thetas = torch.cat([params + self.sigma * e,
-                            params - self.sigma * e], dim=1)
-        all_fit = self.eval_fn(thetas.reshape(self.pop_size, self.dim),
-                               states).reshape(n, 2 * k)
+        if mesh.group is None:
+            # every rank sits on mesh.device: one eval_fn call over all
+            # ranks' members, rank-major (rank r: its k "+" members, then
+            # its k "-" members), split back to (n, 2k)
+            held = range(n)
+            thetas = torch.cat([params + self.sigma * e,
+                                params - self.sigma * e], dim=1)
+            all_fit = self.eval_fn(thetas.reshape(self.pop_size, self.dim),
+                                   states).reshape(n, 2 * k)
+        else:
+            # a process mesh: this process evaluates its own rank's
+            # members (the same rows of the same draws), then gathers
+            r = mesh.rank
+            held = [r]
+            own = self.eval_fn(
+                torch.cat([params + self.sigma * e[r],
+                           params - self.sigma * e[r]]),
+                states[2 * r * k:2 * (r + 1) * k])
+            all_fit = collectives.all_gather(own, mesh)
         # rank shaping over the whole population, gathered rank-major
         flat = all_fit.reshape(-1)
         ranks = centered_rank(flat).reshape(all_fit.shape)
-        g_r = [(ranks[r, :k] - ranks[r, k:]) @ e[r] for r in range(n)]
+        g_r = [(ranks[r, :k] - ranks[r, k:]) @ e[r] for r in held]
         grad = collectives.psum(g_r, mesh) / (self.pop_size * self.sigma)
         new_params, m, v, t = apply_es_update(
             params, grad, m, v, t, lr=self.lr, wd=self.weight_decay,
             adam=self.optimizer == "adam")
         stats = torch.stack([flat.mean(), flat.max(), collectives.pmean(
-            [f.mean() for f in all_fit], mesh)])
+            [all_fit[r].mean() for r in held], mesh)])
         self.last_fitness, self.last_grad = all_fit, grad
         return new_params, m, v, t, stats
 
@@ -383,7 +404,14 @@ class EvolutionStrategy(_FusedRunMixin):
         """Run N generations as one replay (on CUDA, one captured
         generation replayed N times; on the CPU, N steps). Returns
         (params, stats (generations, 3)); optimizer state advances
-        exactly as with :meth:`run`."""
+        exactly as with :meth:`run`.
+
+        On a process mesh the generations run as N :meth:`step` calls:
+        gloo's collectives run on the host, between the device's work,
+        and a CUDA graph can hold no host work."""
+        if self.mesh.group is not None:
+            params, stats = run_steps(self.step, params, generations)
+            return params, torch.stack(stats)
         m, v, t = self._ensure_opt_state(params)
         (params, m, v, t), stats = _FusedRunMixin.run_fused(
             self, (params, m, v, t), generations)

@@ -1,13 +1,26 @@
-"""The device mesh of the port and ``Pool.map`` lowered onto it."""
+"""The device mesh of the port, ``Pool.map`` lowered onto it, and
+``Ring``, the reference's SPMD topology builder.
 
-from fiber_tpu_torch.parallel.mesh import (  # noqa: F401
-    Mesh,
-    make_mesh,
-    mesh_for,
-    shard,
-    unshard,
-)
-from fiber_tpu_torch.parallel.dmap import (  # noqa: F401
-    DeviceMapPlan,
-    device_map,
-)
+The names resolve at their first use: a ``Ring`` rank whose work needs
+only numpy imports ``parallel.ring`` without torch."""
+
+import importlib as _importlib
+
+#: name -> the submodule that defines it
+_LAZY = {
+    **dict.fromkeys(("Mesh", "make_mesh", "mesh_for", "shard", "unshard"),
+                    "mesh"),
+    **dict.fromkeys(("DeviceMapPlan", "device_map"), "dmap"),
+    **dict.fromkeys(("Ring", "RingNode"), "ring"),
+}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name):
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(_importlib.import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value
+    return value

@@ -18,6 +18,16 @@ per rank, in rank order. A grid mesh of shape ``(d, s)`` puts rank
 that the per-rank bodies take, and :func:`shard_grid` and
 :func:`unshard_grid` stand in for ``P("data", "seq")``: tensor dim k
 cut along the k-th mesh axis.
+
+A process mesh (``make_mesh(device, group=torch.distributed.group.WORLD)``)
+is the counterpart of JAX's ``Mesh(np.array(jax.devices()), ("pool",))``
+after ``jax.distributed.initialize``, which spans every process: its
+ranks are the processes of a ``torch.distributed`` group, and this
+process holds rank ``dist.get_rank(group)`` on its own device (every
+entry of ``devices``, ``device`` included, is this process's device).
+Collectives on it cross processes (``ops/collectives.py``); the
+single-controller functions below, which need every rank's block in
+one process, are not for it.
 """
 
 from __future__ import annotations
@@ -48,6 +58,12 @@ class Mesh:
     axis: str = POOL_AXIS
     shape: Tuple[int, ...] = ()
     names: Tuple[str, ...] = ()
+    #: the ``torch.distributed`` group of a process mesh, None on a
+    #: single-controller one
+    group: Optional[object] = None
+    #: this process's rank on a process mesh (0 on a single-controller
+    #: one, which holds every rank)
+    rank: int = 0
 
     def __post_init__(self):
         if not self.devices:
@@ -67,6 +83,8 @@ class Mesh:
             raise ValueError(
                 f"a mesh's ranks must share one device type, got "
                 f"{sorted({str(d) for d in self.devices})}")
+        if self.group is not None and len(shape) > 1:
+            raise NotImplementedError("a process mesh has one axis")
         if len(set(self.devices)) > 1:
             raise NotImplementedError(
                 "ranks on several CUDA devices are ROADMAP item A.7; put "
@@ -91,6 +109,8 @@ class Mesh:
         the other axes, in row-major order of those positions: on a
         ``(d, s)`` grid, ``sub_meshes(names[1])[i]`` holds ranks ``i * s``
         to ``i * s + s - 1`` (row i)."""
+        if self.group is not None:
+            raise NotImplementedError("a process mesh has no sub-meshes")
         k = self._axis_index(name)
         grid = torch.arange(self.n_dev).reshape(self.shape).movedim(k, -1)
         return [Mesh(tuple(self.devices[r] for r in row.tolist()), name)
@@ -99,18 +119,29 @@ class Mesh:
     @property
     def device(self) -> torch.device:
         """Rank 0's device, where replicated values and gathered arrays
-        live."""
+        live; on a process mesh, this process's device."""
         return self.devices[0]
 
 
 def make_mesh(device=None, n: int = 1,
               shape: Optional[Sequence[int]] = None,
-              names: Optional[Sequence[str]] = None) -> Mesh:
+              names: Optional[Sequence[str]] = None,
+              group=None) -> Mesh:
     """A mesh with every rank on ``device`` (CUDA unless the caller asks
     for the CPU): an ``n``-rank ``pool`` axis, or with ``shape`` a grid
     of that shape whose axes ``names`` names (by default the JAX
     package's ``("pool", "model", "data")``, as many as the grid has
-    axes)."""
+    axes). With ``group`` (an initialized ``torch.distributed`` group,
+    such as ``torch.distributed.group.WORLD``), the process mesh of that
+    group's processes, this one's rank on ``device``."""
+    if group is not None:
+        import torch.distributed as dist
+
+        if shape is not None or n != 1:
+            raise ValueError("a process mesh has one rank a process of "
+                             "its group; give no n or shape")
+        return Mesh((resolve_device(device),) * dist.get_world_size(group),
+                    group=group, rank=dist.get_rank(group))
     if shape is None:
         if n < 1:
             raise ValueError(f"a mesh needs n >= 1 ranks, got {n}")

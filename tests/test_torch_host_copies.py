@@ -41,11 +41,12 @@ COPIED = [
 ]
 
 #: modules whose code changed in the port: the package root (lazy
-#: device-plane names), the pump's build directory, the helpers without
-#: XLA's flags, the tensor reducer, DEVICE on CUDA, the CUDA device tier,
-#: the pool's device routing, and the device plane proper
+#: device-plane names), the managers' wire, the pump's build directory,
+#: the helpers without XLA's flags, the tensor reducer, DEVICE on CUDA,
+#: the CUDA device tier, the pool's device routing, the ring's
+#: torch.distributed initializer, and the device plane proper
 PORTED = [
-    "__init__.py", "_native/__init__.py", "utils/misc.py",
+    "__init__.py", "managers.py", "_native/__init__.py", "utils/misc.py",
     "serialization.py", "telemetry/device.py", "store/device_tier.py",
     "pool.py", "utils/profiling.py", "utils/flops.py",
     "utils/checkpoint.py", "parallel/__init__.py", "parallel/dmap.py",
@@ -54,7 +55,17 @@ PORTED = [
     "ops/cma.py", "ops/collectives.py", "ops/dma_ring.py", "ops/es.py",
     "ops/map_elites.py", "ops/novelty.py", "ops/pgpe.py", "ops/poet.py",
     "ops/ring_attention.py", "ops/ulysses_attention.py",
+    "parallel/ring.py", "experimental/__init__.py",
 ]
+
+#: the one line of ``managers.py`` that the port changed: its connections
+#: pickle with the port's serialization (``utils/wire.py``), since
+#: ``torch.multiprocessing``'s reducers on the stdlib connection's
+#: pickler send tensors as handles that the manager's server cannot
+#: hand on
+MANAGERS_WIRE = (
+    "from multiprocessing.connection import Client, Listener\n",
+    "from fiber_tpu_torch.utils.wire import Client, Listener\n")
 
 
 def _strip_docstrings(tree):
@@ -90,6 +101,18 @@ def test_copied_module_equals_the_jax_packages(rel):
     assert _normal(ours) == _normal(theirs), (
         f"fiber_tpu_torch/{rel} drifted from fiber_tpu/{rel}; port the "
         "change, or move the module to PORTED if it is now a port")
+
+
+def test_managers_differ_from_the_jax_packages_only_in_their_wire():
+    """The managers are the JAX package's module but for the import of
+    ``Client`` and ``Listener``; that import sits among the module's
+    first-party imports, where the check below moves it."""
+    theirs = _renamed((REF / "managers.py").read_text())
+    old, new = MANAGERS_WIRE
+    assert theirs.count(old) == 1
+    anchor = "from fiber_tpu_torch.utils.serve import serve_authenticated\n"
+    theirs = theirs.replace(old, "").replace(anchor, anchor + new)
+    assert _normal((PORT / "managers.py").read_text()) == _normal(theirs)
 
 
 def test_the_native_pump_source_is_the_jax_packages():

@@ -86,7 +86,13 @@ def test_port_files_exist():
             "fiber_tpu_torch/pool.py", "fiber_tpu_torch/worker.py",
             "fiber_tpu_torch/serialization.py",
             "fiber_tpu_torch/backends/__init__.py",
-            "fiber_tpu_torch/launcher.py"} <= names
+            "fiber_tpu_torch/launcher.py", "fiber_tpu_torch/managers.py",
+            "fiber_tpu_torch/utils/wire.py",
+            "fiber_tpu_torch/parallel/ring.py",
+            "fiber_tpu_torch/experimental/__init__.py",
+            "fiber_tpu_torch/examples/poet_distributed.py",
+            "fiber_tpu_torch/examples/ring_allreduce.py",
+            "fiber_tpu_torch/examples/pod_es_ring.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -122,12 +128,17 @@ def _run(code: str) -> str:
 
 def test_the_package_and_its_pool_import_no_torch():
     """``import fiber_tpu_torch`` and its context API load no torch (a
-    host worker would pay for it at every start); the first device-plane
-    name does."""
+    host worker would pay for it at every start), nor do the managers,
+    the ring and its ``HostRing`` (a numpy-only ring rank); the first
+    device-plane name does."""
     out = _run(
         "import sys, fiber_tpu_torch\n"
         "fiber_tpu_torch.Pool, fiber_tpu_torch.Process\n"
+        "fiber_tpu_torch.Manager, fiber_tpu_torch.AsyncManager\n"
         "import fiber_tpu_torch.pool, fiber_tpu_torch.worker\n"
+        "import fiber_tpu_torch.managers, fiber_tpu_torch.experimental\n"
+        "from fiber_tpu_torch.parallel import Ring\n"
+        "from fiber_tpu_torch.ops import HostRing\n"
         "before = 'torch' in sys.modules\n"
         "fiber_tpu_torch.CartPole\n"
         "jaxish = [m for m in sys.modules if m.split('.')[0] in "
@@ -164,10 +175,10 @@ def test_a_port_worker_loads_neither_jax_nor_the_jax_package():
 
 
 #: modules that the copies name lazily and that later slices port
-UNPORTED = ("fiber_tpu_torch.managers", "fiber_tpu_torch.store.ledger",
-            "fiber_tpu_torch.sched.hier", "fiber_tpu_torch.telemetry.export",
+UNPORTED = ("fiber_tpu_torch.store.ledger", "fiber_tpu_torch.sched.hier",
+            "fiber_tpu_torch.telemetry.export",
             "fiber_tpu_torch.telemetry.explain",
-            "fiber_tpu_torch.backends.tpu", "fiber_tpu_torch.parallel.ring")
+            "fiber_tpu_torch.backends.tpu")
 
 
 @pytest.mark.parametrize("name", UNPORTED)
