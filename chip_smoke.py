@@ -22,14 +22,20 @@ attention on a 2 x 2 data x sequence grid; the user API: a
 CUDA tensors; a managed dict holding a CUDA tensor, a ``Ring``'s
 ``HostRing`` allreduce of CUDA tensors, the ES across ``Ring`` processes
 joined over gloo, and POET with its ES steps farmed out to ``Pool``
-workers) and checks what comes out;
+workers; the rest of the host plane: ``run_fused`` captures beside a
+durable map of CUDA results, a durable map's master SIGKILLed and
+finished by ``python -m fiber_tpu_torch.cli resume``, hierarchical
+dispatch, a ``sim:2`` cluster with the CLI's views of its agents,
+``Pool.trace_dump`` of a profiled map and ``flash_fwd`` call, and the
+serve daemon) and checks what comes out;
 the ES, POET and env lines carry model FLOP/s and MFU, and the es
 phase writes one generation's profiler trace under TRACE_DIR. Phases
 print one JSON line each (build, kernels, kernels_bwd, kernels_ring,
 lm_forward, lm_generate, lm_train, es, ring_attention, mesh_2d,
 lm_mesh, lm_mesh_train, es_mesh, es_families, es_families_smooth,
 novelty, map_elites, ask_tell, device_map, poet, poet_mesh,
-checkpoint, es_envs, pool, managers, host_ring, ring_es, poet_pool);
+checkpoint, es_envs, pool, managers, host_ring, ring_es, poet_pool,
+capture_under_load, durable, hier, sim_cluster, trace, serve);
 then the
 card's name and power limit as nvidia-smi reports them, the kernel
 summary line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -245,10 +251,46 @@ HOST_RING_REPS = 5
 RING_ES_GENS = 3
 POET_POOL_WORKERS = 2
 POET_POOL_ITERS = 2
+# EXIT_PROBE_CHILDREN processes on the card each probe the device gauges
+# from a daemon thread without pause as they exit, and as many run the
+# same loop on a bare ``torch.cuda.mem_get_info`` (the control).
+EXIT_PROBE_CHILDREN = 3
+# The rest of the host plane. ES's durable unit of work (README's
+# ``Pool.map(..., job_id=...)``): DURABLE_ITEMS CartPole evaluations of
+# DURABLE_POP flagship-MLP policies over DURABLE_STEPS steps each on the
+# card, DURABLE_CHUNK a chunk, in a subprocess master that the port's
+# chaos plan SIGKILLs once DURABLE_KILL_AFTER chunks are journaled; the
+# CLI's ``resume`` finishes it. Before it, the same evaluations
+# (CAPTURE_MAP_ITEMS of them, one a chunk) run as a durable map in a
+# thread of this process while the main thread captures and replays one
+# generation of the flagship ES (pop CAPTURE_POP, CAPTURE_STEPS steps)
+# again and again. The hier pool maps HIER_ITEMS HIER_TENSOR_MB MB CUDA
+# tensors and then HIER_KILL_ITEMS paced tasks across a SIGKILL of its
+# sub-master; the sim:2 cluster runs SIM_ITEMS of the evaluations; the
+# trace phase profiles a pool map and one flash_fwd call at
+# TRACE_FLASH_SHAPE (bf16, causal); the serve daemon runs the hier
+# phase's tensor map and a job of SERVE_CANCEL_ITEMS paced tasks that is
+# cancelled.
+DURABLE_ITEMS = 24
+DURABLE_CHUNK = 2
+DURABLE_POP = 1024
+DURABLE_STEPS = 500
+DURABLE_KILL_AFTER = 3
+CAPTURE_MAP_ITEMS = 40
+CAPTURE_POP = 4096
+CAPTURE_STEPS = 500
+HIER_ITEMS = 8
+HIER_TENSOR_MB = 8
+HIER_KILL_ITEMS = 240
+SIM_ITEMS = 8
+TRACE_FLASH_SHAPE = (4096, 8, 64)
+SERVE_CANCEL_ITEMS = 200
+# an HBM cell of `devices` and `top`: used/limit in numbers
+HBM_CELL = re.compile(r"\d+(\.\d+)?(B|KB|MB|GB)/\d+\.\dGB")
 # bench.py --poet (ParamCartPole, MLP (16,), pop 4096, 500 steps, 6
-# pairs, 4 ES steps a pair), cut from bench.py's 10 iterations to 3;
+# pairs, 4 ES steps a pair), cut from bench.py's 10 iterations to 2;
 # the card against the CPU on a small POET
-POET_ITERS = 3
+POET_ITERS = 2
 POET_ES_STEPS = 4
 POET_SMALL = dict(pop=64, max_steps=60, max_pairs=6)
 POET_SMALL_ITERS = 2
@@ -263,8 +305,9 @@ CKPT_POET_ITERS = 1
 # a torch.profiler trace, written under TRACE_DIR (gitignored)
 TRACE_DIR = ".traces"
 # bench.py --biped (pop 4096, 400 steps) and --pixels (pop 1024, 60
-# steps) through run_fused, bench.py's default 10 generations
-ES_ENV_GENS = 10
+# steps) through run_fused, cut from bench.py's default 10 generations
+# to 5
+ES_ENV_GENS = 5
 # the other envs and policies, one ES step each, card against CPU at
 # pop 4096 (CartPole episodes of 200 steps): survival returns that agree
 # exactly on ENV_SURVIVAL_SHARE of the members (as phase_es); continuous
@@ -2632,12 +2675,67 @@ def phase_poet_pool(torch):
     return row
 
 
+_EXIT_PROBE = """
+import sys, threading, time
+import torch
+torch.zeros(1, device="cuda")
+from fiber_tpu_torch.telemetry.device import DEVICE
+DEVICE.enabled = True
+bare = sys.argv[1] == "bare"
+def sample():
+    while True:
+        if bare:
+            torch.cuda.mem_get_info(0)
+        else:
+            DEVICE.update_gauges()
+threading.Thread(target=sample, daemon=True).start()
+time.sleep(0.5)
+"""
+
+
+def phase_exit_probe():
+    """Processes on the card whose daemon thread probes the device gauges
+    (the monitor sampler's probe) without pause exit 0: the probes stop
+    at exit (``telemetry/device.py``, ``_stop_cuda_probes``). A daemon
+    thread still in a torch call that released the GIL when Python
+    finalizes aborts its process (exit -6), as a ``ring_es`` rank once
+    did; the control children, looping on ``torch.cuda.mem_get_info``
+    with no stop, record how often that happens here."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    kinds = (["gauges"] * EXIT_PROBE_CHILDREN
+             + ["bare"] * EXIT_PROBE_CHILDREN)
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-c", _EXIT_PROBE, kind],
+                              env=env, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True)
+             for kind in kinds]
+    rcs, errs = {"gauges": [], "bare": []}, []
+    try:
+        for kind, proc in zip(kinds, procs):
+            _, err = proc.communicate(timeout=180)
+            rcs[kind].append(proc.returncode)
+            if kind == "gauges" and proc.returncode:
+                errs.append(err[-800:])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    emit({"phase": "exit_probe", "gauges_exit_codes": rcs["gauges"],
+          "bare_exit_codes": rcs["bare"], "s": time.time() - t0})
+    check(not any(rcs["gauges"]), f"a process probing the gauges did not "
+          f"exit cleanly: {rcs['gauges']} {errs}")
+
+
 def phase_host_plane(torch):
-    """The managers, the ring and the Pool-driven POET, with every
-    kernel's launch count set to 0 before them and required to stay 0
-    (these paths run no TPU kernel's counterpart; launches in rank and
-    worker processes count there, not here)."""
+    """The exit of processes that probe the card, the managers, the ring
+    and the Pool-driven POET, with every kernel's launch count set to 0
+    before them and required to stay 0 (these paths run no TPU kernel's
+    counterpart; launches in rank and worker processes count there, not
+    here)."""
     _reset_counts()
+    phase_exit_probe()
     phase_managers(torch)
     phase_host_ring(torch)
     phase_ring_es(torch)
@@ -2645,6 +2743,631 @@ def phase_host_plane(torch):
     counts = _counts()
     check(not any(counts.values()), f"kernels launched on the managers, "
           f"ring and pool-POET paths: {counts}")
+    return counts
+
+
+# -- the rest of the host plane: durable maps, hier dispatch, the sim ------
+# -- cluster, the merged trace and the serve tier ----------------------------
+
+def _fitness_items(n):
+    """Star-items of ``tests/_torch_pool_tasks.cartpole_fitness``: one
+    seed each, on the card."""
+    return [(seed, "cuda", DURABLE_POP, DURABLE_STEPS) for seed in range(n)]
+
+
+def _captured_generation(torch):
+    """One flagship generation, captured and replayed by ``run_fused`` on
+    a fresh strategy: its params and stats, and the capture's own window
+    on ``time.monotonic()`` (the graph runner's ``capture_window``)."""
+    es, params = _flagship_es(torch, CAPTURE_POP, CAPTURE_STEPS)
+    p, s = es.run_fused(params, 1)
+    torch.cuda.synchronize()
+    return p, s, es._fused_runner_cache[1].capture_window
+
+
+@contextlib.contextmanager
+def _transfers_of_other_threads():
+    """Each copy between the card and the host that the tensor reducer
+    (``fiber_tpu_torch/serialization.py``) makes on a thread other than
+    this one, and each ledger record made, as ``(kind, start, end)`` on
+    ``time.monotonic()``: ``d2h`` where a CUDA tensor is pickled (the
+    ledger's writer), ``h2d`` where one is rebuilt on the card (the
+    result loop), ``ledger`` for a record's serialization and store."""
+    import threading
+
+    from fiber_tpu_torch import serialization as ser
+    from fiber_tpu_torch.store import ledger as ledgermod
+
+    main = threading.get_ident()
+    log = []
+
+    def timed(kind, fn, on_card):
+        def wrapper(*args):
+            if threading.get_ident() == main or not on_card(*args):
+                return fn(*args)
+            t0 = time.monotonic()
+            try:
+                return fn(*args)
+            finally:
+                log.append((kind, t0, time.monotonic()))
+        return wrapper
+
+    saved = (ser._host_bytes, ser._from_wire,
+             ledgermod.MapLedger._durable_record)
+    ser._host_bytes = timed("d2h", saved[0],
+                            lambda t: t.device.type == "cuda")
+    ser._from_wire = timed("h2d", saved[1],
+                           lambda data, name, width, dev: dev == "cuda")
+    ledgermod.MapLedger._durable_record = timed(
+        "ledger", saved[2], lambda ledger, rec: True)
+    try:
+        yield log
+    finally:
+        (ser._host_bytes, ser._from_wire,
+         ledgermod.MapLedger._durable_record) = saved
+
+
+@contextlib.contextmanager
+def _private_staging(tag):
+    """``FIBER_AGENT_STAGING`` set to a new temporary directory for the
+    block, with the process's object store rebuilt under it, so that the
+    block's ledgers and journaled payloads go there and are removed with
+    it: a run leaves no ledger in the home directory."""
+    import shutil
+
+    from fiber_tpu_torch import store as storemod
+
+    staging = tempfile.mkdtemp(prefix=f"fiber-torch-{tag}-")
+    old = os.environ.get("FIBER_AGENT_STAGING")
+    os.environ["FIBER_AGENT_STAGING"] = staging
+    storemod.reset()
+    try:
+        yield staging
+    finally:
+        storemod.reset()
+        if old is None:
+            os.environ.pop("FIBER_AGENT_STAGING", None)
+        else:
+            os.environ["FIBER_AGENT_STAGING"] = old
+        shutil.rmtree(staging, ignore_errors=True)
+
+
+def _line_count(path):
+    try:
+        with open(path) as fh:
+            return sum(1 for _ in fh)
+    except OSError:
+        return 0
+
+
+def _cli(argv):
+    """``fiber_tpu_torch.cli.main(argv)`` in this process: its exit code
+    and what it printed."""
+    import io
+
+    from fiber_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def _kill_group(pid):
+    """SIGKILL what is left of a process group this script started."""
+    import signal
+
+    try:
+        os.killpg(pid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
+
+
+def phase_capture_under_load(torch, card):
+    """The capture of ROADMAP C's flake, now made in the thread-local
+    mode: a durable map of CUDA results runs in a thread of this process
+    (its result loop copies each result to the card, its ledger's writer
+    thread copies each chunk back to the host) while the main thread
+    captures and replays one flagship generation again and again, each
+    on a fresh strategy. Every capture equals the one made alone, bit
+    for bit, and at least one capture's own window (the graph runner's
+    ``capture_window``, around ``torch.cuda.graph``) held a copy between
+    the card and the host made by another thread. Returns the map's
+    results (the uninterrupted reference of the durable and sim_cluster
+    phases)."""
+    import threading
+
+    import fiber_tpu_torch
+    from fiber_tpu_torch.store import ledger as ledgermod
+    from tests import _torch_pool_tasks as tasks
+
+    start = time.perf_counter()
+    alone_p, alone_s, _ = _captured_generation(torch)
+    job = f"chip-capture-{os.getpid()}-{os.urandom(4).hex()}"
+    out, errors = {}, []
+
+    def durable_map():
+        try:
+            with fiber_tpu_torch.Pool(2) as pool:
+                out["results"] = pool.starmap_async(
+                    tasks.cartpole_fitness, _fitness_items(CAPTURE_MAP_ITEMS),
+                    chunksize=1, job_id=job).get(240)
+        except BaseException as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    with _private_staging("capture") as _, \
+            _transfers_of_other_threads() as log:
+        path = ledgermod.job_path(job)
+        t0 = time.perf_counter()
+        thread = threading.Thread(target=durable_map, name="durable-map")
+        thread.start()
+        deadline = time.monotonic() + 180
+        while (thread.is_alive() and _line_count(path) < 3
+               and time.monotonic() < deadline):
+            time.sleep(0.02)   # the header and two chunks: the writer runs
+        windows = []
+        while thread.is_alive() and time.monotonic() < deadline + 60:
+            t1 = time.perf_counter()
+            p, s, window = _captured_generation(torch)
+            windows.append((time.perf_counter() - t1, window))
+            check(torch.equal(p, alone_p) and torch.equal(s, alone_s),
+                  "a capture beside the durable map differs from the "
+                  "capture made alone")
+        thread.join(300)
+        map_s = time.perf_counter() - t0
+        check(not errors and not thread.is_alive(),
+              f"the durable map failed: {errors!r}")
+        _, completed, done = ledgermod.load(path)
+    captures = []
+    for seconds, (w0, w1) in windows:
+        inside = {kind: sum(1 for k, a, b in log
+                            if k == kind and a < w1 and b > w0)
+                  for kind in ("d2h", "h2d", "ledger")}
+        captures.append({"seconds": seconds, "capture_s": w1 - w0,
+                         **{f"{k}_in_capture": n
+                            for k, n in inside.items()}})
+    overlapped = sum(c["d2h_in_capture"] + c["h2d_in_capture"] > 0
+                     for c in captures)
+    check(overlapped >= 1, "no capture's window held another thread's "
+          f"copy between the card and the host: {captures}")
+    results = out["results"]
+    check(len(results) == CAPTURE_MAP_ITEMS and all(
+        r.device.type == "cuda" and bool(torch.isfinite(r).all())
+        for r in results), "the durable map's results")
+    check(done and len(completed) == CAPTURE_MAP_ITEMS,
+          f"the map's ledger: {len(completed)} chunks, done={done}")
+    emit({"phase": "capture_under_load", "card": card,
+          "capture_error_mode": "thread_local",
+          "captures": len(captures),
+          "captures_with_transfers_inside": overlapped,
+          "transfers_of_other_threads": {
+              kind: sum(1 for k, _, _ in log if k == kind)
+              for kind in ("d2h", "h2d", "ledger")},
+          "capture_runs": captures, "equal_alone": True,
+          "map_items": CAPTURE_MAP_ITEMS, "map_seconds": map_s,
+          "map_chunks_journaled": len(completed),
+          "phase_seconds": time.perf_counter() - start})
+    return results
+
+
+def phase_durable(torch, card, reference):
+    """README's durable ES map on the card: a subprocess master runs
+    ``Pool(2).starmap(cartpole_fitness, ..., job_id=...)``, whose tasks
+    return CUDA fitness tensors; the port's chaos plan SIGKILLs it once
+    DURABLE_KILL_AFTER chunks are journaled; ``python -m
+    fiber_tpu_torch.cli resume`` finishes the map. The resume restores
+    exactly the journaled chunks and executes the rest, and its results
+    load here as CUDA tensors on cuda:0, equal bit for bit to the
+    uninterrupted map's."""
+    import shutil
+    import signal
+
+    from fiber_tpu_torch import serialization
+    from fiber_tpu_torch.store import ledger as ledgermod
+    from fiber_tpu_torch.testing import chaos
+
+    start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    staging = tempfile.mkdtemp(prefix="fiber-torch-durable-")
+    job = f"chip-durable-{os.getpid()}"
+    plan = chaos.ChaosPlan(seed=7, token_dir=os.path.join(staging, "tokens"),
+                           kill_master_after_chunks=DURABLE_KILL_AFTER,
+                           kill_master_times=1)
+    env = dict(os.environ, FIBER_AGENT_STAGING=staging,
+               FIBER_BACKEND="local")
+    env.pop(chaos.ENV_VAR, None)
+    items = _fitness_items(DURABLE_ITEMS)
+    # the master makes its CUDA context before the map, so that its
+    # result loop does not stall behind it while every chunk completes
+    script = (
+        "import torch\n"
+        "import fiber_tpu_torch\n"
+        "from tests import _torch_pool_tasks as tasks\n"
+        "torch.zeros(1, device='cuda')\n"
+        "with fiber_tpu_torch.Pool(2) as pool:\n"
+        f"    pool.starmap(tasks.cartpole_fitness, {items!r},\n"
+        f"                 chunksize={DURABLE_CHUNK}, job_id={job!r})\n")
+    t0 = time.perf_counter()
+    master = subprocess.Popen(
+        [sys.executable, "-c", script], cwd=root, start_new_session=True,
+        env={**env, chaos.ENV_VAR: plan.to_env()},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        _, err = master.communicate(timeout=300)
+    finally:
+        _kill_group(master.pid)  # the dead master's orphaned workers
+    map_s = time.perf_counter() - t0
+    check(master.returncode == -signal.SIGKILL,
+          f"the master exited {master.returncode}, not by SIGKILL: "
+          f"{err[-2000:]}")
+    ledger_path = ledgermod.job_path(job, os.path.join(staging, "ledger"))
+    header, completed, done = ledgermod.load(ledger_path)
+    n_chunks = DURABLE_ITEMS // DURABLE_CHUNK
+    journaled = len(completed)
+    check(not done and DURABLE_KILL_AFTER <= journaled < n_chunks,
+          f"the master died with {journaled} of {n_chunks} chunks "
+          f"journaled (done={done})")
+    ledger_bytes = os.path.getsize(ledger_path)
+    payload_bytes = sum(os.path.getsize(os.path.join(
+        staging, "objects", f"{digest}.obj"))
+        for _, digest in completed.values())
+    out_path = os.path.join(staging, "results.bin")
+    t1 = time.perf_counter()
+    resume = subprocess.Popen(
+        [sys.executable, "-m", "fiber_tpu_torch.cli", "resume", job,
+         "--processes", "2", "--out", out_path], cwd=root, env=env,
+        start_new_session=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        stdout, err = resume.communicate(timeout=300)
+    finally:
+        _kill_group(resume.pid)
+    resume_s = time.perf_counter() - t1
+    check(resume.returncode == 0, f"resume failed: {err[-2000:]}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
+    check(summary["tasks"] == DURABLE_ITEMS
+          and summary["restored_chunks"] == journaled
+          and summary["restored_tasks"] == DURABLE_CHUNK * journaled
+          and summary["executed_tasks"]
+          == DURABLE_ITEMS - summary["restored_tasks"]
+          and summary["trace"] == header["trace"],
+          f"resume summary {summary} after {journaled} journaled chunks")
+    with open(out_path, "rb") as fh:
+        results = serialization.loads(fh.read())
+    check(len(results) == DURABLE_ITEMS and all(
+        r.device == torch.device("cuda", 0) for r in results),
+        "resumed results are not CUDA tensors on cuda:0")
+    check(all(r.dtype == w.dtype and torch.equal(r, w)
+              for r, w in zip(results, reference)),
+          "resumed results differ from the uninterrupted map's")
+    _, after, done_after = ledgermod.load(ledger_path)
+    check(done_after and len(after) == n_chunks,
+          f"the resumed ledger: {len(after)} chunks, done={done_after}")
+    shutil.rmtree(staging, ignore_errors=True)
+    emit({"phase": "durable", "card": card, "items": DURABLE_ITEMS,
+          "chunks": n_chunks, "pop": DURABLE_POP, "steps": DURABLE_STEPS,
+          "master_exit": master.returncode, "journaled_chunks": journaled,
+          "resume": summary, "equal_uninterrupted": True,
+          "results_device": str(results[0].device),
+          "ledger_file_bytes": ledger_bytes,
+          "ledger_payload_bytes": payload_bytes,
+          "map_until_kill_s": map_s, "resume_s": resume_s,
+          "phase_seconds": time.perf_counter() - start})
+
+
+def phase_hier(torch, card):
+    """``init(cpu_per_job=2, dispatch_mode="hier")``: a ``Pool(2)`` whose
+    one job is a sub-master that forks two sub-workers maps 8 MB CUDA
+    tensors to what a direct pool returns, with ranges handed out; then
+    a SIGKILL of the sub-master mid-map loses no task. Returns the
+    items and the direct pool's results (the serve phase's reference)."""
+    import fiber_tpu_torch
+    from fiber_tpu_torch import telemetry
+    from tests import _torch_pool_tasks as tasks
+
+    start = time.perf_counter()
+    t = torch.randn(HIER_TENSOR_MB << 18, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(41))
+    items = [(t, k) for k in range(HIER_ITEMS)]
+    fiber_tpu_torch.init()
+    t0 = time.perf_counter()
+    with fiber_tpu_torch.Pool(2) as pool:
+        direct = pool.starmap(tasks.tensor_affine, items, chunksize=1)
+    direct_s = time.perf_counter() - t0
+    ranges = telemetry.REGISTRY.counter("sched_decisions")
+    ranges0 = ranges.value(kind="range")
+    try:
+        fiber_tpu_torch.init(cpu_per_job=2, dispatch_mode="hier")
+        t0 = time.perf_counter()
+        with fiber_tpu_torch.Pool(2) as pool:
+            got = pool.starmap(tasks.tensor_affine, items, chunksize=1)
+            idents = len(pool._hier_idents)
+            degraded = pool._hier_degraded
+        hier_s = time.perf_counter() - t0
+        handouts = ranges.value(kind="range") - ranges0
+        t0 = time.perf_counter()
+        with fiber_tpu_torch.Pool(2) as pool:
+            xs = list(range(HIER_KILL_ITEMS))
+            res = pool.map_async(tasks.sleep_echo, xs, chunksize=2)
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline and (
+                    not pool._hier_idents or pool._n_completed < 10):
+                time.sleep(0.02)
+            check(pool._hier_idents and pool._n_completed >= 10,
+                  "the sub-master never held work")
+            done_at_kill = pool._n_completed
+            with pool._workers_lock:
+                victim = pool._workers[0]
+            victim.kill()
+            back = res.get(300)
+            check(back == xs, "tasks lost across the sub-master's SIGKILL")
+            check(pool._hier_degraded, "the pool kept the dead hierarchy")
+            resubmitted = pool.stats()["chunks_resubmitted"]
+        kill_s = time.perf_counter() - t0
+    finally:
+        fiber_tpu_torch.init()
+    check(idents > 0 and not degraded, f"sub-masters {idents}, degraded "
+          f"{degraded}")
+    check(handouts > 0, "no range was handed out")
+    for (out, where), (ref, _), (t_in, k) in zip(got, direct, items):
+        check(out.device.type == "cuda" and where == "cuda",
+              f"a hier result on {out.device}, the worker saw {where}")
+        check(torch.equal(out, ref) and torch.equal(out, t_in * 2 + k),
+              "a hier result differs from the direct pool's")
+    emit({"phase": "hier", "card": card, "items": HIER_ITEMS,
+          "tensor_mb": HIER_TENSOR_MB, "sub_masters": idents,
+          "range_handouts": handouts, "equal_direct": True,
+          "direct_s": direct_s, "hier_s": hier_s,
+          "kill_items": HIER_KILL_ITEMS, "completed_at_kill": done_at_kill,
+          "chunks_resubmitted": resubmitted, "tasks_lost": 0,
+          "kill_map_s": kill_s, "phase_seconds": time.perf_counter() - start})
+    return items, direct
+
+
+def phase_sim_cluster(torch, card, reference):
+    """``init(backend="tpu", tpu_hosts="sim:2")``: two host agents on this
+    machine share the card; a ``Pool(2)`` of CartPole evaluations over
+    them returns the local pool's results bit for bit. Against the live
+    agents, ``devices`` and ``top`` show each host's card memory in the
+    HBM column (the agents read it through NVML and report it as
+    ``card_hbm``, rendered with a '*'), and ``doctor`` prints
+    the CUDA probe's line with the card's name."""
+    import fiber_tpu_torch
+    from fiber_tpu_torch.backends import get_backend, reset_backends
+    from tests import _torch_pool_tasks as tasks
+
+    start = time.perf_counter()
+    env_backend = os.environ.get("FIBER_BACKEND")
+    os.environ["FIBER_BACKEND"] = "tpu"   # the environment outranks init
+    fiber_tpu_torch.init(backend="tpu", tpu_hosts="sim:2")
+    reset_backends()
+    views = {}
+    try:
+        t0 = time.perf_counter()
+        with fiber_tpu_torch.Pool(2) as pool:
+            got = pool.starmap(tasks.cartpole_fitness,
+                               _fitness_items(SIM_ITEMS), chunksize=1)
+            map_s = time.perf_counter() - t0
+            backend = get_backend()
+            check(type(backend).__name__ == "TpuBackend",
+                  f"the pool ran on {type(backend).__name__}")
+            hosts = backend._resolved_hosts_spec()
+            for name, argv in (
+                    ("devices", ["devices", "--hosts", hosts]),
+                    ("top", ["top", "--hosts", hosts, "--iterations", "1",
+                             "--no-clear"]),
+                    ("doctor", ["doctor", "--hosts", hosts,
+                                "--timeout", "120"])):
+                views[name] = _cli(argv)
+    finally:
+        get_backend("tpu").shutdown_sim_cluster()
+        if env_backend is None:
+            os.environ.pop("FIBER_BACKEND", None)
+        else:
+            os.environ["FIBER_BACKEND"] = env_backend
+        fiber_tpu_torch.init()
+        reset_backends()
+    check(all(r.device.type == "cuda" and torch.equal(r, w)
+              for r, w in zip(got, reference)) and len(got) == SIM_ITEMS,
+          "the sim cluster's results differ from the local pool's")
+    hbm = {}
+    for name in ("devices", "top"):
+        rc, text = views[name]
+        check(rc == 0, f"cli {name} exited {rc}: {text[-1000:]}")
+        for host in hosts.split(","):
+            row = next((ln for ln in text.splitlines()
+                        if ln.startswith(host)), "")
+            cell = HBM_CELL.search(row)
+            check(cell is not None, f"cli {name}: no HBM numbers for "
+                  f"{host}: {row!r}")
+            hbm[f"{name} {host}"] = cell.group(0)
+    rc, text = views["doctor"]
+    probe = next((ln for ln in text.splitlines() if "cuda devices" in ln),
+                 "")
+    name = torch.cuda.get_device_name(0)
+    check(rc == 0 and probe.startswith("[ok  ]")
+          and f"platform=cuda count={torch.cuda.device_count()} "
+          f"device0={name}" in probe, f"doctor: {text[-1500:]}")
+    emit({"phase": "sim_cluster", "card": card, "hosts": hosts,
+          "items": SIM_ITEMS, "equal_local_pool": True, "map_s": map_s,
+          "hbm_cells": hbm, "doctor_cuda_line": probe,
+          "phase_seconds": time.perf_counter() - start})
+
+
+def phase_trace(torch, card, items):
+    """A ``profiling.trace`` region around a pool map of CUDA tensors and
+    one ``flash_fwd`` call, whose output and lse are held against the
+    plain attention on the same inputs; ``Pool.trace_dump`` then holds
+    the host spans and the card's events, ``flash_fwd_kernel`` among
+    them in a ``CUDA`` lane, and ``cli explain`` turns the dump and a
+    ``flight_dump`` into a blame verdict."""
+    import shutil
+
+    import fiber_tpu_torch
+    from fiber_tpu_torch.ops import flash_attention as fa
+    from fiber_tpu_torch.telemetry import tracing
+    from fiber_tpu_torch.utils import profiling
+    from tests import _torch_pool_tasks as tasks
+
+    start = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="fiber-torch-trace-")
+    s, h, d = TRACE_FLASH_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(51)
+    q, k, v = (torch.randn(s, h, d, generator=g, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    fiber_tpu_torch.init()
+    tracing.SPANS.clear()   # the dump holds this phase's spans only
+    with fiber_tpu_torch.Pool(2) as pool:
+        pool.map(tasks.square, range(2), chunksize=1)  # workers up
+        t0 = time.perf_counter()
+        with profiling.trace(os.path.join(workdir, "prof")):
+            outs = pool.starmap(tasks.tensor_affine, items, chunksize=1)
+            o, lse = fa.flash_fwd(q, k, v, causal=True)
+        traced_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and sum(
+                sp["name"] == "worker.execute"
+                for sp in tracing.SPANS.snapshot()) < len(items):
+            time.sleep(0.05)
+        trace_path = pool.trace_dump(os.path.join(workdir, "trace.json"))
+        flight_path = pool.flight_dump(os.path.join(workdir, "flight.json"))
+    check(all(torch.equal(out, t_in * 2 + kk)
+              for (out, _), (t_in, kk) in zip(outs, items)),
+          "the traced map's results")
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal=True)
+    err = (o.float() - ro.float()).abs().max().item()
+    lse_err = (lse - rlse).abs().max().item()
+    del ro, rlse
+    check(bool(torch.isfinite(o.float()).all())
+          and bool(torch.isfinite(lse).all())
+          and err < TOL["bfloat16"] and lse_err < LSE_TOL,
+          f"flash_fwd in the trace: max_abs_err {err} lse_err {lse_err}")
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    lanes = {e["pid"]: e["args"]["name"] for e in events
+             if e.get("ph") == "M" and e.get("name") == "process_name"}
+    cuda_lanes = sorted({n for n in lanes.values() if n.startswith("CUDA ")})
+    device_events = [e for e in events if e.get("ph") == "X" and
+                     lanes.get(e.get("pid"), "").startswith("CUDA ")]
+    flash = [e for e in device_events
+             if "flash_fwd_kernel" in e.get("name", "")]
+    spans = [e for e in events if e.get("ph") == "X"
+             and e.get("name") in ("pool.serialize", "worker.execute")]
+    check(flash, f"no flash_fwd_kernel event in a CUDA lane: {cuda_lanes}")
+    check(len(spans) >= len(items) + 1, f"{len(spans)} host spans")
+    rc, text = _cli(["explain", trace_path, "--flight", flight_path])
+    blame = next((ln for ln in text.splitlines()
+                  if ln.startswith("primary:")), "")
+    check(rc == 0 and blame, f"explain: {text[-1500:]}")
+    size = os.path.getsize(trace_path)
+    shutil.rmtree(workdir, ignore_errors=True)
+    emit({"phase": "trace", "card": card, "events": len(events),
+          "device_events": len(device_events), "cuda_lanes": cuda_lanes,
+          "flash_fwd_kernel_events": len(flash),
+          "flash_fwd_max_abs_err": err, "flash_fwd_lse_err": lse_err,
+          "flash_fwd_tol": TOL["bfloat16"],
+          "flash_fwd_kernel_us": flash[0].get("dur"),
+          "flash_fwd_kernel_name": flash[0]["name"][:120],
+          "host_spans": len(spans), "trace_bytes": size,
+          "explain_blame": blame, "traced_s": traced_s,
+          "phase_seconds": time.perf_counter() - start})
+
+
+def phase_serve(torch, card, items, direct):
+    """A serve daemon on localhost with a warm pool of 2: a submitted map
+    of CUDA-tensor items ends done, its results equal the direct pool's
+    and ``history`` shows it done; a second job is cancelled through the
+    CLI and parks resumable. The daemon's ledgers and journal go to a
+    private staging root, removed after."""
+    from fiber_tpu_torch import config
+    from fiber_tpu_torch.serve import protocol
+    from fiber_tpu_torch.serve.client import ServeClient
+    from fiber_tpu_torch.serve.daemon import ServeDaemon
+    from fiber_tpu_torch.serve.jobs import JobRunner
+    from fiber_tpu_torch.store import ledger as ledgermod
+    from tests import _torch_pool_tasks as tasks
+
+    start = time.perf_counter()
+    stack = contextlib.ExitStack()
+    cfg = config.get()
+    knobs = {"serve_warm_floor": 2, "serve_tick_s": 0.05}
+    old = {k: getattr(cfg, k) for k in knobs}
+    cfg.update(**knobs)
+    try:
+        staging = stack.enter_context(_private_staging("serve"))
+        runner = JobRunner(processes=2,
+                           journal_dir=os.path.join(staging, "journal"))
+        daemon = ServeDaemon(port=0, runner=runner)
+        daemon.start_background()
+        address = f"127.0.0.1:{daemon.port}"
+        client = ServeClient(("127.0.0.1", daemon.port))
+        try:
+            t0 = time.perf_counter()
+            job = client.submit(tasks.tensor_affine, items, tenant="chip",
+                                job_id=f"chip-serve-{os.getpid()}",
+                                star=True, chunksize=1)
+            view = client.wait(job, timeout=300)
+            check(view["state"] == protocol.DONE, f"serve job: {view}")
+            results = client.results(job)
+            job_s = time.perf_counter() - t0
+            history = ""
+            deadline = time.monotonic() + 60
+            while not history and time.monotonic() < deadline:
+                rc, text = _cli(["history", "slo_obs", "--serve", address])
+                check(rc == 0, f"history exited {rc}")
+                history = next((ln for ln in text.splitlines()
+                                if f"job_id={job}" in ln), "")
+                time.sleep(0.1)
+            check("state=done" in history, f"history: {history!r}")
+            second = f"chip-serve-cancel-{os.getpid()}"
+            client.submit(tasks.sleep_echo, range(SERVE_CANCEL_ITEMS),
+                          tenant="chip", job_id=second, chunksize=1)
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline and not ledgermod.load(
+                    ledgermod.job_path(second))[1]:
+                time.sleep(0.05)
+            rc, text = _cli(["cancel", second, "--serve", address])
+            check(rc == 0, f"cancel: {text}")
+            cancelled = client.wait(second, timeout=120)
+            check(cancelled["state"] == protocol.CANCELLED,
+                  f"the cancelled job: {cancelled}")
+            _, parked, closed = ledgermod.load(ledgermod.job_path(second))
+            check(not closed, "the cancelled job's ledger is closed")
+        finally:
+            client.close()
+            daemon.stop(terminate_pool=True)
+    finally:
+        cfg.update(**old)
+        stack.close()
+    check(len(results) == len(direct) and all(
+        out.device.type == "cuda" and torch.equal(out, ref)
+        for (out, _), (ref, _) in zip(results, direct)),
+        "the served results differ from the direct pool's")
+    emit({"phase": "serve", "card": card, "items": len(items),
+          "equal_direct_pool": True, "job_s": job_s,
+          "history_line": history, "cancelled": cancelled["state"],
+          "cancelled_items": SERVE_CANCEL_ITEMS,
+          "cancelled_chunks_journaled": len(parked),
+          "phase_seconds": time.perf_counter() - start})
+
+
+def phase_host_plane_2(torch, card):
+    """The rest of the host plane, with every kernel's launch count set
+    to 0 before it and read after: the capture beside a durable map,
+    the durable map's SIGKILL and resume, hier dispatch, the sim
+    cluster, the merged trace (whose one ``flash_fwd`` call is this
+    path's only launch) and the serve tier."""
+    _reset_counts()
+    reference = phase_capture_under_load(torch, card)
+    phase_durable(torch, card, reference[:DURABLE_ITEMS])
+    items, direct = phase_hier(torch, card)
+    phase_sim_cluster(torch, card, reference[:SIM_ITEMS])
+    phase_trace(torch, card, items)
+    phase_serve(torch, card, items, direct)
+    counts = _counts()
+    check(counts["flash_fwd"] == 1 and not any(
+        n for name, n in counts.items() if name != "flash_fwd"),
+        f"launches on the rest of the host plane: {counts}")
     return counts
 
 
@@ -3122,6 +3845,8 @@ def main():
     pool_launches = phase_pool(torch)
     torch.cuda.empty_cache()
     host_plane_launches = phase_host_plane(torch)
+    torch.cuda.empty_cache()
+    host_plane_2_launches = phase_host_plane_2(torch, card)
 
     lm, lm_bwd = fwd_rows["lm_f32"], bwd_rows["lm_f32"]
     bf16, bf16_bwd = fwd_rows["attention_bf16"], bwd_rows["attention_bf16"]
@@ -3175,7 +3900,9 @@ def main():
                      launches_population_search=search_launches[
                          entry["name"]],
                      launches_pool=pool_launches[entry["name"]],
-                     launches_host_plane=host_plane_launches[entry["name"]])
+                     launches_host_plane=host_plane_launches[entry["name"]],
+                     launches_host_plane_2=host_plane_2_launches[
+                         entry["name"]])
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {

@@ -23,6 +23,7 @@ interface, for evaluators that live on the host.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -63,6 +64,7 @@ class _GraphRunner:
         self.static = None          # the state slots the graph reads
         self.static_prep = []       # eager_prep's outputs, read too
         self.static_stats = None    # the stats the graph writes
+        self.capture_window = None  # time.monotonic() around the capture
 
     def _run_prep(self):
         """Refreshes the prep slots from the state slots, outside the
@@ -93,11 +95,17 @@ class _GraphRunner:
         graph = torch.cuda.CUDAGraph()
         if g is not None:
             graph.register_generator_state(g)
-        with torch.cuda.graph(graph):
+        # Only this thread's calls are held to the capture's rules: a
+        # CUDA call of another thread of the process (a durable map's
+        # ledger writer copying results to the host, the pool's result
+        # loop, the profiler) would invalidate a global-mode capture.
+        start = time.monotonic()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             *new, stats = self.device_step(*self.static, *self.static_prep)
             for slot, x in zip(self.static, new):
                 if x is not slot:
                     slot.copy_(x)
+        self.capture_window = (start, time.monotonic())
         if g is not None:
             g.set_state(saved)
         self.graph, self.static_stats = graph, stats

@@ -25,7 +25,13 @@ same surface, snapshot fields and registry names, so that the monitor's
   into the ``pool_map_mfu`` gauge; CPU runs record ``None``.
 
 No probe may initialize CUDA: with torch not imported, or CUDA not yet
-initialized in this process, every device field is ``None``. Off
+initialized in this process, every device field is ``None``. Such a
+process (a host agent, which never makes a CUDA context) reports its
+host's card under a key of its own, ``card_hbm``: the first visible
+card's memory in use by every process, and its capacity, as NVML sees
+them where the driver's NVML library loads (else ``None``). Only the
+``devices`` and ``top`` tables read it; the ``hbm`` pair, which the
+``hbm_fill`` rule reads, stays this process's own allocator. Off
 (``device_telemetry_enabled=False`` or the telemetry master switch),
 every hook is one attribute check. :func:`snapshot` is picklable: it is
 the payload of the host agent's ``device_snapshot`` op, the worker's
@@ -34,8 +40,10 @@ the payload of the host agent's ``device_snapshot`` op, the worker's
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
+import ctypes
 import os
 import sys
 import threading
@@ -105,6 +113,8 @@ class DeviceTelemetry:
             "bytes_in_use": None, "bytes_limit": None}
         self._live: Dict[str, Optional[int]] = {
             "count": None, "bytes": None}
+        # the card as NVML sees it, probed only without a CUDA context
+        self._card_hbm: Optional[Dict[str, int]] = None
         # last profiler capture (utils/profiling.trace notes it so
         # trace_dump can find it without being told)
         self._xla_trace: Optional[Tuple[str, float, float]] = None
@@ -215,14 +225,17 @@ class DeviceTelemetry:
     def update_gauges(self) -> None:
         """Refresh HBM / live-tensor gauges (the monitor sampler's
         per-tick probe). Never initializes CUDA: before this process has
-        used it every field stays None — honest, not zero."""
+        used it every field stays None — honest, not zero — and the
+        card's NVML reading goes to ``card_hbm`` alone."""
         if not self.enabled:
             return
         hbm = _hbm_stats()
         live = _live_array_stats()
+        card = None if _devices() else _card_hbm_stats()
         with self._lock:
             self._hbm = hbm
             self._live = live
+            self._card_hbm = card
         if hbm["bytes_in_use"] is not None:
             _g_hbm_in_use.set(float(hbm["bytes_in_use"]))
         if hbm["bytes_limit"] is not None:
@@ -310,6 +323,8 @@ class DeviceTelemetry:
                 "hbm": dict(self._hbm),
                 "live_arrays": dict(self._live),
                 "mfu": dict(self._mfu),
+                "card_hbm": (dict(self._card_hbm)
+                             if self._card_hbm is not None else None),
             }
         out["recompile"] = self.recompile_state()
         out["platform"] = _platform()
@@ -336,6 +351,7 @@ class DeviceTelemetry:
                          "peak_row": None, "items": None, "wall_s": None}
             self._hbm = {"bytes_in_use": None, "bytes_limit": None}
             self._live = {"count": None, "bytes": None}
+            self._card_hbm = None
             self._xla_trace = None
 
 
@@ -344,42 +360,140 @@ class DeviceTelemetry:
 # ---------------------------------------------------------------------------
 
 
+#: held while a probe is inside ``torch.cuda``; see _stop_cuda_probes
+_cuda_probe_lock = threading.RLock()
+_cuda_probes_stopped = False
+
+
+def _stop_cuda_probes(wait_s: float = 5.0) -> None:
+    """Run at exit, before Python finalizes: wait for a probe that is
+    inside ``torch.cuda`` (up to ``wait_s``) and let no probe enter it
+    again. The monitor sampler is a daemon thread; if finalization
+    begins while it is in a torch call that released the GIL, Python
+    ends the thread with ``pthread_exit`` as it takes the GIL back, and
+    that unwind through pybind11's GIL guard aborts the process
+    ("terminate called without an active exception", exit -6)."""
+    global _cuda_probes_stopped
+    held = _cuda_probe_lock.acquire(timeout=wait_s)
+    _cuda_probes_stopped = True
+    if held:
+        _cuda_probe_lock.release()
+
+
+atexit.register(_stop_cuda_probes)
+
+
 def _devices():
     """The current CUDA device, as a one-item list, or None while torch
     is not imported or CUDA not initialized in this process: probing
     must not pay for (or trigger) a CUDA context in a process that does
-    no device work (host agents, host-plane workers)."""
+    no device work (host agents, host-plane workers). None too once
+    :func:`_stop_cuda_probes` ran."""
     torch = sys.modules.get("torch")
     if torch is None:
         return None
-    try:
-        if not torch.cuda.is_initialized():
+    with _cuda_probe_lock:
+        if _cuda_probes_stopped:
             return None
-        return [torch.device("cuda", torch.cuda.current_device())]
-    except Exception:  # noqa: BLE001 - no device is a valid state
-        return None
+        try:
+            if not torch.cuda.is_initialized():
+                return None
+            return [torch.device("cuda", torch.cuda.current_device())]
+        except Exception:  # noqa: BLE001 - no device is a valid state
+            return None
 
 
 def _platform() -> Optional[str]:
     return "gpu" if _devices() else None
 
 
+#: the NVML library once loaded and initialized; False once it failed
+_nvml = None
+
+
+class _NvmlMemory(ctypes.Structure):
+    """``nvmlMemory_t``: bytes of the card's memory."""
+
+    _fields_ = [("total", ctypes.c_ulonglong), ("free", ctypes.c_ulonglong),
+                ("used", ctypes.c_ulonglong)]
+
+
+def _load_nvml():
+    """The driver's NVML library, initialized, with its three functions'
+    signatures declared."""
+    lib = ctypes.CDLL("libnvidia-ml.so.1")
+    lib.nvmlInit_v2.argtypes = []
+    lib.nvmlInit_v2.restype = ctypes.c_int
+    lib.nvmlDeviceGetHandleByIndex_v2.argtypes = [
+        ctypes.c_uint, ctypes.POINTER(ctypes.c_void_p)]
+    lib.nvmlDeviceGetHandleByIndex_v2.restype = ctypes.c_int
+    lib.nvmlDeviceGetMemoryInfo.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(_NvmlMemory)]
+    lib.nvmlDeviceGetMemoryInfo.restype = ctypes.c_int
+    if lib.nvmlInit_v2() != 0:
+        raise OSError("nvmlInit failed")
+    return lib
+
+
+def _nvml_memory() -> Optional[Tuple[int, int]]:
+    """``(used, total)`` bytes of the first visible card as NVML sees
+    them (``nvmlDeviceGetMemoryInfo``: every process's use, and the
+    capacity), through ``ctypes`` as ``torch.cuda`` loads NVML itself;
+    NVML makes no CUDA context. None without the library, a card, or
+    a numeric first entry of ``CUDA_VISIBLE_DEVICES``."""
+    global _nvml
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    index = 0
+    if visible is not None:
+        first = visible.split(",")[0].strip()
+        if not first.isdigit():
+            return None  # every card hidden, or named by UUID
+        index = int(first)
+    if _nvml is False:
+        return None
+    try:
+        if _nvml is None:
+            _nvml = _load_nvml()
+        handle = ctypes.c_void_p()
+        if _nvml.nvmlDeviceGetHandleByIndex_v2(
+                ctypes.c_uint(index), ctypes.byref(handle)) != 0:
+            return None
+        mem = _NvmlMemory()
+        if _nvml.nvmlDeviceGetMemoryInfo(handle, ctypes.byref(mem)) != 0:
+            return None
+        return int(mem.used), int(mem.total)
+    except (OSError, AttributeError):
+        _nvml = False
+        return None
+
+
+def _card_hbm_stats() -> Optional[Dict[str, int]]:
+    """The first visible card's ``{"bytes_in_use", "bytes_limit"}`` as
+    NVML reports them (:func:`_nvml_memory`: every process's use, the
+    caching allocators' reserves included), or None."""
+    card = _nvml_memory()
+    if card is None:
+        return None
+    return {"bytes_in_use": card[0], "bytes_limit": card[1]}
+
+
 def _hbm_stats() -> Dict[str, Optional[int]]:
     """The current CUDA device's ``{"bytes_in_use", "bytes_limit"}``:
     bytes the caching allocator has handed to tensors, and the card's
     capacity; both None without an initialized CUDA device."""
-    devices = _devices()
-    if not devices:
-        return {"bytes_in_use": None, "bytes_limit": None}
-    import torch
+    with _cuda_probe_lock:
+        devices = _devices()
+        if not devices:
+            return {"bytes_in_use": None, "bytes_limit": None}
+        import torch
 
-    try:
-        return {
-            "bytes_in_use": int(torch.cuda.memory_allocated(devices[0])),
-            "bytes_limit": int(torch.cuda.mem_get_info(devices[0])[1]),
-        }
-    except Exception:  # noqa: BLE001 - platform-dependent surface
-        return {"bytes_in_use": None, "bytes_limit": None}
+        try:
+            return {
+                "bytes_in_use": int(torch.cuda.memory_allocated(devices[0])),
+                "bytes_limit": int(torch.cuda.mem_get_info(devices[0])[1]),
+            }
+        except Exception:  # noqa: BLE001 - platform-dependent surface
+            return {"bytes_in_use": None, "bytes_limit": None}
 
 
 def _live_array_stats() -> Dict[str, Optional[int]]:

@@ -378,7 +378,9 @@ def monitor_payload(history: int = 120) -> Dict[str, Any]:
 def _device_summary() -> Dict[str, Any]:
     """Compact device-plane row for `fiber-tpu top` (HBM + MFU
     columns): None fields are honest nulls, never zeros — the table
-    renders them as '-' (docs/observability.md "Device telemetry")."""
+    renders them as '-' (docs/observability.md "Device telemetry").
+    ``card_hbm`` is the card as NVML sees it, reported by a process
+    without a CUDA context (a host agent) for the table alone."""
     try:
         from fiber_tpu_torch.telemetry.device import DEVICE
 
@@ -386,6 +388,7 @@ def _device_summary() -> Dict[str, Any]:
         out = {
             "hbm_bytes_in_use": snap["hbm"].get("bytes_in_use"),
             "hbm_bytes_limit": snap["hbm"].get("bytes_limit"),
+            "card_hbm": snap.get("card_hbm"),
             "mfu": snap["mfu"].get("mfu"),
             "compiles": snap.get("compiles", 0),
             "transfer_bytes": snap.get("transfer_bytes", 0),

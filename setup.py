@@ -23,6 +23,7 @@ setup(
     entry_points={
         "console_scripts": [
             "fiber-tpu=fiber_tpu.cli:main",
+            "fiber-tpu-torch=fiber_tpu_torch.cli:main",
         ],
     },
 )

@@ -59,3 +59,44 @@ def tensor_roundtrip(t):
     return {"sum": float(t.double().sum()), "dtype": str(t.dtype),
             "shape": tuple(t.shape), "requires_grad": t.requires_grad,
             "back": t.detach() + 1}
+
+
+def sleep_echo(x):
+    """Returns x after 50 ms: paces a map so that a kill lands mid-map."""
+    import time
+
+    time.sleep(0.05)
+    return x
+
+
+def sleep_tensors(x):
+    """After 50 ms, two CPU tensors made from x, of two dtypes."""
+    import time
+
+    import torch
+
+    time.sleep(0.05)
+    return (torch.arange(4, dtype=torch.float64) / 3 + x,
+            torch.tensor([x, -x], dtype=torch.int32))
+
+
+def cartpole_fitness(seed, device="cuda", pop=256, steps=200):
+    """Fitness of ``pop`` CartPole MLP policies (the flagship MLP, its
+    parameters perturbed around a seeded draw) over up to ``steps``
+    steps, on ``device``: an ES generation's unit of work, returned as
+    a tensor on that device."""
+    import torch
+
+    from fiber_tpu_torch.entry import flagship_policy
+    from fiber_tpu_torch.models.envs import CartPole
+
+    policy = flagship_policy()
+    g = torch.Generator(device=device).manual_seed(int(seed))
+    params = policy.init(torch.Generator().manual_seed(int(seed)),
+                         device=device)
+    thetas = params + 0.1 * torch.randn(pop, policy.dim, generator=g,
+                                        device=device)
+    states = CartPole.reset(pop, g)
+    with torch.no_grad():
+        return CartPole.rollout(policy.act, thetas, states,
+                                max_steps=steps)

@@ -11,6 +11,7 @@ from JAX's own reset, as ``tests/test_torch_envs.py`` does).
 import contextlib
 import json
 import sys
+import threading
 import time
 
 import numpy as np
@@ -337,6 +338,81 @@ def test_snapshot_reads_cuda_once_initialized(monkeypatch):
     assert _hbm_usage() == (3 << 20, 80 << 30)
     monkeypatch.undo()
     DEVICE.clear()
+
+
+def test_exit_waits_for_a_probe_inside_cuda_and_stops_the_rest(
+        monkeypatch):
+    """``_stop_cuda_probes`` (run by ``atexit``, before Python finalizes)
+    waits for a probe that is inside ``torch.cuda`` and lets no probe
+    enter it again: the monitor sampler is a daemon thread, and one
+    still in a torch call when finalization begins aborts the process
+    (exit -6)."""
+    from fiber_tpu_torch.telemetry import device as devmod
+
+    inside, leave = threading.Event(), threading.Event()
+    calls = []
+
+    def slow_mem_get_info(d):
+        calls.append(d)
+        inside.set()
+        leave.wait(5)
+        return (70 << 30, 80 << 30)
+
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d: 3 << 20)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", slow_mem_get_info)
+    monkeypatch.setattr(devmod, "_cuda_probes_stopped", False)
+    probe = threading.Thread(target=devmod._hbm_stats)
+    probe.start()
+    assert inside.wait(5)
+    threading.Timer(0.2, leave.set).start()
+    devmod._stop_cuda_probes(wait_s=5)
+    assert leave.is_set(), "the stop did not wait for the probe"
+    probe.join(5)
+    assert devmod._devices() is None
+    assert devmod._hbm_stats() == {"bytes_in_use": None,
+                                   "bytes_limit": None}
+    assert len(calls) == 1
+
+
+_PROBING_AT_EXIT = """
+import sys, threading, time
+import torch
+from fiber_tpu_torch.telemetry.device import DEVICE
+a = torch.randn(600, 600)
+torch.cuda.is_initialized = lambda: True
+torch.cuda.current_device = lambda: 0
+torch.cuda.memory_allocated = lambda d: 0
+def mem_get_info(d):
+    torch.mm(a, a)  # releases the GIL, as cudaMemGetInfo's binding does
+    return (0, 1)
+torch.cuda.mem_get_info = mem_get_info
+DEVICE.enabled = True
+def sample():
+    while True:
+        DEVICE.update_gauges()
+threading.Thread(target=sample, daemon=True).start()
+time.sleep(0.2)
+"""
+
+
+def test_a_process_exits_cleanly_while_the_sampler_probes_cuda():
+    """A process whose daemon thread probes the device gauges without
+    pause, each probe inside a torch call that releases the GIL, exits
+    0. Without the exit-time stop it aborts at finalization ("terminate
+    called without an active exception"), as a ring rank on the card
+    once did. Three runs, about 3 s each."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    for _ in range(3):
+        done = subprocess.run([sys.executable, "-c", _PROBING_AT_EXIT],
+                              env=env, capture_output=True, text=True,
+                              timeout=120)
+        assert done.returncode == 0, done.stderr[-2000:]
 
 
 def test_dmap_transfer_is_accounted_with_the_batch_bytes():

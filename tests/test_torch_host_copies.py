@@ -31,20 +31,25 @@ COPIED = [
     "store/core.py", "store/plane.py", "store/replicate.py",
     "telemetry/__init__.py", "telemetry/accounting.py",
     "telemetry/archive.py", "telemetry/flightrec.py",
-    "telemetry/metrics.py", "telemetry/monitor.py", "telemetry/policy.py",
+    "telemetry/metrics.py", "telemetry/policy.py",
     "telemetry/postmortem.py", "telemetry/profiler.py", "telemetry/slo.py",
     "telemetry/timeseries.py", "telemetry/tracing.py",
     "testing/__init__.py", "testing/chaos.py", "transport/__init__.py",
     "transport/evloop.py", "transport/shm.py", "transport/tcp.py",
     "utils/__init__.py", "utils/logging.py", "utils/net.py",
     "utils/serve.py", "utils/staging.py", "worker.py",
+    "store/ledger.py", "sched/hier.py", "telemetry/explain.py",
+    "backends/tpu.py", "serve/__init__.py", "serve/admission.py",
+    "serve/jobs.py", "serve/protocol.py", "serve/warmpool.py",
 ]
 
 #: modules whose code changed in the port: the package root (lazy
 #: device-plane names), the managers' wire, the pump's build directory,
 #: the helpers without XLA's flags, the tensor reducer, DEVICE on CUDA,
 #: the CUDA device tier, the pool's device routing, the ring's
-#: torch.distributed initializer, and the device plane proper
+#: torch.distributed initializer, the serve tier's wire, the exporter's
+#: merge of a ``torch.profiler`` capture, the CLI's device probe, name
+#: and HBM column, the monitor's ``top`` row, and the device plane proper
 PORTED = [
     "__init__.py", "managers.py", "_native/__init__.py", "utils/misc.py",
     "serialization.py", "telemetry/device.py", "store/device_tier.py",
@@ -56,6 +61,8 @@ PORTED = [
     "ops/map_elites.py", "ops/novelty.py", "ops/pgpe.py", "ops/poet.py",
     "ops/ring_attention.py", "ops/ulysses_attention.py",
     "parallel/ring.py", "experimental/__init__.py",
+    "serve/client.py", "serve/daemon.py", "telemetry/export.py", "cli.py",
+    "telemetry/monitor.py",
 ]
 
 #: the one line of ``managers.py`` that the port changed: its connections
@@ -66,6 +73,45 @@ PORTED = [
 MANAGERS_WIRE = (
     "from multiprocessing.connection import Client, Listener\n",
     "from fiber_tpu_torch.utils.wire import Client, Listener\n")
+
+
+#: ports held definition by definition: each top-level statement of the
+#: port equals the renamed JAX module's (once the JAX module's strings
+#: listed here read as the port's), but for the definitions named, which
+#: the port changed or added. The CLI changed its device probe, its name
+#: and its HBM column (which shows the card's NVML reading where a host
+#: has no CUDA context); the exporter its merge of a ``torch.profiler``
+#: capture; the monitor the ``top`` row that carries that reading.
+HELD_PORTS = {
+    "cli.py": (
+        {"_CUDA_PROBE", "_probe_cuda", "cmd_doctor", "_render_hbm",
+         "_render_device_rows"},
+        (('"since r4 (use --dry-run', '"(use --dry-run'),
+         ('prog="fiber-tpu"', 'prog="fiber-tpu-torch"'),
+         ("TPU-native distributed computing framework CLI",
+          "fiber_tpu_torch (PyTorch / CUDA port) CLI"),
+         ("the jax device probe", "the CUDA device probe"))),
+    "telemetry/export.py": (
+        {"DEVICE_CATEGORIES", "DEVICE_LANE_PREFIX", "HOST_LANE_PREFIX",
+         "find_xla_chrome_trace", "_lane_number", "merge_xla_trace"}, ()),
+    "telemetry/monitor.py": ({"_device_summary"}, ()),
+}
+
+
+#: the serve tier's connections: the client's ``Client`` and the
+#: daemon's ``Listener`` are ``utils/wire.py``'s, for the managers'
+#: reason (a CUDA tensor among a job's items would otherwise travel as
+#: a CUDA IPC handle); each import moves below the anchor named here
+SERVE_WIRE = {
+    "serve/client.py": (
+        "from multiprocessing.connection import Client\n",
+        "from fiber_tpu_torch.utils.wire import Client\n",
+        "from fiber_tpu_torch.serve.daemon import DEFAULT_SERVE_PORT\n"),
+    "serve/daemon.py": (
+        "from multiprocessing.connection import Listener\n",
+        "from fiber_tpu_torch.utils.wire import Listener\n",
+        "from fiber_tpu_torch.utils.serve import serve_request_reply\n"),
+}
 
 
 def _strip_docstrings(tree):
@@ -113,6 +159,85 @@ def test_managers_differ_from_the_jax_packages_only_in_their_wire():
     anchor = "from fiber_tpu_torch.utils.serve import serve_authenticated\n"
     theirs = theirs.replace(old, "").replace(anchor, anchor + new)
     assert _normal((PORT / "managers.py").read_text()) == _normal(theirs)
+
+
+@pytest.mark.parametrize("rel", sorted(SERVE_WIRE))
+def test_serve_wire_differs_from_the_jax_packages_only_in_its_wire(rel):
+    """The serve client and daemon are the JAX package's modules but for
+    the import of their connection class."""
+    theirs = _renamed((REF / rel).read_text())
+    old, new, anchor = SERVE_WIRE[rel]
+    assert theirs.count(old) == 1 and theirs.count(anchor) == 1
+    theirs = theirs.replace(old, "").replace(anchor, anchor + new)
+    assert _normal((PORT / rel).read_text()) == _normal(theirs)
+
+
+def _definitions(source: str):
+    """A module's top-level statements as ``({name: dump}, [dump, ...])``:
+    functions, classes and assignments to one name by name; imports and
+    the other statements in order."""
+    named, unnamed = {}, []
+    for node in _strip_docstrings(ast.parse(source)).body:
+        name = getattr(node, "name", None)
+        if isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = getattr(node, "targets", None) or [node.target]
+            if len(targets) == 1 and isinstance(targets[0], ast.Name):
+                name = targets[0].id
+        if name is None:
+            unnamed.append(ast.dump(node))
+        else:
+            assert name not in named, f"{name} defined twice"
+            named[name] = ast.dump(node)
+    return named, unnamed
+
+
+def _held_drift(rel: str, ours: str):
+    """The definitions of the port's ``rel`` that differ from the JAX
+    package's but are not listed in :data:`HELD_PORTS`, and the listed
+    ones that do not (a listed name must be changed or new)."""
+    changed, strings = HELD_PORTS[rel]
+    theirs = _renamed((REF / rel).read_text())
+    for old, new in strings:
+        assert theirs.count(old) == 1, old
+        theirs = theirs.replace(old, new)
+    ours_named, ours_unnamed = _definitions(ours)
+    theirs_named, theirs_unnamed = _definitions(theirs)
+    drift = sorted(name for name in set(ours_named) | set(theirs_named)
+                   if name not in changed
+                   and ours_named.get(name) != theirs_named.get(name))
+    if ours_unnamed != theirs_unnamed:
+        drift.append("<imports and other statements>")
+    unchanged = sorted(name for name in changed
+                       if ours_named.get(name) == theirs_named.get(name))
+    return drift, unchanged
+
+
+@pytest.mark.parametrize("rel", sorted(HELD_PORTS))
+def test_held_port_differs_only_in_its_listed_definitions(rel):
+    """Each command, renderer and helper of the port's CLI, and each
+    function of its exporter and monitor, is the JAX package's but for
+    those listed in ``HELD_PORTS``."""
+    assert rel in PORTED
+    drift, unchanged = _held_drift(rel, (PORT / rel).read_text())
+    assert drift == [], (f"fiber_tpu_torch/{rel}: {drift} drifted from "
+                         f"fiber_tpu/{rel}; port the change, or list it")
+    assert unchanged == [], f"listed but equal to the original: {unchanged}"
+
+
+@pytest.mark.parametrize("rel,old,new", [
+    ("cli.py", "def cmd_resume(args) -> int:",
+     "def cmd_resume(args) -> int:\n    args = None"),
+    ("telemetry/export.py", "def prometheus_text(",
+     "X = 1\n\n\ndef prometheus_text("),
+    ("telemetry/monitor.py", "import threading",
+     "import threading\nimport fiber_tpu")])
+def test_the_held_check_sees_a_changed_definition(rel, old, new):
+    """A held port with one changed command, one new definition, or one
+    import of the JAX package is caught."""
+    ours = (PORT / rel).read_text()
+    assert ours.count(old) == 1
+    drift, _ = _held_drift(rel, ours.replace(old, new))
+    assert drift
 
 
 def test_the_native_pump_source_is_the_jax_packages():
