@@ -27,7 +27,9 @@ durable map of CUDA results, a durable map's master SIGKILLed and
 finished by ``python -m fiber_tpu_torch.cli resume``, hierarchical
 dispatch, a ``sim:2`` cluster with the CLI's views of its agents,
 ``Pool.trace_dump`` of a profiled map and ``flash_fwd`` call, and the
-serve daemon) and checks what comes out;
+serve daemon; the user programs of ``fiber_tpu_torch.examples``, the
+README's quickstart lines among them, ``entry.dryrun_multichip`` and
+``weak_scaling``) and checks what comes out;
 the ES, POET and env lines carry model FLOP/s and MFU, and the es
 phase writes one generation's profiler trace under TRACE_DIR. Phases
 print one JSON line each (build, kernels, kernels_bwd, kernels_ring,
@@ -35,7 +37,8 @@ lm_forward, lm_generate, lm_train, es, ring_attention, mesh_2d,
 lm_mesh, lm_mesh_train, es_mesh, es_families, es_families_smooth,
 novelty, map_elites, ask_tell, device_map, poet, poet_mesh,
 checkpoint, es_envs, pool, managers, host_ring, ring_es, poet_pool,
-capture_under_load, durable, hier, sim_cluster, trace, serve);
+capture_under_load, durable, hier, sim_cluster, trace, serve,
+examples_kernels, examples);
 then the
 card's name and power limit as nvidia-smi reports them, the kernel
 summary line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -52,6 +55,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import importlib
+import io
 import json
 import math
 import os
@@ -285,6 +290,41 @@ HIER_KILL_ITEMS = 240
 SIM_ITEMS = 8
 TRACE_FLASH_SHAPE = (4096, 8, 64)
 SERVE_CANCEL_ITEMS = 200
+# The user programs (phase_examples). long_context_lm's attention at its
+# defaults (dim 128 over 8 heads, seq 256, f32, causal), held and timed:
+# (name, S, heads, kv_heads, head_dim, dtype)
+EXAMPLE_FLASH_SHAPE = ("lm_example_f32", 256, 8, 8, 16, "float32")
+# dryrun_multichip's ring x flash attention on RANKS ranks: S = 8 per
+# rank, 2 heads, head_dim 8 (the kernels pad it to their 16 template)
+EXAMPLE_RING_SHAPE = (8 * RANKS, 2, 8)
+# calls a CUDA graph holds when timing a kernel at the example shape,
+# where one launch's work is shorter than its host-side enqueue
+EXAMPLE_GRAPH_REPS = 50
+# the README's quickstart lines, run as a user types them, with the
+# pattern of the evals/s in each one's closing line
+README_LINES = (
+    ("es_cartpole", ("--pop", "1024", "--gens", "50"),
+     r"= ([\d,]+) evals/s"),
+    ("poet_cartpole", (), r"\(([\d,]+) evals/s\)"),
+)
+README_TIMEOUT_S = 300
+# long_context_lm --attention ring over RANKS ranks (mesh_shape "4"):
+# steps cut from the default 300
+LM_RING_STEPS = 10
+# long_context_lm --attention flash at its defaults: steps cut from 300
+# for the script's time (the induction run below trains 300)
+LM_FLASH_STEPS = 100
+# long_context_lm --attention flash at the settings of the JAX package's
+# induction test (tests/test_device.py,
+# test_tiny_lm_induction_through_ring_attention: S 64, vocab 16, lr 3e-3,
+# 300 steps; batch 16, dim 128, 2 layers as the example's defaults),
+# held to that test's bar at the last step: half2 < LM_INDUCTION_BAR <
+# half1
+LM_INDUCTION_ARGV = ("--seq", "64", "--vocab", "16", "--lr", "3e-3",
+                     "--steps", "300", "--attention", "flash")
+LM_INDUCTION_BAR = 1.0
+STEP_LINE = re.compile(r"step\s+(\d+)\s+loss (\S+)\s+half1 (\S+) .*"
+                       r"half2 (\S+) <- induction")
 # an HBM cell of `devices` and `top`: used/limit in numbers
 HBM_CELL = re.compile(r"\d+(\.\d+)?(B|KB|MB|GB)/\d+\.\dGB")
 # bench.py --poet (ParamCartPole, MLP (16,), pop 4096, 500 steps, 6
@@ -365,17 +405,17 @@ def cuda_ms(torch, fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(torch, fns, reps, replays=5):
+def graph_ms(torch, fns, reps, replays=5, stream=None):
     """Device time of one call in ms, for calls whose host-side enqueue
     outlasts their device work: ``reps`` calls, cycling through ``fns``
     (the same function on distinct inputs, so that inputs can be made
-    to miss the L2 cache), captured in one CUDA graph and replayed
-    ``replays`` times between CUDA events."""
+    to miss the L2 cache), captured in one CUDA graph (on ``stream``
+    when given) and replayed ``replays`` times between CUDA events."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for i in range(reps):
             fns[i % len(fns)]()
     graph.replay()
@@ -1901,39 +1941,21 @@ def phase_es_families(torch):
     _smooth_families(torch)
 
 
-def _maze_eval(policy):
-    from fiber_tpu_torch.models.envs import DeceptiveMaze
-
-    def eval_bc(thetas, states):
-        return DeceptiveMaze.fitness_and_behavior(policy.apply, thetas,
-                                                  states)
-
-    return eval_bc
-
-
 def phase_novelty(torch):
-    """NoveltyES at novelty_maze.py's settings (DeceptiveMaze, MLP (16,),
-    pop 256, archive 128, k 10, sigma 0.1, lr 0.05) in each of its three
-    modes: NOVELTY_GENS eager steps, the archive's count 1 + generations
-    and ``best`` never falling; then ``run_fused`` from the same start
-    against those steps (stats and state bitwise). Then one generation
-    at pop NOVELTY_RATE_POP, eager and replayed, for the rate."""
-    from fiber_tpu_torch.models.envs import DeceptiveMaze
-    from fiber_tpu_torch.models.policies import MLPPolicy
-    from fiber_tpu_torch.ops import NoveltyES
+    """NoveltyES as the ported ``novelty_maze`` example makes it
+    (DeceptiveMaze, MLP (16,), pop 256, archive 128, k 10, sigma 0.1, lr
+    0.05) in each of its three modes: NOVELTY_GENS eager steps, the
+    archive's count 1 + generations and ``best`` never falling; then
+    ``run_fused`` from the same start against those steps (stats and
+    state bitwise). Then one generation at pop NOVELTY_RATE_POP, eager
+    and replayed, for the rate."""
+    from fiber_tpu_torch.examples.novelty_maze import make_novelty, maze_policy
 
-    policy = MLPPolicy(DeceptiveMaze.obs_dim, DeceptiveMaze.act_dim,
-                       hidden=(16,))
+    policy = maze_policy()
     p0 = policy.init(torch.Generator().manual_seed(0), device="cuda")
 
     def make(pop, w, adaptive):
-        return NoveltyES(_maze_eval(policy), DeceptiveMaze.reset,
-                         dim=policy.dim, bc_dim=2, pop_size=pop, sigma=0.1,
-                         lr=0.05, archive_size=128, k=10, reward_weight=w,
-                         adaptive=adaptive, weight_delta=0.1, patience=5,
-                         device="cuda",
-                         generator=torch.Generator(
-                             device="cuda").manual_seed(2))
+        return make_novelty(policy, pop, w, adaptive, "cuda")
 
     modes = {}
     for label, w, adaptive in NOVELTY_MODES:
@@ -1982,26 +2004,23 @@ def phase_novelty(torch):
 
 
 def phase_map_elites(torch):
-    """MAPElites at map_elites_maze.py's settings (DeceptiveMaze, MLP
-    (16,), 12 x 12 cells over [-4, 4]^2, batch 256, sigma 0.2) for
-    MAP_ELITES_GENS generations: coverage and the best fitness never
-    fall, no elite regresses in its cell, and every elite's behavior
-    maps back to its cell. Then one generation at batch
-    MAP_ELITES_RATE_BATCH for the rate, with the profiler's view."""
-    from fiber_tpu_torch.models.envs import DeceptiveMaze
-    from fiber_tpu_torch.models.policies import MLPPolicy
-    from fiber_tpu_torch.ops import MAPElites
+    """MAPElites as the ported ``map_elites_maze`` example makes it at
+    its defaults (DeceptiveMaze, MLP (16,), 12 x 12 cells over [-4,
+    4]^2, batch 256, sigma 0.2) for MAP_ELITES_GENS generations:
+    coverage and the best fitness never fall, no elite regresses in its
+    cell, and every elite's behavior maps back to its cell. Then one
+    generation at batch MAP_ELITES_RATE_BATCH for the rate, with the
+    profiler's view."""
+    from fiber_tpu_torch.examples.map_elites_maze import (
+        beyond_wall,
+        make_map_elites,
+    )
+    from fiber_tpu_torch.examples.novelty_maze import maze_policy
 
-    policy = MLPPolicy(DeceptiveMaze.obs_dim, DeceptiveMaze.act_dim,
-                       hidden=(16,))
+    policy = maze_policy()
 
     def make(batch):
-        return MAPElites(_maze_eval(policy), DeceptiveMaze.reset,
-                         dim=policy.dim, bc_dim=2, bc_low=(-4.0, -4.0),
-                         bc_high=(4.0, 4.0), cells_per_dim=12,
-                         batch_size=batch, sigma=0.2, device="cuda",
-                         generator=torch.Generator(
-                             device="cuda").manual_seed(1))
+        return make_map_elites(policy, batch, 12, "cuda")
 
     me = make(MAP_ELITES_BATCH)
     state = me.init_state(policy.init(torch.Generator().manual_seed(0),
@@ -2026,8 +2045,7 @@ def phase_map_elites(torch):
     bcs = torch.stack([torch.from_numpy(bc) for _, _, bc, _ in elites])
     check(me._cell_of(bcs.cuda()).tolist() == [c for c, *_ in elites],
           "map_elites: an elite's behavior is not in its cell")
-    beyond = int(((state.behaviors[:, 1] > 1.0)
-                  & torch.isfinite(state.fitness)).sum())
+    beyond = beyond_wall(state)
     big = make(MAP_ELITES_RATE_BATCH)
     big_state = big.init_state(policy.init(torch.Generator().manual_seed(0),
                                            device="cuda"))
@@ -2049,48 +2067,27 @@ def phase_map_elites(torch):
               torch, lambda: big.step(big_state))})
 
 
-def simulate_cartpole(theta) -> float:
-    """es_pool_gym.py's host evaluator: pure-Python CartPole with a
-    linear policy, 200 steps from a fixed start."""
-    import math
-    import random
-
-    rng = random.Random(12345)
-    x, v, a, w = [0.02 * (rng.random() - 0.5) for _ in range(4)]
-    g, mc, mp_, lp, dt = 9.8, 1.0, 0.1, 0.5, 0.02
-    steps = 0
-    for _ in range(200):
-        obs = (x, v, a, w)
-        score = sum(t * o for t, o in zip(theta, obs))
-        force = 10.0 if score > 0 else -10.0
-        cosa, sina = math.cos(a), math.sin(a)
-        tmp = (force + mp_ * lp * w * w * sina) / (mc + mp_)
-        aacc = (g * sina - cosa * tmp) / (
-            lp * (4.0 / 3.0 - mp_ * cosa * cosa / (mc + mp_)))
-        xacc = tmp - mp_ * lp * aacc * cosa / (mc + mp_)
-        x, v = x + dt * v, v + dt * xacc
-        a, w = a + dt * w, w + dt * aacc
-        steps += 1
-        if abs(x) > 2.4 or abs(a) > 0.209:
-            break
-    return float(steps)
-
-
 def phase_ask_tell(torch):
-    """es_pool_gym.py's loop (dim 4, pop 64, sigma 0.5, lr 0.3) with its
-    host CartPole evaluator, sampling and updating on the card: the mean
-    fitness rises. Then the ms of one ask and one tell at pop
-    ASK_TELL_POP x the flagship's dim (host clock around synchronised
-    work; ask includes copying the candidates to the host)."""
+    """The ported ``es_pool_gym`` example's loop (its ``AskTellES``: dim
+    4, pop 64, sigma 0.5, lr 0.3; one ``generation`` at a time) with its
+    host CartPole evaluator called in this process, sampling and
+    updating on the card: the mean fitness rises. Then the ms of one ask
+    and one tell at pop ASK_TELL_POP x the flagship's dim (host clock
+    around synchronised work; ask includes copying the candidates to the
+    host)."""
     from fiber_tpu_torch.entry import flagship_policy
+    from fiber_tpu_torch.examples.es_pool_gym import (
+        generation,
+        make_es,
+        simulate_cartpole,
+    )
     from fiber_tpu_torch.ops import AskTellES
 
-    es = AskTellES(dim=4, pop_size=64, sigma=0.5, lr=0.3, device="cuda")
+    es = make_es(64, "cuda")
     means = []
     for _ in range(ASK_TELL_GENS):
-        thetas = es.ask()
-        means.append(es.tell([simulate_cartpole(t) for t in thetas.tolist()])
-                     ["mean_fitness"])
+        means.append(generation(es, lambda thetas: [
+            simulate_cartpole(t) for t in thetas])["mean_fitness"])
     final = simulate_cartpole(es.params.tolist())
     check(means[-1] > means[0], f"ask_tell: mean fitness did not rise: "
           f"{means}")
@@ -3371,6 +3368,288 @@ def phase_host_plane_2(torch, card):
     return counts
 
 
+# -- the user programs: fiber_tpu_torch.examples and entry ------------------
+
+def _example_kernels(torch, card):
+    """The three flash kernels held against their plain versions at
+    long_context_lm's attention (EXAMPLE_FLASH_SHAPE, causal), with
+    their device times, the plain versions', the library's and the
+    bounds; then ring attention with the flash kernel as the per-rank
+    block, and the plain ring, against the full-matrix reference at
+    dryrun_multichip's shape over RANKS ranks. Times are CUDA-graph
+    device times (``graph_ms``): at 256 rows a launch's work is shorter
+    than its enqueue. The library's backward is captured on the stream
+    its forward ran on, where autograd runs the backward's kernels.
+    Returns each kernel's row."""
+    from fiber_tpu_torch.ops import flash_attention as fa
+    from fiber_tpu_torch.ops.ring_attention import (
+        reference_attention,
+        ring_attention,
+    )
+    from fiber_tpu_torch.parallel.mesh import make_mesh
+    from fiber_tpu_torch.utils import flops
+
+    name, s, h, kvh, d, dt = EXAMPLE_FLASH_SHAPE
+    reps = EXAMPLE_GRAPH_REPS
+    q, k, v = _inputs(torch, s, h, kvh, d, getattr(torch, dt), seed=400)
+    o, lse = fa.flash_fwd(q, k, v, causal=True)
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal=True)
+    g = torch.Generator(device="cuda").manual_seed(450)
+    dout = _randn(torch, (s, h, d), q.dtype, g)
+    delta = fa.flash_bwd_delta(o, dout)
+    args = (q, k, v, dout, lse, delta)
+    dq = fa.flash_bwd_dq(*args, causal=True)
+    dk, dv = fa.flash_bwd_dkv(*args, causal=True)
+    torch.cuda.synchronize()
+    err = (o - ro).abs().max().item()
+    lse_err = (lse - rlse).abs().max().item()
+    check(err < TOL[dt] and lse_err < LSE_TOL,
+          f"{name}: forward max_abs_err {err} lse_err {lse_err}")
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, dout,
+                                            causal=True)
+    dq_err, dq_rel = _bwd_errors([dq], want[:1])
+    dkv_err, dkv_rel = _bwd_errors([dk, dv], want[1:])
+    check(dq_rel < BWD_TOL[dt] and dkv_rel < BWD_TOL[dt],
+          f"{name}: dq rel err {dq_rel}, dk/dv rel err {dkv_rel}")
+    shape = {"shape": name, "S": s, "heads": h, "kv_heads": kvh,
+             "head_dim": d, "dtype": dt, "causal": True,
+             "engine": ENGINE[dt], "bound_engine": flops.op_peak(dt)[1]}
+    fwd_bound = flops.bound_ms(
+        flops.attention_flops(s, h, d, causal=True),
+        q.nbytes + k.nbytes + v.nbytes + o.nbytes + lse.nbytes, dt)
+    rows = {"flash_fwd": dict(
+        shape, max_abs_err=err, lse_err=lse_err, tol=TOL[dt],
+        ms=graph_ms(torch, [lambda: fa.flash_fwd(q, k, v, causal=True)],
+                    reps),
+        plain_ms=graph_ms(torch, [lambda: fa.flash_attention_reference(
+            q, k, v, causal=True)], reps),
+        library_ms=graph_ms(torch, [_sdpa(torch, q, k, v, None)], reps),
+        bound_ms=fwd_bound[0], bound_by=fwd_bound[1])}
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        sdpa_bwd = _sdpa_bwd(torch, q, k, v, dout, None)
+    torch.cuda.synchronize()
+    library_bwd = graph_ms(torch, [sdpa_bwd], reps, stream=stream)
+    in_bytes = sum(x.nbytes for x in args)
+    for part, kernel, out_bytes, plain, part_err in (
+            ("dq", fa.flash_bwd_dq, q.nbytes, dict(dkv=False), dq_err),
+            ("dkv", fa.flash_bwd_dkv, k.nbytes + v.nbytes, dict(dq=False),
+             dkv_err)):
+        bound = flops.bound_ms(
+            flops.attention_bwd_flops(s, h, d, part=part),
+            in_bytes + out_bytes, dt)
+        rows[f"flash_bwd_{part}"] = dict(
+            shape, max_abs_err=part_err, tol=BWD_TOL[dt],
+            ms=graph_ms(torch, [lambda kernel=kernel: kernel(
+                *args, causal=True)], reps),
+            plain_ms=graph_ms(torch, [lambda plain=plain:
+                                      fa.flash_bwd_reference(
+                                          *args, causal=True, **plain)],
+                              reps),
+            library_ms=library_bwd, library_covers="dq+dkv",
+            bound_ms=bound[0], bound_by=bound[1])
+    del want
+    mesh = make_mesh("cuda", n=RANKS)
+    rs, rh, rd = EXAMPLE_RING_SHAPE
+    gen = torch.Generator().manual_seed(2)
+    rq, rk, rv = (torch.randn(rs, rh, rd, generator=gen).cuda()
+                  for _ in range(3))
+    with torch.no_grad():
+        ref = reference_attention(rq, rk, rv, causal=True)
+        ring_err = {
+            local: (ring_attention(rq, rk, rv, mesh=mesh, causal=True,
+                                   local=local) - ref).abs().max().item()
+            for local in ("flash", "xla")}
+    check(max(ring_err.values()) < TOL["float32"],
+          f"ring attention at {EXAMPLE_RING_SHAPE} over {RANKS} ranks: "
+          f"{ring_err}")
+    emit({"phase": "examples_kernels", "card": card, "rows": rows,
+          "ring": {"S": rs, "heads": rh, "head_dim": rd, "ranks": RANKS,
+                   "causal": True, "max_abs_err": ring_err,
+                   "tol": TOL["float32"]}})
+    return rows
+
+
+def _example_main(torch, module, argv):
+    """``fiber_tpu_torch.examples.<module>.main(argv)`` in this process:
+    (its standard output, its wall seconds)."""
+    mod = importlib.import_module(f"fiber_tpu_torch.examples.{module}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(list(argv))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"{module} {argv}: main returned {rc}")
+    return buf.getvalue(), secs
+
+
+def _last_line(out):
+    lines = out.strip().splitlines()
+    check(lines, "a program printed nothing")
+    return lines[-1]
+
+
+def _readme_lines():
+    """The README's quickstart lines as subprocesses: exit 0, the closing
+    line's evals/s, the wall seconds (a fresh interpreter included)."""
+    rows = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    for module, argv, pattern in README_LINES:
+        cmd = [sys.executable, "-m", f"fiber_tpu_torch.examples.{module}",
+               *argv]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=README_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"{' '.join(cmd[1:])} exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        last = _last_line(proc.stdout)
+        m = re.search(pattern, last)
+        check(m is not None, f"{module}: no evals/s in {last!r}")
+        rows[" ".join(cmd[2:])] = {
+            "wall_s": secs, "evals_per_s": float(m.group(1).replace(",", "")),
+            "closing_line": last}
+    return rows
+
+
+def _lm_steps(out):
+    """long_context_lm's logged steps: [(step, loss, half1, half2)]."""
+    rows = [(int(m.group(1)), *map(float, m.group(2, 3, 4)))
+            for m in map(STEP_LINE.search, out.splitlines()) if m]
+    check(rows, f"no step lines in {out[-500:]!r}")
+    return rows
+
+
+def phase_examples(torch, card):
+    """The port's user programs on the card. First the flash kernels at
+    long_context_lm's attention and the ring at dryrun_multichip's
+    (``_example_kernels``); then, with every kernel's count set to 0,
+    the README's two quickstart lines as subprocesses and in this
+    process the ``main`` of the programs below at their default widths
+    (depths cut as the constants above say), ``dryrun_multichip`` on
+    RANKS ranks and ``weak_scaling`` over 1, 2 and 4. ``long_context_lm
+    --attention flash`` runs at its defaults (LM_FLASH_STEPS steps) and
+    at LM_INDUCTION_ARGV, where the induction circuit must form (half2 <
+    LM_INDUCTION_BAR < half1 at the last step); the launches of each run
+    are exactly its training steps' and logged forwards' (3 a layer and
+    sequence, 1 a layer and sequence); the dry run launches
+    ``flash_fwd`` and ``ring_exchange``. Returns (the kernels' rows at
+    the example shape, the phase's launches)."""
+    import fiber_tpu_torch
+    from fiber_tpu_torch.entry import dryrun_multichip, weak_scaling
+    from fiber_tpu_torch.parallel.mesh import reset_default_mesh
+
+    start = time.perf_counter()
+    rows = _example_kernels(torch, card)
+    _reset_counts()
+    readme = _readme_lines()
+    runs = {}
+
+    def run(label, module, argv):
+        out, secs = _example_main(torch, module, argv)
+        runs[label] = {"seconds": secs, "closing_line": _last_line(out)}
+        return out
+
+    for algo in ("pgpe", "cma", "fullcma"):
+        run(f"es_cartpole --algo {algo} --fused", "es_cartpole",
+            ["--algo", algo, "--fused"])
+    run("es_cartpole --optimizer adam", "es_cartpole",
+        ["--optimizer", "adam"])
+
+    from fiber_tpu_torch.examples import long_context_lm
+
+    def lm_flash(argv):
+        """long_context_lm on the flash plane: its loss finite and lower
+        at the last logged step than at the first, and its launches
+        exactly its training steps' and logged forwards'. Returns the
+        logged steps."""
+        label = "long_context_lm " + " ".join(argv)
+        before = _counts()
+        out = run(label, "long_context_lm", argv)
+        lm = {k: v - before[k] for k, v in _counts().items()}
+        steps = _lm_steps(out)
+        first, last = steps[0], steps[-1]
+        check(all(math.isfinite(x) for row in steps for x in row)
+              and last[1] < first[1], f"{label}: loss {first} -> {last}")
+        _, lm_args = long_context_lm.parse_args(argv)
+        per = lm_args.batch * lm_args.layers   # launches of a step, a kind
+        check(lm["flash_bwd_dq"] == lm["flash_bwd_dkv"]
+              == lm_args.steps * per
+              and lm["flash_fwd"] == (lm_args.steps + len(steps)) * per
+              and lm["ring_exchange"] == 0, f"{label} launches {lm}")
+        runs[label].update(first_step=first, last_step=last, launches=lm,
+                           half2_below_half1_at_last=last[3] < last[2])
+        return steps
+
+    lm_flash(["--attention", "flash", "--steps", str(LM_FLASH_STEPS)])
+    steps = lm_flash(list(LM_INDUCTION_ARGV))
+    last = steps[-1]
+    check(last[3] < LM_INDUCTION_BAR < last[2], f"long_context_lm at the "
+          f"induction test's settings: half1 {last[2]}, half2 {last[3]} at "
+          f"step {last[0]}, against half2 < {LM_INDUCTION_BAR} < half1")
+    runs["long_context_lm " + " ".join(LM_INDUCTION_ARGV)].update(
+        first_below_bar=next((row[0] for row in steps
+                              if row[3] < LM_INDUCTION_BAR), None))
+
+    conf = fiber_tpu_torch.config.get()
+    shape = conf.mesh_shape
+    conf.update(mesh_shape=str(RANKS))
+    reset_default_mesh()
+    try:
+        out = run(f"long_context_lm --attention ring --steps "
+                  f"{LM_RING_STEPS} (mesh_shape {RANKS})", "long_context_lm",
+                  ["--attention", "ring", "--steps", str(LM_RING_STEPS)])
+    finally:
+        conf.update(mesh_shape=shape)
+        reset_default_mesh()
+    check(f"over {RANKS} devices" in out, f"ring run: {out[:300]!r}")
+    ring_steps = _lm_steps(out)
+    check(all(math.isfinite(x) for row in ring_steps for x in row),
+          f"long_context_lm ring: {ring_steps}")
+    runs[f"long_context_lm --attention ring --steps {LM_RING_STEPS} "
+         f"(mesh_shape {RANKS})"].update(first_step=ring_steps[0],
+                                         last_step=ring_steps[-1])
+
+    out = run("tune_es", "tune_es", [])
+    tune = json.loads(_last_line(out))
+    check(len(tune["rows"]) == 4 and tune["platform"] == "gpu",
+          f"tune_es: {tune}")
+    runs["tune_es"]["record"] = tune
+    run("es_conv_pixels", "es_conv_pixels", [])
+    out = run("pi_estimation --device-map", "pi_estimation", ["--device-map"])
+    pi = float(re.search(r"pi ~= (\S+)", out).group(1))
+    check(abs(pi - math.pi) < 0.01, f"pi_estimation: {pi}")
+    run("es_pool_gym", "es_pool_gym", [])
+    out = run("pod_es_ring --sim 2 --size 2", "pod_es_ring",
+              ["--sim", "2", "--size", "2"])
+    check("all ranks joined cleanly" in out
+          and "params spread over the ranks: 0.0" in out,
+          f"pod_es_ring --sim: {out[-500:]!r}")
+
+    before = _counts()
+    t0 = time.perf_counter()
+    dryrun_multichip(RANKS)
+    dry = {k: v - before[k] for k, v in _counts().items()}
+    check(dry["flash_fwd"] > 0 and dry["ring_exchange"] > 0,
+          f"dryrun_multichip launches {dry}")
+    runs[f"dryrun_multichip({RANKS})"] = {
+        "seconds": time.perf_counter() - t0, "launches": dry}
+    t0 = time.perf_counter()
+    scaling = weak_scaling((1, 2, 4))
+    check([c["n_devices"] for c in scaling["weak"]["curve"]] == [1, 2, 4]
+          and scaling["platform"] == "gpu", f"weak_scaling: {scaling}")
+    runs["weak_scaling((1, 2, 4))"] = {
+        "seconds": time.perf_counter() - t0, "record": scaling}
+    counts = _counts()
+    check(all(counts[name] > 0 for name in counts),
+          f"a kernel was not launched on the examples' paths: {counts}")
+    emit({"phase": "examples", "card": card, "readme": readme,
+          "runs": runs, "launches": counts,
+          "phase_seconds": time.perf_counter() - start})
+    return rows, counts
+
+
 # -- POET and bench.py's other ES envs --------------------------------------
 
 def _record_poet_draws(poet):
@@ -3847,6 +4126,8 @@ def main():
     host_plane_launches = phase_host_plane(torch)
     torch.cuda.empty_cache()
     host_plane_2_launches = phase_host_plane_2(torch, card)
+    torch.cuda.empty_cache()
+    example_rows, example_launches = phase_examples(torch, card)
 
     lm, lm_bwd = fwd_rows["lm_f32"], bwd_rows["lm_f32"]
     bf16, bf16_bwd = fwd_rows["attention_bf16"], bwd_rows["attention_bf16"]
@@ -3902,7 +4183,13 @@ def main():
                      launches_pool=pool_launches[entry["name"]],
                      launches_host_plane=host_plane_launches[entry["name"]],
                      launches_host_plane_2=host_plane_2_launches[
-                         entry["name"]])
+                         entry["name"]],
+                     launches_examples=example_launches[entry["name"]])
+        if entry["name"] in example_rows:
+            entry["head_dim16_float32"] = {
+                k: example_rows[entry["name"]][k] for k in (
+                    "shape", "S", "heads", "head_dim", "max_abs_err", "ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {

@@ -26,3 +26,10 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Waits for the work queued on ``dev``: a timed region on the card
+    ends here (a no-op on the CPU, which runs eagerly)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -14,6 +14,19 @@ one-device ES generations, as its multi-chip dry run takes, and
 TinyLM training: :func:`train_lm` is ``bench.py --lm``
 (``_lm_bench``): its ring leg over a mesh, and the single-device flash
 leg it is compared with.
+
+The multi-rank dry run and the scaling record: :func:`dryrun_multichip`
+and :func:`weak_scaling` are the JAX package's ``__graft_entry__.py``
+functions of those names, on the port's mesh, whose ranks all sit on one
+device. Run as a module::
+
+    python -m fiber_tpu_torch.entry [N] [--device cpu]
+    python -m fiber_tpu_torch.entry --weak-scaling [--json PATH]
+
+With N, the dry run on N ranks; with no argument, :func:`entry`'s batch
+and then the dry run on the default mesh's ranks (at most 8);
+``--weak-scaling`` prints the scaling record and writes it to ``--json``
+when that names a file.
 """
 
 from __future__ import annotations
@@ -23,6 +36,7 @@ import time
 import torch
 
 from fiber_tpu_torch.device import resolve_device
+from fiber_tpu_torch.device import synchronize as _sync
 from fiber_tpu_torch.models.envs import (
     CartPole,
     ParamBipedWalker,
@@ -33,7 +47,7 @@ from fiber_tpu_torch.models.policies import ConvPolicy, MLPPolicy
 from fiber_tpu_torch.models.transformer import TinyLM, adamw, make_train_step
 from fiber_tpu_torch.ops.es import EvolutionStrategy
 from fiber_tpu_torch.ops.poet import POET
-from fiber_tpu_torch.parallel.mesh import make_mesh
+from fiber_tpu_torch.parallel.mesh import default_mesh, make_mesh
 from fiber_tpu_torch.utils import flops as flopsmod
 
 HIDDEN = (32, 32)
@@ -43,6 +57,36 @@ LM_WIDTHS = dict(vocab=256, dim=256, heads=8, layers=4)
 
 def flagship_policy() -> MLPPolicy:
     return MLPPolicy(CartPole.obs_dim, CartPole.act_dim, hidden=HIDDEN)
+
+
+def flagship_es(mesh, pop: int, steps: int, hidden=HIDDEN, seed: int = 0):
+    """The CartPole ES as :func:`run_es` builds it (sigma 0.1, lr 0.03,
+    noise and states from ``seed + 1``, params from ``seed``) with an MLP
+    of ``hidden`` over ``mesh``. Returns ``(es, params)``."""
+    policy = MLPPolicy(CartPole.obs_dim, CartPole.act_dim, hidden=hidden)
+    es = EvolutionStrategy(
+        lambda thetas, states: CartPole.rollout(policy.act, thetas, states,
+                                                max_steps=steps),
+        CartPole.reset, dim=policy.dim, pop_size=pop, sigma=0.1, lr=0.03,
+        mesh=mesh,
+        generator=torch.Generator(device=mesh.device).manual_seed(seed + 1))
+    return es, policy.init(torch.Generator().manual_seed(seed),
+                           device=mesh.device)
+
+
+def fused_twice(es, params, generations: int):
+    """``es.run_fused`` of ``generations`` from ``params``, then again
+    from its params, each synchronized and timed: on CUDA the first
+    captures the generation's graph and the second only replays it.
+    Returns ``(params, stats, first_secs, second_secs)`` of the second
+    run."""
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        params, stats = es.run_fused(params, generations)
+        _sync(es.device)
+        secs.append(time.perf_counter() - t0)
+    return params, stats, secs[0], secs[1]
 
 
 def entry(device=None, pop: int = 8, max_steps: int = 100, seed: int = 0):
@@ -144,12 +188,7 @@ def run_es(device=None, pop=None, max_steps=None, generations: int = 1,
     generation."""
     es, params, policy, env_name, steps = _es_setup(
         env, device, pop, max_steps, sigma, lr, seed)
-    params, stats = es.run_fused(params, generations)
-    _sync(es.device)
-    t0 = time.perf_counter()
-    params, stats = es.run_fused(params, generations)
-    _sync(es.device)
-    secs = time.perf_counter() - t0
+    params, stats, _, secs = fused_twice(es, params, generations)
     gen_flops = flopsmod.es_flops_per_gen(policy, env_name, steps,
                                           es.pop_size, policy.dim)
     return params, stats, throughput(es.pop_size * generations,
@@ -223,6 +262,215 @@ def train_lm(device=None, seq: int = 16384, steps: int = 5, seed: int = 0,
     return losses.cpu(), time.perf_counter() - t0
 
 
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _finite(t, what):
+    if not bool(torch.isfinite(torch.as_tensor(t)).all()):
+        raise AssertionError(f"{what}: not finite: {t}")
+
+
+def _close(got, want, tol, what):
+    err = float((got - want).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"{what}: max abs error {err} > {tol}")
+
+
+def dryrun_multichip(n_devices: int, device=None) -> None:
+    """One step of every population family, one TinyLM AdamW step
+    through ring attention, and ring attention (plain and with the flash
+    kernel as the per-rank block) against the full-matrix reference,
+    all over an ``n_devices``-rank mesh on ``device`` at tiny shapes;
+    with 4 or more ranks, an even count, ring attention on the ``(2,
+    n/2)`` ``("data", "seq")`` grid too. Raises on a non-finite stat or
+    loss, or attention off the reference by more than 2e-5. The JAX
+    package's ``dryrun_multichip`` step by step, each draw from its own
+    seed (the keys' numbers)."""
+    from fiber_tpu_torch.ops import (
+        CMAES,
+        PGPE,
+        MAPElites,
+        NoveltyES,
+        SepCMAES,
+    )
+    from fiber_tpu_torch.ops.ring_attention import (
+        reference_attention,
+        ring_attention,
+    )
+
+    dev = resolve_device(device)
+    n = int(n_devices)
+    mesh = make_mesh(dev, n=n)
+    policy = MLPPolicy(CartPole.obs_dim, CartPole.act_dim, hidden=(8,))
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def eval_fn(thetas, states):
+        return CartPole.rollout(policy.act, thetas, states, max_steps=20)
+
+    es = EvolutionStrategy(eval_fn, CartPole.reset, dim=policy.dim,
+                           pop_size=4 * n, sigma=0.1, lr=0.05, mesh=mesh,
+                           generator=gen(1))
+    params = policy.init(torch.Generator().manual_seed(0), device=dev)
+    new_params, stats = es.step(params)
+    _finite(stats, "ES stats")
+    if new_params.shape != (policy.dim,):
+        raise AssertionError(f"ES params shape {tuple(new_params.shape)}")
+
+    for cls, seed in ((PGPE, 3), (SepCMAES, 4), (CMAES, 5)):
+        opt = cls(eval_fn, CartPole.reset, dim=policy.dim, pop_size=4 * n,
+                  mesh=mesh, generator=gen(seed))
+        _, fstats = opt.step(opt.init_state(params))
+        _finite(fstats, f"{cls.__name__} stats")
+
+    def eval_bc_fn(thetas, states):
+        return eval_fn(thetas, states), torch.stack(
+            [torch.tanh(thetas[:, 0]), torch.tanh(thetas[:, 1])], dim=1)
+
+    nes = NoveltyES(eval_bc_fn, CartPole.reset, dim=policy.dim, bc_dim=2,
+                    pop_size=4 * n, mesh=mesh, archive_size=16, k=3,
+                    adaptive=True, generator=gen(6))
+    _, nstats = nes.step(nes.init_state(params))
+    _finite(nstats, "NoveltyES stats")
+    me = MAPElites(eval_bc_fn, CartPole.reset, dim=policy.dim, bc_dim=2,
+                   bc_low=(-1.0, -1.0), bc_high=(1.0, 1.0), cells_per_dim=4,
+                   batch_size=2 * n, mesh=mesh, generator=gen(10))
+    _, mstats = me.step(me.init_state(params))
+    _finite(mstats, "MAPElites stats")
+
+    lm = TinyLM(vocab=16, dim=16, heads=2, layers=1, max_seq=8 * n,
+                mesh=mesh, attention="ring",
+                generator=torch.Generator().manual_seed(8))
+    lm_step = make_train_step(lm, adamw(lm.parameters(), 1e-3))
+    toks = torch.randint(0, 16, (8 * n,),
+                         generator=torch.Generator().manual_seed(9))
+    _finite(lm_step(toks.to(dev)), "TinyLM loss")
+
+    g = torch.Generator().manual_seed(2)
+    s, h, d = 8 * n, 2, 8
+    q, k, v = (torch.randn(s, h, d, generator=g).to(dev) for _ in range(3))
+    with torch.no_grad():
+        want = reference_attention(q, k, v, causal=True)
+        _close(ring_attention(q, k, v, mesh=mesh, causal=True), want, 2e-5,
+               "ring attention")
+        _close(ring_attention(q, k, v, mesh=mesh, causal=True,
+                              local="flash"), want, 2e-5,
+               "ring x flash attention")
+        if n >= 4 and n % 2 == 0:
+            seq = n // 2
+            grid = make_mesh(dev, shape=(2, seq), names=("data", "seq"))
+            qb, kb, vb = (torch.randn(4, 8 * seq, h, d, generator=g).to(dev)
+                          for _ in range(3))
+            want2 = torch.stack([reference_attention(*t, causal=True)
+                                 for t in zip(qb, kb, vb)])
+            _close(ring_attention(qb, kb, vb, mesh=grid, causal=True), want2,
+                   2e-5, "ring attention on the data x seq grid")
+    _sync(dev)
+
+
+def _es_scaling_curve(pop_for_n, mesh_sizes, gens: int, steps: int,
+                      device=None) -> list:
+    """Fused ES on an n-rank mesh for each n of ``mesh_sizes``, the
+    population ``pop_for_n(n)``: a warm-up ``run_fused`` of ``gens``
+    generations, then a timed one. One timing row a mesh size."""
+    dev = resolve_device(device)
+    curve = []
+    for n in mesh_sizes:
+        es, params = flagship_es(make_mesh(dev, n=n), pop_for_n(n), steps)
+        dt = fused_twice(es, params, gens)[3]
+        evals = es.pop_size * gens
+        curve.append({
+            "n_devices": n,
+            "pop_size": es.pop_size,
+            "wall_sec": round(dt, 4),
+            "steps_per_sec": round(gens / dt, 3),
+            "evals_per_sec": round(evals / dt, 1),
+            "evals_per_sec_per_device": round(evals / dt / n, 1),
+        })
+    return curve
+
+
+def weak_scaling(mesh_sizes=(1, 2, 4, 8), gens: int = 20,
+                 per_device_pop: int = 256, steps: int = 100,
+                 device=None) -> dict:
+    """The weak and strong scaling record of the JAX package's
+    ``weak_scaling``, over meshes of ``mesh_sizes`` ranks on ``device``.
+
+    Weak curve: the population grows with the rank count
+    (``per_device_pop * n``). Strong curve: the same total population
+    (``per_device_pop * max(mesh_sizes)``) at every size. Every rank of
+    the port's mesh sits on the one device, so the weak curve's
+    per-rank throughput falls with n by construction, and the strong
+    curve's wall-time growth with n is the per-rank overhead of the
+    step (one rollout call for every rank, then a sum of n per-rank
+    gradients)."""
+    dev = resolve_device(device)
+    weak = _es_scaling_curve(lambda n: per_device_pop * n, mesh_sizes, gens,
+                             steps, dev)
+    total = per_device_pop * max(mesh_sizes)
+    strong = _es_scaling_curve(lambda n: total, mesh_sizes, gens, steps,
+                               dev)
+    wbase = weak[0]["evals_per_sec_per_device"] if weak else None
+    sbase = strong[0]["wall_sec"] if strong else None
+    return {
+        "workload": "fused ES, MLP CartPole "
+                    f"({gens} gens, {steps}-step episodes)",
+        "platform": "gpu" if dev.type == "cuda" else dev.type,
+        "weak": {
+            "note": ("pop = per_device_pop x n. Every rank sits on one "
+                     f"{dev.type} device: the ranks share it, so per-rank "
+                     "throughput falls with n by construction; tracks "
+                     "gross curve-shape regressions only"),
+            "curve": weak,
+            "efficiency_vs_1dev": [
+                round(c["evals_per_sec_per_device"] / wbase, 3)
+                for c in weak
+            ] if wbase else [],
+        },
+        "strong": {
+            "note": ("constant total pop = "
+                     f"{total} at every mesh size. The ranks share one "
+                     "device, so compute is constant in n and wall-time "
+                     "growth with n isolates the per-rank dispatch and "
+                     "collective overhead of the step"),
+            "curve": strong,
+            "overhead_vs_1dev": [
+                round(c["wall_sec"] / sbase, 3) for c in strong
+            ] if sbase else [],
+        },
+    }
+
+
+def main(argv=None) -> int:
+    import argparse
+    import json
+
+    parser = argparse.ArgumentParser(prog="python -m fiber_tpu_torch.entry")
+    parser.add_argument("n", nargs="?", type=int, default=None,
+                        help="ranks of the dry run")
+    parser.add_argument("--weak-scaling", action="store_true")
+    parser.add_argument("--json", default="",
+                        help="file for the --weak-scaling record")
+    parser.add_argument("--device", default=None,
+                        help="cuda (the default) or cpu")
+    args = parser.parse_args(argv)
+    if args.weak_scaling:
+        rec = weak_scaling(device=args.device)
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(rec, f, indent=1)
+        print(json.dumps(rec))
+        return 0
+    if args.n is not None:
+        dryrun_multichip(args.n, args.device)
+        print("dryrun_multichip ok")
+        return 0
+    fn, fargs = entry(args.device)
+    print("entry ok:", fn(*fargs).cpu().numpy())
+    dryrun_multichip(min(8, default_mesh(args.device).n_dev), args.device)
+    print("dryrun_multichip ok")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

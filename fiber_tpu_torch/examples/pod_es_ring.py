@@ -8,38 +8,22 @@ ranks join one ``jax.distributed`` runtime and run a fused ES over the
 global mesh. Every rank draws the whole generation from a generator of
 the same seed, rolls out its own members, and gathers the fitness and
 sums the gradient across the processes, so its params equal the
-single-process mesh's of as many ranks. The JAX example's ``--sim``
-(ranks as jobs of simulated cluster hosts) needs the cluster backend,
-which the port has not yet.
+single-process mesh's of as many ranks. With ``--sim N`` the ranks are
+jobs of N simulated cluster hosts (local host agents of the ``tpu``
+backend, ``sim:N``), as on a real cluster; the run then prints the
+spread of the ranks' params, which must be 0.
 
 Run:  python -m fiber_tpu_torch.examples.pod_es_ring [--size 2]
-          [--device cpu]
+          [--sim N] [--device cpu]
 """
 
 import argparse
+import contextlib
 import functools
+import os
 import sys
 
-
-def flagship_es(mesh, pop: int, steps: int, hidden=(32, 32), seed: int = 0):
-    """The CartPole ES as ``entry.run_es`` builds it (sigma 0.1, lr 0.03,
-    noise and states from ``seed + 1``, params from ``seed``) with an MLP
-    of ``hidden`` over ``mesh``. Returns ``(es, params)``."""
-    import torch
-
-    from fiber_tpu_torch.models.envs import CartPole
-    from fiber_tpu_torch.models.policies import MLPPolicy
-    from fiber_tpu_torch.ops.es import EvolutionStrategy
-
-    policy = MLPPolicy(CartPole.obs_dim, CartPole.act_dim, hidden=hidden)
-    es = EvolutionStrategy(
-        lambda thetas, states: CartPole.rollout(policy.act, thetas, states,
-                                                max_steps=steps),
-        CartPole.reset, dim=policy.dim, pop_size=pop, sigma=0.1, lr=0.03,
-        mesh=mesh,
-        generator=torch.Generator(device=mesh.device).manual_seed(seed + 1))
-    return es, policy.init(torch.Generator().manual_seed(seed),
-                           device=mesh.device)
+from fiber_tpu_torch.entry import flagship_es
 
 
 def params_spread(params, mesh) -> float:
@@ -89,20 +73,68 @@ def train_rank(rank, size, pop=None, steps=100, hidden=(16,),
         dist.destroy_process_group()
 
 
-def main():
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--size", type=int, default=2,
-                        help="ring size (rank processes)")
-    parser.add_argument("--device", default=None,
-                        help="cuda (the default) or cpu")
-    args = parser.parse_args()
+@contextlib.contextmanager
+def sim_cluster(n: int):
+    """Within it, processes start as jobs of ``n`` local host agents
+    (the ``tpu`` backend on ``sim:n``); on the way out the agents stop
+    and the backend selection is restored."""
+    from fiber_tpu_torch import config
+    from fiber_tpu_torch.backends import get_backend, reset_backends
 
+    env_backend = os.environ.get("FIBER_BACKEND")
+    hosts = config.get().tpu_hosts
+    os.environ["FIBER_BACKEND"] = "tpu"   # the environment outranks init
+    config.get().update(tpu_hosts=f"sim:{n}")
+    reset_backends()
+    try:
+        backend = get_backend()           # starts the agents
+        try:
+            yield
+        finally:
+            backend.shutdown_sim_cluster()
+    finally:
+        if env_backend is None:
+            os.environ.pop("FIBER_BACKEND", None)
+        else:
+            os.environ["FIBER_BACKEND"] = env_backend
+        config.get().update(tpu_hosts=hosts)
+        reset_backends()
+
+
+def run_ring(size: int, device=None) -> dict:
+    """The ES over a ``Ring`` of ``size`` rank processes on the current
+    backend. Returns ``{rank: {"params", "stats", "spread"}}``."""
+    import fiber_tpu_torch
     from fiber_tpu_torch.parallel.ring import (Ring,
                                                torch_distributed_initializer)
 
-    Ring(args.size, functools.partial(train_rank, device=args.device),
-         initializer=torch_distributed_initializer).run()
+    manager = fiber_tpu_torch.Manager()
+    try:
+        results = manager.dict()
+        Ring(size, functools.partial(train_rank, device=device,
+                                     results=results),
+             initializer=torch_distributed_initializer).run()
+        return {r: results[r] for r in range(size)}
+    finally:
+        manager.shutdown()
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m fiber_tpu_torch.examples.pod_es_ring")
+    parser.add_argument("--size", type=int, default=2,
+                        help="ring size (one rank per cluster host)")
+    parser.add_argument("--sim", type=int, default=0, metavar="N",
+                        help="run against N simulated localhost agents")
+    parser.add_argument("--device", default=None,
+                        help="cuda (the default) or cpu")
+    args = parser.parse_args(argv)
+
+    with sim_cluster(args.sim) if args.sim else contextlib.nullcontext():
+        got = run_ring(args.size, args.device)
     print("all ranks joined cleanly")
+    spread = max(r["spread"] for r in got.values())
+    print(f"params spread over the ranks: {spread}")
     return 0
 
 

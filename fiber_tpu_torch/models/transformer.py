@@ -343,13 +343,15 @@ class TinyLM(nn.Module):
         return torch.cat(out)
 
 
-def adamw(params, lr: float) -> torch.optim.AdamW:
-    """``torch.optim.AdamW`` with ``optax.adamw``'s defaults written out:
-    betas (0.9, 0.999), eps 1e-8 and weight decay 1e-4 on every
-    parameter (one group; optax masks nothing). Torch's own default
-    weight decay is 1e-2."""
+def adamw(params, lr: float,
+          weight_decay: float = 1e-4) -> torch.optim.AdamW:
+    """``torch.optim.AdamW`` with ``optax.adamw(lr, weight_decay=...)``'s
+    defaults written out: betas (0.9, 0.999), eps 1e-8 added outside the
+    square root, and the decay (optax's default 1e-4) on every parameter
+    (one group; optax masks nothing). Torch's own default weight decay
+    is 1e-2."""
     return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=1e-4)
+                             weight_decay=weight_decay)
 
 
 def make_train_step(model: TinyLM, optimizer: torch.optim.Optimizer,

@@ -8,8 +8,9 @@ import importlib as _importlib
 
 #: name -> the submodule that defines it
 _LAZY = {
-    **dict.fromkeys(("Mesh", "make_mesh", "mesh_for", "shard", "unshard"),
-                    "mesh"),
+    **dict.fromkeys(("Mesh", "default_mesh", "make_mesh", "mesh_for",
+                     "mesh_from_config", "reset_default_mesh", "shard",
+                     "unshard"), "mesh"),
     **dict.fromkeys(("DeviceMapPlan", "device_map"), "dmap"),
     **dict.fromkeys(("Ring", "RingNode"), "ring"),
 }

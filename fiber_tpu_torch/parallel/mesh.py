@@ -28,12 +28,22 @@ entry of ``devices``, ``device`` included, is this process's device).
 Collectives on it cross processes (``ops/collectives.py``); the
 single-controller functions below, which need every rank's block in
 one process, are not for it.
+
+:func:`default_mesh` is the process-wide default of the JAX package's
+``default_mesh``: the grid that the ``mesh_shape`` setting names
+(:func:`mesh_from_config`), else one rank on the device, since the
+port's ranks are not the machine's devices. The JAX module's
+``is_multidevice_cpu`` and ``cpu_step_barrier`` guard XLA's in-process
+CPU collective rendezvous, which the port does not have: a
+single-controller mesh runs its ranks one after another in one thread.
+They have no counterpart here.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+import threading
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -164,6 +174,42 @@ def mesh_shape(spec: str) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
         raise ValueError(f"mesh spec {spec!r} has more than "
                          f"{len(_DEFAULT_NAMES)} axes")
     return dims, _DEFAULT_NAMES[:len(dims)]
+
+
+def mesh_from_config() -> Optional[Tuple[Tuple[int, ...], Tuple[str, ...]]]:
+    """``(shape, names)`` of the ``mesh_shape`` setting (see
+    :func:`mesh_shape`), or None when it is empty."""
+    from fiber_tpu_torch import config
+
+    spec = config.get().mesh_shape
+    return mesh_shape(spec) if spec else None
+
+
+_default_meshes: dict = {}
+_default_lock = threading.Lock()
+
+
+def default_mesh(device=None) -> Mesh:
+    """The process-wide default mesh on ``device`` (CUDA unless the
+    caller asks for the CPU), made at the first call for that device:
+    the grid that :func:`mesh_from_config` names, every rank on the
+    device, else one rank."""
+    dev = resolve_device(device)
+    with _default_lock:
+        mesh = _default_meshes.get(dev)
+        if mesh is None:
+            cfg = mesh_from_config()
+            mesh = (make_mesh(dev) if cfg is None
+                    else make_mesh(dev, shape=cfg[0], names=cfg[1]))
+            _default_meshes[dev] = mesh
+        return mesh
+
+
+def reset_default_mesh() -> None:
+    """Drops the default meshes, so that the next :func:`default_mesh`
+    reads the ``mesh_shape`` setting again."""
+    with _default_lock:
+        _default_meshes.clear()
 
 
 def mesh_for(device=None, mesh: Mesh = None) -> Mesh:
