@@ -29,7 +29,8 @@ dispatch, a ``sim:2`` cluster with the CLI's views of its agents,
 ``Pool.trace_dump`` of a profiled map and ``flash_fwd`` call, and the
 serve daemon; the user programs of ``fiber_tpu_torch.examples``, the
 README's quickstart lines among them, ``entry.dryrun_multichip`` and
-``weak_scaling``) and checks what comes out;
+``weak_scaling``; and ``python -m fiber_tpu_torch.bench``'s modes) and
+checks what comes out;
 the ES, POET and env lines carry model FLOP/s and MFU, and the es
 phase writes one generation's profiler trace under TRACE_DIR. Phases
 print one JSON line each (build, kernels, kernels_bwd, kernels_ring,
@@ -38,7 +39,7 @@ lm_mesh, lm_mesh_train, es_mesh, es_families, es_families_smooth,
 novelty, map_elites, ask_tell, device_map, poet, poet_mesh,
 checkpoint, es_envs, pool, managers, host_ring, ring_es, poet_pool,
 capture_under_load, durable, hier, sim_cluster, trace, serve,
-examples_kernels, examples);
+examples_kernels, examples, bench, timing);
 then the
 card's name and power limit as nvidia-smi reports them, the kernel
 summary line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -193,7 +194,7 @@ ES_PARAM_TOL = 1e-6   # fused vs eager params (the same kernels: 0 expected)
 # (32, 32); CMAES at es_cartpole.py --algo fullcma's default pop 1024.
 FAMILY_POP = 4096
 FAMILY_STEPS = 500
-FAMILY_GENS = 10
+FAMILY_GENS = 5   # 10 until the bench phase came (the script's time)
 FAMILY_MESH_GENS = 3
 # one step over 4 ranks vs one rank: the same returns, sums per rank
 FAMILY_MESH_TOL = 1e-5
@@ -255,7 +256,7 @@ HOST_RING_MB = 8
 HOST_RING_REPS = 5
 RING_ES_GENS = 3
 POET_POOL_WORKERS = 2
-POET_POOL_ITERS = 2
+POET_POOL_ITERS = 1   # 2 until the bench phase came (the script's time)
 # EXIT_PROBE_CHILDREN processes on the card each probe the device gauges
 # from a daemon thread without pause as they exit, and as many run the
 # same loop on a bare ``torch.cuda.mem_get_info`` (the control).
@@ -309,11 +310,16 @@ README_LINES = (
 )
 README_TIMEOUT_S = 300
 # long_context_lm --attention ring over RANKS ranks (mesh_shape "4"):
-# steps cut from the default 300
-LM_RING_STEPS = 10
+# steps cut from the default 300 (from 10 to 3 when the bench phase
+# came, for the script's time)
+LM_RING_STEPS = 3
 # long_context_lm --attention flash at its defaults: steps cut from 300
-# for the script's time (the induction run below trains 300)
-LM_FLASH_STEPS = 100
+# for the script's time (100 until the bench phase came; the induction
+# run below trains 300)
+LM_FLASH_STEPS = 50
+# es_cartpole --optimizer adam: generations cut from its default 50 for
+# the script's time (an eager Adam generation is launch-bound)
+ADAM_EXAMPLE_GENS = 20
 # long_context_lm --attention flash at the settings of the JAX package's
 # induction test (tests/test_device.py,
 # test_tiny_lm_induction_through_ring_attention: S 64, vocab 16, lr 3e-3,
@@ -328,9 +334,10 @@ STEP_LINE = re.compile(r"step\s+(\d+)\s+loss (\S+)\s+half1 (\S+) .*"
 # an HBM cell of `devices` and `top`: used/limit in numbers
 HBM_CELL = re.compile(r"\d+(\.\d+)?(B|KB|MB|GB)/\d+\.\dGB")
 # bench.py --poet (ParamCartPole, MLP (16,), pop 4096, 500 steps, 6
-# pairs, 4 ES steps a pair), cut from bench.py's 10 iterations to 2;
-# the card against the CPU on a small POET
-POET_ITERS = 2
+# pairs, 4 ES steps a pair), cut from bench.py's 10 iterations to 1 (2
+# until the bench phase came, for the script's time); the card against
+# the CPU on a small POET
+POET_ITERS = 1
 POET_ES_STEPS = 4
 POET_SMALL = dict(pop=64, max_steps=60, max_pairs=6)
 POET_SMALL_ITERS = 2
@@ -346,8 +353,8 @@ CKPT_POET_ITERS = 1
 TRACE_DIR = ".traces"
 # bench.py --biped (pop 4096, 400 steps) and --pixels (pop 1024, 60
 # steps) through run_fused, cut from bench.py's default 10 generations
-# to 5
-ES_ENV_GENS = 5
+# to 3 (5 until the bench phase came, for the script's time)
+ES_ENV_GENS = 3
 # the other envs and policies, one ES step each, card against CPU at
 # pop 4096 (CartPole episodes of 200 steps): survival returns that agree
 # exactly on ENV_SURVIVAL_SHARE of the members (as phase_es); continuous
@@ -363,6 +370,17 @@ ENV_CONTINUOUS_SHARE = 0.9
 ENV_RETURN_TOL = 1e-3
 # the biped's 400 steps, card against CPU, on 1024 members (reported)
 BIPED_CHECK_POP = 1024
+# the bench phase: python -m fiber_tpu_torch.bench at bench.py's widths.
+# The default mode (ES pop 4096 x 500 steps and the pool leg) runs as a
+# user types it, in a subprocess; the others through bench.main in this
+# process, so that the launch counters see them. Depth cut from
+# bench.py's 10 generations / iterations to 2 (POET 1); --attention and
+# --lm keep their 5 timed calls / steps and S 16384, --ici its defaults.
+BENCH_SUBPROCESS_ARGV = ("--gens", "2")
+BENCH_IN_PROCESS = (("--pixels", "--gens", "2"), ("--biped", "--gens", "2"),
+                    ("--poet", "--gens", "1"), ("--attention",), ("--lm",),
+                    ("--ici",))
+BENCH_TIMEOUT_S = 300
 # The C interface's dtype codes
 DTYPE_CODE = {"float": 0, "bfloat16": 1}
 # What runs the products of the flash kernels, by input type
@@ -3554,8 +3572,9 @@ def phase_examples(torch, card):
     for algo in ("pgpe", "cma", "fullcma"):
         run(f"es_cartpole --algo {algo} --fused", "es_cartpole",
             ["--algo", algo, "--fused"])
-    run("es_cartpole --optimizer adam", "es_cartpole",
-        ["--optimizer", "adam"])
+    run(f"es_cartpole --optimizer adam --gens {ADAM_EXAMPLE_GENS}",
+        "es_cartpole", ["--optimizer", "adam", "--gens",
+                        str(ADAM_EXAMPLE_GENS)])
 
     from fiber_tpu_torch.examples import long_context_lm
 
@@ -3648,6 +3667,123 @@ def phase_examples(torch, card):
           "runs": runs, "launches": counts,
           "phase_seconds": time.perf_counter() - start})
     return rows, counts
+
+
+# -- the benchmark command ----------------------------------------------------
+
+def _bench_launches(label):
+    """The kernel launches of the bench run ``label`` names must
+    make: ``--attention``'s three flash legs ``flash_fwd`` once a call
+    (a warm-up and bench.ITERS timed), ``--lm``'s flash leg the three
+    flash kernels once a layer and step (a warm-up step and bench.ITERS
+    timed); nothing else launches a kernel (one rank: no rotation)."""
+    from fiber_tpu_torch import bench
+
+    want = dict.fromkeys(_counts(), 0)
+    calls = 1 + bench.ITERS
+    if "--attention" in label:
+        want["flash_fwd"] = 3 * calls
+    if "--lm" in label:
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            want[name] = LM_CFG["layers"] * calls
+    return want
+
+
+def _check_bench_lines(torch, label, rc, lines, launches):
+    """A bench run's lines: on the card (``platform`` "cuda", the card's
+    ``device_kind``), a positive value, no error key, the launches it
+    reports and the counters' both :func:`_bench_launches`'s, the
+    attention legs within bench.LEG_TOL of the headline and the LM's
+    flash loss within LM_TOL of the ring leg's; ``--ici``: the payload
+    on the card, every repeat out of the tier, and exit code 1 only for
+    a wall ratio under its floor."""
+    from fiber_tpu_torch import bench
+
+    check(lines, f"{label}: no JSON line")
+    want = _bench_launches(label)
+    for line in lines:
+        errors = [k for k in line if k == "error" or k.endswith("_error")]
+        check(not errors, f"{label}: {[(k, line[k]) for k in errors]}")
+        check(line["launches"] == want, f"{label}: launches "
+              f"{line['launches']} against {want}")
+    check(launches is None or launches == want,
+          f"{label}: the counters saw {launches} against {want}")
+    first = lines[0]
+    check(first["platform"] == "cuda", f"{label}: platform {first}")
+    if "--ici" in label:
+        wire, ratio, gates = lines
+        check(wire["payload_shape_ok"]
+              and wire["payload_device"].startswith("cuda")
+              and wire["device_tier_hits"] >= wire["generations"] - 1
+              and wire["value"] <= wire["budget"]
+              and not gates["over_budget"] and not gates["tier_cold"],
+              f"{label}: {wire} {gates}")
+        check(rc == int(gates["under_floor"]),
+              f"{label}: exit code {rc} with gates {gates}")
+        return
+    check(rc == 0, f"{label}: exit code {rc}")
+    check(len(lines) == 1 and first["value"] > 0
+          and first["device_kind"] == torch.cuda.get_device_name(0).lower(),
+          f"{label}: {first}")
+    if "--attention" in label:
+        errs = [first[k] for k in ("flash_max_err_vs_xla",
+                                   "flash_window_prefix_err",
+                                   "ring_flash_max_err_vs_xla")]
+        check(max(errs) <= bench.LEG_TOL, f"{label}: leg errors {errs}")
+    if "--lm" in label:
+        gap = abs(first["flash_final_loss"] - first["final_loss"])
+        check(math.isfinite(first["flash_final_loss"]) and gap < LM_TOL,
+              f"{label}: flash loss {first['flash_final_loss']} against "
+              f"the ring's {first['final_loss']}")
+
+
+def phase_bench(torch, card):
+    """``python -m fiber_tpu_torch.bench`` on the card, with every
+    kernel's count set to 0: the default mode (ES and the pool leg) as a
+    subprocess at BENCH_SUBPROCESS_ARGV, then each mode of
+    BENCH_IN_PROCESS through ``bench.main`` with its output captured,
+    each run's lines checked by :func:`_check_bench_lines`. Returns the
+    phase's launches."""
+    from fiber_tpu_torch import bench
+
+    start = time.perf_counter()
+    _reset_counts()
+    runs = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "fiber_tpu_torch.bench",
+           *BENCH_SUBPROCESS_ARGV]
+    label = " ".join(cmd[2:])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    check(proc.stdout.strip(), f"{label} printed nothing: "
+          f"{proc.stderr[-2000:]}")
+    lines = [json.loads(_last_line(proc.stdout))]
+    _check_bench_lines(torch, label, proc.returncode, lines, None)
+    check("pool_map_1ms_overhead_vs_mp" in lines[0],
+          f"{label}: no pool leg in {lines[0]}")
+    runs[label] = {"seconds": secs, "rc": proc.returncode, "line": lines[0]}
+    for argv in BENCH_IN_PROCESS:
+        label = "fiber_tpu_torch.bench " + " ".join(argv)
+        before = _counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(list(argv))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v - before[k] for k, v in _counts().items()}
+        lines = [json.loads(x) for x in buf.getvalue().splitlines()
+                 if x.startswith("{")]
+        _check_bench_lines(torch, label, rc, lines, launches)
+        runs[label] = {"seconds": secs, "rc": rc,
+                       "line": lines[0] if len(lines) == 1 else lines}
+        torch.cuda.empty_cache()
+    counts = _counts()
+    emit({"phase": "bench", "card": card, "runs": runs, "launches": counts,
+          "phase_seconds": time.perf_counter() - start})
+    return counts
 
 
 # -- POET and bench.py's other ES envs --------------------------------------
@@ -4096,38 +4232,58 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     card = card_line()
-    phase_build()
-    fwd_rows = phase_kernels(torch, card)
-    bwd_rows = phase_kernels_bwd(torch, card)
-    ring_rows = phase_kernels_ring(torch, card)
+    script_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its wall seconds kept under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build)
+    fwd_rows = timed("kernels", phase_kernels, torch, card)
+    bwd_rows = timed("kernels_bwd", phase_kernels_bwd, torch, card)
+    ring_rows = timed("kernels_ring", phase_kernels_ring, torch, card)
     # The forward and decoding phases measure inference: no graph.
     with torch.no_grad():
         models = _lm_models(torch)
-        fwd_launches, tokens, logits = phase_lm_forward(torch, models)
-        phase_lm_generate(torch, models, tokens, logits)
+        fwd_launches, tokens, logits = timed(
+            "lm_forward", phase_lm_forward, torch, models)
+        timed("lm_generate", phase_lm_generate, torch, models, tokens,
+              logits)
     del models, tokens, logits
     torch.cuda.empty_cache()
-    launches = phase_lm_train(torch)
+    launches = timed("lm_train", phase_lm_train, torch)
     torch.cuda.empty_cache()
-    phase_es(torch)
+    timed("es", phase_es, torch)
     # The mesh phases measure inference too.
     with torch.no_grad():
-        ring_launches = phase_ring_attention(torch, card)
-        grid_launches = phase_mesh_2d(torch, card)
-        phase_lm_mesh(torch)
-    mesh_train_launches = phase_lm_mesh_train(torch)
+        ring_launches = timed("ring_attention", phase_ring_attention, torch,
+                              card)
+        grid_launches = timed("mesh_2d", phase_mesh_2d, torch, card)
+        timed("lm_mesh", phase_lm_mesh, torch)
+    mesh_train_launches = timed("lm_mesh_train", phase_lm_mesh_train, torch)
     torch.cuda.empty_cache()
-    phase_es_mesh(torch)
+    timed("es_mesh", phase_es_mesh, torch)
     torch.cuda.empty_cache()
-    search_launches = phase_population_search(torch)
+    search_launches = timed("population_search", phase_population_search,
+                            torch)
     torch.cuda.empty_cache()
-    pool_launches = phase_pool(torch)
+    pool_launches = timed("pool", phase_pool, torch)
     torch.cuda.empty_cache()
-    host_plane_launches = phase_host_plane(torch)
+    host_plane_launches = timed("host_plane", phase_host_plane, torch)
     torch.cuda.empty_cache()
-    host_plane_2_launches = phase_host_plane_2(torch, card)
+    host_plane_2_launches = timed("host_plane_2", phase_host_plane_2, torch,
+                                  card)
     torch.cuda.empty_cache()
-    example_rows, example_launches = phase_examples(torch, card)
+    example_rows, example_launches = timed("examples", phase_examples, torch,
+                                           card)
+    torch.cuda.empty_cache()
+    bench_launches = timed("bench", phase_bench, torch, card)
+    emit({"phase": "timing", "card": card, "seconds": seconds,
+          "total": time.perf_counter() - script_start})
 
     lm, lm_bwd = fwd_rows["lm_f32"], bwd_rows["lm_f32"]
     bf16, bf16_bwd = fwd_rows["attention_bf16"], bwd_rows["attention_bf16"]
@@ -4184,7 +4340,8 @@ def main():
                      launches_host_plane=host_plane_launches[entry["name"]],
                      launches_host_plane_2=host_plane_2_launches[
                          entry["name"]],
-                     launches_examples=example_launches[entry["name"]])
+                     launches_examples=example_launches[entry["name"]],
+                     launches_bench=bench_launches[entry["name"]])
         if entry["name"] in example_rows:
             entry["head_dim16_float32"] = {
                 k: example_rows[entry["name"]][k] for k in (

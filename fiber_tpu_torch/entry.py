@@ -124,9 +124,10 @@ def make_es(env: str = "cartpole", device=None, pop=None, max_steps=None,
     return _es_setup(env, device, pop, max_steps, sigma, lr, seed)[:2]
 
 
-def _es_setup(env, device, pop, max_steps, sigma, lr, seed):
+def _es_setup(env, device, pop, max_steps, sigma, lr, seed, mesh=None):
     """:func:`make_es`'s ``(es, params)`` and the policy, the env's name
-    and the episode length that its FLOP count needs."""
+    and the episode length that its FLOP count needs; the strategy over
+    ``mesh`` when one is given (on ``device``), else one rank."""
     if env not in ES_ENV_DEFAULTS:
         raise ValueError(f"unknown env {env!r}: one of "
                          f"{sorted(ES_ENV_DEFAULTS)}")
@@ -156,7 +157,7 @@ def _es_setup(env, device, pop, max_steps, sigma, lr, seed):
                                       max_steps=steps)
     es = EvolutionStrategy(
         eval_fn, env_cls.reset, dim=policy.dim, pop_size=pop, sigma=sigma,
-        lr=lr, device=dev,
+        lr=lr, device=dev, mesh=mesh,
         generator=torch.Generator(device=dev).manual_seed(seed + 1))
     params = policy.init(torch.Generator().manual_seed(seed), device=dev)
     return es, params, policy, env_cls.__name__, steps

@@ -87,8 +87,13 @@ class DeviceTier:
     docstring. All torch imports are lazy — building the tier in a
     process that never resolves device payloads costs nothing."""
 
-    def __init__(self, capacity_bytes: int = 256 << 20) -> None:
+    def __init__(self, capacity_bytes: int = 256 << 20,
+                 device=None) -> None:
         self.capacity = int(capacity_bytes)
+        #: where :meth:`put` places a payload whose caller names no
+        #: device (None: the current CUDA device); a store resolution
+        #: with ``device=True`` names none
+        self.device = device
         self._lock = threading.RLock()
         self._entries: "Dict[str, _DevEntry]" = {}
         self._order: List[str] = []  # LRU: oldest first
@@ -104,7 +109,7 @@ class DeviceTier:
             device=None) -> Any:
         """Place ``obj`` (a host pytree) into the tier under ``digest``:
         every numpy leaf of at least one dimension, and every tensor,
-        moves to ``device`` (the current CUDA device when None), as
+        moves to ``device`` (:attr:`device` when None), as
         ``device_map`` would move it; the
         device-resident pytree is returned (and cached). A demoted or
         zero-capacity tier returns ``obj`` untouched. The copy is
@@ -125,7 +130,7 @@ class DeviceTier:
         from fiber_tpu_torch.parallel.dmap import _to_device
         from fiber_tpu_torch.telemetry.device import DEVICE
 
-        dev = resolve_device(device)
+        dev = resolve_device(self.device if device is None else device)
         leaves, spec = pytree.tree_flatten(obj)
         nbytes = sum(int(leaf.nbytes) for leaf in leaves
                      if isinstance(leaf, (np.ndarray, np.generic,
