@@ -9,7 +9,8 @@ It builds every CUDA kernel from ``fiber_tpu_torch/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version on the card (and
 counts the tensor-core instructions in the SASS of the three flash
 kernels), drives the port's main paths at full width (the TinyLM flash
-forward, greedy decoding and training; the OpenAI-ES CartPole flagship,
+forward, greedy decoding and training, also at Gemma-2B's attention
+widths, head_dim 256 with one KV head; the OpenAI-ES CartPole flagship,
 eager and as CUDA-graph replays; ring and Ulysses attention, the TinyLM
 forward and TinyLM training over a 4-rank mesh on the card; the ES step
 over that mesh; the population-search families: PGPE, SepCMAES and CMAES
@@ -34,8 +35,8 @@ checks what comes out;
 the ES, POET and env lines carry model FLOP/s and MFU, and the es
 phase writes one generation's profiler trace under TRACE_DIR. Phases
 print one JSON line each (build, kernels, kernels_bwd, kernels_ring,
-lm_forward, lm_generate, lm_train, es, ring_attention, mesh_2d,
-lm_mesh, lm_mesh_train, es_mesh, es_families, es_families_smooth,
+lm_forward, lm_generate, lm_train, gemma_lm, es, ring_attention,
+mesh_2d, lm_mesh, planes_wide, lm_mesh_train, es_mesh, es_families, es_families_smooth,
 novelty, map_elites, ask_tell, device_map, poet, poet_mesh,
 checkpoint, es_envs, pool, managers, host_ring, ring_es, poet_pool,
 capture_under_load, durable, hier, sim_cluster, trace, serve,
@@ -70,20 +71,32 @@ import time
 # (name, S, heads, kv_heads, head_dim, dtype name, window): the LM's
 # attention at full width (TinyLM dim 256 / 8 heads at the repo's
 # default --seq 16384), its GQA and sliding-window variants
-# (bench.py's window leg uses 1024), and bench.py --attention's shape.
+# (bench.py's window leg uses 1024), bench.py --attention's shape in bf16
+# and f16, and Gemma-2B's attention (8 query heads, 1 KV head, head_dim
+# 256; the gemma_lm phase's TinyLM at S 8192) in f32, bf16 and f16.
 MAIN_SHAPES = (
     ("lm_f32", 16384, 8, 8, 32, "float32", None),
     ("lm_f32_gqa", 16384, 8, 2, 32, "float32", None),
     ("lm_f32_window", 16384, 8, 8, 32, "float32", 1024),
     ("attention_bf16", 16384, 8, 8, 64, "bfloat16", None),
+    ("attention_f16", 16384, 8, 8, 64, "float16", None),
+    ("gemma_f32", 8192, 8, 1, 256, "float32", None),
+    ("gemma_bf16", 8192, 8, 1, 256, "bfloat16", None),
+    ("gemma_f16", 8192, 8, 1, 256, "float16", None),
 )
 # Small shapes for the kernel's edges: ragged tiles, every head-dim
-# template, non-causal, windows shorter than a tile.
+# template, non-causal, windows shorter than a tile; head_dims 160 and
+# 192 pad to the 256 instance.
 EDGE_SHAPES = (
     ("edge_noncausal_d8", 100, 4, 2, 8, "float32", None, False),
     ("edge_d40_ragged", 77, 2, 2, 40, "float32", None, True),
     ("edge_d128_window", 1000, 3, 1, 128, "bfloat16", 100, True),
     ("edge_d16_window1", 130, 2, 1, 16, "float32", 1, True),
+    ("edge_d256_window_f16", 1000, 4, 1, 256, "float16", 100, True),
+    ("edge_d256_window_f32", 300, 2, 2, 256, "float32", 70, True),
+    ("edge_d160_ragged", 77, 4, 2, 160, "float32", None, True),
+    ("edge_d192_ragged_bf16", 333, 4, 1, 192, "bfloat16", 50, True),
+    ("edge_d192_noncausal_f16", 150, 2, 1, 192, "float16", None, False),
 )
 # Edge shapes whose inputs the flash kernels cannot copy in 16-byte
 # units, so they take their scalar load paths: head_dim 20 in bf16 (not
@@ -92,6 +105,7 @@ EDGE_SHAPES = (
 # (name, S, heads, kv_heads, head_dim, dtype, window, causal, offset)
 SCALAR_EDGE_SHAPES = (
     ("edge_d20_bf16_scalar", 70, 2, 1, 20, "bfloat16", None, True, 0),
+    ("edge_d20_f16_scalar", 70, 2, 1, 20, "float16", None, True, 0),
     ("edge_d24_f32_unaligned", 90, 4, 2, 24, "float32", 7, True, 1),
 )
 # The ring's off-diagonal forward launch, timed: one rank's 4096-row
@@ -121,14 +135,24 @@ GRID_BLOCK_SHAPES = (
     ("grid_ulysses_bf16_causal", 16384, 4, 4, 64, "bfloat16", None, True),
 )
 # Output tolerance by dtype: f32 results differ by summation order only;
-# bf16 outputs may round to neighbouring bf16 values (one ulp at |o| ~ 4).
-TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# bf16 outputs may round to neighbouring bf16 values (one ulp at |o| ~ 4);
+# f16 outputs to neighbouring f16 values: 4e-3 is one f16 ulp at |o| < 8,
+# and the kernel's rounding of P to f16 (2^-11 relative) moves O by under
+# an ulp (tests/test_torch_flash_attention.py emulates it at S = 2048:
+# 9.5e-4 against an f64 recomputation, half of it O's own rounding).
+TOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": 4e-3}
 LSE_TOL = 1e-4
 # Backward tolerance, max abs error over max |plain| of each gradient:
 # f32 gradients differ by summation order only, dk and dv summing up to
 # S x group rows (measured up to 7.9e-6 on an H100 at S = 16384 with GQA;
-# the bound is 5e-5); bf16 gradients may round to neighbouring bf16 values.
-BWD_TOL = {"float32": 5e-5, "bfloat16": 3e-2}
+# the bound is 5e-5); bf16 gradients may round to neighbouring bf16
+# values; f16 ones too, eight ulps of 2^-11 relative, as bf16's is about
+# eight of 2^-8 (the emulation of P and dS packed to f16 at S = 2048,
+# tests/test_torch_flash_backward.py, gives 3.1e-4 to 4.4e-4).
+BWD_TOL = {"float32": 5e-5, "bfloat16": 3e-2, "float16": 4e-3}
+# The largest finite f16: the kernels pack dS to f16 before its scale,
+# and every f16 backward input is held to the bound on |dS| below it
+F16_MAX = 65504.0
 LM_CFG = dict(vocab=256, dim=256, heads=8, layers=4, max_seq=16384)
 LM_TOL = 1e-4   # f32 logits of two attention engines, four layers
 # Training: 5 timed AdamW steps after one warm-up (bench.py --lm); the
@@ -141,8 +165,29 @@ GRAD_LOSS_TOL = 1e-4
 GRAD_TOL = 5e-4
 # The sequence-parallel planes: 4 ranks on the one card, bench.py
 # --attention's 16384 tokens (bench.py:3141) cut into 4096-row blocks.
+# TinyLM at Gemma-2B's attention widths (google/gemma-2b's config:
+# hidden_size 2048, num_attention_heads 8, num_key_value_heads 1,
+# head_dim 256, intermediate_size 16384, max_position_embeddings 8192)
+# with TinyLM's own MLP, norms and byte vocabulary: not Gemma itself. Cut
+# to 2 of Gemma's 18 layers (the script's time). f32, random weights from
+# seed 0. The gemma_lm phase runs one forward, a 16-token greedy decode
+# after a 16-token prompt, GEMMA_TRAIN_STEPS AdamW steps, and the flash
+# plane against the reference one at S = GRAD_SEQ (logits, loss and
+# every gradient, within LM_TOL, GRAD_LOSS_TOL and GRAD_TOL).
+GEMMA_CFG = dict(vocab=256, dim=2048, heads=8, kv_heads=1, pos="rope",
+                 mlp_mult=8, max_seq=8192, layers=2)
+GEMMA_TRAIN_STEPS = 3
+# AdamW's rate: at these widths lr_train's 1e-3 makes the loss rise over
+# 3 steps on one batch (5.908 -> 7.173 at S 2048 on the CPU, through the
+# kernels' plain versions; 1e-4: 5.908 -> 5.206)
+GEMMA_LR = 1e-4
+GEMMA_DECODE = (16, 16)          # prompt tokens, greedy tokens
 RANKS = 4
 RING_SHAPE = (16384, 8, 64, "bfloat16")
+# The planes in f16 (planes_wide): ring and Ulysses with local="flash" at
+# bench.py --attention's shape, each held against reference_attention on
+# f32 copies of the inputs.
+RING_SHAPE_F16 = (16384, 8, 64, "float16")
 # __graft_entry__.py's 2-D data x sequence composition at the ring
 # phase's width: a 2 x 2 ("data", "seq") grid of the card's ranks,
 # (batch, S, heads, head_dim) bf16 causal
@@ -153,6 +198,7 @@ GRID_SHAPE = (2, 16384, 8, 64, "bfloat16")
 # start; 1 makes the pointers miss 16-byte alignment).
 RING_EDGE = (
     ("edge_n2_k1", 2, [(64, 4, 8)], "float32", 0),
+    ("attention_f16_kv", RANKS, [(4096, 8, 64)] * 2, "float16", 0),
     ("edge_n3_k2_ragged", 3, [(13, 3, 5)] * 2, "float32", 0),
     ("edge_n8_k3_mixed", 8, [(13, 3, 5), (7, 2), (1,)], "float32", 0),
     ("edge_n8_k1_bf16", 8, [(33, 2, 3)], "bfloat16", 0),
@@ -277,7 +323,9 @@ EXIT_PROBE_CHILDREN = 3
 # TRACE_FLASH_SHAPE (bf16, causal); the serve daemon runs the hier
 # phase's tensor map and a job of SERVE_CANCEL_ITEMS paced tasks that is
 # cancelled.
-DURABLE_ITEMS = 16   # 24 until PR 17's --cluster run (the script's time)
+# cut from 24 to 16, then 12, as the --cluster run and the gemma_lm
+# phase came (the script's time)
+DURABLE_ITEMS = 12
 DURABLE_CHUNK = 2
 DURABLE_POP = 1024
 DURABLE_STEPS = 500
@@ -314,12 +362,13 @@ README_TIMEOUT_S = 300
 # came, for the script's time)
 LM_RING_STEPS = 3
 # long_context_lm --attention flash at its defaults: steps cut from 300
-# for the script's time (100 until the bench phase came; the induction
-# run below trains 300)
-LM_FLASH_STEPS = 50
+# for the script's time (100 until the bench phase came, 50 until the
+# gemma_lm phase came; the induction run below trains 300)
+LM_FLASH_STEPS = 25
 # es_cartpole --optimizer adam: generations cut from its default 50 for
-# the script's time (an eager Adam generation is launch-bound)
-ADAM_EXAMPLE_GENS = 20
+# the script's time (an eager Adam generation is launch-bound; 20 until
+# the gemma_lm phase came)
+ADAM_EXAMPLE_GENS = 10
 # long_context_lm --attention flash at the settings of the JAX package's
 # induction test (tests/test_device.py,
 # test_tiny_lm_induction_through_ring_attention: S 64, vocab 16, lr 3e-3,
@@ -353,8 +402,9 @@ CKPT_POET_ITERS = 1
 TRACE_DIR = ".traces"
 # bench.py --biped (pop 4096, 400 steps) and --pixels (pop 1024, 60
 # steps) through run_fused, cut from bench.py's default 10 generations
-# to 3 (5 until the bench phase came, for the script's time)
-ES_ENV_GENS = 3
+# to 2 (5 until the bench phase came, 3 until the gemma_lm phase came,
+# for the script's time)
+ES_ENV_GENS = 2
 # the other envs and policies, one ES step each, card against CPU at
 # pop 4096 (CartPole episodes of 200 steps): survival returns that agree
 # exactly on ENV_SURVIVAL_SHARE of the members (as phase_es); continuous
@@ -393,12 +443,17 @@ ICI_SPLIT_REPEATS = 15
 ICI_KEY_SHAPES = ((256 << 10, 8), (512 << 10, 8), (2 << 20, 8),
                   (512 << 10, 4), (512 << 10, 16), (1 << 20, 16))
 # The C interface's dtype codes
-DTYPE_CODE = {"float": 0, "bfloat16": 1}
+DTYPE_CODE = {"float": 0, "bfloat16": 1, "float16": 2}
 # What runs the products of the flash kernels, by input type
-ENGINE = {"float32": "mma.sync 3xtf32", "bfloat16": "mma.sync bf16"}
+ENGINE = {"float32": "mma.sync 3xtf32", "bfloat16": "mma.sync bf16",
+          "float16": "mma.sync f16"}
+# The head_dims the flash kernels' instances pad to; above the last, the
+# wrappers raise ValueError and the C entry points return
+# cudaErrorInvalidValue
+HEAD_DIM_INSTANCES = (16, 32, 64, 128, 256)
 # The kernels on the tensor cores: HMMA in their SASS, no spills in any of
-# their 8 templates (f32 and bf16 at head_dim 16, 32, 64 and 128), and a
-# C function that gives each template's shared memory
+# their 15 templates (f32, bf16 and f16 at each of HEAD_DIM_INSTANCES),
+# and a C function that gives each template's shared memory
 TENSOR_CORE_LIBS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SOURCES = {"flash_fwd": "fiber_tpu_torch/csrc/flash_fwd.cu",
            "flash_bwd_dq": "fiber_tpu_torch/csrc/flash_bwd_dq.cu",
@@ -529,7 +584,7 @@ def phase_build():
             row["smem_bytes"] = smem(int(dp), DTYPE_CODE[dtype])
             check(row["spill_stores"] == row["spill_loads"] == 0,
                   f"{row['function']} spills")
-        check(len(ptxas[name]) == 8,
+        check(len(ptxas[name]) == len(DTYPE_CODE) * len(HEAD_DIM_INSTANCES),
               f"{name} templates built: {ptxas[name]}")
     emit({"phase": "build", "seconds": secs,
           "libraries": {k: v.name for k, v in libs.items()},
@@ -646,8 +701,47 @@ def phase_kernels(torch, card):
         del q, k, v, o, lse
         torch.cuda.empty_cache()
     emit({"phase": "kernels", "card": card, "flash_fwd_launches":
-          fa.flash_fwd.launches, "shapes": rows})
+          fa.flash_fwd.launches, "shapes": rows,
+          "above_max_head_dim": _refuses_above_max_head_dim(torch)})
     return main
+
+
+def _refuses_above_max_head_dim(torch):
+    """A head_dim above the largest instance: every wrapper raises a
+    ValueError naming the limit, and every C entry point returns
+    cudaErrorInvalidValue without launching (it checks before it reads a
+    pointer, so null ones do)."""
+    from fiber_tpu_torch.ops import flash_attention as fa
+
+    limit = HEAD_DIM_INSTANCES[-1]
+    d = limit + 1
+    q, k, v = _inputs(torch, 64, 2, 1, d, torch.float16, seed=0)
+    lse = torch.zeros(2, 64, device="cuda")
+    before = _counts()
+    for call in (lambda: fa.flash_fwd(q, k, v, causal=True),
+                 lambda: fa.flash_bwd_dq(q, k, v, q, lse, lse, causal=True),
+                 lambda: fa.flash_bwd_dkv(q, k, v, q, lse, lse,
+                                          causal=True)):
+        try:
+            call()
+        except ValueError as exc:
+            check(str(limit) in str(exc), f"head_dim {d}: {exc}")
+        else:
+            check(False, f"head_dim {d} did not raise")
+    check(_counts() == before, "a refused head_dim launched a kernel")
+    strides = (ctypes.c_longlong * 8)()
+    codes = {
+        "flash_fwd": fa._fwd_lib().flash_fwd(
+            *[None] * 5, 64, 2, 1, d, *[0] * 6, 1, 0, 1.0,
+            DTYPE_CODE["float16"], None),
+        **{name: getattr(fa._bwd_lib(name), name)(
+            *[None] * (6 + fa._BWD_OUTPUTS[name]), 64, 2, 1, d, strides, 1,
+            0, 1.0, DTYPE_CODE["float16"], None)
+           for name in fa._BWD_OUTPUTS}}
+    invalid = 1                     # cudaErrorInvalidValue
+    check(all(rc == invalid for rc in codes.values()),
+          f"C entry points at head_dim {d}: {codes}")
+    return {"head_dim": d, "wrappers": "ValueError", "c_codes": codes}
 
 
 def _bwd_errors(got, want):
@@ -705,6 +799,7 @@ def phase_kernels_bwd(torch, card):
 
     shapes = [e + (True, 0) for e in EDGE_SHAPES + MESH_BLOCK_SHAPES]
     shapes += [e[:8] + (True, e[8]) for e in SCALAR_EDGE_SHAPES]
+    mains = {m[0] for m in MAIN_SHAPES}
     shapes += [m + (True, m[0] == "lm_f32_gqa", 0) for m in MAIN_SHAPES]
     rows, main = [], {}
     for name, s, h, kvh, d, dt, window, causal, with_dlse, offset in shapes:
@@ -738,7 +833,16 @@ def phase_kernels_bwd(torch, card):
                "dq_engine": ENGINE[dt], "dkv_engine": ENGINE[dt],
                "dq_max_abs_err": dq_err, "dq_rel_err": dq_rel,
                "dkv_max_abs_err": dkv_err, "dkv_rel_err": dkv_rel}
-        if s == LM_CFG["max_seq"]:
+        if dt == "float16":
+            # the kernels pack dS = P (dP - delta) to f16 before its
+            # scale: |dS_ij| <= 2 |dO_i| max_j |v_j| + |dlse_i| must fit
+            ds_bound = (2 * dout.float().norm(dim=-1).max().item()
+                        * v.float().norm(dim=-1).max().item()
+                        + (dlse.abs().max().item() if with_dlse else 0.0))
+            check(ds_bound < F16_MAX, f"{name}: |dS| may reach {ds_bound}, "
+                  f"past f16's {F16_MAX}")
+            row["ds_bound"] = ds_bound
+        if name in mains:
             dq2 = fa.flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
             dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
             torch.cuda.synchronize()
@@ -920,6 +1024,142 @@ def phase_lm_train(torch):
                                 for k, n in launches.items()},
           "peak_memory_bytes": peak_bytes, "grad_check": grad})
     return launches
+
+
+def _gemma_grad_check(torch, state):
+    """The flash plane against the reference plane at S = GRAD_SEQ on
+    GEMMA_CFG's widths and one weight set ``state``: logits, loss and
+    every parameter's gradient."""
+    from fiber_tpu_torch.models.transformer import TinyLM
+
+    cfg = dict(GEMMA_CFG, max_seq=GRAD_SEQ)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    tokens = torch.randint(0, cfg["vocab"], (GRAD_SEQ,), generator=g,
+                           device="cuda")
+    logits, losses, grads = {}, {}, {}
+    for attention in ("flash", "reference"):
+        m = TinyLM(**cfg, attention=attention, device="cuda")
+        m.load_state_dict(state)
+        with torch.no_grad():
+            logits[attention] = m.apply(tokens)
+        loss = m.loss(tokens)
+        loss.backward()
+        losses[attention] = loss.item()
+        grads[attention] = {n: p.grad for n, p in m.named_parameters()}
+        del m, loss
+    logit_err = (logits["flash"] - logits["reference"]).abs().max().item()
+    loss_err = abs(losses["flash"] - losses["reference"])
+    grad_err = max((grads["flash"][n] - grads["reference"][n]).abs().max()
+                   .item() for n in grads["flash"])
+    max_grad = max(x.abs().max().item() for x in grads["reference"].values())
+    check(logit_err < LM_TOL, f"gemma_lm S={GRAD_SEQ}: flash vs reference "
+          f"logits differ by {logit_err}")
+    check(loss_err < GRAD_LOSS_TOL, f"gemma_lm S={GRAD_SEQ}: losses differ "
+          f"by {loss_err}")
+    check(grad_err < GRAD_TOL, f"gemma_lm S={GRAD_SEQ}: gradients differ "
+          f"by {grad_err}")
+    return {"S": GRAD_SEQ, "logit_err": logit_err, "logit_tol": LM_TOL,
+            "loss": losses["flash"], "loss_err": loss_err,
+            "loss_tol": GRAD_LOSS_TOL, "max_grad_err": grad_err,
+            "grad_tol": GRAD_TOL, "max_abs_grad": max_grad}
+
+
+def phase_gemma_lm(torch, card):
+    """TinyLM at Gemma-2B's attention widths (GEMMA_CFG) on the flash
+    plane: its forward, decoding and AdamW steps through the flash
+    kernels' head_dim-256 instances with GQA 8:1, every kernel's launches
+    counted exactly from 0 around each (forward: flash_fwd once a layer;
+    a train step: each flash kernel once a layer; decoding: none), then
+    the flash plane against the reference plane at S = GRAD_SEQ."""
+    from fiber_tpu_torch.models.transformer import (
+        TinyLM,
+        adamw,
+        make_train_step,
+    )
+    from fiber_tpu_torch.utils import flops
+
+    cfg, layers, seq = GEMMA_CFG, GEMMA_CFG["layers"], GEMMA_CFG["max_seq"]
+    model = TinyLM(**cfg, attention="flash", device="cuda",
+                   generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(0, cfg["vocab"], (seq,), generator=g,
+                           device="cuda")
+
+    def counted(fn, want):
+        """``fn()`` with every count at 0 before it; its result, wall
+        seconds and counts, the counts held to ``want``."""
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        check(counts == want, f"gemma_lm: launches {counts}, want {want}")
+        return out, secs, counts
+
+    def launches(fwd=0, bwd=0):
+        return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd,
+                "ring_exchange": 0}
+
+    with torch.no_grad():
+        model.apply(tokens)                   # warm-up, not counted
+        logits, fwd_s, fwd_counts = counted(lambda: model.apply(tokens),
+                                            launches(fwd=layers))
+        check(tuple(logits.shape) == (seq, cfg["vocab"])
+              and bool(torch.isfinite(logits).all()),
+              "gemma_lm: shape or non-finite logits")
+        fwd_ms = cuda_ms(torch, lambda: model.apply(tokens), reps=3)
+        n_prompt, steps = GEMMA_DECODE
+        caches = model.new_caches()
+        decode_err = max(
+            (model._decode_step(caches, pos, tokens[pos])
+             - logits[pos]).abs().max().item() for pos in range(n_prompt))
+        check(decode_err < LM_TOL, f"gemma_lm: decode vs forward logits "
+              f"differ by {decode_err}")
+        prompt = tokens[:n_prompt]
+        model.generate(prompt, 2)             # warm-up
+        out, decode_s, decode_counts = counted(
+            lambda: model.generate(prompt, steps), launches())
+        check(tuple(out.shape) == (n_prompt + steps,)
+              and bool(torch.equal(out[:n_prompt], prompt))
+              and bool(((out >= 0) & (out < cfg["vocab"])).all()),
+              f"gemma_lm: generated {out.tolist()}")
+    del logits, caches
+
+    step = make_train_step(model, adamw(model.parameters(), GEMMA_LR))
+    torch.cuda.reset_peak_memory_stats()
+    losses, train_s, train_counts = counted(
+        lambda: [float(step(tokens)) for _ in range(GEMMA_TRAIN_STEPS)],
+        launches(fwd=layers * GEMMA_TRAIN_STEPS,
+                 bwd=layers * GEMMA_TRAIN_STEPS))
+    peak_bytes = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"gemma_lm: losses {losses} not finite and falling")
+    step_ms = cuda_ms(torch, lambda: step(tokens), reps=2, warmup=0)
+    n_fwd = flops.tinylm_flops_per_step(model, seq, train=False)
+    n_train = flops.tinylm_flops_per_step(model, seq, train=True)
+    del model, step
+    torch.cuda.empty_cache()
+    grad = _gemma_grad_check(torch, state)
+    emit({"phase": "gemma_lm", "card": card, **cfg, "attention": "flash",
+          "head_dim": cfg["dim"] // cfg["heads"], "params": params,
+          "forward": {"launches": fwd_counts, "seconds": fwd_s,
+                      "ms": fwd_ms, "tokens_per_s": seq / fwd_ms * 1e3,
+                      "tflops": n_fwd / fwd_ms / 1e9},
+          "decode": {"prompt": n_prompt, "steps": steps,
+                     "launches": decode_counts, "seconds": decode_s,
+                     "tokens_per_s": steps / decode_s,
+                     "max_abs_err_vs_forward": decode_err, "tol": LM_TOL},
+          "train": {"optimizer": f"adamw({GEMMA_LR})",
+                    "steps": GEMMA_TRAIN_STEPS, "losses": losses,
+                    "launches": train_counts, "seconds": train_s,
+                    "step_ms": step_ms, "tokens_per_s": seq / step_ms * 1e3,
+                    "tflops": n_train / step_ms / 1e9,
+                    "peak_memory_bytes": peak_bytes},
+          "grad_check": grad})
+    return {"forward": fwd_counts, "train": train_counts}
 
 
 def phase_es(torch):
@@ -1411,6 +1651,79 @@ def phase_lm_mesh(torch):
         torch.cuda.empty_cache()
     emit({"phase": "lm_mesh", **LM_CFG, "ranks": n, "tol": LM_TOL,
           "planes": rows})
+
+
+def phase_planes_wide(torch, card):
+    """The sequence-parallel planes on what this card's flash kernels
+    newly take, over RANKS ranks: ring and Ulysses attention with
+    ``local="flash"`` at RING_SHAPE_F16 in f16, each against
+    reference_attention on f32 copies of the inputs (within TOL's f16
+    bound), and one ring x flash TinyLM forward at GEMMA_CFG's widths
+    (head_dim 256, GQA 8:1) against the single-device flash model on one
+    weight set (within LM_TOL). Every count starts at 0 before each call
+    and is held exactly after it."""
+    from fiber_tpu_torch.models.transformer import TinyLM
+    from fiber_tpu_torch.ops.ring_attention import (
+        reference_attention,
+        ring_attention,
+    )
+    from fiber_tpu_torch.ops.ulysses_attention import ulysses_attention
+    from fiber_tpu_torch.parallel.mesh import make_mesh
+
+    n = RANKS
+    mesh = make_mesh("cuda", n=n)
+    blocks = n + n * (n - 1) // 2       # diagonal and past blocks
+    rows = {}
+
+    def run(label, fn, ref, tol, flash, exchange):
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        want = {"flash_fwd": flash, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "ring_exchange": exchange}
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        check(out.shape == ref.shape and bool(torch.isfinite(
+            out.float()).all()), f"{label}: shape or non-finite values")
+        err = (out.float() - ref.float()).abs().max().item()
+        check(err < tol, f"{label}: max_abs_err {err}, tol {tol}")
+        rows[label] = {"launches": counts, "max_abs_err": err, "tol": tol,
+                       "seconds": secs, "ms": cuda_ms(torch, fn, reps=3)}
+
+    s, h, d, dt = RING_SHAPE_F16
+    q, k, v = _inputs(torch, s, h, h, d, getattr(torch, dt), seed=310)
+    ref = reference_attention(q.float(), k.float(), v.float(), causal=True)
+    run("ring_flash_f16", lambda: ring_attention(
+        q, k, v, mesh, causal=True, local="flash", use_dma_ring=True),
+        ref, TOL[dt], blocks, n - 1)
+    run("ulysses_flash_f16", lambda: ulysses_attention(
+        q, k, v, mesh, causal=True, local="flash", use_dma_ring=True),
+        ref, TOL[dt], n, 4 * (n - 1))
+    del q, k, v, ref
+
+    cfg, layers = GEMMA_CFG, GEMMA_CFG["layers"]
+    single = TinyLM(**cfg, attention="flash", device="cuda",
+                    generator=torch.Generator().manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg["vocab"], (cfg["max_seq"],), generator=g,
+                           device="cuda")
+    ref = single.apply(tokens)
+    model = TinyLM(**cfg, attention="flash", mesh=mesh)
+    model.load_state_dict(single.state_dict())
+    del single
+    model.apply(tokens)                       # warm-up, not counted
+    run("lm_ring_flash_d256", lambda: model.apply(tokens), ref, LM_TOL,
+        layers * blocks, layers * (n - 1))
+    del model, ref
+    torch.cuda.empty_cache()
+    emit({"phase": "planes_wide", "card": card, "ranks": n,
+          "attention_shape": [s, h, d, dt], "causal": True,
+          "lm": {k: cfg[k] for k in ("dim", "heads", "kv_heads", "layers",
+                                     "max_seq")},
+          "runs": rows})
+    return {label: row["launches"] for label, row in rows.items()}
 
 
 def phase_es_mesh(torch):
@@ -3249,6 +3562,11 @@ def phase_trace(torch, card, items):
         with profiling.trace(os.path.join(workdir, "prof")):
             outs = pool.starmap(tasks.tensor_affine, items, chunksize=1)
             o, lse = fa.flash_fwd(q, k, v, causal=True)
+            # the profiler keeps a device record only inside its capture
+            # window, whose end it takes from the host's clock: the
+            # kernel ends well before it
+            torch.cuda.synchronize()
+            time.sleep(0.25)
         traced_s = time.perf_counter() - t0
         deadline = time.monotonic() + 30
         while time.monotonic() < deadline and sum(
@@ -3279,7 +3597,9 @@ def phase_trace(torch, card, items):
              if "flash_fwd_kernel" in e.get("name", "")]
     spans = [e for e in events if e.get("ph") == "X"
              and e.get("name") in ("pool.serialize", "worker.execute")]
-    check(flash, f"no flash_fwd_kernel event in a CUDA lane: {cuda_lanes}")
+    check(flash, f"no flash_fwd_kernel event in a CUDA lane: {cuda_lanes}, "
+          f"{len(device_events)} device events: "
+          f"{[e.get('name', '')[:40] for e in device_events]}")
     check(len(spans) >= len(items) + 1, f"{len(spans)} host spans")
     rc, text = _cli(["explain", trace_path, "--flight", flight_path])
     blame = next((ln for ln in text.splitlines()
@@ -4403,6 +4723,8 @@ def main():
     torch.cuda.empty_cache()
     launches = timed("lm_train", phase_lm_train, torch)
     torch.cuda.empty_cache()
+    gemma_launches = timed("gemma_lm", phase_gemma_lm, torch, card)
+    torch.cuda.empty_cache()
     timed("es", phase_es, torch)
     # The mesh phases measure inference too.
     with torch.no_grad():
@@ -4410,6 +4732,7 @@ def main():
                               card)
         grid_launches = timed("mesh_2d", phase_mesh_2d, torch, card)
         timed("lm_mesh", phase_lm_mesh, torch)
+        wide_launches = timed("planes_wide", phase_planes_wide, torch, card)
     mesh_train_launches = timed("lm_mesh_train", phase_lm_mesh_train, torch)
     torch.cuda.empty_cache()
     timed("es_mesh", phase_es_mesh, torch)
@@ -4432,7 +4755,11 @@ def main():
           "total": time.perf_counter() - script_start})
 
     lm, lm_bwd = fwd_rows["lm_f32"], bwd_rows["lm_f32"]
-    bf16, bf16_bwd = fwd_rows["attention_bf16"], bwd_rows["attention_bf16"]
+    # the other timed shapes of each flash kernel, by their key in the line
+    others = {"bfloat16": "attention_bf16", "float16": "attention_f16",
+              "head_dim256_float32": "gemma_f32",
+              "head_dim256_bfloat16": "gemma_bf16",
+              "head_dim256_float16": "gemma_f16"}
     summary = [{
         "name": "flash_fwd", "engine": lm["engine"],
         "max_abs_err": lm["max_abs_err"],
@@ -4440,9 +4767,9 @@ def main():
         "bound_ms": lm["bound_ms"], "bound_by": lm["bound_by"],
         "library_ms": lm["library_ms"], "bound_engine": lm["bound_engine"],
         "launches_lm_forward": fwd_launches,
-        "bfloat16": {k: bf16[k] for k in (
+        **{key: {k: fwd_rows[shape][k] for k in (
             "shape", "engine", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")}}]
+            "bound_by", "library_ms")} for key, shape in others.items()}}]
     for part in ("dq", "dkv"):
         row = lm_bwd[part]
         summary.append({
@@ -4453,18 +4780,24 @@ def main():
             "bound_engine": row["bound_engine"],
             # one SDPA backward call computes dq, dk and dv together
             "library_ms": lm_bwd["library_ms"], "library_covers": "dq+dkv",
-            "bfloat16": {
-                "shape": bf16_bwd["shape"],
-                "engine": bf16_bwd[f"{part}_engine"],
-                "max_abs_err": bf16_bwd[f"{part}_max_abs_err"],
-                "library_ms": bf16_bwd["library_ms"],
-                **{k: bf16_bwd[part][k] for k in (
-                    "ms", "plain_ms", "bound_ms", "bound_by")}}})
+            **{key: {
+                "shape": bwd_rows[shape]["shape"],
+                "engine": bwd_rows[shape][f"{part}_engine"],
+                "max_abs_err": bwd_rows[shape][f"{part}_max_abs_err"],
+                "library_ms": bwd_rows[shape]["library_ms"],
+                **{k: bwd_rows[shape][part][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by")}}
+               for key, shape in others.items()}})
     for entry in summary:
         entry.update(launches=launches[entry["name"]], path="lm_train",
                      launches_lm_mesh_train=mesh_train_launches[
                          entry["name"]],
-                     lm_mesh_train_steps=TRAIN_STEPS + 1)
+                     lm_mesh_train_steps=TRAIN_STEPS + 1,
+                     launches_gemma_lm_forward=gemma_launches["forward"][
+                         entry["name"]],
+                     launches_gemma_lm_train=gemma_launches["train"][
+                         entry["name"]],
+                     gemma_lm_train_steps=GEMMA_TRAIN_STEPS)
     ring = ring_rows["attention_bf16_kv"]
     summary.append({
         "name": "ring_exchange", "max_abs_err": ring["max_abs_err"],
@@ -4477,6 +4810,10 @@ def main():
         "lm_mesh_train_steps": TRAIN_STEPS + 1})
     summary[0]["launches_mesh_2d"] = grid_launches["flash_fwd"]
     summary[-1]["launches_mesh_2d"] = grid_launches["ring_exchange"]
+    for entry in summary:
+        entry["launches_planes_wide"] = {
+            label: counts[entry["name"]]
+            for label, counts in wide_launches.items()}
     for entry in summary:
         entry.update(route="cuda", source=SOURCES[entry["name"]],
                      replaces=REPLACES[entry["name"]],

@@ -122,10 +122,13 @@ def ptxas_report(name: str) -> list:
 
 def _short_name(mangled: str) -> str:
     """``..._kernelIfLi32EE...`` -> ``..._kernel<float,32>``: the kernel's
-    name and template arguments (element type, padded head_dim)."""
-    m = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    name and template arguments (element type ``float``, ``bfloat16`` or
+    ``float16``, padded head_dim)."""
+    m = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16|6__half)Li(\d+)E",
+                  mangled)
     if m:
-        kind = "float" if m.group(2) == "f" else "bfloat16"
+        kind = {"f": "float", "13__nv_bfloat16": "bfloat16",
+                "6__half": "float16"}[m.group(2)]
         return f"{m.group(1)}<{kind},{m.group(3)}>"
     m = re.search(r"([a-z_]+_kernel)", mangled)
     return m.group(1) if m else mangled

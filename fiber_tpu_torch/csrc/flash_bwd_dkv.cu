@@ -14,8 +14,10 @@
 // elementwise mask (plus the ragged edge).
 //
 // What bounds it on this card: four S x S x D products (halved by
-// causality) for O(S D) bytes, so operations. bf16 inputs run them at
-// the bf16 tensor-core rate (989 TFLOP/s dense). f32 inputs run each
+// causality) for O(S D) bytes, so operations. bf16 and f16 inputs run
+// them at the 16-bit tensor-core rate (989 TFLOP/s dense), with f32 sums,
+// lse, delta and P and dS before their packing (dS as in
+// flash_bwd_dq.cu, its scale applied to dk in f32). f32 inputs run each
 // product as three TF32 products (3xTF32, below), so at a third of the
 // 495 TFLOP/s TF32 rate, 165 TFLOP/s: still 2.5x the 67 TFLOP/s of f32
 // FMA on the CUDA cores, which the previous version of this kernel used.
@@ -32,8 +34,14 @@
 //
 // Design (FlashAttention-2's backward structure, warp-level mma.sync):
 //
-// - One block of 4 warps owns one (KV head, 64-row KV tile); each warp
-//   owns 16 KV rows. K and V are staged in shared memory once. The block
+// - One block of 4 warps owns one (KV head, 64-row KV tile, output
+//   column slice); each warp owns 16 KV rows. The slice is all of
+//   head_dim up to 128; the 256 instance (head_dim 129-256) splits it in
+//   two 128-column halves, one block each, because dk and dv over all
+//   256 columns would be 256 accumulator registers a thread. Each half
+//   computes the full-width scores S^T and dP^T again (one and a half
+//   times the products of one block), and its accumulators are those of
+//   the 128 instance. K and V are staged in shared memory once. The block
 //   loops over the group's query heads and their query tiles (64 rows; 32
 //   at head_dim 128, to keep the accumulators in registers), from the
 //   causal diagonal on and, with a window, up to k0 + 63 + window. dk and
@@ -42,13 +50,14 @@
 // - Per query tile a warp computes S^T = K Q^T and dP^T = V dO^T for its
 //   16 rows (accumulator fragments), P^T and dS^T from them in registers,
 //   then dV += P^T dO and dK += dS^T Q. P^T and dS^T never leave the
-//   registers: for bf16 the m16n8k16 accumulator layout of two adjacent
-//   8-column tiles is the A-operand layout of one 16-deep step (packed to
-//   bf16 pairs); for f32 the m16n8k8 accumulator holds columns 2t and 2t+1
-//   where the A operand wants t and t+4, so the depth index is permuted
-//   (t <-> 2t, t+4 <-> 2t+1) in both A and B, which leaves the sum as it is.
-// - Operands stay in their own type in shared memory: bf16 rows padded to
-//   D + 8 elements and read with ldmatrix (.trans for the B operand of
+//   registers: for 16-bit types the m16n8k16 accumulator layout of two
+//   adjacent 8-column tiles is the A-operand layout of one 16-deep step
+//   (packed to pairs of the type); for f32 the m16n8k8 accumulator holds
+//   columns 2t and 2t+1 where the A operand wants t and t+4, so the depth
+//   index is permuted (t <-> 2t, t+4 <-> 2t+1) in both A and B, which
+//   leaves the sum as it is.
+// - Operands stay in their own type in shared memory: 16-bit rows padded
+//   to D + 8 elements and read with ldmatrix (.trans for the B operand of
 //   the two accumulating products); f32 rows padded to D + 4 and read
 //   with 32-bit loads, split into big and small at each fragment load.
 //   On f32 each query tile's dV and dK products are summed from zero and
@@ -57,9 +66,12 @@
 // - Q, dO, lse and delta of the next query tile are copied with cp.async
 //   (16 bytes a thread; 4 for lse and delta) into the second of two
 //   buffers while the current tile computes: one wait and one barrier
-//   per tile. A tensor whose pointer, strides or head_dim are not in
-//   whole 16-byte units takes a scalar load path inside the kernel
-//   instead (per tensor, chosen by the launcher).
+//   per tile; for f32 at head_dim 256 one buffer, the next tile's copy
+//   after a barrier at the end of this one (two would take 266 KB of
+//   shared memory against the block's 227 KB). A tensor whose pointer,
+//   strides or head_dim are not in whole 16-byte units takes a scalar
+//   load path inside the kernel instead (per tensor, chosen by the
+//   launcher).
 //
 // q, k, v and dO are read through their (S, heads, head_dim) strides; dk
 // and dv are written contiguous, (S, KVH, D), in k's type. The copy,
@@ -88,6 +100,18 @@ __host__ __device__ constexpr int min_blocks(bool f32, int dp) {
   return (f32 ? dp <= 32 : dp <= 64) ? 3 : 1;
 }
 
+// Output columns (of dk and dv) per block: all of head_dim up to 128,
+// else 128, a half of the 256 instance.
+__host__ __device__ constexpr int out_cols(int dp) {
+  return dp > 128 ? 128 : dp;
+}
+
+// Q and dO (and lse and delta) buffers: two, or one for f32 beyond
+// head_dim 128.
+__host__ __device__ constexpr int q_bufs(bool f32, int dp) {
+  return f32 && dp > 128 ? 1 : 2;
+}
+
 struct Strides {                   // row (ss) and head (sh) strides, elements
   long long q_ss, q_sh, k_ss, k_sh, v_ss, v_sh, do_ss, do_sh;
 };
@@ -105,21 +129,24 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      Strides st, int vec, int causal, int window,
                      float scale) {
   constexpr int BQ = q_tile(DP);
+  constexpr int NB = q_bufs(sizeof(T) == 4, DP);
+  constexpr int DN = out_cols(DP);  // output columns of this block
   constexpr int NJ = BQ / 8;        // 8-column score tiles per warp
-  constexpr int ND = DP / 8;        // 8-column accumulator tiles
+  constexpr int ND = DN / 8;        // 8-column accumulator tiles
   constexpr int LD = DP + Pad<T>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sk = reinterpret_cast<T*>(smem_raw);     // BKV x LD
   T* sv = sk + BKV * LD;                      // BKV x LD
-  T* sq = sv + BKV * LD;                      // 2 buffers of BQ x LD
-  T* sdo = sq + 2 * BQ * LD;                  // 2 buffers of BQ x LD
-  float* slse = reinterpret_cast<float*>(sdo + 2 * BQ * LD);  // 2 x BQ
-  float* sdelta = slse + 2 * BQ;                              // 2 x BQ
+  T* sq = sv + BKV * LD;                      // NB buffers of BQ x LD
+  T* sdo = sq + NB * BQ * LD;                 // NB buffers of BQ x LD
+  float* slse = reinterpret_cast<float*>(sdo + NB * BQ * LD);  // NB x BQ
+  float* sdelta = slse + NB * BQ;                              // NB x BQ
 
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wrow = (threadIdx.x >> 5) * 16;   // the warp's first KV row
   const int kvh = blockIdx.y;
+  const int col0 = blockIdx.z * DN;           // the block's first column
   // Under causality the first KV tiles see the most query tiles; they
   // have the lowest block index and are scheduled first.
   const int k0 = blockIdx.x * BKV;
@@ -135,11 +162,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_qt = (q_end - q_begin + BQ - 1) / BQ;  // per query head
   const int n_it = group * n_qt;
 
-  // Stages query tile `it` (head it / n_qt of the group) into buffer it & 1.
+  // Stages query tile `it` (head it / n_qt of the group) into buffer
+  // it % NB.
   auto stage = [&](int it) {
     const int h = kvh * group + it / n_qt;
     const int q0 = q_begin + (it % n_qt) * BQ;
-    const int b = it & 1;
+    const int b = it % NB;
     load_tile<T, DP, BQ, NT>(sq + b * BQ * LD, q + h * st.q_sh, q0, S, D,
                              st.q_ss, vec & VEC_Q);
     load_tile<T, DP, BQ, NT>(sdo + b * BQ * LD, dout + h * st.do_sh, q0, S,
@@ -171,13 +199,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int it = 0; it < n_it; ++it) {
     // Tile `it` has landed, and every warp is done with tile it - 1, whose
-    // buffer the copy of tile it + 1 now overwrites.
+    // buffer the copy of tile it + 1 now overwrites (with two buffers;
+    // with one, that copy waits for the end of this tile, below).
     cp_async_wait_all();
     __syncthreads();
-    if (it + 1 < n_it) stage(it + 1);
-    cp_async_commit();
+    if constexpr (NB == 2) {
+      if (it + 1 < n_it) stage(it + 1);
+      cp_async_commit();
+    }
 
-    const int b = it & 1;
+    const int b = it % NB;
     const int q0 = q_begin + (it % n_qt) * BQ;
     const T* cq = sq + b * BQ * LD;
     const T* cdo = sdo + b * BQ * LD;
@@ -216,7 +247,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
               ex2(fmaf(p[0][j][e], scale_log2, -clse[col] * LOG2E));
         }
     }
-    add_xb<DP, 1, NJ>(acc_v, p, cdo, lane);
+    add_xb<DP, 1, NJ, DN>(acc_v, p, cdo + col0, lane);
 
     // dS^T = P^T o (dP^T - delta), dP^T = V dO^T; then dK += dS^T Q.
     float ds[1][NJ][4];
@@ -228,7 +259,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int col = j * 8 + 2 * t + (e & 1);
         ds[0][j][e] = p[0][j][e] * (ds[0][j][e] - cdelta[col]);
       }
-    add_xb<DP, 1, NJ>(acc_k, ds, cq, lane);
+    add_xb<DP, 1, NJ, DN>(acc_k, ds, cq + col0, lane);
+    if constexpr (NB == 1) {
+      __syncthreads();              // every warp is done with the buffer
+      if (it + 1 < n_it) stage(it + 1);
+      cp_async_commit();
+    }
   }
 
 #pragma unroll
@@ -236,7 +272,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int kj = k0 + wrow + g + (e >> 1) * 8;
-      const int col = n * 8 + 2 * t + (e & 1);
+      const int col = col0 + n * 8 + 2 * t + (e & 1);
       if (kj < S && col < D) {
         const long long at = ((long long)kj * KVH + kvh) * D + col;
         store(dk + at, acc_k[0][n][e] * scale);
@@ -245,13 +281,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// Dynamic shared memory of one block: K, V, two Q and two dO tiles, and
-// two buffers each of lse and delta.
+// Dynamic shared memory of one block: K, V, NB Q and NB dO tiles, and NB
+// buffers each of lse and delta.
 template <typename T, int DP>
 constexpr int smem_bytes() {
-  return (int)((2 * BKV + 4 * q_tile(DP)) * (DP + Pad<T>::value) *
+  constexpr int NB = q_bufs(sizeof(T) == 4, DP);
+  return (int)((2 * BKV + 2 * NB * q_tile(DP)) * (DP + Pad<T>::value) *
                    sizeof(T) +
-               4 * q_tile(DP) * sizeof(float));
+               2 * NB * q_tile(DP) * sizeof(float));
 }
 
 template <typename T, int DP>
@@ -274,7 +311,7 @@ cudaError_t launch_dkv(const void* const* p, int S, int H, int KVH, int D,
                   (whole(p[1], st.k_ss, st.k_sh) ? VEC_K : 0) |
                   (whole(p[2], st.v_ss, st.v_sh) ? VEC_V : 0) |
                   (whole(p[3], st.do_ss, st.do_sh) ? VEC_DO : 0);
-  const dim3 grid((S + BKV - 1) / BKV, KVH);
+  const dim3 grid((S + BKV - 1) / BKV, KVH, DP / out_cols(DP));
   flash_bwd_dkv_kernel<T, DP><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
       static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
@@ -289,13 +326,14 @@ using Launcher = cudaError_t (*)(const void* const*, int, int, int, int,
                                  const Strides&, int, int, float,
                                  cudaStream_t);
 
-// The template instances with head_dim padded to 16, 32, 64 or 128.
+// The template instances with head_dim padded to 16, 32, 64, 128 or 256.
 template <typename T>
 Launcher dkv_for(int D) {
   return D <= 16 ? &launch_dkv<T, 16>
        : D <= 32 ? &launch_dkv<T, 32>
        : D <= 64 ? &launch_dkv<T, 64>
-                 : &launch_dkv<T, 128>;
+       : D <= 128 ? &launch_dkv<T, 128>
+                  : &launch_dkv<T, 256>;
 }
 
 template <typename T>
@@ -303,8 +341,12 @@ int smem_for(int D) {
   return D <= 16 ? smem_bytes<T, 16>()
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
-                 : smem_bytes<T, 128>();
+       : D <= 128 ? smem_bytes<T, 128>()
+                  : smem_bytes<T, 256>();
 }
+
+// The largest head_dim an instance takes.
+constexpr int MAX_HEAD_DIM = 256;
 
 }  // namespace
 
@@ -314,20 +356,24 @@ extern "C" {
 // the row and head strides in `strides` (elements: q, k, v, dout, each
 // row then head); lse and delta (H, S) f32 contiguous; dk and dv written
 // (S, KVH, D) contiguous in k's type, each the sum over the H / KVH query
-// heads that share the KV head. dtype: 0 = f32, 1 = bf16. window <= 0
-// means none. Returns the CUDA error of the launch (0 on success).
+// heads that share the KV head. dtype: 0 = f32, 1 = bf16, 2 = f16.
+// head_dim D up to MAX_HEAD_DIM (256). window <= 0 means none. Returns
+// the CUDA error of the launch (0 on success; cudaErrorInvalidValue for a
+// D, dtype or head count no instance takes).
 int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dk, void* dv, int S, int H, int KVH, int D,
                   const long long* strides, int causal, int window,
                   float scale, int dtype, void* stream) {
-  if (S < 1 || H < 1 || KVH < 1 || H % KVH != 0 || D < 1 || D > 128 ||
-      (dtype != 0 && dtype != 1))
+  if (S < 1 || H < 1 || KVH < 1 || H % KVH != 0 || D < 1 ||
+      D > MAX_HEAD_DIM || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   const void* p[] = {q, k, v, dout, lse, delta, dk, dv};
   const Strides st{strides[0], strides[1], strides[2], strides[3],
                    strides[4], strides[5], strides[6], strides[7]};
-  const Launcher f = dtype == 0 ? dkv_for<float>(D) : dkv_for<bf16>(D);
+  const Launcher f = dtype == 0   ? dkv_for<float>(D)
+                     : dtype == 1 ? dkv_for<bf16>(D)
+                                  : dkv_for<f16>(D);
   return (int)f(p, S, H, KVH, D, st, causal, window, scale,
                 static_cast<cudaStream_t>(stream));
 }
@@ -335,7 +381,9 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
 // Bytes of dynamic shared memory a block of the instance for (D, dtype)
 // takes.
 int flash_bwd_dkv_smem_bytes(int D, int dtype) {
-  return dtype == 0 ? smem_for<float>(D) : smem_for<bf16>(D);
+  return dtype == 0   ? smem_for<float>(D)
+         : dtype == 1 ? smem_for<bf16>(D)
+                      : smem_for<f16>(D);
 }
 
 const char* flash_bwd_dkv_error_string(int code) {

@@ -14,8 +14,9 @@
 // as loop bounds and _keep_mask's elementwise mask (plus the ragged edge).
 //
 // What bounds it on this card: three S x S x D products (halved by
-// causality) for O(S D) bytes, so operations. bf16 inputs run them at the
-// bf16 tensor-core rate (989 TFLOP/s dense); f32 inputs run each product
+// causality) for O(S D) bytes, so operations. bf16 and f16 inputs run them
+// at the 16-bit tensor-core rate (989 TFLOP/s dense), with f32 sums, lse,
+// delta and dS before its packing; f32 inputs run each product
 // as three TF32 products (3xTF32, mma_sm90.cuh), at 165 TFLOP/s, against
 // the 67 TFLOP/s of f32 FMA on the CUDA cores that the previous version
 // of this kernel used. An emulation of this kernel's f32 arithmetic on
@@ -43,16 +44,26 @@
 //   tile. A tensor whose pointer, strides or head_dim are not whole
 //   16-byte units takes a scalar load path instead (per tensor, chosen
 //   by the launcher).
+// - head_dim 129-256 pads to one 256 instance, whose dq accumulator is
+//   128 registers a thread: its K and V tiles are 32 rows (two score
+//   tiles of 16 registers each beside dq), and for f32 single-buffered
+//   (the next tile's copy after a barrier at the end of this one), since
+//   the Q and dO tiles and two buffers of K and V would take 266 KB of
+//   shared memory against the block's 227 KB.
 // - Per KV tile a warp computes S = Q K^T and dP = dO V^T (16 x 64 an
 //   m-tile each) as mma accumulators, P = 2^(S scale log2 e - lse log2 e)
 //   and dS = P (dP - delta) in registers (the mask only on tiles that
 //   need it), then dQ += dS K with dS as the A operand straight from its
 //   accumulator registers and K read as the B operand (ldmatrix .trans
-//   for bf16, a permuted depth index for f32). On f32 each tile's dS K is
-//   summed from zero and then added to dq with rounded adds: the tensor
-//   cores' own f32 sums round toward zero.
-// - Operands stay in their own type in shared memory: bf16 rows padded to
-//   D + 8 elements and read with ldmatrix, f32 rows padded to D + 4 and
+//   for 16-bit types, a permuted depth index for f32). dS is packed to
+//   the input's 16-bit type before its scale is applied (to dq, in f32).
+//   Since O_i is a convex combination of the v_j, |dS_ij| <= |dO_i . v_j|
+//   + |delta_i| <= 2 |dO_i| max_j |v_j| + |dlse_i|, which chip_smoke.py
+//   holds under f16's largest value, 65504, for its f16 inputs. On f32
+//   each tile's dS K is summed from zero and then added to dq with
+//   rounded adds: the tensor cores' own f32 sums round toward zero.
+// - Operands stay in their own type in shared memory: 16-bit rows padded
+//   to D + 8 elements and read with ldmatrix, f32 rows padded to D + 4 and
 //   read with 32-bit loads, split into big and small at each use. Both
 //   paddings make the fragment reads free of bank conflicts.
 //
@@ -65,9 +76,17 @@ namespace {
 
 constexpr int WARPS = 4;           // warps per block
 constexpr int NT = 32 * WARPS;     // threads per block
-constexpr int BKV = 64;            // key/value rows per tile
-constexpr int NJ = BKV / 8;        // 8-column score tiles per warp
 constexpr float LOG2E = 1.4426950408889634f;
+
+// Key/value rows per tile: 64, or 32 beyond head_dim 128.
+__host__ __device__ constexpr int kv_rows(int dp) {
+  return dp > 128 ? 32 : 64;
+}
+
+// K and V buffers: two, or one for f32 beyond head_dim 128.
+__host__ __device__ constexpr int kv_bufs(bool f32, int dp) {
+  return f32 && dp > 128 ? 1 : 2;
+}
 
 struct Strides {                   // row (ss) and head (sh) strides, elements
   long long q_ss, q_sh, k_ss, k_sh, v_ss, v_sh, do_ss, do_sh;
@@ -90,11 +109,12 @@ __host__ __device__ constexpr int q_rows(bool f32, int dp) {
   return 16 * WARPS * m_tiles(f32, dp);
 }
 
-// Dynamic shared memory of one block: the Q and dO tiles and two K and
-// two V tiles.
+// Dynamic shared memory of one block: the Q and dO tiles and NB K and NB
+// V tiles.
 template <typename T, int DP>
 __host__ __device__ constexpr int smem_bytes() {
-  return (int)((2 * q_rows(sizeof(T) == 4, DP) + 4 * BKV) *
+  return (int)((2 * q_rows(sizeof(T) == 4, DP) +
+                2 * kv_bufs(sizeof(T) == 4, DP) * kv_rows(DP)) *
                (DP + Pad<T>::value) * sizeof(T));
 }
 
@@ -120,13 +140,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int causal, int window, float scale) {
   constexpr int MT = m_tiles(sizeof(T) == 4, DP);
   constexpr int BQ = q_rows(sizeof(T) == 4, DP);
+  constexpr int BKV = kv_rows(DP);
+  constexpr int NB = kv_bufs(sizeof(T) == 4, DP);
+  constexpr int NJ = BKV / 8;       // 8-column score tiles per warp
   constexpr int ND = DP / 8;        // 8-column accumulator tiles
   constexpr int LD = DP + Pad<T>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sq = reinterpret_cast<T*>(smem_raw);     // BQ x LD
   T* sdo = sq + BQ * LD;                      // BQ x LD
-  T* sk = sdo + BQ * LD;                      // 2 buffers of BKV x LD
-  T* sv = sk + 2 * BKV * LD;                  // 2 buffers of BKV x LD
+  T* sk = sdo + BQ * LD;                      // NB buffers of BKV x LD
+  T* sv = sk + NB * BKV * LD;                 // NB buffers of BKV x LD
 
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -148,10 +171,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const int n_it = (kv_end - kv_begin + BKV - 1) / BKV;
 
-  // Stages KV tile `it` into buffer it & 1.
+  // Stages KV tile `it` into buffer it % NB.
   auto stage = [&](int it) {
     const int k0 = kv_begin + it * BKV;
-    const int b = it & 1;
+    const int b = it % NB;
     load_tile<T, DP, BKV, NT>(sk + b * BKV * LD, k + kvh * st.k_sh, k0, S,
                               D, st.k_ss, vec & VEC_K);
     load_tile<T, DP, BKV, NT>(sv + b * BKV * LD, v + kvh * st.v_sh, k0, S,
@@ -187,15 +210,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int it = 0; it < n_it; ++it) {
     // Tile `it` has landed, and every warp is done with tile it - 1, whose
-    // buffers the copy of tile it + 1 now overwrites.
+    // buffers the copy of tile it + 1 now overwrites (with two buffers;
+    // with one, that copy waits for the end of this tile, below).
     cp_async_wait_all();
     __syncthreads();
-    if (it + 1 < n_it) stage(it + 1);
-    cp_async_commit();
+    if constexpr (NB == 2) {
+      if (it + 1 < n_it) stage(it + 1);
+      cp_async_commit();
+    }
 
     const int k0 = kv_begin + it * BKV;
-    const T* ck = sk + (it & 1) * BKV * LD;
-    const T* cv = sv + (it & 1) * BKV * LD;
+    const T* ck = sk + (it % NB) * BKV * LD;
+    const T* cv = sv + (it % NB) * BKV * LD;
     // Whether any entry of this tile is masked (diagonal, window edge or
     // ragged keys); the same for the whole block, so no warp diverges.
     bool masked = k0 + BKV > S;
@@ -242,6 +268,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e)
           ds[mt][j][e] = p[mt][j][e] * (ds[mt][j][e] - dlt[mt][e >> 1]);
     add_xb<DP, MT, NJ>(acc, ds, ck, lane);
+    if constexpr (NB == 1) {
+      __syncthreads();              // every warp is done with the buffer
+      if (it + 1 < n_it) stage(it + 1);
+      cp_async_commit();
+    }
   }
 
 #pragma unroll
@@ -296,13 +327,14 @@ using Launcher = cudaError_t (*)(const void* const*, int, int, int, int,
                                  const Strides&, int, int, float,
                                  cudaStream_t);
 
-// The template instances with head_dim padded to 16, 32, 64 or 128.
+// The template instances with head_dim padded to 16, 32, 64, 128 or 256.
 template <typename T>
 Launcher dq_for(int D) {
   return D <= 16 ? &launch_dq<T, 16>
        : D <= 32 ? &launch_dq<T, 32>
        : D <= 64 ? &launch_dq<T, 64>
-                 : &launch_dq<T, 128>;
+       : D <= 128 ? &launch_dq<T, 128>
+                  : &launch_dq<T, 256>;
 }
 
 template <typename T>
@@ -310,8 +342,12 @@ int smem_for(int D) {
   return D <= 16 ? smem_bytes<T, 16>()
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
-                 : smem_bytes<T, 128>();
+       : D <= 128 ? smem_bytes<T, 128>()
+                  : smem_bytes<T, 256>();
 }
+
+// The largest head_dim an instance takes.
+constexpr int MAX_HEAD_DIM = 256;
 
 }  // namespace
 
@@ -320,20 +356,24 @@ extern "C" {
 // q and dout (S, H, D), k and v (S, KVH, D), with unit stride along D and
 // the row and head strides in `strides` (elements: q, k, v, dout, each
 // row then head); lse and delta (H, S) f32 contiguous; dq written (S, H,
-// D) contiguous in q's type. dtype: 0 = f32, 1 = bf16. window <= 0 means
-// none. Returns the CUDA error of the launch (0 on success).
+// D) contiguous in q's type. dtype: 0 = f32, 1 = bf16, 2 = f16. head_dim
+// D up to MAX_HEAD_DIM (256). window <= 0 means none. Returns the CUDA
+// error of the launch (0 on success; cudaErrorInvalidValue for a D, dtype
+// or head count no instance takes).
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, int S, int H, int KVH, int D,
                  const long long* strides, int causal, int window,
                  float scale, int dtype, void* stream) {
-  if (S < 1 || H < 1 || KVH < 1 || H % KVH != 0 || D < 1 || D > 128 ||
-      (dtype != 0 && dtype != 1))
+  if (S < 1 || H < 1 || KVH < 1 || H % KVH != 0 || D < 1 ||
+      D > MAX_HEAD_DIM || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   const void* p[] = {q, k, v, dout, lse, delta, dq};
   const Strides st{strides[0], strides[1], strides[2], strides[3],
                    strides[4], strides[5], strides[6], strides[7]};
-  const Launcher f = dtype == 0 ? dq_for<float>(D) : dq_for<bf16>(D);
+  const Launcher f = dtype == 0   ? dq_for<float>(D)
+                     : dtype == 1 ? dq_for<bf16>(D)
+                                  : dq_for<f16>(D);
   return (int)f(p, S, H, KVH, D, st, causal, window, scale,
                 static_cast<cudaStream_t>(stream));
 }
@@ -341,7 +381,9 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
 // Bytes of dynamic shared memory a block of the instance for (D, dtype)
 // takes.
 int flash_bwd_dq_smem_bytes(int D, int dtype) {
-  return dtype == 0 ? smem_for<float>(D) : smem_for<bf16>(D);
+  return dtype == 0   ? smem_for<float>(D)
+         : dtype == 1 ? smem_for<bf16>(D)
+                      : smem_for<f16>(D);
 }
 
 const char* flash_bwd_dq_error_string(int code) {

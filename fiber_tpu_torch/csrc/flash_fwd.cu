@@ -10,8 +10,10 @@
 // as (H, S) f32 beside O.
 //
 // What bounds it on this card: two S x S x D products (halved by
-// causality) for O(S D) bytes, so operations. bf16 inputs run them at
-// the bf16 tensor-core rate (989 TFLOP/s dense). f32 inputs run each
+// causality) for O(S D) bytes, so operations. bf16 and f16 inputs run
+// them at the 16-bit tensor-core rate (989 TFLOP/s dense), with f32
+// sums, m, l and lse, as the Pallas kernel upcasts every block to f32.
+// f32 inputs run each
 // product as three TF32 products (3xTF32, mma_sm90.cuh), at a third of
 // the 495 TFLOP/s TF32 rate: 165 TFLOP/s, against the 67 TFLOP/s of f32
 // FMA on the CUDA cores that the previous version of this kernel used.
@@ -25,35 +27,43 @@
 // - One block of 4 warps owns one (query head, query tile); each warp
 //   owns two 16-row m-tiles (a 128-row query tile), so that every K and V
 //   fragment it loads feeds two products, or one (64 rows) where two
-//   would spill: f32 from head_dim 64 on, bf16 at 128. The tiles of the
-//   last query rows, which see the most keys under causality, are
-//   scheduled first. The block sweeps the KV tiles with _run_window's
-//   predicate as its loop bounds; m, l and the output accumulator stay
-//   in registers.
-// - Q is staged in shared memory once. bf16 Q fragments stay in
-//   registers for the whole sweep; f32 ones (big and small) are split
-//   again from shared memory at each tile, which beside two m-tiles'
-//   accumulators measured faster than one m-tile with Q in registers.
-//   64-row K and V tiles are double-buffered by cp.async (16 bytes a
-//   thread): the next tile's copy runs while the current one computes,
-//   one wait and one barrier a tile.
-// - Per KV tile a warp computes its scores S = Q K^T (16 x 64 an m-tile)
+//   would spill: f32 from head_dim 64 on, bf16 and f16 from 128. The
+//   tiles of the last query rows, which see the most keys under
+//   causality, are scheduled first. The block sweeps the KV tiles with
+//   _run_window's predicate as its loop bounds; m, l and the output
+//   accumulator stay in registers.
+// - Q is staged in shared memory once. 16-bit Q fragments stay in
+//   registers for the whole sweep up to head_dim 128; f32 ones (big and
+//   small) are split again from shared memory at each tile, which beside
+//   two m-tiles' accumulators measured faster than one m-tile with Q in
+//   registers. 64-row K and V tiles are double-buffered by cp.async (16
+//   bytes a thread): the next tile's copy runs while the current one
+//   computes, one wait and one barrier a tile.
+// - head_dim 129-256 pads to one 256 instance with one m-tile a warp:
+//   its output accumulator alone is 128 registers a thread, so 16-bit Q
+//   fragments are read from shared memory at each use as f32's are, and
+//   f32 K and V tiles are 32 rows: their 16 x 32 score tile is 16
+//   registers fewer than 64 rows' (which spilled 32 bytes a thread), and
+//   two buffers of each fit in 199,680 bytes of shared memory, where
+//   64-row ones would take 333 KB against the block's 227 KB.
+// - Per KV tile a warp computes its scores S = Q K^T (16 x BKV an m-tile)
 //   as mma accumulators, the online softmax in registers in base 2 (scores
 //   scaled by scale * log2 e, ex2.approx; a row spans the 4 threads of a
 //   quad, so its max takes two shuffles, and its sum stays a per-thread
 //   partial until the end), then O += P V with P never leaving the
-//   registers: for bf16 the m16n8k16 accumulators of two adjacent
-//   8-column score tiles are, packed to bf16, the A fragment of one
+//   registers: for a 16-bit type the m16n8k16 accumulators of two
+//   adjacent 8-column score tiles are, packed to it, the A fragment of one
 //   16-deep step; for f32 the m16n8k8 accumulator holds columns 2t and
 //   2t + 1 where the A operand wants t and t + 4, so the depth index is
 //   permuted (t <-> 2t, t + 4 <-> 2t + 1) in both P and V's rows, which
-//   leaves the sum as it is. Tiles with no masked entry (most of a long
-//   sequence) skip the mask arithmetic.
+//   leaves the sum as it is. f16 packs P as bf16 does, rounded to
+//   nearest; P lies in [0, 1], so it cannot overflow. Tiles with no
+//   masked entry (most of a long sequence) skip the mask arithmetic.
 // - The tensor cores round their f32 sums toward zero, and an O row sums
 //   up to 16384 keys. On f32 each KV tile's P V is therefore summed from
 //   zero and folded into O as o = o * corr + pv, rounded to nearest.
-// - Operands stay in their own type in shared memory: bf16 rows padded to
-//   D + 8 elements and read with ldmatrix (.trans for V), f32 rows padded
+// - Operands stay in their own type in shared memory: 16-bit rows padded
+//   to D + 8 elements and read with ldmatrix (.trans for V), f32 rows padded
 //   to D + 4 and read with 32-bit loads; both free of bank conflicts. A
 //   tensor whose pointer, strides or head_dim are not whole 16-byte
 //   units takes a scalar load path instead (per tensor, chosen by the
@@ -69,16 +79,20 @@ namespace {
 
 constexpr int WARPS = 4;           // warps per block
 constexpr int NT = 32 * WARPS;     // threads per block
-constexpr int BKV = 64;            // key/value rows per tile
-constexpr int NJ = BKV / 8;        // 8-column score tiles per m-tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float kNegInf = -1e30f;
-static_assert(NJ * 4 == 32, "a thread's keep bits of a tile fill a word");
+
+// Key/value rows per tile: 64, or 32 for f32 beyond head_dim 128. A
+// thread's keep bits of a tile (4 per 8-column score tile) fit a word.
+__host__ __device__ constexpr int kv_rows(bool f32, int dp) {
+  return f32 && dp > 128 ? 32 : 64;
+}
 
 // 16-row m-tiles per warp: each K and V fragment a warp loads (and, for
 // f32, splits) feeds MT products. Two where ptxas then spills nothing
-// (f32 to head_dim 32, bf16 to 64; about 220 and 254 registers), else
+// (f32 to head_dim 32, bf16 and f16 to 64; about 220 and 254
+// registers), else
 // one.
 __host__ __device__ constexpr int m_tiles(bool f32, int dp) {
   return (f32 ? dp <= 32 : dp <= 64) ? 2 : 1;
@@ -106,21 +120,34 @@ struct Strides {                   // row (ss) and head (sh) strides, elements
 // Bits of `vec`: the 16-byte copy path may be used for q, k, v.
 constexpr int VEC_Q = 1, VEC_K = 2, VEC_V = 4;
 
-// The warp's Q as A fragments of its MT m-tiles.
-template <typename T, int DP, int MT> struct QFrags;
+// The warp's Q as A fragments of its MT m-tiles. 16-bit types: one
+// ldmatrix x4 per m-tile and 16-deep step, held in MT DP / 4 registers up
+// to head_dim 128 and loaded again from shared memory at each use beyond.
+template <typename T, int DP, int MT> struct QFrags {
+  static_assert(sizeof(T) == 2, "f32 has its own QFrags");
+  static constexpr int LD = DP + Pad<T>::value;
+  static constexpr bool IN_REGS = DP <= 128;
+  uint32_t a[IN_REGS ? MT : 1][IN_REGS ? DP / 16 : 1][4];
+  const T* rows;                   // the lane's ldmatrix row, m-tile 0
 
-// bf16: one ldmatrix x4 per m-tile and 16-deep step, MT DP / 4 registers.
-template <int DP, int MT> struct QFrags<bf16, DP, MT> {
-  static constexpr int LD = DP + Pad<bf16>::value;
-  uint32_t a[MT][DP / 16][4];
-
-  __device__ __forceinline__ void load(const bf16* sq, int wrow, int lane) {
+  __device__ __forceinline__ void load(const T* sq, int wrow, int lane) {
+    rows = sq + (wrow + (lane & 15)) * LD + (lane >> 4) * 8;
+    if constexpr (IN_REGS) {
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk)
-        ldsm_x4(a[mt][kk], sq + (wrow + mt * 16 + (lane & 15)) * LD +
-                               kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < DP / 16; ++kk)
+          ldsm_x4(a[mt][kk], rows + mt * 16 * LD + kk * 16);
+    }
+  }
+  __device__ __forceinline__ void get(int mt, int kk,
+                                      uint32_t (&r)[4]) const {
+    if constexpr (IN_REGS) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r[e] = a[mt][kk][e];
+    } else {
+      ldsm_x4(r, rows + mt * 16 * LD + kk * 16);
+    }
   }
 };
 
@@ -144,13 +171,13 @@ template <int DP, int MT> struct QFrags<float, DP, MT> {
   }
 };
 
-// The warp's 16 MT x BKV scores Q K^T: s[mt][j] holds key columns
+// The warp's 16 MT x 8 NJ scores Q K^T: s[mt][j] holds key columns
 // 8j..8j+7 of the tile sk for m-tile mt as an m16n8 accumulator fragment.
-template <int DP, int MT>
+template <int DP, int MT, int NJ, typename T, if_16bit<T> = 0>
 __device__ __forceinline__ void scores(float (&s)[MT][NJ][4],
-                                       const QFrags<bf16, DP, MT>& qf,
-                                       const bf16* sk, int lane) {
-  constexpr int LD = DP + Pad<bf16>::value;
+                                       const QFrags<T, DP, MT>& qf,
+                                       const T* sk, int lane) {
+  constexpr int LD = DP + Pad<T>::value;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -159,6 +186,9 @@ __device__ __forceinline__ void scores(float (&s)[MT][NJ][4],
       for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) qf.get(mt, kk, a[mt]);
 #pragma unroll
     for (int jj = 0; jj < NJ / 2; ++jj) {
       uint32_t b[4];
@@ -166,14 +196,14 @@ __device__ __forceinline__ void scores(float (&s)[MT][NJ][4],
                      kk * 16 + ((lane >> 3) & 1) * 8);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(s[mt][2 * jj], qf.a[mt][kk], b[0], b[1]);
-        mma_bf16(s[mt][2 * jj + 1], qf.a[mt][kk], b[2], b[3]);
+        mma16<T>(s[mt][2 * jj], a[mt], b[0], b[1]);
+        mma16<T>(s[mt][2 * jj + 1], a[mt], b[2], b[3]);
       }
     }
   }
 }
 
-template <int DP, int MT>
+template <int DP, int MT, int NJ>
 __device__ __forceinline__ void scores(float (&s)[MT][NJ][4],
                                        const QFrags<float, DP, MT>& qf,
                                        const float* sk, int lane) {
@@ -204,15 +234,15 @@ __device__ __forceinline__ void scores(float (&s)[MT][NJ][4],
 }
 
 // o = o * corr + P V for the warp's rows: P (the accumulator fragments of
-// scores(), now probabilities) as the A operand, V the BKV x DP tile sv.
+// scores(), now probabilities) as the A operand, V the 8 NJ x DP tile sv.
 // o[mt][n] holds head_dim columns 8n..8n+7 of m-tile mt; corr[mt][r] is
 // the rescale of its row g + 8r.
-template <int DP, int MT>
+template <int DP, int MT, int NJ, typename T, if_16bit<T> = 0>
 __device__ __forceinline__ void accumulate(float (&o)[MT][DP / 8][4],
                                            const float (&p)[MT][NJ][4],
                                            const float (&corr)[MT][2],
-                                           const bf16* sv, int lane) {
-  constexpr int LD = DP + Pad<bf16>::value;
+                                           const T* sv, int lane) {
+  constexpr int LD = DP + Pad<T>::value;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -225,10 +255,10 @@ __device__ __forceinline__ void accumulate(float (&o)[MT][DP / 8][4],
     uint32_t a[MT][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      a[mt][0] = pack_bf16(p[mt][2 * kk][0], p[mt][2 * kk][1]);
-      a[mt][1] = pack_bf16(p[mt][2 * kk][2], p[mt][2 * kk][3]);
-      a[mt][2] = pack_bf16(p[mt][2 * kk + 1][0], p[mt][2 * kk + 1][1]);
-      a[mt][3] = pack_bf16(p[mt][2 * kk + 1][2], p[mt][2 * kk + 1][3]);
+      a[mt][0] = pack16<T>(p[mt][2 * kk][0], p[mt][2 * kk][1]);
+      a[mt][1] = pack16<T>(p[mt][2 * kk][2], p[mt][2 * kk][3]);
+      a[mt][2] = pack16<T>(p[mt][2 * kk + 1][0], p[mt][2 * kk + 1][1]);
+      a[mt][3] = pack16<T>(p[mt][2 * kk + 1][2], p[mt][2 * kk + 1][3]);
     }
 #pragma unroll
     for (int nn = 0; nn < DP / 16; ++nn) {
@@ -237,14 +267,14 @@ __device__ __forceinline__ void accumulate(float (&o)[MT][DP / 8][4],
                                LD + nn * 16 + (lane >> 4) * 8);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(o[mt][2 * nn], a[mt], b[0], b[1]);
-        mma_bf16(o[mt][2 * nn + 1], a[mt], b[2], b[3]);
+        mma16<T>(o[mt][2 * nn], a[mt], b[0], b[1]);
+        mma16<T>(o[mt][2 * nn + 1], a[mt], b[2], b[3]);
       }
     }
   }
 }
 
-template <int DP, int MT>
+template <int DP, int MT, int NJ>
 __device__ __forceinline__ void accumulate(float (&o)[MT][DP / 8][4],
                                            const float (&p)[MT][NJ][4],
                                            const float (&corr)[MT][2],
@@ -306,6 +336,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  Strides st, int vec, int causal, int window, float scale) {
   constexpr int MT = m_tiles(sizeof(T) == 4, DP);
   constexpr int BQ = q_rows(sizeof(T) == 4, DP);
+  constexpr int BKV = kv_rows(sizeof(T) == 4, DP);
+  constexpr int NJ = BKV / 8;       // 8-column score tiles per m-tile
+  static_assert(NJ * 4 <= 32, "a thread's keep bits of a tile fit a word");
   constexpr int ND = DP / 8;        // 8-column accumulator tiles
   constexpr int LD = DP + Pad<T>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -380,7 +413,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = kv_begin + it * BKV;
     const int b = it & 1;
     float s[MT][NJ][4];
-    scores<DP, MT>(s, qf, sk + b * BKV * LD, lane);
+    scores<DP, MT, NJ>(s, qf, sk + b * BKV * LD, lane);
 
     // Whether any entry of this tile is masked (diagonal, window edge or
     // ragged keys); the same for the whole block, so no warp diverges.
@@ -438,7 +471,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           }
         l[mt][r] = l[mt][r] * corr[mt][r] + ls;
       }
-    accumulate<DP, MT>(acc, s, corr, sv + b * BKV * LD, lane);
+    accumulate<DP, MT, NJ>(acc, s, corr, sv + b * BKV * LD, lane);
   }
 
 #pragma unroll
@@ -471,7 +504,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // tiles.
 template <typename T, int DP>
 constexpr int smem_bytes() {
-  return (int)((q_rows(sizeof(T) == 4, DP) + 4 * BKV) *
+  constexpr bool f32 = sizeof(T) == 4;
+  return (int)((q_rows(f32, DP) + 4 * kv_rows(f32, DP)) *
                (DP + Pad<T>::value) * sizeof(T));
 }
 
@@ -508,13 +542,14 @@ using Launcher = cudaError_t (*)(const void* const*, int, int, int, int,
                                  const Strides&, int, int, float,
                                  cudaStream_t);
 
-// The template instances with head_dim padded to 16, 32, 64 or 128.
+// The template instances with head_dim padded to 16, 32, 64, 128 or 256.
 template <typename T>
 Launcher fwd_for(int D) {
   return D <= 16 ? &launch_fwd<T, 16>
        : D <= 32 ? &launch_fwd<T, 32>
        : D <= 64 ? &launch_fwd<T, 64>
-                 : &launch_fwd<T, 128>;
+       : D <= 128 ? &launch_fwd<T, 128>
+                  : &launch_fwd<T, 256>;
 }
 
 template <typename T>
@@ -522,8 +557,12 @@ int smem_for(int D) {
   return D <= 16 ? smem_bytes<T, 16>()
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
-                 : smem_bytes<T, 128>();
+       : D <= 128 ? smem_bytes<T, 128>()
+                  : smem_bytes<T, 256>();
 }
+
+// The largest head_dim an instance takes.
+constexpr int MAX_HEAD_DIM = 256;
 
 }  // namespace
 
@@ -531,19 +570,23 @@ extern "C" {
 
 // q (S, H, D), k and v (S, KVH, D) with unit stride along D and the given
 // row (ss) and head (sh) strides in elements; o (S, H, D) contiguous in
-// q's type; lse (H, S) f32. dtype: 0 = f32, 1 = bf16. window <= 0 means
-// none. Returns the CUDA error of the launch (0 on success).
+// q's type; lse (H, S) f32. dtype: 0 = f32, 1 = bf16, 2 = f16. head_dim
+// D up to MAX_HEAD_DIM (256). window <= 0 means none. Returns the CUDA
+// error of the launch (0 on success; cudaErrorInvalidValue for a D, dtype
+// or head count no instance takes).
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* lse, int S, int H, int KVH, int D, long long q_ss,
               long long q_sh, long long k_ss, long long k_sh, long long v_ss,
               long long v_sh, int causal, int window, float scale, int dtype,
               void* stream) {
-  if (S < 1 || H < 1 || KVH < 1 || H % KVH != 0 || D < 1 || D > 128 ||
-      (dtype != 0 && dtype != 1))
+  if (S < 1 || H < 1 || KVH < 1 || H % KVH != 0 || D < 1 ||
+      D > MAX_HEAD_DIM || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   const void* p[] = {q, k, v, o, lse};
   const Strides st{q_ss, q_sh, k_ss, k_sh, v_ss, v_sh};
-  const Launcher f = dtype == 0 ? fwd_for<float>(D) : fwd_for<bf16>(D);
+  const Launcher f = dtype == 0   ? fwd_for<float>(D)
+                     : dtype == 1 ? fwd_for<bf16>(D)
+                                  : fwd_for<f16>(D);
   return (int)f(p, S, H, KVH, D, st, causal, window, scale,
                 static_cast<cudaStream_t>(stream));
 }
@@ -551,7 +594,9 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
 // Bytes of dynamic shared memory a block of the instance for (D, dtype)
 // takes.
 int flash_fwd_smem_bytes(int D, int dtype) {
-  return dtype == 0 ? smem_for<float>(D) : smem_for<bf16>(D);
+  return dtype == 0   ? smem_for<float>(D)
+         : dtype == 1 ? smem_for<bf16>(D)
+                      : smem_for<f16>(D);
 }
 
 const char* flash_fwd_error_string(int code) {

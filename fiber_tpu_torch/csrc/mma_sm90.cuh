@@ -1,16 +1,19 @@
 // Device helpers shared by the flash-attention kernels that run their
 // products on Hopper's tensor cores with warp-level mma.sync
 // (flash_fwd.cu, flash_bwd_dkv.cu, flash_bwd_dq.cu): asynchronous 16- and
-// 4-byte copies into shared memory, ldmatrix, the bf16 and TF32 products,
+// 4-byte copies into shared memory, ldmatrix, the bf16, f16 and TF32
+// products,
 // the 3xTF32 split that gives f32 precision on TF32 tensor cores, the
 // base-2 exponential, the attention keep mask, the staging of a padded
 // tile, and the two warp-level tile products of the backward kernels
 // (abt: A B^T for a warp's 16-row m-tiles; add_xb: acc += X B with X in
 // registers).
 //
-// Fragment layouts are PTX's for mma.m16n8k16 (bf16) and mma.m16n8k8
-// (TF32): lane = 4 g + t; an accumulator holds rows g and g + 8, columns
-// 2t and 2t + 1 of its 16 x 8 tile.
+// Fragment layouts are PTX's for mma.m16n8k16 (bf16 and f16, which share
+// them) and mma.m16n8k8 (TF32): lane = 4 g + t; an accumulator holds rows
+// g and g + 8, columns 2t and 2t + 1 of its 16 x 8 tile. The two 16-bit
+// types differ only in the product's opcode and in how an f32 pair is
+// packed (mma16, pack16); sums stay f32 in every type.
 //
 // Each kernel source is its own translation unit and shared library, so
 // the helpers sit in an anonymous namespace.
@@ -18,19 +21,28 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
-// Elements of padding per shared-memory row: 16 bytes of bf16 (ldmatrix
-// rows then start on distinct bank quads), 4 floats for f32 (the 32-bit
-// fragment reads of a warp then hit 32 distinct banks).
+// Enables a template for the two 16-bit element types (bf16, f16).
+template <typename T>
+using if_16bit = std::enable_if_t<sizeof(T) == 2, int>;
+
+// Elements of padding per shared-memory row: 16 bytes of a 16-bit type
+// (ldmatrix rows then start on distinct bank quads), 4 floats for f32 (the
+// 32-bit fragment reads of a warp then hit 32 distinct banks).
 template <typename T> struct Pad;
 template <> struct Pad<float> { static constexpr int value = 4; };
 template <> struct Pad<bf16> { static constexpr int value = 8; };
+template <> struct Pad<f16> { static constexpr int value = 8; };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -85,6 +97,26 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a b: 16 x 8 x 16, f16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The 16 x 8 x 16 product of 16-bit type T.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same_v<T, bf16>)
+    mma_bf16(d, a, b0, b1);
+  else
+    mma_f16(d, a, b0, b1);
+}
+
 // d += a b: 16 x 8 x 8, TF32 operands, f32 accumulators.
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -127,6 +159,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// An f32 pair as one 32-bit register of 16-bit type T, rounded to nearest:
+// the A operand of a product whose left factor (P or dS) was an
+// accumulator.
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (std::is_same_v<T, bf16>)
+    return pack_bf16(lo, hi);
+  else
+    return pack_f16(lo, hi);
+}
 
 // 2^x on the special-function unit (relative error about 2^-22); inputs
 // below -126 give 0, which is what a masked or negligible p is anyway.
@@ -146,9 +193,13 @@ __device__ __forceinline__ bool keep(int qi, int kj, int S, int causal,
 
 __device__ __forceinline__ float zero_of(float) { return 0.f; }
 __device__ __forceinline__ bf16 zero_of(bf16) { return __float2bfloat16(0.f); }
+__device__ __forceinline__ f16 zero_of(f16) { return __float2half(0.f); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) {
   *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store(f16* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // Copies rows [row0, row0 + ROWS) of one head's (S, D) slice with row
@@ -183,10 +234,10 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
 // m-tile mt takes A rows wrow + 16 mt.. of sa; B rows 0.. of sb.
 // acc[mt][j] holds B rows 8j..8j+7 as the columns of an m16n8
 // accumulator fragment. Each B fragment a warp loads feeds MT products.
-template <int DP, int MT, int NJ>
-__device__ __forceinline__ void abt(float (&acc)[MT][NJ][4], const bf16* sa,
-                                    const bf16* sb, int wrow, int lane) {
-  constexpr int LD = DP + Pad<bf16>::value;
+template <int DP, int MT, int NJ, typename T, if_16bit<T> = 0>
+__device__ __forceinline__ void abt(float (&acc)[MT][NJ][4], const T* sa,
+                                    const T* sb, int wrow, int lane) {
+  constexpr int LD = DP + Pad<T>::value;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -207,8 +258,8 @@ __device__ __forceinline__ void abt(float (&acc)[MT][NJ][4], const bf16* sa,
                      kk * 16 + ((lane >> 3) & 1) * 8);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(acc[mt][2 * jj], a[mt], b[0], b[1]);
-        mma_bf16(acc[mt][2 * jj + 1], a[mt], b[2], b[3]);
+        mma16<T>(acc[mt][2 * jj], a[mt], b[0], b[1]);
+        mma16<T>(acc[mt][2 * jj + 1], a[mt], b[2], b[3]);
       }
     }
   }
@@ -252,34 +303,36 @@ __device__ __forceinline__ void abt(float (&acc)[MT][NJ][4], const float* sa,
 
 // acc += X B for the warp's MT m-tiles: X (16 x 8 NJ an m-tile, the
 // accumulator fragments of abt(), never leaving the registers) as the A
-// operand, B the 8 NJ x DP tile sb. acc[mt][n] holds columns 8n..8n+7.
-// For bf16 the accumulators of two adjacent 8-column tiles, packed to
-// bf16 pairs, are the A fragment of one 16-deep step; B is read with
-// ldmatrix .trans.
-template <int DP, int MT, int NJ>
-__device__ __forceinline__ void add_xb(float (&acc)[MT][DP / 8][4],
+// operand, B the first DN columns of the 8 NJ x DP tile sb (rows DP +
+// pad apart; sb may point into a row, at the block's first output
+// column). acc[mt][n] holds columns 8n..8n+7. For a 16-bit type the
+// accumulators of two adjacent 8-column tiles, packed to pairs of that
+// type, are the A fragment of one 16-deep step; B is read with ldmatrix
+// .trans.
+template <int DP, int MT, int NJ, int DN = DP, typename T, if_16bit<T> = 0>
+__device__ __forceinline__ void add_xb(float (&acc)[MT][DN / 8][4],
                                        const float (&x)[MT][NJ][4],
-                                       const bf16* sb, int lane) {
-  constexpr int LD = DP + Pad<bf16>::value;
+                                       const T* sb, int lane) {
+  constexpr int LD = DP + Pad<T>::value;
 #pragma unroll
   for (int kk = 0; kk < NJ / 2; ++kk) {
     uint32_t a[MT][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      a[mt][0] = pack_bf16(x[mt][2 * kk][0], x[mt][2 * kk][1]);
-      a[mt][1] = pack_bf16(x[mt][2 * kk][2], x[mt][2 * kk][3]);
-      a[mt][2] = pack_bf16(x[mt][2 * kk + 1][0], x[mt][2 * kk + 1][1]);
-      a[mt][3] = pack_bf16(x[mt][2 * kk + 1][2], x[mt][2 * kk + 1][3]);
+      a[mt][0] = pack16<T>(x[mt][2 * kk][0], x[mt][2 * kk][1]);
+      a[mt][1] = pack16<T>(x[mt][2 * kk][2], x[mt][2 * kk][3]);
+      a[mt][2] = pack16<T>(x[mt][2 * kk + 1][0], x[mt][2 * kk + 1][1]);
+      a[mt][3] = pack16<T>(x[mt][2 * kk + 1][2], x[mt][2 * kk + 1][3]);
     }
 #pragma unroll
-    for (int nn = 0; nn < DP / 16; ++nn) {
+    for (int nn = 0; nn < DN / 16; ++nn) {
       uint32_t b[4];
       ldsm_x4_trans(b, sb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                                LD + nn * 16 + (lane >> 4) * 8);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(acc[mt][2 * nn], a[mt], b[0], b[1]);
-        mma_bf16(acc[mt][2 * nn + 1], a[mt], b[2], b[3]);
+        mma16<T>(acc[mt][2 * nn], a[mt], b[0], b[1]);
+        mma16<T>(acc[mt][2 * nn + 1], a[mt], b[2], b[3]);
       }
     }
   }
@@ -293,12 +346,12 @@ __device__ __forceinline__ void add_xb(float (&acc)[MT][DP / 8][4],
 // reached 1.2e-4 of the largest gradient on an H100 (against a 5e-5
 // bound), so each call's product is summed from zero and then added to
 // acc with round-to-nearest adds.
-template <int DP, int MT, int NJ>
-__device__ __forceinline__ void add_xb(float (&acc)[MT][DP / 8][4],
+template <int DP, int MT, int NJ, int DN = DP>
+__device__ __forceinline__ void add_xb(float (&acc)[MT][DN / 8][4],
                                        const float (&x)[MT][NJ][4],
                                        const float* sb, int lane) {
   constexpr int LD = DP + Pad<float>::value;
-  constexpr int ND = DP / 8;
+  constexpr int ND = DN / 8;
   constexpr int NG = ND < 4 ? ND : 4;   // accumulator tiles per pass
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll

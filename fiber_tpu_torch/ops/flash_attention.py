@@ -9,8 +9,13 @@ are the JAX package's: q ``(S, heads, head_dim)``, k and v
 ``(S, kv_heads, head_dim)`` with ``kv_heads`` dividing ``heads``
 (grouped-query attention), O in q's dtype and lse ``(heads, S)`` f32.
 
-A CUDA tensor goes through the kernels or raises; a CPU tensor goes
-through the plain versions. :func:`flash_attention` and
+The kernels and the plain versions take f32, bf16 and f16 and any
+head_dim up to 256 (the kernels pad it to an instance of 16, 32, 64, 128
+or 256 columns); a larger head_dim raises on CUDA. As in the Pallas
+kernels, scores, softmax statistics and sums are f32 whatever the input
+type, and O and the gradients come back in it. A CUDA tensor goes
+through the kernels or raises; a CPU tensor goes through the plain
+versions. :func:`flash_attention` and
 :func:`flash_attention_lse` are differentiable through one
 ``torch.autograd.Function`` whose backward is the FlashAttention-2
 recurrence of the JAX custom VJP: ``delta = rowsum(dO * O) - dlse`` in
@@ -31,8 +36,10 @@ _NEG_INF = -1e30  # large negative instead of -inf: no inf - inf NaNs
 #: elements of one (heads, rows, S) f32 score tile in the plain version;
 #: query rows are processed in chunks of at most this many scores
 _CHUNK_ELEMS = 1 << 26
-_MAX_HEAD_DIM = 128
-_DTYPES = (torch.float32, torch.bfloat16)
+#: the largest head_dim of a kernel instance (``csrc/*.cu`` MAX_HEAD_DIM)
+_MAX_HEAD_DIM = 256
+#: the input types, in the order of the C interface's dtype codes
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _check(q, k, v, causal, window):
@@ -61,13 +68,14 @@ def _check(q, k, v, causal, window):
 
 def _check_cuda(**tensors):
     """What the CUDA kernels take beyond :func:`_check`: CUDA tensors,
-    head_dim up to 128 and unit stride along head_dim (other strides are
+    head_dim up to 256 and unit stride along head_dim (other strides are
     free)."""
     if tensors["q"].device.type != "cuda":
         raise ValueError(f"unsupported device {tensors['q'].device}")
     d = tensors["q"].shape[2]
     if d > _MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM}")
+        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM}, the largest "
+                         "the flash kernels take")
     for name, x in tensors.items():
         if x.device != tensors["q"].device:
             raise ValueError(f"{name} is on {x.device}, q on "
@@ -160,7 +168,7 @@ def flash_fwd(q, k, v, *, causal: bool = False,
               window: Optional[int] = None):
     """The forward kernel's wrapper: (O, lse). On CUDA tensors it
     launches ``flash_fwd`` from ``csrc/flash_fwd.cu`` (tensor cores:
-    bf16 directly, f32 as 3xTF32) and counts the launch in
+    bf16 and f16 directly, f32 as 3xTF32) and counts the launch in
     ``flash_fwd.launches``; on CPU tensors it runs the plain version.
     Not differentiable: :func:`flash_attention` is."""
     _check(q, k, v, causal, window)
@@ -316,8 +324,8 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = False,
                  window: Optional[int] = None):
     """The dq kernel's wrapper: dq ``(S, heads, head_dim)`` in q's dtype.
     On CUDA tensors it launches ``flash_bwd_dq`` from
-    ``csrc/flash_bwd_dq.cu`` (tensor cores: bf16 directly, f32 as
-    3xTF32) and counts the launch in ``flash_bwd_dq.launches``; on CPU
+    ``csrc/flash_bwd_dq.cu`` (tensor cores: bf16 and f16 directly, f32
+    as 3xTF32) and counts the launch in ``flash_bwd_dq.launches``; on CPU
     tensors it runs the plain version."""
     _check_bwd(q, k, v, dout, lse, delta, causal, window)
     if q.device.type == "cpu":
@@ -338,8 +346,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = False,
     """The dk/dv kernel's wrapper: (dk, dv), each ``(S, kv_heads,
     head_dim)`` in k's dtype, summed over every query head of a GQA
     group. On CUDA tensors it launches ``flash_bwd_dkv`` from
-    ``csrc/flash_bwd_dkv.cu`` (tensor cores: bf16 directly, f32 as
-    3xTF32) and counts the launch in
+    ``csrc/flash_bwd_dkv.cu`` (tensor cores: bf16 and f16 directly, f32
+    as 3xTF32) and counts the launch in
     ``flash_bwd_dkv.launches``; on CPU tensors it runs the plain
     version."""
     _check_bwd(q, k, v, dout, lse, delta, causal, window)

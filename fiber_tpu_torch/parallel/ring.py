@@ -64,8 +64,7 @@ def default_initializer(rank: int, size: int,
 
 
 # Marks initializers that consume the pre-bound rendezvous listener; all
-# others (e.g. torch_distributed_initializer, whose TCP store must bind
-# the advertised port itself) get an unbound advertised port instead.
+# others get an unbound advertised port instead.
 default_initializer._prebind = True  # type: ignore[attr-defined]
 
 
@@ -77,13 +76,16 @@ DIST_TIMEOUT_S = 120
 def torch_distributed_initializer(rank: int, size: int,
                                   addrs: List[Tuple[str, int]]) -> None:
     """Join all ranks into one ``torch.distributed`` group over gloo:
-    rank 0's advertised address holds the TCP store, which rank 0 binds
-    itself (this initializer is handed an unbound port, as JAX's
-    coordinator is). On a CUDA machine each rank first takes card
-    ``rank % device_count`` as its current device. gloo, because NCCL
-    refuses two ranks on one card. A port that another process holds,
-    or a rank that never arrives, makes the store or the first
-    collective raise after ``DIST_TIMEOUT_S`` seconds, never hang."""
+    rank 0's advertised address holds the TCP store, served on the
+    listener that rank 0 bound before it advertised the port (the
+    ``_prebind`` rendezvous), so no other process can take the port in
+    between, as it could when the store bound an advertised random port
+    itself (it still does when called without a pre-bound listener). The
+    other ranks close their own listeners unused. On a CUDA
+    machine each rank first takes card ``rank % device_count`` as its
+    current device. gloo, because NCCL refuses two ranks on one card. A
+    rank that never arrives makes the store or the first collective
+    raise after ``DIST_TIMEOUT_S`` seconds, never hang."""
     import datetime
 
     import torch
@@ -92,9 +94,23 @@ def torch_distributed_initializer(rank: int, size: int,
     if torch.cuda.is_available():
         torch.cuda.set_device(rank % torch.cuda.device_count())
     ip, port = addrs[0]
-    dist.init_process_group(
-        "gloo", init_method=f"tcp://{ip}:{port}", world_size=size,
-        rank=rank, timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    timeout = datetime.timedelta(seconds=DIST_TIMEOUT_S)
+    listener = take_pending_listener()
+    if rank == 0:
+        # the store owns the listening socket from here on, and closes it
+        fd = None if listener is None else listener.detach()
+        store = dist.TCPStore(ip, port, size, True, timeout=timeout,
+                              master_listen_fd=fd)
+    else:
+        if listener is not None:
+            listener.close()
+        store = dist.TCPStore(ip, port, size, False, timeout=timeout)
+    dist.init_process_group("gloo", store=store, world_size=size,
+                            rank=rank, timeout=timeout)
+
+
+# Rank 0's store serves the listener bound before the port is advertised.
+torch_distributed_initializer._prebind = True  # type: ignore[attr-defined]
 
 
 def _ring_target(rank: int, size: int, nodes_proxy, func: Callable,
@@ -117,8 +133,8 @@ def _ring_target(rank: int, size: int, nodes_proxy, func: Callable,
         port = listener.getsockname()[1]
         _pending_listener = listener
     else:
-        # The consumer (e.g. torch.distributed's TCP store) binds the
-        # advertised port itself — it must be free, not squatted.
+        # The port is advertised for the initializer to bind itself: it
+        # may be taken by the time it does.
         port = random.randint(30000, 50000)
     nodes_proxy[rank] = RingNode(rank, ip, port)
 

@@ -3780,13 +3780,18 @@ class Pool:
         serialized-form digest, so repeat generations of the ES
         broadcast idiom skip the serialize copy. Sound under in-place
         mutation — both sides of the cache are pure content
-        addresses."""
+        addresses. The raw key reads content only, so the digest is that
+        of one form of the content, the C-contiguous one: a strided view
+        serializes to other bytes, and its digest would otherwise depend
+        on which layout of equal values was seen first."""
+        import numpy as np
+
         from fiber_tpu_torch.store.core import digest_of
 
         raw = content_key(arr)
         dig = self._bcast_digests.get(raw)
         if dig is None:
-            dig = digest_of(serialization.dumps(arr))
+            dig = digest_of(serialization.dumps(np.ascontiguousarray(arr)))
             self._bcast_digests[raw] = dig
             while len(self._bcast_digests) > 32:
                 self._bcast_digests.pop(next(iter(self._bcast_digests)))

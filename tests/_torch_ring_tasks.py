@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import sys
 
+from fiber_tpu_torch.parallel.ring import torch_distributed_initializer
+
 
 def host_ring_rank(rank, size, results, inputs):
     """Sum and mean of ``inputs[rank]`` over the ring, as numpy and as a
@@ -75,3 +77,44 @@ def dist_rank(rank, size, results):
             "all_gather": collectives.all_gather(own, mesh)}
     finally:
         dist.destroy_process_group()
+
+
+
+#: whether this rank's process took the port rank 0 advertised for its
+#: TCP store (set by squat_then_join)
+PORT_TAKEN = None
+
+
+def squat_then_join(rank, size, addrs):
+    """An initializer that first tries to take the port rank 0 advertised
+    for its TCP store, as any other process of the machine might between
+    the rendezvous and the store's start; it keeps the port if it gets
+    it, records whether it did in PORT_TAKEN, then joins the gloo group
+    through ``torch_distributed_initializer``."""
+    import socket
+
+    global PORT_TAKEN
+    squatter = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    try:
+        squatter.bind(("", addrs[0][1]))
+        squatter.listen(1)
+        PORT_TAKEN = True
+    except OSError:
+        squatter.close()
+        PORT_TAKEN = False
+    try:
+        torch_distributed_initializer(rank, size, addrs)
+    finally:
+        if PORT_TAKEN:
+            squatter.close()
+
+
+# the rendezvous treats it as it treats the initializer it wraps
+squat_then_join._prebind = getattr(torch_distributed_initializer,
+                                   "_prebind", False)
+
+
+def squatted_dist_rank(rank, size, results):
+    """``dist_rank`` after ``squat_then_join``, with PORT_TAKEN."""
+    dist_rank(rank, size, results)
+    results[rank] = dict(results[rank], port_taken=PORT_TAKEN)

@@ -4,7 +4,9 @@ reference attention against the JAX reference.
 
 Tolerances are the JAX package's own (tests/test_pallas_attention.py):
 2e-5 in f32 (two f32 online softmaxes in different orders), 3e-2 in
-bf16 (one rounding of inputs and outputs to bf16).
+bf16 (one rounding of inputs and outputs to bf16); in f16, whose inputs
+both sides take as they are and whose outputs both round once from f32,
+4e-3 (one f16 ulp at |o| < 8).
 """
 
 import functools
@@ -34,10 +36,14 @@ def _qkv(s, h, kvh, d, seed=7):
                  for shape in ((s, h, d), (s, kvh, d), (s, kvh, d)))
 
 
+#: the torch dtype of each JAX dtype the cases use
+TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16,
+                jnp.float16: torch.float16}
+
+
 def _both(arrays, dtype):
     jx = tuple(jnp.asarray(a, dtype) for a in arrays)
-    tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
-    tx = tuple(torch.from_numpy(a).to(tdt) for a in arrays)
+    tx = tuple(torch.from_numpy(a).to(TORCH_DTYPES[dtype]) for a in arrays)
     return jx, tx
 
 
@@ -55,6 +61,15 @@ CASES = {
     "window": (256, 2, 1, 32, True, 48, 128, 128, jnp.float32, 2e-5),
     "multi_sweep": (384, 3, 3, 64, True, None, 384, 128, jnp.float32, 2e-5),
     "bf16": (256, 2, 2, 64, True, None, 128, 128, jnp.bfloat16, 3e-2),
+    # every dtype and head_dim the Pallas kernels take: f16, and head_dims
+    # past 128 (the kernels' 256 instance), causal with GQA and a window
+    "f16_gqa_window": (128, 4, 2, 64, True, 40, 64, 64, jnp.float16, 4e-3),
+    "d256_gqa_window": (128, 4, 2, 256, True, 40, 64, 64, jnp.float32,
+                        2e-5),
+    "bf16_d160_gqa_window": (128, 4, 2, 160, True, 40, 64, 64,
+                             jnp.bfloat16, 3e-2),
+    "bf16_d192_gqa_window": (128, 4, 2, 192, True, 40, 64, 64,
+                             jnp.bfloat16, 3e-2),
 }
 
 
@@ -223,3 +238,72 @@ def test_fwd_f32_products_need_3xtf32(scheme, kv_heads):
         assert err < bound / 10, err
     else:
         assert err > bound, err
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of csrc/flash_fwd.cu on f16 inputs, emulated: per 64-key
+# tile, S = Q K^T (products of f16 values, exact in f32, summed in f32),
+# the online softmax in f32, P rounded to f16 (pack16 in mma_sm90.cuh)
+# before P V, whose sums are f32, and O rounded to f16 once.
+# ---------------------------------------------------------------------------
+
+#: chip_smoke.py's TOL["float16"]: one f16 ulp at |o| < 8
+F16_TOL = 4e-3
+
+
+def _f16(x):
+    """f32 values rounded to f16, to nearest, and held in f32."""
+    return x.half().float()
+
+
+def _fwd_emulated_f16(q, k, v, tile=64):
+    """O (S, heads, D) of the kernel's f16 path, causal, from f32 tensors
+    that hold f16 values."""
+    s, h, d = q.shape
+    group = h // k.shape[1]
+    pos = torch.arange(s)
+    out = torch.empty_like(q)
+    for ih in range(h):
+        qh, kh, vh = q[:, ih], k[:, ih // group], v[:, ih // group]
+        m = torch.full((s, 1), -1e30)
+        l = torch.zeros(s, 1)
+        o = torch.zeros(s, d)
+        for k0 in range(0, s, tile):
+            keep = pos[:, None] >= pos[None, k0:k0 + tile]
+            sc = (qh @ kh[k0:k0 + tile].T / d ** 0.5).masked_fill(~keep,
+                                                                  -1e30)
+            m_new = torch.maximum(m, sc.amax(1, keepdim=True))
+            p = torch.exp(sc - m_new) * keep
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(1, keepdim=True)
+            o = o * corr + _f16(p) @ vh[k0:k0 + tile]
+            m = m_new
+        out[:, ih] = _f16(o / l)
+    return out
+
+
+@functools.cache
+def _f16_case(head_dim):
+    """f16 inputs at S = 2048 (4 query heads, 2 KV heads), held in f32, and
+    causal attention recomputed from them in f64."""
+    s, h, kvh = 2048, 4, 2
+    q, k, v = (_f16(torch.from_numpy(a))
+               for a in _qkv(s, h, kvh, head_dim, seed=17))
+    kf, vf = (x.double().repeat_interleave(h // kvh, dim=1).permute(1, 0, 2)
+              for x in (k, v))
+    sc = q.double().permute(1, 0, 2) @ kf.transpose(1, 2) / head_dim ** 0.5
+    sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(),
+                        -torch.inf)
+    want = (torch.softmax(sc, dim=-1) @ vf).permute(1, 0, 2)
+    return (q, k, v), want
+
+
+@pytest.mark.parametrize("head_dim", [64, 256])
+def test_fwd_f16_rounding_stays_inside_the_f16_bound(head_dim):
+    """The forward kernel's f16 path rounds P to f16 before P V: against
+    an f64 recomputation from the same f16 inputs, its emulated O stays
+    inside the card's f16 bound (F16_TOL), of which the final rounding of
+    O to f16 takes up to half."""
+    inputs, want = _f16_case(head_dim)
+    err = (_fwd_emulated_f16(*inputs).double() - want).abs().max().item()
+    assert err < F16_TOL, err

@@ -315,3 +315,88 @@ def test_dq_f32_products_need_3xtf32(scheme, kv_heads):
         assert err < bound / 10, err
     else:
         assert err > bound, err
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of both backward kernels on f16 inputs, emulated: the
+# score products of f16 values summed in f32, P and dS in f32, then
+# rounded to f16 (pack16 in mma_sm90.cuh) as the A operands of dV += P^T
+# dO, dK += dS^T Q and dQ += dS K, whose sums are f32; the scale applied
+# in f32 and each gradient rounded to f16 once.
+# ---------------------------------------------------------------------------
+
+#: chip_smoke.py's BWD_TOL["float16"], max abs error over max |gradient|
+F16_BWD_TOL = 4e-3
+F16_MAX = 65504.0    # the largest finite f16
+
+
+def _f16(x):
+    return x.half().float()
+
+
+def _bwd_emulated_f16(q, k, v, dout, lse, delta):
+    """(dq, dk, dv) of the kernels' f16 path, causal, and the largest
+    |dS| they pack, from f32 tensors that hold f16 values."""
+    s, h, d = q.shape
+    group = h // k.shape[1]
+    keep = torch.ones(s, s, dtype=torch.bool).tril()     # (query, key)
+    dq = torch.empty_like(q)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    ds_max = 0.0
+    for ih in range(h):
+        kvh = ih // group
+        kh, vh = k[:, kvh], v[:, kvh]
+        p = torch.exp(q[:, ih] @ kh.T / d ** 0.5 - lse[ih][:, None]) * keep
+        ds = p * (dout[:, ih] @ vh.T - delta[ih][:, None])
+        ds_max = max(ds_max, ds.abs().max().item())
+        dq[:, ih] = _f16(ds) @ kh / d ** 0.5
+        dv[:, kvh] += _f16(p).T @ dout[:, ih]
+        dk[:, kvh] += _f16(ds).T @ q[:, ih] / d ** 0.5
+    return (_f16(dq), _f16(dk), _f16(dv)), ds_max
+
+
+@functools.cache
+def _bwd_f16_case(head_dim):
+    """f16 inputs and dO at S = 2048 (4 query heads, 2 KV heads), held in
+    f32; lse and delta from an f64 forward, rounded to f32; dq, dk, dv
+    recomputed in f64; and the kernels' bound on |dS|, 2 max_i |dO_i|
+    max_j |v_j| (no lse cotangent)."""
+    s, h, kvh, d = 2048, 4, 2, head_dim
+    rng = np.random.default_rng(19)
+    q, dout = (_f16(torch.from_numpy(rng.standard_normal((s, h, d))))
+               for _ in range(2))
+    k, v = (_f16(torch.from_numpy(rng.standard_normal((s, kvh, d))))
+            for _ in range(2))
+    group = h // kvh
+    kf, vf = (x.double().repeat_interleave(group, dim=1).permute(1, 0, 2)
+              for x in (k, v))
+    qf, dof = q.double().permute(1, 0, 2), dout.double().permute(1, 0, 2)
+    sc = qf @ kf.transpose(1, 2) / d ** 0.5
+    sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(),
+                        -torch.inf)
+    lse = torch.logsumexp(sc, dim=-1)
+    p = torch.exp(sc - lse[..., None])
+    delta = (dof * (p @ vf)).sum(-1)
+    ds = p * (dof @ vf.transpose(1, 2) - delta[..., None])
+    dk = (ds.transpose(1, 2) @ qf / d ** 0.5).reshape(
+        kvh, group, s, d).sum(1).permute(1, 0, 2)
+    dv = (p.transpose(1, 2) @ dof).reshape(kvh, group, s, d).sum(
+        1).permute(1, 0, 2)
+    dq = (ds @ kf / d ** 0.5).permute(1, 0, 2)
+    bound = 2 * dout.norm(dim=-1).max().item() * v.norm(dim=-1).max().item()
+    return (q, k, v, dout, lse.float(), delta.float()), (dq, dk, dv), bound
+
+
+@pytest.mark.parametrize("head_dim", [64, 256])
+def test_bwd_f16_rounding_stays_inside_the_f16_bound(head_dim):
+    """The backward kernels' f16 path packs P and dS to f16: against an
+    f64 recomputation from the same f16 inputs, the emulated dq, dk and
+    dv stay inside the card's f16 bound (F16_BWD_TOL of the largest
+    gradient), and dS stays under its bound, 2 |dO_i| max_j |v_j|, which
+    is far under f16's largest value: packing it cannot overflow."""
+    inputs, want, bound = _bwd_f16_case(head_dim)
+    got, ds_max = _bwd_emulated_f16(*inputs)
+    errs = [((g.double() - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(got, want)]
+    assert max(errs) < F16_BWD_TOL, errs
+    assert ds_max <= bound < F16_MAX / 10, (ds_max, bound)

@@ -244,6 +244,22 @@ def test_equal_content_gives_an_equal_key(form, pool):
     assert pool._bcast_store_digest(arr) == pool._bcast_store_digest(BCAST)
 
 
+@pytest.mark.parametrize("form", ["contiguous", "strided"])
+def test_the_store_digest_does_not_depend_on_the_first_layout(form):
+    """An empty digest cache's first sight of BCAST's values, contiguous
+    or as a strided view, maps their key to the digest of the contiguous
+    serialized form, the same whichever layout came first."""
+    import types
+
+    from fiber_tpu_torch import serialization
+    from fiber_tpu_torch.pool import ResilientPool
+    from fiber_tpu_torch.store.core import digest_of
+
+    empty = types.SimpleNamespace(_bcast_digests={})
+    got = ResilientPool._bcast_store_digest(empty, _key_forms()[form])
+    assert got == digest_of(serialization.dumps(BCAST))
+
+
 @pytest.mark.parametrize("where", [0, 262_144, 599_999])
 def test_an_in_place_change_gives_a_new_key(where, pool):
     """One element changed in place (in the first, second or last chunk)

@@ -180,6 +180,20 @@ def test_torch_distributed_initializer_joins_gloo_ranks():
         assert torch.equal(out["all_gather"], torch.stack(own))
 
 
+def test_gloo_store_port_cannot_be_taken_before_the_join():
+    """Each rank tries to bind the port rank 0 advertised for its TCP
+    store before joining, as another process of the machine may: the
+    port is already held by rank 0's listener, so no rank gets it and
+    the join succeeds. (While the store bound an advertised random port
+    itself, a process that took the port first failed rank 0's join.)"""
+    got = _run_ring(2, tasks.squatted_dist_rank,
+                    initializer=tasks.squat_then_join)
+    for r in range(2):
+        assert got[r]["port_taken"] is False
+        assert (got[r]["world"], got[r]["rank"]) == (2, r)
+        assert torch.equal(got[r]["all_reduce"], torch.full((5,), 3.0))
+
+
 def test_es_across_gloo_processes_equals_the_two_rank_mesh():
     """MLP (8,), pop 16, 20-step episodes, 2 generations of ``run_fused``
     on each of 2 gloo processes: the params are replicated (a digest

@@ -25,7 +25,7 @@ from fiber_tpu_torch.models.transformer import TinyLM
 SMALL = dict(vocab=32, dim=32, heads=4, layers=2, max_seq=64)
 TOL = 1e-5
 
-# (attention, pos, kv_heads, window)
+# (attention, pos, kv_heads, window[, widths that replace SMALL's])
 CASES = {
     "learned_mha": ("flash", "learned", None, None),
     "learned_gqa": ("flash", "learned", 2, None),
@@ -33,13 +33,17 @@ CASES = {
     "rope_gqa": ("flash", "rope", 2, None),
     "rope_gqa_window": ("flash", "rope", 2, 9),
     "reference_rope_gqa": ("reference", "rope", 2, None),
+    # Gemma-2B's attention shape (head_dim 256, one KV head) at a small
+    # width: the flash kernels' 256 instance on the card
+    "rope_d256_kv1": ("flash", "rope", 1, None, dict(dim=512, heads=2)),
 }
 
 
-def _pair(attention, pos, kv_heads, window, seed=0):
-    cfg = dict(SMALL, attention=attention, pos=pos, kv_heads=kv_heads,
+def _pair(attention, pos, kv_heads, window, widths=None, seed=0):
+    small = dict(SMALL, **(widths or {}))
+    cfg = dict(small, attention=attention, pos=pos, kv_heads=kv_heads,
                window=window)
-    tree = convert.random_tinylm_tree(**SMALL, kv_heads=kv_heads, pos=pos,
+    tree = convert.random_tinylm_tree(**small, kv_heads=kv_heads, pos=pos,
                                       seed=seed)
     jparams = jax.tree_util.tree_map(jnp.asarray, tree)
     model = TinyLM(**cfg, device="cpu")
