@@ -10,7 +10,8 @@ holds each kernel against its plain PyTorch version on the card (and
 counts the tensor-core instructions in the SASS of the three flash
 kernels), drives the port's main paths at full width (the TinyLM flash
 forward, greedy decoding and training, also at Gemma-2B's attention
-widths, head_dim 256 with one KV head; the OpenAI-ES CartPole flagship,
+widths, head_dim 256 with one KV head, and at DeepSeek-V4-Flash's,
+head_dim 512 with one KV head over a window of 128; the OpenAI-ES CartPole flagship,
 eager and as CUDA-graph replays; ring and Ulysses attention, the TinyLM
 forward and TinyLM training over a 4-rank mesh on the card; the ES step
 over that mesh; the population-search families: PGPE, SepCMAES and CMAES
@@ -35,9 +36,9 @@ checks what comes out;
 the ES, POET and env lines carry model FLOP/s and MFU, and the es
 phase writes one generation's profiler trace under TRACE_DIR. Phases
 print one JSON line each (build, kernels, kernels_bwd, kernels_ring,
-lm_forward, lm_generate, lm_train, gemma_lm, es, ring_attention,
-mesh_2d, lm_mesh, planes_wide, lm_mesh_train, es_mesh, es_families, es_families_smooth,
-novelty, map_elites, ask_tell, device_map, poet, poet_mesh,
+lm_forward, lm_generate, lm_train, gemma_lm, deepseek_v4_lm, es,
+ring_attention, mesh_2d, lm_mesh, planes_wide, lm_mesh_train, es_mesh,
+es_families, es_families_smooth, novelty, map_elites, ask_tell, device_map, poet, poet_mesh,
 checkpoint, es_envs, pool, managers, host_ring, ring_es, poet_pool,
 capture_under_load, durable, hier, sim_cluster, trace, serve,
 examples_kernels, examples, bench, timing);
@@ -72,8 +73,12 @@ import time
 # attention at full width (TinyLM dim 256 / 8 heads at the repo's
 # default --seq 16384), its GQA and sliding-window variants
 # (bench.py's window leg uses 1024), bench.py --attention's shape in bf16
-# and f16, and Gemma-2B's attention (8 query heads, 1 KV head, head_dim
-# 256; the gemma_lm phase's TinyLM at S 8192) in f32, bf16 and f16.
+# and f16, Gemma-2B's attention (8 query heads, 1 KV head, head_dim
+# 256; the gemma_lm phase's TinyLM at S 8192) in f32, bf16 and f16, and
+# DeepSeek-V4-Flash's (head_dim 512, 1 KV head; deepseek-ai/
+# DeepSeek-V4-Flash's config.json): its 64 query heads in bf16, causal and
+# over its sliding window of 128, and the 8 heads of the deepseek_v4_lm
+# phase's TinyLM in f32 and f16, through the kernels' wide route.
 MAIN_SHAPES = (
     ("lm_f32", 16384, 8, 8, 32, "float32", None),
     ("lm_f32_gqa", 16384, 8, 2, 32, "float32", None),
@@ -83,10 +88,17 @@ MAIN_SHAPES = (
     ("gemma_f32", 8192, 8, 1, 256, "float32", None),
     ("gemma_bf16", 8192, 8, 1, 256, "bfloat16", None),
     ("gemma_f16", 8192, 8, 1, 256, "float16", None),
+    ("v4_bf16", 8192, 64, 1, 512, "bfloat16", None),
+    ("v4_bf16_window", 8192, 64, 1, 512, "bfloat16", 128),
+    ("v4_f32", 8192, 8, 1, 512, "float32", None),
+    ("v4_f16", 8192, 8, 1, 512, "float16", None),
 )
 # Small shapes for the kernel's edges: ragged tiles, every head-dim
 # template, non-causal, windows shorter than a tile; head_dims 160 and
-# 192 pad to the 256 instance.
+# 192 pad to the 256 instance; 257 and beyond take the wide route, its
+# last 128-column slice and last depth chunk ragged (257, 384 with a
+# window, 576 as sarvamai/sarvam-105b's head_dim with GQA and a ragged
+# S, causal and not, 1024 at a small S, 512 with a window).
 EDGE_SHAPES = (
     ("edge_noncausal_d8", 100, 4, 2, 8, "float32", None, False),
     ("edge_d40_ragged", 77, 2, 2, 40, "float32", None, True),
@@ -97,16 +109,25 @@ EDGE_SHAPES = (
     ("edge_d160_ragged", 77, 4, 2, 160, "float32", None, True),
     ("edge_d192_ragged_bf16", 333, 4, 1, 192, "bfloat16", 50, True),
     ("edge_d192_noncausal_f16", 150, 2, 1, 192, "float16", None, False),
+    ("edge_d257_ragged", 77, 2, 1, 257, "float32", None, True),
+    ("edge_d384_window_bf16", 333, 4, 2, 384, "bfloat16", 50, True),
+    ("edge_d576_gqa_noncausal", 199, 8, 2, 576, "float32", None, False),
+    ("edge_d576_gqa_bf16", 199, 8, 2, 576, "bfloat16", None, True),
+    ("edge_d1024_f16", 70, 2, 1, 1024, "float16", None, True),
+    ("edge_d512_window_f32", 300, 4, 1, 512, "float32", 70, True),
 )
 # Edge shapes whose inputs the flash kernels cannot copy in 16-byte
 # units, so they take their scalar load paths: head_dim 20 in bf16 (not
-# a whole number of 8-element vectors), and f32 tensors that start one
-# element into their buffers (rows 4 bytes off 16-byte alignment).
+# a whole number of 8-element vectors), f32 tensors that start one
+# element into their buffers (rows 4 bytes off 16-byte alignment), and on
+# the wide route head_dim 300 in f16 (600-byte rows) and an f32 offset.
 # (name, S, heads, kv_heads, head_dim, dtype, window, causal, offset)
 SCALAR_EDGE_SHAPES = (
     ("edge_d20_bf16_scalar", 70, 2, 1, 20, "bfloat16", None, True, 0),
     ("edge_d20_f16_scalar", 70, 2, 1, 20, "float16", None, True, 0),
     ("edge_d24_f32_unaligned", 90, 4, 2, 24, "float32", 7, True, 1),
+    ("edge_d300_f16_scalar", 150, 2, 1, 300, "float16", None, True, 0),
+    ("edge_d264_f32_unaligned", 90, 4, 2, 264, "float32", 7, True, 1),
 )
 # The ring's off-diagonal forward launch, timed: one rank's 4096-row
 # block of bench.py --attention's shape against another rank's keys, not
@@ -182,6 +203,20 @@ GEMMA_TRAIN_STEPS = 3
 # kernels' plain versions; 1e-4: 5.908 -> 5.206)
 GEMMA_LR = 1e-4
 GEMMA_DECODE = (16, 16)          # prompt tokens, greedy tokens
+# TinyLM at DeepSeek-V4-Flash's attention widths (deepseek-ai/
+# DeepSeek-V4-Flash's config.json: hidden_size 4096, head_dim 512,
+# num_attention_heads 64, num_key_value_heads 1, sliding_window 128, rope):
+# 8 of the 64 heads, one rank's share under 8-way tensor parallelism and
+# what dim = heads x head_dim allows at hidden_size 4096, over V4's
+# sliding-window branch only (multi-query attention over a causal window
+# of 128; its compressed and top-k branches are not TinyLM's). TinyLM's
+# own MLP (mlp_mult 4), norms and byte vocabulary stand for V4's MoE,
+# mHC and low-rank projections; 2 of its 43 layers (the script's time).
+# f32, random weights from seed 0. The deepseek_v4_lm phase runs what
+# gemma_lm runs, through the flash kernels' wide route.
+V4_CFG = dict(vocab=256, dim=4096, heads=8, kv_heads=1, pos="rope",
+              window=128, mlp_mult=4, max_seq=8192, layers=2)
+V4_LR = 1e-4
 RANKS = 4
 RING_SHAPE = (16384, 8, 64, "bfloat16")
 # The planes in f16 (planes_wide): ring and Ulysses with local="flash" at
@@ -448,12 +483,15 @@ DTYPE_CODE = {"float": 0, "bfloat16": 1, "float16": 2}
 ENGINE = {"float32": "mma.sync 3xtf32", "bfloat16": "mma.sync bf16",
           "float16": "mma.sync f16"}
 # The head_dims the flash kernels' instances pad to; above the last, the
-# wrappers raise ValueError and the C entry points return
-# cudaErrorInvalidValue
+# kernels take their wide route (one template per type, whose shared
+# memory does not depend on head_dim; the build reports it at
+# WIDE_HEAD_DIM)
 HEAD_DIM_INSTANCES = (16, 32, 64, 128, 256)
+WIDE_HEAD_DIM = 512
 # The kernels on the tensor cores: HMMA in their SASS, no spills in any of
-# their 15 templates (f32, bf16 and f16 at each of HEAD_DIM_INSTANCES),
-# and a C function that gives each template's shared memory
+# their 18 templates (f32, bf16 and f16 at each of HEAD_DIM_INSTANCES and
+# on the wide route), and a C function that gives each template's shared
+# memory
 TENSOR_CORE_LIBS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SOURCES = {"flash_fwd": "fiber_tpu_torch/csrc/flash_fwd.cu",
            "flash_bwd_dq": "fiber_tpu_torch/csrc/flash_bwd_dq.cu",
@@ -581,10 +619,13 @@ def phase_build():
         for row in ptxas[name]:
             dtype, dp = re.search(r"<(\w+),(\d+)>",
                                   row["function"]).groups()
-            row["smem_bytes"] = smem(int(dp), DTYPE_CODE[dtype])
+            # a wide template's second argument is its depth chunk
+            d = WIDE_HEAD_DIM if "_wide_" in row["function"] else int(dp)
+            row["smem_bytes"] = smem(d, DTYPE_CODE[dtype])
             check(row["spill_stores"] == row["spill_loads"] == 0,
                   f"{row['function']} spills")
-        check(len(ptxas[name]) == len(DTYPE_CODE) * len(HEAD_DIM_INSTANCES),
+        check(len(ptxas[name])
+              == len(DTYPE_CODE) * (len(HEAD_DIM_INSTANCES) + 1),
               f"{name} templates built: {ptxas[name]}")
     emit({"phase": "build", "seconds": secs,
           "libraries": {k: v.name for k, v in libs.items()},
@@ -638,6 +679,26 @@ def _sdpa_bwd(torch, q, k, v, dout, window):
     dot = dout.permute(1, 0, 2).unsqueeze(0)
     return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                        retain_graph=True)
+
+
+def _sdpa_backend(torch, q, k, v, window, grad=False):
+    """The backend PyTorch's attention dispatch picks for ``_sdpa``'s (or,
+    with ``grad``, ``_sdpa_bwd``'s) call on these inputs, causal, as
+    ``torch._fused_sdp_choice`` (the choice the dispatch itself makes)
+    reports it: flash, efficient, cudnn or math."""
+    s = q.shape[0]
+    qt, kt, vt = (x.permute(1, 0, 2).unsqueeze(0).detach().requires_grad_(
+        grad) for x in (q, k, v))
+    mask = None
+    if window is not None:
+        pos = torch.arange(s, device="cuda")
+        diff = pos[:, None] - pos[None, :]
+        mask = (diff >= 0) & (diff < window)
+    code = int(torch._fused_sdp_choice(
+        qt, kt, vt, attn_mask=mask, is_causal=window is None,
+        enable_gqa=k.shape[1] != q.shape[1]))
+    return {0: "math", 1: "flash", 2: "efficient", 3: "cudnn"}.get(
+        code, f"backend {code}")
 
 
 def phase_kernels(torch, card):
@@ -696,52 +757,71 @@ def phase_kernels(torch, card):
                "peak_flops": flops.op_peak(dt)[0],
                "bound_engine": flops.op_peak(dt)[1],
                "tflops": n_flops / ms / 1e9}
+        if d > HEAD_DIM_INSTANCES[-1]:
+            row["library_backend"] = _sdpa_backend(torch, q, k, v, window)
         rows.append(row)
         main[name] = row
         del q, k, v, o, lse
         torch.cuda.empty_cache()
     emit({"phase": "kernels", "card": card, "flash_fwd_launches":
           fa.flash_fwd.launches, "shapes": rows,
-          "above_max_head_dim": _refuses_above_max_head_dim(torch)})
+          "head_dim_257": _takes_head_dim_257(torch)})
     return main
 
 
-def _refuses_above_max_head_dim(torch):
-    """A head_dim above the largest instance: every wrapper raises a
-    ValueError naming the limit, and every C entry point returns
-    cudaErrorInvalidValue without launching (it checks before it reads a
-    pointer, so null ones do)."""
+def _takes_head_dim_257(torch):
+    """One past the largest instance goes through the wide route: every
+    wrapper launches its kernel once at head_dim 257 (an f16 GQA causal
+    call) and matches its plain version, and every C entry point returns
+    0 for it (the error code of the launch)."""
     from fiber_tpu_torch.ops import flash_attention as fa
 
-    limit = HEAD_DIM_INSTANCES[-1]
-    d = limit + 1
+    d = HEAD_DIM_INSTANCES[-1] + 1
     q, k, v = _inputs(torch, 64, 2, 1, d, torch.float16, seed=0)
-    lse = torch.zeros(2, 64, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dout = _randn(torch, (64, 2, d), torch.float16, g)
     before = _counts()
-    for call in (lambda: fa.flash_fwd(q, k, v, causal=True),
-                 lambda: fa.flash_bwd_dq(q, k, v, q, lse, lse, causal=True),
-                 lambda: fa.flash_bwd_dkv(q, k, v, q, lse, lse,
-                                          causal=True)):
-        try:
-            call()
-        except ValueError as exc:
-            check(str(limit) in str(exc), f"head_dim {d}: {exc}")
-        else:
-            check(False, f"head_dim {d} did not raise")
-    check(_counts() == before, "a refused head_dim launched a kernel")
-    strides = (ctypes.c_longlong * 8)()
-    codes = {
-        "flash_fwd": fa._fwd_lib().flash_fwd(
-            *[None] * 5, 64, 2, 1, d, *[0] * 6, 1, 0, 1.0,
-            DTYPE_CODE["float16"], None),
-        **{name: getattr(fa._bwd_lib(name), name)(
-            *[None] * (6 + fa._BWD_OUTPUTS[name]), 64, 2, 1, d, strides, 1,
-            0, 1.0, DTYPE_CODE["float16"], None)
-           for name in fa._BWD_OUTPUTS}}
-    invalid = 1                     # cudaErrorInvalidValue
-    check(all(rc == invalid for rc in codes.values()),
+    o, lse = fa.flash_fwd(q, k, v, causal=True)
+    delta = fa.flash_bwd_delta(o, dout)
+    dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, causal=True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, causal=True)
+    torch.cuda.synchronize()
+    after = _counts()
+    check({n: after[n] - before[n] for n in after}
+          == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+              "ring_exchange": 0},
+          f"head_dim {d}: launches {before} -> {after}")
+    ro, _ = fa.flash_attention_reference(q, k, v, causal=True)
+    want = fa.flash_bwd_reference(q, k, v, dout, lse, delta, causal=True)
+    err = (o.float() - ro.float()).abs().max().item()
+    _, rel = _bwd_errors([dq, dk, dv], want)
+    check(err < TOL["float16"] and rel < BWD_TOL["float16"],
+          f"head_dim {d}: O err {err}, gradient rel err {rel}")
+    strides = (ctypes.c_longlong * 8)(*(x.stride(i) for x in (q, k, v, dout)
+                                        for i in (0, 1)))
+    stream = torch.cuda.current_stream().cuda_stream
+    out, lse2 = torch.empty_like(o), torch.empty_like(lse)
+    codes = {"flash_fwd": fa._fwd_lib().flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse2.data_ptr(), 64, 2, 1, d, q.stride(0), q.stride(1), k.stride(0),
+        k.stride(1), v.stride(0), v.stride(1), 1, 0, d ** -0.5,
+        DTYPE_CODE["float16"], stream)}
+    outs = {"flash_bwd_dq": (torch.empty_like(dq),),
+            "flash_bwd_dkv": (torch.empty_like(dk), torch.empty_like(dv))}
+    for name, bufs in outs.items():
+        codes[name] = getattr(fa._bwd_lib(name), name)(
+            *(x.data_ptr() for x in (q, k, v, dout, lse, delta, *bufs)),
+            64, 2, 1, d, strides, 1, 0, d ** -0.5, DTYPE_CODE["float16"],
+            stream)
+    torch.cuda.synchronize()
+    check(all(rc == 0 for rc in codes.values()),
           f"C entry points at head_dim {d}: {codes}")
-    return {"head_dim": d, "wrappers": "ValueError", "c_codes": codes}
+    check(torch.equal(out, o) and torch.equal(outs["flash_bwd_dq"][0], dq)
+          and torch.equal(outs["flash_bwd_dkv"][0], dk),
+          f"head_dim {d}: the C entry points' results differ from the "
+          "wrappers'")
+    return {"head_dim": d, "launches": 1, "max_abs_err": err,
+            "grad_rel_err": rel, "c_codes": codes}
 
 
 def _bwd_errors(got, want):
@@ -784,6 +864,9 @@ def _bwd_times(torch, q, k, v, dout, lse, delta, window):
                 *args, **kw, **plain[part]), reps=2)}
     row["library_ms"] = cuda_ms(
         torch, _sdpa_bwd(torch, q, k, v, dout, window), reps=3)
+    if d > HEAD_DIM_INSTANCES[-1]:
+        row["library_backend"] = _sdpa_backend(torch, q, k, v, window,
+                                               grad=True)
     return row
 
 
@@ -1026,51 +1109,96 @@ def phase_lm_train(torch):
     return launches
 
 
-def _gemma_grad_check(torch, state):
+def _plain_flash_attention(torch):
+    """``flash_attention`` through the kernels' plain versions on the card,
+    forward and backward (the FlashAttention-2 recurrence of
+    ``flash_attention_bwd_reference``), for the windowed reference: the
+    reference plane refuses a window, as the JAX package's does, so a
+    TinyLM with one is held against its own flash plane on the plain
+    versions. Used only here; the port's wrappers never fall back."""
+    from fiber_tpu_torch.ops import flash_attention as fa
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, window):
+            out, lse = fa.flash_attention_reference(q, k, v, causal=causal,
+                                                    window=window)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.causal, ctx.window = causal, window
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            q, k, v, out, lse = ctx.saved_tensors
+            grads = fa.flash_attention_bwd_reference(
+                q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
+                window=ctx.window)
+            return (*grads, None, None)
+
+    def attention(q, k, v, *, causal=False, window=None):
+        return Plain.apply(q, k, v, causal, window)
+
+    return attention
+
+
+def _wide_grad_check(torch, phase, cfg, state):
     """The flash plane against the reference plane at S = GRAD_SEQ on
-    GEMMA_CFG's widths and one weight set ``state``: logits, loss and
-    every parameter's gradient."""
+    ``cfg``'s widths and one weight set ``state``: logits, loss and every
+    parameter's gradient. With a window the reference is the flash plane
+    on the kernels' plain versions (``_plain_flash_attention``)."""
+    from unittest import mock
+
+    from fiber_tpu_torch.models import transformer
     from fiber_tpu_torch.models.transformer import TinyLM
 
-    cfg = dict(GEMMA_CFG, max_seq=GRAD_SEQ)
+    cfg = dict(cfg, max_seq=GRAD_SEQ)
     g = torch.Generator(device="cuda").manual_seed(9)
     tokens = torch.randint(0, cfg["vocab"], (GRAD_SEQ,), generator=g,
                            device="cuda")
+    legs = {"flash": ("flash", contextlib.nullcontext())}
+    legs["reference"] = (
+        ("flash", mock.patch.object(transformer, "flash_attention",
+                                    _plain_flash_attention(torch)))
+        if cfg.get("window") else ("reference", contextlib.nullcontext()))
     logits, losses, grads = {}, {}, {}
-    for attention in ("flash", "reference"):
-        m = TinyLM(**cfg, attention=attention, device="cuda")
-        m.load_state_dict(state)
-        with torch.no_grad():
-            logits[attention] = m.apply(tokens)
-        loss = m.loss(tokens)
-        loss.backward()
-        losses[attention] = loss.item()
-        grads[attention] = {n: p.grad for n, p in m.named_parameters()}
+    for leg, (attention, plane) in legs.items():
+        with plane:
+            m = TinyLM(**cfg, attention=attention, device="cuda")
+            m.load_state_dict(state)
+            with torch.no_grad():
+                logits[leg] = m.apply(tokens)
+            loss = m.loss(tokens)
+            loss.backward()
+        losses[leg] = loss.item()
+        grads[leg] = {n: p.grad for n, p in m.named_parameters()}
         del m, loss
     logit_err = (logits["flash"] - logits["reference"]).abs().max().item()
     loss_err = abs(losses["flash"] - losses["reference"])
     grad_err = max((grads["flash"][n] - grads["reference"][n]).abs().max()
                    .item() for n in grads["flash"])
     max_grad = max(x.abs().max().item() for x in grads["reference"].values())
-    check(logit_err < LM_TOL, f"gemma_lm S={GRAD_SEQ}: flash vs reference "
+    check(logit_err < LM_TOL, f"{phase} S={GRAD_SEQ}: flash vs reference "
           f"logits differ by {logit_err}")
-    check(loss_err < GRAD_LOSS_TOL, f"gemma_lm S={GRAD_SEQ}: losses differ "
+    check(loss_err < GRAD_LOSS_TOL, f"{phase} S={GRAD_SEQ}: losses differ "
           f"by {loss_err}")
-    check(grad_err < GRAD_TOL, f"gemma_lm S={GRAD_SEQ}: gradients differ "
+    check(grad_err < GRAD_TOL, f"{phase} S={GRAD_SEQ}: gradients differ "
           f"by {grad_err}")
-    return {"S": GRAD_SEQ, "logit_err": logit_err, "logit_tol": LM_TOL,
+    return {"S": GRAD_SEQ, "reference": ("plain versions" if cfg.get(
+                "window") else "reference plane"),
+            "logit_err": logit_err, "logit_tol": LM_TOL,
             "loss": losses["flash"], "loss_err": loss_err,
             "loss_tol": GRAD_LOSS_TOL, "max_grad_err": grad_err,
             "grad_tol": GRAD_TOL, "max_abs_grad": max_grad}
 
 
-def phase_gemma_lm(torch, card):
-    """TinyLM at Gemma-2B's attention widths (GEMMA_CFG) on the flash
-    plane: its forward, decoding and AdamW steps through the flash
-    kernels' head_dim-256 instances with GQA 8:1, every kernel's launches
-    counted exactly from 0 around each (forward: flash_fwd once a layer;
-    a train step: each flash kernel once a layer; decoding: none), then
-    the flash plane against the reference plane at S = GRAD_SEQ."""
+def _wide_lm(torch, card, phase, cfg, lr):
+    """TinyLM at a public model's attention widths (``cfg``) on the flash
+    plane: its forward, decoding and GEMMA_TRAIN_STEPS AdamW steps at
+    ``lr``, every kernel's launches counted exactly from 0 around each
+    (forward: flash_fwd once a layer; a train step: each flash kernel
+    once a layer; decoding: none), then the flash plane against the
+    reference plane at S = GRAD_SEQ. Emits the ``phase`` line and returns
+    the forward's and the train steps' launches."""
     from fiber_tpu_torch.models.transformer import (
         TinyLM,
         adamw,
@@ -1078,7 +1206,7 @@ def phase_gemma_lm(torch, card):
     )
     from fiber_tpu_torch.utils import flops
 
-    cfg, layers, seq = GEMMA_CFG, GEMMA_CFG["layers"], GEMMA_CFG["max_seq"]
+    layers, seq = cfg["layers"], cfg["max_seq"]
     model = TinyLM(**cfg, attention="flash", device="cuda",
                    generator=torch.Generator().manual_seed(0))
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -1096,7 +1224,7 @@ def phase_gemma_lm(torch, card):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = _counts()
-        check(counts == want, f"gemma_lm: launches {counts}, want {want}")
+        check(counts == want, f"{phase}: launches {counts}, want {want}")
         return out, secs, counts
 
     def launches(fwd=0, bwd=0):
@@ -1109,14 +1237,14 @@ def phase_gemma_lm(torch, card):
                                             launches(fwd=layers))
         check(tuple(logits.shape) == (seq, cfg["vocab"])
               and bool(torch.isfinite(logits).all()),
-              "gemma_lm: shape or non-finite logits")
+              f"{phase}: shape or non-finite logits")
         fwd_ms = cuda_ms(torch, lambda: model.apply(tokens), reps=3)
         n_prompt, steps = GEMMA_DECODE
         caches = model.new_caches()
         decode_err = max(
             (model._decode_step(caches, pos, tokens[pos])
              - logits[pos]).abs().max().item() for pos in range(n_prompt))
-        check(decode_err < LM_TOL, f"gemma_lm: decode vs forward logits "
+        check(decode_err < LM_TOL, f"{phase}: decode vs forward logits "
               f"differ by {decode_err}")
         prompt = tokens[:n_prompt]
         model.generate(prompt, 2)             # warm-up
@@ -1125,10 +1253,10 @@ def phase_gemma_lm(torch, card):
         check(tuple(out.shape) == (n_prompt + steps,)
               and bool(torch.equal(out[:n_prompt], prompt))
               and bool(((out >= 0) & (out < cfg["vocab"])).all()),
-              f"gemma_lm: generated {out.tolist()}")
+              f"{phase}: generated {out.tolist()}")
     del logits, caches
 
-    step = make_train_step(model, adamw(model.parameters(), GEMMA_LR))
+    step = make_train_step(model, adamw(model.parameters(), lr))
     torch.cuda.reset_peak_memory_stats()
     losses, train_s, train_counts = counted(
         lambda: [float(step(tokens)) for _ in range(GEMMA_TRAIN_STEPS)],
@@ -1136,14 +1264,14 @@ def phase_gemma_lm(torch, card):
                  bwd=layers * GEMMA_TRAIN_STEPS))
     peak_bytes = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
-          f"gemma_lm: losses {losses} not finite and falling")
+          f"{phase}: losses {losses} not finite and falling")
     step_ms = cuda_ms(torch, lambda: step(tokens), reps=2, warmup=0)
     n_fwd = flops.tinylm_flops_per_step(model, seq, train=False)
     n_train = flops.tinylm_flops_per_step(model, seq, train=True)
     del model, step
     torch.cuda.empty_cache()
-    grad = _gemma_grad_check(torch, state)
-    emit({"phase": "gemma_lm", "card": card, **cfg, "attention": "flash",
+    grad = _wide_grad_check(torch, phase, cfg, state)
+    emit({"phase": phase, "card": card, **cfg, "attention": "flash",
           "head_dim": cfg["dim"] // cfg["heads"], "params": params,
           "forward": {"launches": fwd_counts, "seconds": fwd_s,
                       "ms": fwd_ms, "tokens_per_s": seq / fwd_ms * 1e3,
@@ -1152,7 +1280,7 @@ def phase_gemma_lm(torch, card):
                      "launches": decode_counts, "seconds": decode_s,
                      "tokens_per_s": steps / decode_s,
                      "max_abs_err_vs_forward": decode_err, "tol": LM_TOL},
-          "train": {"optimizer": f"adamw({GEMMA_LR})",
+          "train": {"optimizer": f"adamw({lr})",
                     "steps": GEMMA_TRAIN_STEPS, "losses": losses,
                     "launches": train_counts, "seconds": train_s,
                     "step_ms": step_ms, "tokens_per_s": seq / step_ms * 1e3,
@@ -1160,6 +1288,19 @@ def phase_gemma_lm(torch, card):
                     "peak_memory_bytes": peak_bytes},
           "grad_check": grad})
     return {"forward": fwd_counts, "train": train_counts}
+
+
+def phase_gemma_lm(torch, card):
+    """TinyLM at Gemma-2B's attention widths (GEMMA_CFG): the flash
+    kernels' head_dim-256 instances with GQA 8:1 (``_wide_lm``)."""
+    return _wide_lm(torch, card, "gemma_lm", GEMMA_CFG, GEMMA_LR)
+
+
+def phase_deepseek_v4_lm(torch, card):
+    """TinyLM at DeepSeek-V4-Flash's attention widths (V4_CFG): the flash
+    kernels' wide route at head_dim 512, multi-query, over a causal
+    window of 128 (``_wide_lm``)."""
+    return _wide_lm(torch, card, "deepseek_v4_lm", V4_CFG, V4_LR)
 
 
 def phase_es(torch):
@@ -4725,6 +4866,8 @@ def main():
     torch.cuda.empty_cache()
     gemma_launches = timed("gemma_lm", phase_gemma_lm, torch, card)
     torch.cuda.empty_cache()
+    v4_launches = timed("deepseek_v4_lm", phase_deepseek_v4_lm, torch, card)
+    torch.cuda.empty_cache()
     timed("es", phase_es, torch)
     # The mesh phases measure inference too.
     with torch.no_grad():
@@ -4759,7 +4902,11 @@ def main():
     others = {"bfloat16": "attention_bf16", "float16": "attention_f16",
               "head_dim256_float32": "gemma_f32",
               "head_dim256_bfloat16": "gemma_bf16",
-              "head_dim256_float16": "gemma_f16"}
+              "head_dim256_float16": "gemma_f16",
+              "head_dim512_bfloat16": "v4_bf16",
+              "head_dim512_bfloat16_window": "v4_bf16_window",
+              "head_dim512_float32": "v4_f32",
+              "head_dim512_float16": "v4_f16"}
     summary = [{
         "name": "flash_fwd", "engine": lm["engine"],
         "max_abs_err": lm["max_abs_err"],
@@ -4769,7 +4916,8 @@ def main():
         "launches_lm_forward": fwd_launches,
         **{key: {k: fwd_rows[shape][k] for k in (
             "shape", "engine", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")} for key, shape in others.items()}}]
+            "bound_by", "library_ms", "library_backend")
+            if k in fwd_rows[shape]} for key, shape in others.items()}}]
     for part in ("dq", "dkv"):
         row = lm_bwd[part]
         summary.append({
@@ -4784,7 +4932,8 @@ def main():
                 "shape": bwd_rows[shape]["shape"],
                 "engine": bwd_rows[shape][f"{part}_engine"],
                 "max_abs_err": bwd_rows[shape][f"{part}_max_abs_err"],
-                "library_ms": bwd_rows[shape]["library_ms"],
+                **{k: bwd_rows[shape][k] for k in (
+                    "library_ms", "library_backend") if k in bwd_rows[shape]},
                 **{k: bwd_rows[shape][part][k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by")}}
                for key, shape in others.items()}})
@@ -4797,7 +4946,12 @@ def main():
                          entry["name"]],
                      launches_gemma_lm_train=gemma_launches["train"][
                          entry["name"]],
-                     gemma_lm_train_steps=GEMMA_TRAIN_STEPS)
+                     gemma_lm_train_steps=GEMMA_TRAIN_STEPS,
+                     launches_deepseek_v4_lm_forward=v4_launches["forward"][
+                         entry["name"]],
+                     launches_deepseek_v4_lm_train=v4_launches["train"][
+                         entry["name"]],
+                     deepseek_v4_lm_train_steps=GEMMA_TRAIN_STEPS)
     ring = ring_rows["attention_bf16_kv"]
     summary.append({
         "name": "ring_exchange", "max_abs_err": ring["max_abs_err"],

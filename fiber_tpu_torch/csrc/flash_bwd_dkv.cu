@@ -63,6 +63,17 @@
 //   On f32 each query tile's dV and dK products are summed from zero and
 //   then added to the running sums (add_xb() in mma_sm90.cuh).
 //   Both paddings make the fragment reads free of bank conflicts.
+// - head_dim above 256 takes the wide route (flash_bwd_dkv_wide_kernel):
+//   the output is cut into 128-column slices, and each slice's dv and dk
+//   get a block each, whose accumulator is one of the 256 instance's
+//   halves (dk and dv of a slice in one block, with the two score tiles
+//   and the state of a streamed stage, spilled); the depth of S^T = K Q^T
+//   (and for dk of dP^T = V dO^T) is streamed through shared memory in
+//   chunks of 256 bytes a row of a 16-bit type and 128 of f32 (K and Q,
+//   and V and dO) instead of K and V staged whole: two buffers whatever
+//   head_dim (104,448 bytes a block in bf16 and f16, 55,296 in f32). At head_dim 512 the dv blocks compute S^T 4x and the
+//   dk blocks S^T and dP^T 4x each: 3.5x the products of one pass (4 + 1
+//   and 4 + 4 + 1 a slice against 1 + 1 + 1 + 1).
 // - Q, dO, lse and delta of the next query tile are copied with cp.async
 //   (16 bytes a thread; 4 for lse and delta) into the second of two
 //   buffers while the current tile computes: one wait and one barrier
@@ -112,12 +123,108 @@ __host__ __device__ constexpr int q_bufs(bool f32, int dp) {
   return f32 && dp > 128 ? 1 : 2;
 }
 
+// The wide route (head_dim above 256): output columns a block, and rows of
+// each query tile.
+constexpr int W_COLS = 128;
+constexpr int W_QROWS = 32;
+
+// Depth of one chunk of the wide route's score products: 256 bytes of a
+// row of a 16-bit type (128 columns; 128-byte chunks ran slower on an
+// H100), 128 of f32 (32 columns; 64 columns spilled).
+template <typename T>
+__host__ __device__ constexpr int wide_chunk() {
+  return sizeof(T) == 4 ? 32 : 128;
+}
+
+// Bytes of one of the wide route's two stage buffers: a chunk of K, Q, V
+// and dO, or a Q or dO slice with the query tile's lse and delta,
+// whichever is larger.
+template <typename T>
+__host__ __device__ constexpr int wide_buf_bytes() {
+  constexpr int chunk = (2 * BKV + 2 * W_QROWS) *
+                        (wide_chunk<T>() + Pad<T>::value) * (int)sizeof(T);
+  constexpr int slice = W_QROWS * (W_COLS + Pad<T>::value) * (int)sizeof(T) +
+                        2 * W_QROWS * (int)sizeof(float);
+  return chunk > slice ? chunk : slice;
+}
+
+// Dynamic shared memory of one block of the wide route, whatever head_dim.
+template <typename T>
+constexpr int wide_smem_bytes() {
+  return 2 * wide_buf_bytes<T>();
+}
+
 struct Strides {                   // row (ss) and head (sh) strides, elements
   long long q_ss, q_sh, k_ss, k_sh, v_ss, v_sh, do_ss, do_sh;
 };
 
 // Bits of `vec`: the 16-byte copy path may be used for q, k, v, dO.
 constexpr int VEC_Q = 1, VEC_K = 2, VEC_V = 4, VEC_DO = 8;
+
+// The wide route's tile arithmetic (the instances up to 256 keep the
+// same arithmetic inline: folding them onto these helpers changed their
+// register allocation and made one of them spill).
+
+// Whether any entry of query tile q0 against KV tile k0 is masked
+// (diagonal, window edge or ragged edge); most tiles of a long sequence
+// have none. It is the same for the whole block, so no warp diverges.
+template <int BQ, int BKV>
+__device__ __forceinline__ bool tile_masked(int q0, int k0, int S,
+                                            int causal, int window) {
+  bool masked = q0 + BQ > S || k0 + BKV > S;
+  if (causal)
+    masked = masked || q0 < k0 + BKV - 1 ||
+             (window > 0 && q0 + BQ - 1 - k0 >= window);
+  return masked;
+}
+
+// P^T = exp(S^T scale - lse) in place of the warp's raw scores p (its 16
+// KV rows of tile k0 against query tile q0, whose lse is clse), masked
+// entries 0; the mask only where tile_masked() says the tile needs it.
+template <int NJ>
+__device__ __forceinline__ void to_pt(float (&p)[1][NJ][4],
+                                      const float* clse, bool masked,
+                                      int q0, int k0, int wrow, int lane,
+                                      int S, int causal, int window,
+                                      float scale_log2) {
+  const int g = lane >> 2, t = lane & 3;
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + 2 * t + (e & 1);
+        const int kj = k0 + wrow + g + (e >> 1) * 8;
+        p[0][j][e] =
+            keep(q0 + col, kj, S, causal, window)
+                ? ex2(fmaf(p[0][j][e], scale_log2, -clse[col] * LOG2E))
+                : 0.f;
+      }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + 2 * t + (e & 1);
+        p[0][j][e] = ex2(fmaf(p[0][j][e], scale_log2, -clse[col] * LOG2E));
+      }
+  }
+}
+
+// dS^T = P^T o (dP^T - delta) in place of the warp's dP^T = V dO^T.
+template <int NJ>
+__device__ __forceinline__ void to_dst(float (&ds)[1][NJ][4],
+                                       const float (&p)[1][NJ][4],
+                                       const float* cdelta, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = j * 8 + 2 * t + (e & 1);
+      ds[0][j][e] = p[0][j][e] * (ds[0][j][e] - cdelta[col]);
+    }
+}
 
 template <typename T, int DP>
 __global__ void __launch_bounds__(NT, min_blocks(sizeof(T) == 4, DP))
@@ -281,6 +388,169 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+// The wide route's kernel (head_dim above 256; the file's header says
+// why): one block of 4 warps owns one 128-column slice of dv, or of dk,
+// for one (KV head, 64-row KV tile), 16 KV rows a warp. Per 32-row query
+// tile it streams the depth of S^T = K Q^T, and for dk of dP^T = V dO^T,
+// through shared memory, DC columns of K and Q (and V and dO) at a time,
+// then stages the tile's dO slice (dv) or Q slice (dk) with its lse and
+// delta and adds P^T dO or dS^T Q to its 128-column accumulator. Every
+// stage (a chunk, or a slice) goes into one of two buffers by cp.async
+// while the other one computes.
+template <typename T, int DC>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int S,
+                          int KVH, int group, int D, Strides st, int vec,
+                          int causal, int window, float scale) {
+  constexpr int BQ = W_QROWS;
+  constexpr int NJ = BQ / 8;            // 8-column score tiles per warp
+  constexpr int ND = W_COLS / 8;        // 8-column accumulator tiles
+  constexpr int LDC = DC + Pad<T>::value;   // row stride of a chunk tile
+  constexpr int LDS = W_COLS + Pad<T>::value;   // row stride of a slice
+  constexpr int BUF = wide_buf_bytes<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = (threadIdx.x >> 5) * 16;   // the warp's first KV row
+  const int kvh = blockIdx.y;
+  // blockIdx.x = 2 (tile n_slices + slice) + is_dk: the dv and dk blocks
+  // of one KV tile's slices are neighbours in the grid; the first KV
+  // tiles, which see the most query tiles under causality, come first.
+  const bool is_dk = blockIdx.x & 1;
+  const int n_slices = (D + W_COLS - 1) / W_COLS;
+  const int col0 = (blockIdx.x / 2 % n_slices) * W_COLS;
+  const int k0 = blockIdx.x / 2 / n_slices * BKV;
+
+  int q_begin = 0, q_end = S;
+  if (causal) {
+    q_begin = k0;
+    if (window > 0) q_end = min(S, k0 + BKV - 1 + window);
+  }
+  const int n_qt = (q_end - q_begin + BQ - 1) / BQ;  // per query head
+  const int n_it = group * n_qt;
+  const int n_chunks = (D + DC - 1) / DC;
+  const int per_tile = n_chunks + 1;    // stages a query tile
+  const int n_st = n_it * per_tile;
+
+  // Stages `u` into buffer u & 1: chunk c of K and Q, and for dk of V and
+  // dO (BKV, BQ, BKV and BQ rows, LDC apart), or the dO slice (dv) or Q
+  // slice (dk), BQ rows LDS apart, followed by BQ floats each of lse and
+  // delta.
+  auto stage = [&](int u) {
+    const int it = u / per_tile, c = u % per_tile;
+    const int h = kvh * group + it / n_qt;
+    const int q0 = q_begin + (it % n_qt) * BQ;
+    T* b = reinterpret_cast<T*>(smem_raw + (u & 1) * BUF);
+    if (c < n_chunks) {
+      const int c0 = c * DC;
+      load_tile<T, DC, BKV, NT>(b, k + kvh * st.k_sh + c0, k0, S, D - c0,
+                                st.k_ss, vec & VEC_K);
+      load_tile<T, DC, BQ, NT>(b + BKV * LDC, q + h * st.q_sh + c0, q0, S,
+                               D - c0, st.q_ss, vec & VEC_Q);
+      if (is_dk) {
+        load_tile<T, DC, BKV, NT>(b + (BKV + BQ) * LDC,
+                                  v + kvh * st.v_sh + c0, k0, S, D - c0,
+                                  st.v_ss, vec & VEC_V);
+        load_tile<T, DC, BQ, NT>(b + (2 * BKV + BQ) * LDC,
+                                 dout + h * st.do_sh + c0, q0, S, D - c0,
+                                 st.do_ss, vec & VEC_DO);
+      }
+    } else {
+      if (is_dk)
+        load_tile<T, W_COLS, BQ, NT>(b, q + h * st.q_sh + col0, q0, S,
+                                     D - col0, st.q_ss, vec & VEC_Q);
+      else
+        load_tile<T, W_COLS, BQ, NT>(b, dout + h * st.do_sh + col0, q0, S,
+                                     D - col0, st.do_ss, vec & VEC_DO);
+      float* stats = reinterpret_cast<float*>(b + BQ * LDS);
+      for (int i = threadIdx.x; i < 2 * BQ; i += NT) {
+        const bool is_delta = i >= BQ;
+        const int r = is_delta ? i - BQ : i;
+        const float* row = (is_delta ? delta : lse) + (long long)h * S;
+        const bool ok = q0 + r < S;
+        cp_async4(stats + i, ok ? row + q0 + r : row, ok ? 4 : 0);
+      }
+    }
+  };
+
+  if (n_st > 0) stage(0);
+  cp_async_commit();
+
+  // One 16-row m-tile a warp (the [1] of every fragment array).
+  float acc[1][ND][4];
+  zero(acc);
+  float p[1][NJ][4], ds[1][NJ][4];
+  const float scale_log2 = scale * LOG2E;
+
+  for (int u = 0; u < n_st; ++u) {
+    // Stage u has landed, and every warp is done with stage u - 1, whose
+    // buffer the copy of stage u + 1 now overwrites.
+    cp_async_wait_all();
+    __syncthreads();
+    if (u + 1 < n_st) stage(u + 1);
+    cp_async_commit();
+    const T* b = reinterpret_cast<const T*>(smem_raw + (u & 1) * BUF);
+    const int it = u / per_tile, c = u % per_tile;
+    if (c < n_chunks) {
+      if (c == 0) {
+        zero(p);
+        zero(ds);
+      }
+      abt<DC, 1, NJ, true>(p, b, b + BKV * LDC, wrow, lane);
+      if (is_dk)
+        abt<DC, 1, NJ, true>(ds, b + (BKV + BQ) * LDC,
+                             b + (2 * BKV + BQ) * LDC, wrow, lane);
+    } else {
+      const int q0 = q_begin + (it % n_qt) * BQ;
+      const float* clse = reinterpret_cast<const float*>(b + BQ * LDS);
+      to_pt(p, clse, tile_masked<BQ, BKV>(q0, k0, S, causal, window), q0,
+            k0, wrow, lane, S, causal, window, scale_log2);
+      if (is_dk) {
+        to_dst(ds, p, clse + BQ, lane);
+        add_xb<W_COLS, 1, NJ>(acc, ds, b, lane);
+      } else {
+        add_xb<W_COLS, 1, NJ>(acc, p, b, lane);
+      }
+    }
+  }
+
+  // dk = scale * acc, dv = acc: the warp's KV rows, columns col0 + 8 ND
+  // of them (those below D).
+  T* out = is_dk ? dk : dv;
+  const float f = is_dk ? scale : 1.f;
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kj = k0 + wrow + g + (e >> 1) * 8;
+      const int col = col0 + n * 8 + 2 * t + (e & 1);
+      if (kj < S && col < D)
+        store(out + ((long long)kj * KVH + kvh) * D + col, acc[0][n][e] * f);
+    }
+}
+
+// Bits of `vec` for q, k, v and dO: a tensor takes the 16-byte copy path
+// when its pointer, row and head strides and head_dim are all whole
+// 16-byte units.
+template <typename T>
+int vec_bits(const void* const* p, const Strides& st, int D) {
+  constexpr long long V = 16 / sizeof(T);
+  auto whole = [&](const void* ptr, long long ss, long long sh) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && ss % V == 0 &&
+           sh % V == 0 && D % V == 0;
+  };
+  return (whole(p[0], st.q_ss, st.q_sh) ? VEC_Q : 0) |
+         (whole(p[1], st.k_ss, st.k_sh) ? VEC_K : 0) |
+         (whole(p[2], st.v_ss, st.v_sh) ? VEC_V : 0) |
+         (whole(p[3], st.do_ss, st.do_sh) ? VEC_DO : 0);
+}
+
 // Dynamic shared memory of one block: K, V, NB Q and NB dO tiles, and NB
 // buffers each of lse and delta.
 template <typename T, int DP>
@@ -300,25 +570,36 @@ cudaError_t launch_dkv(const void* const* p, int S, int H, int KVH, int D,
       flash_bwd_dkv_kernel<T, DP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  // The 16-byte copy path of a tensor: its pointer, row and head strides
-  // and head_dim all in whole 16-byte units.
-  constexpr long long V = 16 / sizeof(T);
-  auto whole = [&](const void* ptr, long long ss, long long sh) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && ss % V == 0 &&
-           sh % V == 0 && D % V == 0;
-  };
-  const int vec = (whole(p[0], st.q_ss, st.q_sh) ? VEC_Q : 0) |
-                  (whole(p[1], st.k_ss, st.k_sh) ? VEC_K : 0) |
-                  (whole(p[2], st.v_ss, st.v_sh) ? VEC_V : 0) |
-                  (whole(p[3], st.do_ss, st.do_sh) ? VEC_DO : 0);
   const dim3 grid((S + BKV - 1) / BKV, KVH, DP / out_cols(DP));
   flash_bwd_dkv_kernel<T, DP><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
       static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
       static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
       static_cast<T*>(const_cast<void*>(p[6])),
-      static_cast<T*>(const_cast<void*>(p[7])), S, KVH, H / KVH, D, st, vec,
-      causal, window, scale);
+      static_cast<T*>(const_cast<void*>(p[7])), S, KVH, H / KVH, D, st,
+      vec_bits<T>(p, st, D), causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkv_wide(const void* const* p, int S, int H, int KVH,
+                            int D, const Strides& st, int causal, int window,
+                            float scale, cudaStream_t stream) {
+  constexpr int smem = wide_smem_bytes<T>();
+  constexpr int DC = wide_chunk<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wide_kernel<T, DC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_slices = (D + W_COLS - 1) / W_COLS;
+  const dim3 grid((S + BKV - 1) / BKV * n_slices * 2, KVH);
+  flash_bwd_dkv_wide_kernel<T, DC><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
+      static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
+      static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
+      static_cast<T*>(const_cast<void*>(p[6])),
+      static_cast<T*>(const_cast<void*>(p[7])), S, KVH, H / KVH, D, st,
+      vec_bits<T>(p, st, D), causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -326,14 +607,16 @@ using Launcher = cudaError_t (*)(const void* const*, int, int, int, int,
                                  const Strides&, int, int, float,
                                  cudaStream_t);
 
-// The template instances with head_dim padded to 16, 32, 64, 128 or 256.
+// The template instances with head_dim padded to 16, 32, 64, 128 or 256,
+// and the wide route beyond.
 template <typename T>
 Launcher dkv_for(int D) {
   return D <= 16 ? &launch_dkv<T, 16>
        : D <= 32 ? &launch_dkv<T, 32>
        : D <= 64 ? &launch_dkv<T, 64>
        : D <= 128 ? &launch_dkv<T, 128>
-                  : &launch_dkv<T, 256>;
+       : D <= 256 ? &launch_dkv<T, 256>
+                  : &launch_dkv_wide<T>;
 }
 
 template <typename T>
@@ -342,11 +625,9 @@ int smem_for(int D) {
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
        : D <= 128 ? smem_bytes<T, 128>()
-                  : smem_bytes<T, 256>();
+       : D <= 256 ? smem_bytes<T, 256>()
+                  : wide_smem_bytes<T>();
 }
-
-// The largest head_dim an instance takes.
-constexpr int MAX_HEAD_DIM = 256;
 
 }  // namespace
 
@@ -356,17 +637,17 @@ extern "C" {
 // the row and head strides in `strides` (elements: q, k, v, dout, each
 // row then head); lse and delta (H, S) f32 contiguous; dk and dv written
 // (S, KVH, D) contiguous in k's type, each the sum over the H / KVH query
-// heads that share the KV head. dtype: 0 = f32, 1 = bf16, 2 = f16.
-// head_dim D up to MAX_HEAD_DIM (256). window <= 0 means none. Returns
-// the CUDA error of the launch (0 on success; cudaErrorInvalidValue for a
-// D, dtype or head count no instance takes).
+// heads that share the KV head. dtype: 0 = f32, 1 = bf16, 2 = f16. Any
+// head_dim D >= 1. window <= 0 means none. Returns the CUDA error of the
+// launch (0 on success; cudaErrorInvalidValue for a size, dtype or head
+// count no instance takes).
 int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dk, void* dv, int S, int H, int KVH, int D,
                   const long long* strides, int causal, int window,
                   float scale, int dtype, void* stream) {
-  if (S < 1 || H < 1 || KVH < 1 || H % KVH != 0 || D < 1 ||
-      D > MAX_HEAD_DIM || dtype < 0 || dtype > 2)
+  if (S < 1 || H < 1 || KVH < 1 || H % KVH != 0 || D < 1 || dtype < 0 ||
+      dtype > 2)
     return (int)cudaErrorInvalidValue;
   const void* p[] = {q, k, v, dout, lse, delta, dk, dv};
   const Strides st{strides[0], strides[1], strides[2], strides[3],

@@ -50,6 +50,18 @@
 //   (the next tile's copy after a barrier at the end of this one), since
 //   the Q and dO tiles and two buffers of K and V would take 266 KB of
 //   shared memory against the block's 227 KB.
+// - head_dim above 256 takes the wide route (flash_bwd_dq_wide_kernel),
+//   as the forward does: a dq accumulator of 512 columns would be 256
+//   registers a thread, and full-width tiles do not fit. Each block owns
+//   one 128-column slice of dq (the 128 instance's accumulator), and the
+//   depth of S = Q K^T and dP = dO V^T is streamed through shared memory
+//   in chunks of 256 bytes a row of Q, dO, K and V, with 32-row KV tiles
+//   as at 256, two buffers whatever head_dim (104,448 bytes a block in
+//   every type). Each slice's block computes both score tiles again: at
+//   head_dim 512 that is 4x the S and dP products, 3x the products of one
+//   pass (4 + 4 + 1 against 1 + 1 + 1). Every slice runs the same
+//   instructions on the same scores, so P and dS agree bit for bit across
+//   slices.
 // - Per KV tile a warp computes S = Q K^T and dP = dO V^T (16 x 64 an
 //   m-tile each) as mma accumulators, P = 2^(S scale log2 e - lse log2 e)
 //   and dS = P (dP - delta) in registers (the mask only on tiles that
@@ -86,6 +98,37 @@ __host__ __device__ constexpr int kv_rows(int dp) {
 // K and V buffers: two, or one for f32 beyond head_dim 128.
 __host__ __device__ constexpr int kv_bufs(bool f32, int dp) {
   return f32 && dp > 128 ? 1 : 2;
+}
+
+// The wide route (head_dim above 256): output columns a block, rows of
+// its query tile, and rows of each KV tile (32, as at head_dim 256, so
+// that the two score tiles fit beside dq's 128-column accumulator).
+constexpr int W_COLS = 128;
+constexpr int W_ROWS = 64;
+constexpr int W_KVROWS = 32;
+
+// Depth of one chunk of the wide route's score products: 256 bytes of a
+// row (64 f32, 128 of a 16-bit type): half as many stages, and so
+// barriers, as 128-byte chunks, which ran slower on an H100.
+template <typename T>
+__host__ __device__ constexpr int wide_chunk() {
+  return 256 / (int)sizeof(T);
+}
+
+// Elements of one of the wide route's two stage buffers: a chunk of Q,
+// dO, K and V, or a K slice, whichever is larger.
+template <typename T>
+__host__ __device__ constexpr int wide_buf() {
+  constexpr int chunk =
+      2 * (W_ROWS + W_KVROWS) * (wide_chunk<T>() + Pad<T>::value);
+  constexpr int slice = W_KVROWS * (W_COLS + Pad<T>::value);
+  return chunk > slice ? chunk : slice;
+}
+
+// Dynamic shared memory of one block of the wide route, whatever head_dim.
+template <typename T>
+constexpr int wide_smem_bytes() {
+  return (int)(2 * wide_buf<T>() * sizeof(T));
 }
 
 struct Strides {                   // row (ss) and head (sh) strides, elements
@@ -128,6 +171,98 @@ __host__ __device__ constexpr int min_blocks() {
   const int fit = 233472 / (smem_bytes<T, DP>() + 1024);
   const int most = sizeof(T) == 2 && m_tiles(false, DP) == 1 ? 3 : 2;
   return fit < 1 ? 1 : fit > most ? most : fit;
+}
+
+// The wide route's tile arithmetic (the instances up to 256 keep the
+// same arithmetic inline: folding them onto these helpers changed their
+// register allocation and made one of them spill).
+
+// Whether any entry of key tile k0 against query tile q0 is masked
+// (diagonal, window edge or ragged keys); the same for the whole block,
+// so no warp diverges.
+template <int BQ, int BKV>
+__device__ __forceinline__ bool tile_masked(int q0, int k0, int S,
+                                            int causal, int window) {
+  bool masked = k0 + BKV > S;
+  if (causal)
+    masked = masked || k0 + BKV - 1 > q0 ||
+             (window > 0 && q0 + BQ - 1 - k0 >= window);
+  return masked;
+}
+
+// P = 2^(S scale log2 e - lse log2 e) in place of the warp's raw scores p
+// (key tile k0 of the block's query tile q0), masked entries 0; the mask
+// only where tile_masked() says the tile needs it.
+template <int MT, int NJ>
+__device__ __forceinline__ void to_p(float (&p)[MT][NJ][4],
+                                     const float (&lse2)[MT][2],
+                                     bool masked, int q0, int k0, int wrow,
+                                     int lane, int S, int causal, int window,
+                                     float scale_log2) {
+  const int g = lane >> 2, t = lane & 3;
+  if (masked) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + wrow + mt * 16 + g + (e >> 1) * 8;
+          const int kj = k0 + j * 8 + 2 * t + (e & 1);
+          p[mt][j][e] = keep(qi, kj, S, causal, window)
+                            ? ex2(fmaf(p[mt][j][e], scale_log2,
+                                       -lse2[mt][e >> 1]))
+                            : 0.f;
+        }
+  } else {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[mt][j][e] =
+              ex2(fmaf(p[mt][j][e], scale_log2, -lse2[mt][e >> 1]));
+  }
+}
+
+// dS = P o (dP - delta) in place of the warp's dP = dO V^T.
+template <int MT, int NJ>
+__device__ __forceinline__ void to_ds(float (&ds)[MT][NJ][4],
+                                      const float (&p)[MT][NJ][4],
+                                      const float (&dlt)[MT][2]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[mt][j][e] = p[mt][j][e] * (ds[mt][j][e] - dlt[mt][e >> 1]);
+}
+
+// Writes the warp's rows of dq, columns col0 + 8 ND of them (those below
+// D), as scale * acc.
+template <typename T, int MT, int ND>
+__device__ __forceinline__ void store_dq(const float (&acc)[MT][ND][4],
+                                         T* dq, int q0, int wrow, int lane,
+                                         int S, int H, int h, int D,
+                                         int col0, float scale) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + wrow + mt * 16 + g + 8 * r;
+      if (qi >= S) continue;
+      T* row = dq + ((long long)qi * H + h) * D + col0;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = n * 8 + 2 * t + c;
+          if (col0 + col < D) store(row + col, acc[mt][n][2 * r + c] * scale);
+        }
+    }
 }
 
 template <typename T, int DP>
@@ -292,6 +427,139 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+// The wide route's kernel (head_dim above 256; the file's header says
+// why): one block of 4 warps owns one 128-column slice of dq for one
+// (query head, 64-row query tile), one 16-row m-tile a warp. Per 32-row
+// KV tile it streams the depth of S = Q K^T and dP = dO V^T through
+// shared memory, DC columns of Q, dO, K and V at a time, then stages the
+// tile's K slice and adds dS K to its 128-column accumulator, the 128
+// instance's.
+// Every stage (a chunk of the four, or a K slice) goes into one of two
+// buffers by cp.async while the other one computes.
+template <typename T, int DC>
+__global__ void __launch_bounds__(NT, 2)
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dq,
+                         int S, int H, int group, int D, Strides st, int vec,
+                         int causal, int window, float scale) {
+  constexpr int BQ = W_ROWS, BKV = W_KVROWS;
+  constexpr int NJ = BKV / 8;           // 8-column score tiles
+  constexpr int ND = W_COLS / 8;        // 8-column accumulator tiles
+  constexpr int LDC = DC + Pad<T>::value;   // row stride of a chunk tile
+  constexpr int BUF = wide_buf<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sbuf = reinterpret_cast<T*>(smem_raw);   // 2 stage buffers of BUF
+
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int wrow = (threadIdx.x >> 5) * 16;   // the warp's first row
+  const int h = blockIdx.y;
+  const int kvh = h / group;
+  // The slices of one query tile are neighbours in the grid; the heaviest
+  // causal tiles (the last query rows) are scheduled first.
+  const int n_slices = (D + W_COLS - 1) / W_COLS;
+  const int col0 = (blockIdx.x % n_slices) * W_COLS;
+  const int q0 = (gridDim.x / n_slices - 1 - blockIdx.x / n_slices) * BQ;
+
+  int kv_begin = 0, kv_end = S;
+  if (causal) {
+    kv_end = min(S, q0 + BQ);
+    if (window > 0) {
+      const int lo = q0 - window + 1;
+      if (lo > 0) kv_begin = (lo / BKV) * BKV;
+    }
+  }
+  const int n_it = (kv_end - kv_begin + BKV - 1) / BKV;
+  const int n_chunks = (D + DC - 1) / DC;
+  const int per_tile = n_chunks + 1;    // stages a KV tile: chunks, then K
+  const int n_st = n_it * per_tile;
+
+  // Stages `u` into buffer u & 1: chunk c of Q, dO, K and V (BQ, BQ, BKV
+  // and BKV rows, LDC apart), or the K slice (BKV rows, W_COLS + pad
+  // apart).
+  auto stage = [&](int u) {
+    const int k0 = kv_begin + (u / per_tile) * BKV;
+    const int c = u % per_tile;
+    T* b = sbuf + (u & 1) * BUF;
+    if (c < n_chunks) {
+      const int c0 = c * DC;
+      load_tile<T, DC, BQ, NT>(b, q + h * st.q_sh + c0, q0, S, D - c0,
+                               st.q_ss, vec & VEC_Q);
+      load_tile<T, DC, BQ, NT>(b + BQ * LDC, dout + h * st.do_sh + c0, q0,
+                               S, D - c0, st.do_ss, vec & VEC_DO);
+      load_tile<T, DC, BKV, NT>(b + 2 * BQ * LDC, k + kvh * st.k_sh + c0,
+                                k0, S, D - c0, st.k_ss, vec & VEC_K);
+      load_tile<T, DC, BKV, NT>(b + (2 * BQ + BKV) * LDC,
+                                v + kvh * st.v_sh + c0, k0, S, D - c0,
+                                st.v_ss, vec & VEC_V);
+    } else {
+      load_tile<T, W_COLS, BKV, NT>(b, k + kvh * st.k_sh + col0, k0, S,
+                                    D - col0, st.k_ss, vec & VEC_K);
+    }
+  };
+
+  if (n_st > 0) stage(0);
+  cp_async_commit();
+
+  // lse (base 2) and delta of rows g and g + 8 (0 past S, as above).
+  float lse2[1][2], dlt[1][2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + wrow + g + 8 * r;
+    lse2[0][r] = qi < S ? lse[(long long)h * S + qi] * LOG2E : 0.f;
+    dlt[0][r] = qi < S ? delta[(long long)h * S + qi] : 0.f;
+  }
+  float acc[1][ND][4];
+  zero(acc);
+  float p[1][NJ][4], ds[1][NJ][4];
+  const float scale_log2 = scale * LOG2E;
+
+  for (int u = 0; u < n_st; ++u) {
+    // Stage u has landed, and every warp is done with stage u - 1, whose
+    // buffer the copy of stage u + 1 now overwrites.
+    cp_async_wait_all();
+    __syncthreads();
+    if (u + 1 < n_st) stage(u + 1);
+    cp_async_commit();
+    const T* b = sbuf + (u & 1) * BUF;
+    const int c = u % per_tile;
+    if (c < n_chunks) {
+      if (c == 0) {
+        zero(p);
+        zero(ds);
+      }
+      abt<DC, 1, NJ, true>(p, b, b + 2 * BQ * LDC, wrow, lane);
+      abt<DC, 1, NJ, true>(ds, b + BQ * LDC, b + (2 * BQ + BKV) * LDC,
+                           wrow, lane);
+    } else {
+      const int k0 = kv_begin + (u / per_tile) * BKV;
+      to_p(p, lse2, tile_masked<BQ, BKV>(q0, k0, S, causal, window), q0,
+           k0, wrow, lane, S, causal, window, scale_log2);
+      to_ds(ds, p, dlt);
+      add_xb<W_COLS, 1, NJ>(acc, ds, b, lane);
+    }
+  }
+  store_dq(acc, dq, q0, wrow, lane, S, H, h, D, col0, scale);
+}
+
+// Bits of `vec` for q, k, v and dO: a tensor takes the 16-byte copy path
+// when its pointer, row and head strides and head_dim are all whole
+// 16-byte units.
+template <typename T>
+int vec_bits(const void* const* p, const Strides& st, int D) {
+  constexpr long long V = 16 / sizeof(T);
+  auto whole = [&](const void* ptr, long long ss, long long sh) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && ss % V == 0 &&
+           sh % V == 0 && D % V == 0;
+  };
+  return (whole(p[0], st.q_ss, st.q_sh) ? VEC_Q : 0) |
+         (whole(p[1], st.k_ss, st.k_sh) ? VEC_K : 0) |
+         (whole(p[2], st.v_ss, st.v_sh) ? VEC_V : 0) |
+         (whole(p[3], st.do_ss, st.do_sh) ? VEC_DO : 0);
+}
+
 template <typename T, int DP>
 cudaError_t launch_dq(const void* const* p, int S, int H, int KVH, int D,
                       const Strides& st, int causal, int window, float scale,
@@ -302,24 +570,34 @@ cudaError_t launch_dq(const void* const* p, int S, int H, int KVH, int D,
       flash_bwd_dq_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  // The 16-byte copy path of a tensor: its pointer, row and head strides
-  // and head_dim all in whole 16-byte units.
-  constexpr long long V = 16 / sizeof(T);
-  auto whole = [&](const void* ptr, long long ss, long long sh) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && ss % V == 0 &&
-           sh % V == 0 && D % V == 0;
-  };
-  const int vec = (whole(p[0], st.q_ss, st.q_sh) ? VEC_Q : 0) |
-                  (whole(p[1], st.k_ss, st.k_sh) ? VEC_K : 0) |
-                  (whole(p[2], st.v_ss, st.v_sh) ? VEC_V : 0) |
-                  (whole(p[3], st.do_ss, st.do_sh) ? VEC_DO : 0);
   const dim3 grid((S + BQ - 1) / BQ, H);
   flash_bwd_dq_kernel<T, DP><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
       static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
       static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
-      static_cast<T*>(const_cast<void*>(p[6])), S, H, H / KVH, D, st, vec,
-      causal, window, scale);
+      static_cast<T*>(const_cast<void*>(p[6])), S, H, H / KVH, D, st,
+      vec_bits<T>(p, st, D), causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dq_wide(const void* const* p, int S, int H, int KVH,
+                           int D, const Strides& st, int causal, int window,
+                           float scale, cudaStream_t stream) {
+  constexpr int smem = wide_smem_bytes<T>();
+  constexpr int DC = wide_chunk<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wide_kernel<T, DC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_slices = (D + W_COLS - 1) / W_COLS;
+  const dim3 grid((S + W_ROWS - 1) / W_ROWS * n_slices, H);
+  flash_bwd_dq_wide_kernel<T, DC><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
+      static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
+      static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
+      static_cast<T*>(const_cast<void*>(p[6])), S, H, H / KVH, D, st,
+      vec_bits<T>(p, st, D), causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -327,14 +605,16 @@ using Launcher = cudaError_t (*)(const void* const*, int, int, int, int,
                                  const Strides&, int, int, float,
                                  cudaStream_t);
 
-// The template instances with head_dim padded to 16, 32, 64, 128 or 256.
+// The template instances with head_dim padded to 16, 32, 64, 128 or 256,
+// and the wide route beyond.
 template <typename T>
 Launcher dq_for(int D) {
   return D <= 16 ? &launch_dq<T, 16>
        : D <= 32 ? &launch_dq<T, 32>
        : D <= 64 ? &launch_dq<T, 64>
        : D <= 128 ? &launch_dq<T, 128>
-                  : &launch_dq<T, 256>;
+       : D <= 256 ? &launch_dq<T, 256>
+                  : &launch_dq_wide<T>;
 }
 
 template <typename T>
@@ -343,11 +623,9 @@ int smem_for(int D) {
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
        : D <= 128 ? smem_bytes<T, 128>()
-                  : smem_bytes<T, 256>();
+       : D <= 256 ? smem_bytes<T, 256>()
+                  : wide_smem_bytes<T>();
 }
-
-// The largest head_dim an instance takes.
-constexpr int MAX_HEAD_DIM = 256;
 
 }  // namespace
 
@@ -356,17 +634,17 @@ extern "C" {
 // q and dout (S, H, D), k and v (S, KVH, D), with unit stride along D and
 // the row and head strides in `strides` (elements: q, k, v, dout, each
 // row then head); lse and delta (H, S) f32 contiguous; dq written (S, H,
-// D) contiguous in q's type. dtype: 0 = f32, 1 = bf16, 2 = f16. head_dim
-// D up to MAX_HEAD_DIM (256). window <= 0 means none. Returns the CUDA
-// error of the launch (0 on success; cudaErrorInvalidValue for a D, dtype
-// or head count no instance takes).
+// D) contiguous in q's type. dtype: 0 = f32, 1 = bf16, 2 = f16. Any
+// head_dim D >= 1. window <= 0 means none. Returns the CUDA error of the
+// launch (0 on success; cudaErrorInvalidValue for a size, dtype or head
+// count no instance takes).
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, int S, int H, int KVH, int D,
                  const long long* strides, int causal, int window,
                  float scale, int dtype, void* stream) {
-  if (S < 1 || H < 1 || KVH < 1 || H % KVH != 0 || D < 1 ||
-      D > MAX_HEAD_DIM || dtype < 0 || dtype > 2)
+  if (S < 1 || H < 1 || KVH < 1 || H % KVH != 0 || D < 1 || dtype < 0 ||
+      dtype > 2)
     return (int)cudaErrorInvalidValue;
   const void* p[] = {q, k, v, dout, lse, delta, dq};
   const Strides st{strides[0], strides[1], strides[2], strides[3],

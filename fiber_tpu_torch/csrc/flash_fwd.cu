@@ -46,6 +46,23 @@
 //   registers fewer than 64 rows' (which spilled 32 bytes a thread), and
 //   two buffers of each fit in 199,680 bytes of shared memory, where
 //   64-row ones would take 333 KB against the block's 227 KB.
+// - head_dim above 256 takes the wide route (flash_fwd_wide_kernel): no
+//   larger instance fits, as the output accumulator of 256 columns is
+//   already 128 registers a thread and one 64-row f32 K tile at 512
+//   columns (padded to D + 4) is 132,096 bytes. So each block owns one
+//   128-column slice of O (the 128 instance's accumulators), and the
+//   depth of S = Q K^T is streamed through shared memory in chunks of
+//   256 bytes a row (64 f32 or 128 16-bit columns of Q and of K), two
+//   buffers whatever head_dim: 69,632 bytes a block in every type, so any
+//   head_dim runs. The price is that each slice's block computes the
+//   full-width scores again: at head_dim 512 the forward does 4x its
+//   Q K^T products, 2.5x the products of one pass (4 + 1 against 1 + 1),
+//   and reads Q and K once a slice. Every slice runs the same
+//   instructions on the same scores, so m, l and lse agree bit for bit
+//   across slices; slice 0 writes lse. The alternatives, O in shared
+//   memory across the KV sweep (64 rows x 512 f32 columns is 131,072
+//   bytes, and no room left to stream K and V) or wgmma, would each be a
+//   new kernel; the split reuses the tested 128-column accumulators.
 // - Per KV tile a warp computes its scores S = Q K^T (16 x BKV an m-tile)
 //   as mma accumulators, the online softmax in registers in base 2 (scores
 //   scaled by scale * log2 e, ex2.approx; a row spans the 4 threads of a
@@ -111,6 +128,33 @@ constexpr int MIN_BLOCKS = 2;
 // fold: 4 where they fit beside the output (head_dim up to 32), else 2.
 __host__ __device__ constexpr int pv_group(int dp) {
   return dp <= 32 ? dp / 8 : 2;
+}
+
+// The wide route (head_dim above 256): output columns a block, and rows of
+// its query tile and of each KV tile.
+constexpr int W_COLS = 128;
+constexpr int W_ROWS = 64;
+
+// Depth of one chunk of the wide route's score product: 256 bytes of a row
+// (64 f32, 128 of a 16-bit type).
+template <typename T>
+__host__ __device__ constexpr int wide_chunk() {
+  return 256 / (int)sizeof(T);
+}
+
+// Elements of one of the wide route's two stage buffers: a chunk of Q and
+// of K, or a V slice, whichever is larger.
+template <typename T>
+__host__ __device__ constexpr int wide_buf() {
+  constexpr int qk = 2 * W_ROWS * (wide_chunk<T>() + Pad<T>::value);
+  constexpr int vs = W_ROWS * (W_COLS + Pad<T>::value);
+  return qk > vs ? qk : vs;
+}
+
+// Dynamic shared memory of one block of the wide route, whatever head_dim.
+template <typename T>
+constexpr int wide_smem_bytes() {
+  return (int)(2 * wide_buf<T>() * sizeof(T));
 }
 
 struct Strides {                   // row (ss) and head (sh) strides, elements
@@ -328,6 +372,111 @@ __device__ __forceinline__ void accumulate(float (&o)[MT][DP / 8][4],
   }
 }
 
+// One KV tile's step of the online softmax on the warp's raw scores s
+// (key tile k0 of the block's query tile q0): masks them, updates the
+// running max m (base 2, scaled) and the thread's part of the running sum
+// l, leaves the probabilities in s, and gives each row's rescale of the
+// output in corr.
+template <int BQ, int BKV, int MT, int NJ>
+__device__ __forceinline__ void softmax_step(
+    float (&s)[MT][NJ][4], float (&m)[MT][2], float (&l)[MT][2],
+    float (&corr)[MT][2], int q0, int k0, int wrow, int lane, int S,
+    int causal, int window, float scale_log2) {
+  static_assert(NJ * 4 <= 32, "a thread's keep bits of a tile fit a word");
+  const int g = lane >> 2, t = lane & 3;
+  // Whether any entry of this tile is masked (diagonal, window edge or
+  // ragged keys); the same for the whole block, so no warp diverges.
+  // Query rows past S are left unmasked: their Q rows are zeros, and
+  // they are never written.
+  bool masked = k0 + BKV > S;
+  if (causal)
+    masked = masked || k0 + BKV - 1 > q0 ||
+             (window > 0 && q0 + BQ - 1 - k0 >= window);
+  uint32_t kept[MT];              // bit 4j + e: entry s[mt][j][e] is kept
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    kept[mt] = 0xffffffffu;
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + wrow + mt * 16 + g + (e >> 1) * 8;
+          const int kj = k0 + j * 8 + 2 * t + (e & 1);
+          if (!keep(qi, kj, S, causal, window)) {
+            kept[mt] &= ~(1u << (4 * j + e));
+            s[mt][j][e] = kNegInf;
+          }
+        }
+    }
+  }
+
+  // Online softmax on the raw scores: max(raw) * scale_log2 is the
+  // scaled max, and p = 2^(raw * scale_log2 - m).
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        mx = fmaxf(mx, fmaxf(s[mt][j][2 * r], s[mt][j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[mt][r], mx * scale_log2);
+      corr[mt][r] = ex2(m[mt][r] - m_new);
+      m[mt][r] = m_new;
+      float ls = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 2 * r + c;
+          float p = ex2(fmaf(s[mt][j][e], scale_log2, -m_new));
+          if (masked && !(kept[mt] >> (4 * j + e) & 1u)) p = 0.f;
+          s[mt][j][e] = p;
+          ls += p;
+        }
+      l[mt][r] = l[mt][r] * corr[mt][r] + ls;
+    }
+}
+
+// Writes the warp's rows of O, columns col0 + 8 ND of them (those below
+// D), as acc / l, and with col0 0 each row's lse.
+template <typename T, int MT, int ND>
+__device__ __forceinline__ void store_out(const float (&acc)[MT][ND][4],
+                                          const float (&m)[MT][2],
+                                          const float (&l)[MT][2], T* o,
+                                          float* lse, int q0, int wrow,
+                                          int lane, int S, int H, int h,
+                                          int D, int col0) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[mt][r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int qi = q0 + wrow + mt * 16 + g + r * 8;
+      if (qi >= S) continue;
+      // A fully masked row has l = 0: it takes l = 1 and the reference's
+      // masked max, -1e30.
+      const float li = lr == 0.f ? 1.f : lr;
+      T* orow = o + ((long long)qi * H + h) * D + col0;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = n * 8 + 2 * t + c;
+          if (col0 + col < D) store(orow + col, acc[mt][n][2 * r + c] / li);
+        }
+      if (t == 0 && col0 == 0)
+        lse[(long long)h * S + qi] =
+            lr == 0.f ? kNegInf : m[mt][r] * LN2 + logf(li);
+    }
+}
+
 template <typename T, int DP>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -338,7 +487,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int BQ = q_rows(sizeof(T) == 4, DP);
   constexpr int BKV = kv_rows(sizeof(T) == 4, DP);
   constexpr int NJ = BKV / 8;       // 8-column score tiles per m-tile
-  static_assert(NJ * 4 <= 32, "a thread's keep bits of a tile fit a word");
   constexpr int ND = DP / 8;        // 8-column accumulator tiles
   constexpr int LD = DP + Pad<T>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -347,7 +495,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* sv = sk + 2 * BKV * LD;                  // 2 buffers of BKV x LD
 
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int wrow = (threadIdx.x >> 5) * 16 * MT;  // the warp's first row
   const int h = blockIdx.y;
   const int kvh = h / group;
@@ -415,89 +562,109 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float s[MT][NJ][4];
     scores<DP, MT, NJ>(s, qf, sk + b * BKV * LD, lane);
 
-    // Whether any entry of this tile is masked (diagonal, window edge or
-    // ragged keys); the same for the whole block, so no warp diverges.
-    // Query rows past S are left unmasked: their Q rows are zeros, and
-    // they are never written.
-    bool masked = k0 + BKV > S;
-    if (causal)
-      masked = masked || k0 + BKV - 1 > q0 ||
-               (window > 0 && q0 + BQ - 1 - k0 >= window);
-    uint32_t kept[MT];              // bit 4j + e: entry s[mt][j][e] is kept
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      kept[mt] = 0xffffffffu;
-      if (masked) {
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qi = q0 + wrow + mt * 16 + g + (e >> 1) * 8;
-            const int kj = k0 + j * 8 + 2 * t + (e & 1);
-            if (!keep(qi, kj, S, causal, window)) {
-              kept[mt] &= ~(1u << (4 * j + e));
-              s[mt][j][e] = kNegInf;
-            }
-          }
-      }
-    }
-
-    // Online softmax on the raw scores: max(raw) * scale_log2 is the
-    // scaled max, and p = 2^(raw * scale_log2 - m).
     float corr[MT][2];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = kNegInf;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          mx = fmaxf(mx, fmaxf(s[mt][j][2 * r], s[mt][j][2 * r + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[mt][r], mx * scale_log2);
-        corr[mt][r] = ex2(m[mt][r] - m_new);
-        m[mt][r] = m_new;
-        float ls = 0.f;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int e = 2 * r + c;
-            float p = ex2(fmaf(s[mt][j][e], scale_log2, -m_new));
-            if (masked && !(kept[mt] >> (4 * j + e) & 1u)) p = 0.f;
-            s[mt][j][e] = p;
-            ls += p;
-          }
-        l[mt][r] = l[mt][r] * corr[mt][r] + ls;
-      }
+    softmax_step<BQ, BKV>(s, m, l, corr, q0, k0, wrow, lane, S, causal,
+                          window, scale_log2);
     accumulate<DP, MT, NJ>(acc, s, corr, sv + b * BKV * LD, lane);
   }
+  store_out(acc, m, l, o, lse, q0, wrow, lane, S, H, h, D, 0);
+}
 
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float lr = l[mt][r];
-      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-      const int qi = q0 + wrow + mt * 16 + g + r * 8;
-      if (qi >= S) continue;
-      // A fully masked row has l = 0: it takes l = 1 and the reference's
-      // masked max, -1e30.
-      const float li = lr == 0.f ? 1.f : lr;
-      T* orow = o + ((long long)qi * H + h) * D;
-#pragma unroll
-      for (int n = 0; n < ND; ++n)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = n * 8 + 2 * t + c;
-          if (col < D) store(orow + col, acc[mt][n][2 * r + c] / li);
-        }
-      if (t == 0)
-        lse[(long long)h * S + qi] =
-            lr == 0.f ? kNegInf : m[mt][r] * LN2 + logf(li);
+// The wide route's kernel (head_dim above 256; the file's header says
+// why): one block of 4 warps owns one 128-column slice of O for one
+// (query head, 64-row query tile), one 16-row m-tile a warp. Per KV tile
+// it streams the depth of S = Q K^T through shared memory, DC columns of
+// Q and of K at a time, then stages the tile's V slice and folds P V into
+// its 128-column accumulators, the 128 instance's. Every stage (a chunk
+// pair, or a V slice) goes into one of two buffers by cp.async while the
+// other one computes: one wait and one barrier a stage.
+template <typename T, int DC>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, int S, int H, int group,
+                      int D, Strides st, int vec, int causal, int window,
+                      float scale) {
+  constexpr int BQ = W_ROWS, BKV = W_ROWS;
+  constexpr int NJ = BKV / 8;           // 8-column score tiles
+  constexpr int ND = W_COLS / 8;        // 8-column accumulator tiles
+  constexpr int LDC = DC + Pad<T>::value;   // row stride of a chunk tile
+  constexpr int BUF = wide_buf<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sbuf = reinterpret_cast<T*>(smem_raw);   // 2 stage buffers of BUF
+
+  const int lane = threadIdx.x & 31;
+  const int wrow = (threadIdx.x >> 5) * 16;   // the warp's first row
+  const int h = blockIdx.y;
+  const int kvh = h / group;
+  // The slices of one query tile are neighbours in the grid, so they read
+  // the same Q and K chunks at about the same time (from L2); the
+  // heaviest causal tiles (the last query rows) are scheduled first.
+  const int n_slices = (D + W_COLS - 1) / W_COLS;
+  const int col0 = (blockIdx.x % n_slices) * W_COLS;
+  const int q0 = (gridDim.x / n_slices - 1 - blockIdx.x / n_slices) * BQ;
+
+  int kv_begin = 0, kv_end = S;
+  if (causal) {
+    kv_end = min(S, q0 + BQ);
+    if (window > 0) {
+      const int lo = q0 - window + 1;
+      if (lo > 0) kv_begin = (lo / BKV) * BKV;
     }
+  }
+  const int n_it = (kv_end - kv_begin + BKV - 1) / BKV;
+  const int n_chunks = (D + DC - 1) / DC;
+  const int per_tile = n_chunks + 1;    // stages a KV tile: chunks, then V
+  const int n_st = n_it * per_tile;
+
+  // Stages `u` into buffer u & 1: chunk c of Q and K (rows BQ of Q, then
+  // BKV of K, LDC apart), or the V slice (BKV rows, W_COLS + pad apart).
+  auto stage = [&](int u) {
+    const int k0 = kv_begin + (u / per_tile) * BKV;
+    const int c = u % per_tile;
+    T* b = sbuf + (u & 1) * BUF;
+    if (c < n_chunks) {
+      const int c0 = c * DC;
+      load_tile<T, DC, BQ, NT>(b, q + h * st.q_sh + c0, q0, S, D - c0,
+                               st.q_ss, vec & VEC_Q);
+      load_tile<T, DC, BKV, NT>(b + BQ * LDC, k + kvh * st.k_sh + c0, k0, S,
+                                D - c0, st.k_ss, vec & VEC_K);
+    } else {
+      load_tile<T, W_COLS, BKV, NT>(b, v + kvh * st.v_sh + col0, k0, S,
+                                    D - col0, st.v_ss, vec & VEC_V);
+    }
+  };
+
+  if (n_st > 0) stage(0);
+  cp_async_commit();
+
+  float acc[1][ND][4];
+  zero(acc);
+  float m[1][2] = {{kNegInf, kNegInf}}, l[1][2] = {{0.f, 0.f}};
+  float s[1][NJ][4];
+  const float scale_log2 = scale * LOG2E;
+
+  for (int u = 0; u < n_st; ++u) {
+    // Stage u has landed, and every warp is done with stage u - 1, whose
+    // buffer the copy of stage u + 1 now overwrites.
+    cp_async_wait_all();
+    __syncthreads();
+    if (u + 1 < n_st) stage(u + 1);
+    cp_async_commit();
+    const T* b = sbuf + (u & 1) * BUF;
+    const int c = u % per_tile;
+    if (c < n_chunks) {
+      if (c == 0) zero(s);
+      abt<DC, 1, NJ, true>(s, b, b + BQ * LDC, wrow, lane);
+    } else {
+      float corr[1][2];
+      softmax_step<BQ, BKV>(s, m, l, corr, q0,
+                            kv_begin + (u / per_tile) * BKV, wrow, lane, S,
+                            causal, window, scale_log2);
+      accumulate<W_COLS, 1, NJ>(acc, s, corr, b, lane);
+    }
+  }
+  store_out(acc, m, l, o, lse, q0, wrow, lane, S, H, h, D, col0);
 }
 
 // Dynamic shared memory of one block: the Q tile and two K and two V
@@ -507,6 +674,21 @@ constexpr int smem_bytes() {
   constexpr bool f32 = sizeof(T) == 4;
   return (int)((q_rows(f32, DP) + 4 * kv_rows(f32, DP)) *
                (DP + Pad<T>::value) * sizeof(T));
+}
+
+// Bits of `vec` for q, k and v: a tensor takes the 16-byte copy path when
+// its pointer, row and head strides and head_dim are all whole 16-byte
+// units.
+template <typename T>
+int vec_bits(const void* const* p, const Strides& st, int D) {
+  constexpr long long V = 16 / sizeof(T);
+  auto whole = [&](const void* ptr, long long ss, long long sh) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && ss % V == 0 &&
+           sh % V == 0 && D % V == 0;
+  };
+  return (whole(p[0], st.q_ss, st.q_sh) ? VEC_Q : 0) |
+         (whole(p[1], st.k_ss, st.k_sh) ? VEC_K : 0) |
+         (whole(p[2], st.v_ss, st.v_sh) ? VEC_V : 0);
 }
 
 template <typename T, int DP>
@@ -519,22 +701,32 @@ cudaError_t launch_fwd(const void* const* p, int S, int H, int KVH, int D,
       flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  // The 16-byte copy path of a tensor: its pointer, row and head strides
-  // and head_dim all in whole 16-byte units.
-  constexpr long long V = 16 / sizeof(T);
-  auto whole = [&](const void* ptr, long long ss, long long sh) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && ss % V == 0 &&
-           sh % V == 0 && D % V == 0;
-  };
-  const int vec = (whole(p[0], st.q_ss, st.q_sh) ? VEC_Q : 0) |
-                  (whole(p[1], st.k_ss, st.k_sh) ? VEC_K : 0) |
-                  (whole(p[2], st.v_ss, st.v_sh) ? VEC_V : 0);
   const dim3 grid((S + BQ - 1) / BQ, H);
   flash_fwd_kernel<T, DP><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
       static_cast<const T*>(p[2]), static_cast<T*>(const_cast<void*>(p[3])),
       static_cast<float*>(const_cast<void*>(p[4])), S, H, H / KVH, D, st,
-      vec, causal, window, scale);
+      vec_bits<T>(p, st, D), causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fwd_wide(const void* const* p, int S, int H, int KVH,
+                            int D, const Strides& st, int causal, int window,
+                            float scale, cudaStream_t stream) {
+  constexpr int smem = wide_smem_bytes<T>();
+  constexpr int DC = wide_chunk<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide_kernel<T, DC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_slices = (D + W_COLS - 1) / W_COLS;
+  const dim3 grid((S + W_ROWS - 1) / W_ROWS * n_slices, H);
+  flash_fwd_wide_kernel<T, DC><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
+      static_cast<const T*>(p[2]), static_cast<T*>(const_cast<void*>(p[3])),
+      static_cast<float*>(const_cast<void*>(p[4])), S, H, H / KVH, D, st,
+      vec_bits<T>(p, st, D), causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -542,14 +734,16 @@ using Launcher = cudaError_t (*)(const void* const*, int, int, int, int,
                                  const Strides&, int, int, float,
                                  cudaStream_t);
 
-// The template instances with head_dim padded to 16, 32, 64, 128 or 256.
+// The template instances with head_dim padded to 16, 32, 64, 128 or 256,
+// and the wide route beyond.
 template <typename T>
 Launcher fwd_for(int D) {
   return D <= 16 ? &launch_fwd<T, 16>
        : D <= 32 ? &launch_fwd<T, 32>
        : D <= 64 ? &launch_fwd<T, 64>
        : D <= 128 ? &launch_fwd<T, 128>
-                  : &launch_fwd<T, 256>;
+       : D <= 256 ? &launch_fwd<T, 256>
+                  : &launch_fwd_wide<T>;
 }
 
 template <typename T>
@@ -558,11 +752,9 @@ int smem_for(int D) {
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
        : D <= 128 ? smem_bytes<T, 128>()
-                  : smem_bytes<T, 256>();
+       : D <= 256 ? smem_bytes<T, 256>()
+                  : wide_smem_bytes<T>();
 }
-
-// The largest head_dim an instance takes.
-constexpr int MAX_HEAD_DIM = 256;
 
 }  // namespace
 
@@ -570,17 +762,17 @@ extern "C" {
 
 // q (S, H, D), k and v (S, KVH, D) with unit stride along D and the given
 // row (ss) and head (sh) strides in elements; o (S, H, D) contiguous in
-// q's type; lse (H, S) f32. dtype: 0 = f32, 1 = bf16, 2 = f16. head_dim
-// D up to MAX_HEAD_DIM (256). window <= 0 means none. Returns the CUDA
-// error of the launch (0 on success; cudaErrorInvalidValue for a D, dtype
-// or head count no instance takes).
+// q's type; lse (H, S) f32. dtype: 0 = f32, 1 = bf16, 2 = f16. Any
+// head_dim D >= 1. window <= 0 means none. Returns the CUDA error of the
+// launch (0 on success; cudaErrorInvalidValue for a size, dtype or head
+// count no instance takes).
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* lse, int S, int H, int KVH, int D, long long q_ss,
               long long q_sh, long long k_ss, long long k_sh, long long v_ss,
               long long v_sh, int causal, int window, float scale, int dtype,
               void* stream) {
-  if (S < 1 || H < 1 || KVH < 1 || H % KVH != 0 || D < 1 ||
-      D > MAX_HEAD_DIM || dtype < 0 || dtype > 2)
+  if (S < 1 || H < 1 || KVH < 1 || H % KVH != 0 || D < 1 || dtype < 0 ||
+      dtype > 2)
     return (int)cudaErrorInvalidValue;
   const void* p[] = {q, k, v, o, lse};
   const Strides st{q_ss, q_sh, k_ss, k_sh, v_ss, v_sh};

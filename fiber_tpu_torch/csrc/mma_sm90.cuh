@@ -4,10 +4,11 @@
 // 4-byte copies into shared memory, ldmatrix, the bf16, f16 and TF32
 // products,
 // the 3xTF32 split that gives f32 precision on TF32 tensor cores, the
-// base-2 exponential, the attention keep mask, the staging of a padded
-// tile, and the two warp-level tile products of the backward kernels
-// (abt: A B^T for a warp's 16-row m-tiles; add_xb: acc += X B with X in
-// registers).
+// base-2 exponential, the attention keep mask, the zeroing of
+// accumulator fragments, the staging of a padded tile, and the two
+// warp-level tile products of the backward kernels and the forward's
+// wide route (abt: A B^T for a warp's 16-row m-tiles, or one depth chunk
+// of it; add_xb: acc += X B with X in registers).
 //
 // Fragment layouts are PTX's for mma.m16n8k16 (bf16 and f16, which share
 // them) and mma.m16n8k8 (TF32): lane = 4 g + t; an accumulator holds rows
@@ -202,6 +203,16 @@ __device__ __forceinline__ void store(f16* p, float x) {
   *p = __float2half_rn(x);
 }
 
+template <int MT, int N>
+__device__ __forceinline__ void zero(float (&acc)[MT][N][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+}
+
 // Copies rows [row0, row0 + ROWS) of one head's (S, D) slice with row
 // stride ss into a ROWS x (DP + pad) tile, with the NT threads of the
 // block; rows past S and columns past D are zero, so they add nothing to
@@ -234,16 +245,21 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
 // m-tile mt takes A rows wrow + 16 mt.. of sa; B rows 0.. of sb.
 // acc[mt][j] holds B rows 8j..8j+7 as the columns of an m16n8
 // accumulator fragment. Each B fragment a warp loads feeds MT products.
-template <int DP, int MT, int NJ, typename T, if_16bit<T> = 0>
+// ADD: acc += A B^T (one depth chunk of a longer product) instead of
+// acc = A B^T.
+template <int DP, int MT, int NJ, bool ADD = false, typename T,
+          if_16bit<T> = 0>
 __device__ __forceinline__ void abt(float (&acc)[MT][NJ][4], const T* sa,
                                     const T* sb, int wrow, int lane) {
   constexpr int LD = DP + Pad<T>::value;
+  if constexpr (!ADD) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+  }
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
     uint32_t a[MT][4];
@@ -266,17 +282,19 @@ __device__ __forceinline__ void abt(float (&acc)[MT][NJ][4], const T* sa,
 }
 
 // f32 as 3xTF32: A and B split into big and small at each fragment load.
-template <int DP, int MT, int NJ>
+template <int DP, int MT, int NJ, bool ADD = false>
 __device__ __forceinline__ void abt(float (&acc)[MT][NJ][4], const float* sa,
                                     const float* sb, int wrow, int lane) {
   constexpr int LD = DP + Pad<float>::value;
   const int g = lane >> 2, t = lane & 3;
+  if constexpr (!ADD) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+  }
 #pragma unroll
   for (int kk = 0; kk < DP / 8; ++kk) {
     uint32_t ab[MT][4], as[MT][4];

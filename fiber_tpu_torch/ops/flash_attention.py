@@ -10,12 +10,15 @@ are the JAX package's: q ``(S, heads, head_dim)``, k and v
 (grouped-query attention), O in q's dtype and lse ``(heads, S)`` f32.
 
 The kernels and the plain versions take f32, bf16 and f16 and any
-head_dim up to 256 (the kernels pad it to an instance of 16, 32, 64, 128
-or 256 columns); a larger head_dim raises on CUDA. As in the Pallas
-kernels, scores, softmax statistics and sums are f32 whatever the input
-type, and O and the gradients come back in it. A CUDA tensor goes
-through the kernels or raises; a CPU tensor goes through the plain
-versions. :func:`flash_attention` and
+head_dim, as the Pallas kernels do: the kernels pad a head_dim up to 256
+to an instance of 16, 32, 64, 128 or 256 columns, and a larger one takes
+their wide route (128-column output slices, the depth of the score
+products streamed in chunks), whose shared memory does not grow with
+head_dim; the only bound is the card's memory for the tensors. As in
+the Pallas kernels, scores, softmax statistics and sums are f32
+whatever the input type, and O and the gradients come back in it. A
+CUDA tensor goes through the kernels or raises; a CPU tensor goes
+through the plain versions. :func:`flash_attention` and
 :func:`flash_attention_lse` are differentiable through one
 ``torch.autograd.Function`` whose backward is the FlashAttention-2
 recurrence of the JAX custom VJP: ``delta = rowsum(dO * O) - dlse`` in
@@ -36,8 +39,6 @@ _NEG_INF = -1e30  # large negative instead of -inf: no inf - inf NaNs
 #: elements of one (heads, rows, S) f32 score tile in the plain version;
 #: query rows are processed in chunks of at most this many scores
 _CHUNK_ELEMS = 1 << 26
-#: the largest head_dim of a kernel instance (``csrc/*.cu`` MAX_HEAD_DIM)
-_MAX_HEAD_DIM = 256
 #: the input types, in the order of the C interface's dtype codes
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -67,15 +68,10 @@ def _check(q, k, v, causal, window):
 
 
 def _check_cuda(**tensors):
-    """What the CUDA kernels take beyond :func:`_check`: CUDA tensors,
-    head_dim up to 256 and unit stride along head_dim (other strides are
-    free)."""
+    """What the CUDA kernels take beyond :func:`_check`: CUDA tensors with
+    unit stride along head_dim (other strides are free)."""
     if tensors["q"].device.type != "cuda":
         raise ValueError(f"unsupported device {tensors['q'].device}")
-    d = tensors["q"].shape[2]
-    if d > _MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM}, the largest "
-                         "the flash kernels take")
     for name, x in tensors.items():
         if x.device != tensors["q"].device:
             raise ValueError(f"{name} is on {x.device}, q on "

@@ -73,6 +73,9 @@ def test_every_quoted_include_is_a_header_of_csrc():
     ("_ZN69_GLOBAL__N__flash_bwd_dkv_cu_20flash_bwd_dkv_kernelI6__half"
      "Li256EEvPKT_S5_S5_S5_PKfS7_PS3_S8_iiii7Stridesiiif",
      "flash_bwd_dkv_kernel<float16,256>"),
+    ("_ZN69_GLOBAL__N__flash_fwd_cu_21flash_fwd_wide_kernelI13__nv_bfloat16"
+     "Li128EEvPKT_S5_S5_PS3_Pfiiii7Stridesiiif",
+     "flash_fwd_wide_kernel<bfloat16,128>"),
     ("_Z20ring_exchange_kernelPKPKvPKPvPKxii", "ring_exchange_kernel"),
 ])
 def test_ptxas_report_names_each_template(tmp_path, monkeypatch, mangled,

@@ -70,7 +70,22 @@ CASES = {
                              jnp.bfloat16, 3e-2),
     "bf16_d192_gqa_window": (128, 4, 2, 192, True, 40, 64, 64,
                              jnp.bfloat16, 3e-2),
+    # head_dims past 256 (the kernels' wide route on the card): 300 with
+    # a ragged S, 512 with GQA 8:1 and a window (DeepSeek-V4-Flash's
+    # head), 576 not causal (sarvam-105b's head_dim), and one bf16 and
+    # one f16 case
+    "d300_ragged": (100, 2, 1, 300, True, None, 64, 64, jnp.float32, 2e-5),
+    "d512_gqa8_window": (64, 8, 1, 512, True, 16, 64, 64, jnp.float32,
+                         2e-5),
+    "d576_noncausal": (96, 2, 2, 576, False, None, 64, 64, jnp.float32,
+                       2e-5),
+    "bf16_d384_gqa_window": (128, 4, 2, 384, True, 40, 64, 64,
+                             jnp.bfloat16, 3e-2),
+    "f16_d320_gqa": (96, 4, 1, 320, True, None, 64, 64, jnp.float16, 4e-3),
 }
+#: the f32 cases past head_dim 256, whose backward is also held with an
+#: lse cotangent
+WIDE_F32_CASES = ["d300_ragged", "d512_gqa8_window", "d576_noncausal"]
 
 
 @pytest.mark.parametrize("case", list(CASES))

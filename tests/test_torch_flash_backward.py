@@ -24,7 +24,13 @@ from fiber_tpu.ops.pallas_attention import (
 
 from fiber_tpu_torch.ops import flash_attention as fa
 from tests._torch_tf32 import product
-from tests.test_torch_flash_attention import CASES, _both, _np, _qkv
+from tests.test_torch_flash_attention import (
+    CASES,
+    WIDE_F32_CASES,
+    _both,
+    _np,
+    _qkv,
+)
 
 
 def _close(got, want, tol):
@@ -114,6 +120,32 @@ def test_lse_cotangent_matches_jax(causal):
                               (q, k, v))
     for g, w in zip(got, want):
         assert _close(g, w, 2e-5)
+
+
+@pytest.mark.parametrize("case", WIDE_F32_CASES)
+def test_wide_lse_cotangent_matches_jax(case):
+    """Past head_dim 256 (the kernels' wide route on the card), a loss on
+    both outputs of flash_attention_lse, as above, at the case's shape,
+    causality, GQA and window: within the f32 bound, 2e-5."""
+    s, h, kvh, d, causal, window, bq, bk, dtype, tol = CASES[case]
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(s, h, kvh, d, seed=3), dtype)
+    rng = np.random.default_rng(9)
+    dout = rng.standard_normal((s, h, d)).astype(np.float32)
+    dlse = rng.standard_normal((h, s)).astype(np.float32)
+
+    def loss(q, k, v):
+        out, lse = jax_flash_lse(q, k, v, causal=causal, block_q=bq,
+                                 block_kv=bk, interpret=True, window=window)
+        return jnp.sum(out * dout) + jnp.sum(lse * dlse)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    q, k, v = _leaves((tq, tk, tv))
+    out, lse = fa.flash_attention_lse(q, k, v, causal=causal, window=window)
+    total = ((out * torch.from_numpy(dout)).sum()
+             + (lse * torch.from_numpy(dlse)).sum())
+    got = torch.autograd.grad(total, (q, k, v))
+    for g, w in zip(got, want):
+        assert _close(g, w, tol)
 
 
 @pytest.mark.parametrize("window", [None, 5])
@@ -387,7 +419,7 @@ def _bwd_f16_case(head_dim):
     return (q, k, v, dout, lse.float(), delta.float()), (dq, dk, dv), bound
 
 
-@pytest.mark.parametrize("head_dim", [64, 256])
+@pytest.mark.parametrize("head_dim", [64, 256, 512])
 def test_bwd_f16_rounding_stays_inside_the_f16_bound(head_dim):
     """The backward kernels' f16 path packs P and dS to f16: against an
     f64 recomputation from the same f16 inputs, the emulated dq, dk and

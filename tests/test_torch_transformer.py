@@ -36,6 +36,11 @@ CASES = {
     # Gemma-2B's attention shape (head_dim 256, one KV head) at a small
     # width: the flash kernels' 256 instance on the card
     "rope_d256_kv1": ("flash", "rope", 1, None, dict(dim=512, heads=2)),
+    # DeepSeek-V4-Flash's sliding-window attention (head_dim 512, one KV
+    # head, a window) at a small width: the flash kernels' wide route on
+    # the card
+    "rope_d512_kv1_window": ("flash", "rope", 1, 16,
+                             dict(dim=1024, heads=2)),
 }
 
 
