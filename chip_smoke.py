@@ -78,7 +78,8 @@ import time
 # DeepSeek-V4-Flash's (head_dim 512, 1 KV head; deepseek-ai/
 # DeepSeek-V4-Flash's config.json): its 64 query heads in bf16, causal and
 # over its sliding window of 128, and the 8 heads of the deepseek_v4_lm
-# phase's TinyLM in f32 and f16, through the kernels' wide route.
+# phase's TinyLM in f32 and f16, through the kernels' wide route, and in
+# f32 over the window of 128, as that phase's TinyLM launches them.
 MAIN_SHAPES = (
     ("lm_f32", 16384, 8, 8, 32, "float32", None),
     ("lm_f32_gqa", 16384, 8, 2, 32, "float32", None),
@@ -92,13 +93,15 @@ MAIN_SHAPES = (
     ("v4_bf16_window", 8192, 64, 1, 512, "bfloat16", 128),
     ("v4_f32", 8192, 8, 1, 512, "float32", None),
     ("v4_f16", 8192, 8, 1, 512, "float16", None),
+    ("v4_lm_f32_window", 8192, 8, 1, 512, "float32", 128),
 )
 # Small shapes for the kernel's edges: ragged tiles, every head-dim
 # template, non-causal, windows shorter than a tile; head_dims 160 and
 # 192 pad to the 256 instance; 257 and beyond take the wide route, its
 # last 128-column slice and last depth chunk ragged (257, 384 with a
 # window, 576 as sarvamai/sarvam-105b's head_dim with GQA and a ragged
-# S, causal and not, 1024 at a small S, 512 with a window).
+# S, causal and not, 1024 at a small S, 512 with a window); above 1024
+# the backward kernels take their streamed route (1100 in f16).
 EDGE_SHAPES = (
     ("edge_noncausal_d8", 100, 4, 2, 8, "float32", None, False),
     ("edge_d40_ragged", 77, 2, 2, 40, "float32", None, True),
@@ -115,6 +118,7 @@ EDGE_SHAPES = (
     ("edge_d576_gqa_bf16", 199, 8, 2, 576, "bfloat16", None, True),
     ("edge_d1024_f16", 70, 2, 1, 1024, "float16", None, True),
     ("edge_d512_window_f32", 300, 4, 1, 512, "float32", 70, True),
+    ("edge_d1100_f16", 70, 2, 1, 1100, "float16", None, True),
 )
 # Edge shapes whose inputs the flash kernels cannot copy in 16-byte
 # units, so they take their scalar load paths: head_dim 20 in bf16 (not
@@ -485,14 +489,23 @@ ENGINE = {"float32": "mma.sync 3xtf32", "bfloat16": "mma.sync bf16",
 # The head_dims the flash kernels' instances pad to; above the last, the
 # kernels take their wide route (one template per type, whose shared
 # memory does not depend on head_dim; the build reports it at
-# WIDE_HEAD_DIM)
+# WIDE_HEAD_DIM). The backward kernels' wide route runs a thread-block
+# cluster of one block per 128 columns, up to CLUSTER_MAX_HEAD_DIM; above
+# it their streamed route (one template per type, reported at
+# STREAM_HEAD_DIM).
 HEAD_DIM_INSTANCES = (16, 32, 64, 128, 256)
 WIDE_HEAD_DIM = 512
+CLUSTER_COLS = 128
+CLUSTER_MAX_HEAD_DIM = 1024
+STREAM_HEAD_DIM = 1100
 # The kernels on the tensor cores: HMMA in their SASS, no spills in any of
-# their 18 templates (f32, bf16 and f16 at each of HEAD_DIM_INSTANCES and
-# on the wide route), and a C function that gives each template's shared
-# memory
+# their templates (f32, bf16 and f16 at each of HEAD_DIM_INSTANCES and on
+# the wide route, and for the backward kernels the streamed route), and a
+# C function that gives each template's shared memory
 TENSOR_CORE_LIBS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# The libraries whose wide route is a cluster, with a C function that
+# gives how many of its clusters the card holds at once
+CLUSTER_LIBS = ("flash_bwd_dq", "flash_bwd_dkv")
 SOURCES = {"flash_fwd": "fiber_tpu_torch/csrc/flash_fwd.cu",
            "flash_bwd_dq": "fiber_tpu_torch/csrc/flash_bwd_dq.cu",
            "flash_bwd_dkv": "fiber_tpu_torch/csrc/flash_bwd_dkv.cu",
@@ -619,17 +632,42 @@ def phase_build():
         for row in ptxas[name]:
             dtype, dp = re.search(r"<(\w+),(\d+)>",
                                   row["function"]).groups()
-            # a wide template's second argument is its depth chunk
-            d = WIDE_HEAD_DIM if "_wide_" in row["function"] else int(dp)
+            # a wide or streamed template's second argument is a tile's
+            # rows or depth chunk, not its head_dim
+            d = (WIDE_HEAD_DIM if "_wide_" in row["function"]
+                 else STREAM_HEAD_DIM if "_stream_" in row["function"]
+                 else int(dp))
             row["smem_bytes"] = smem(d, DTYPE_CODE[dtype])
+            if "_wide_" in row["function"] and name in CLUSTER_LIBS:
+                row["head_dim"] = d
+                row["cluster_blocks"] = -(-d // CLUSTER_COLS)
+                row["max_active_clusters"] = _max_clusters(
+                    libs[name], name, DTYPE_CODE[dtype])
             check(row["spill_stores"] == row["spill_loads"] == 0,
                   f"{row['function']} spills")
-        check(len(ptxas[name])
-              == len(DTYPE_CODE) * (len(HEAD_DIM_INSTANCES) + 1),
+        routes = len(HEAD_DIM_INSTANCES) + 1 + (name in CLUSTER_LIBS)
+        check(len(ptxas[name]) == len(DTYPE_CODE) * routes,
               f"{name} templates built: {ptxas[name]}")
     emit({"phase": "build", "seconds": secs,
           "libraries": {k: v.name for k, v in libs.items()},
           "sass_hmma": hmma, "ptxas": ptxas})
+
+
+def _max_clusters(path, name, dtype):
+    """How many clusters of the backward wide route's template for
+    ``dtype`` the card holds at once (``cudaOccupancyMaxActiveClusters``),
+    at every cluster size of the route (head_dim 384 to 1024, 3 to 8
+    blocks); a size the card cannot place at all fails the run, since its
+    launches would."""
+    query = getattr(ctypes.CDLL(str(path)), f"{name}_max_clusters")
+    query.argtypes = [ctypes.c_int, ctypes.c_int]
+    counts = {}
+    for d in range(3 * CLUSTER_COLS, CLUSTER_MAX_HEAD_DIM + 1, CLUSTER_COLS):
+        counts[d // CLUSTER_COLS] = query(d, dtype)
+        check(counts[d // CLUSTER_COLS] > 0,
+              f"{name}: {d // CLUSTER_COLS}-block clusters of dtype {dtype}: "
+              f"{counts[d // CLUSTER_COLS]}")
+    return counts
 
 
 def _randn(torch, shape, dtype, g, offset=0):

@@ -63,17 +63,40 @@
 //   On f32 each query tile's dV and dK products are summed from zero and
 //   then added to the running sums (add_xb() in mma_sm90.cuh).
 //   Both paddings make the fragment reads free of bank conflicts.
-// - head_dim above 256 takes the wide route (flash_bwd_dkv_wide_kernel):
-//   the output is cut into 128-column slices, and each slice's dv and dk
-//   get a block each, whose accumulator is one of the 256 instance's
-//   halves (dk and dv of a slice in one block, with the two score tiles
-//   and the state of a streamed stage, spilled); the depth of S^T = K Q^T
-//   (and for dk of dP^T = V dO^T) is streamed through shared memory in
-//   chunks of 256 bytes a row of a 16-bit type and 128 of f32 (K and Q,
-//   and V and dO) instead of K and V staged whole: two buffers whatever
-//   head_dim (104,448 bytes a block in bf16 and f16, 55,296 in f32). At head_dim 512 the dv blocks compute S^T 4x and the
-//   dk blocks S^T and dP^T 4x each: 3.5x the products of one pass (4 + 1
-//   and 4 + 4 + 1 a slice against 1 + 1 + 1 + 1).
+// - head_dim 257-1024 takes the wide route (flash_bwd_dkv_wide_kernel):
+//   dk and dv over 512 columns would be 512 accumulator registers a
+//   thread. A thread-block cluster of n = ceil(D / 128) blocks (3 to 8,
+//   the portable limit) owns one (KV head, 64-row KV tile), and block r
+//   owns both dk and dv of columns [128 r, 128 r + 128), the 128
+//   instance's two accumulators. Block r holds the same 128 columns of the
+//   operands: K and V staged once, Q and dO (with lse and delta) of each
+//   32-row query tile in two cp.async stages of a whole slice (one wait a
+//   tile). Per query tile it computes S^T and dP^T over its 128 columns
+//   of depth only, and the cluster sums those partials into P^T and dS^T
+//   through distributed shared memory (cluster_sm90.cuh: block r
+//   finishes rows [r own, r own + own) of the tile, own = ceil(64 / n);
+//   every block stores its partial rows into their owner, which sums the
+//   n partials in rank order and stores the finished P^T and dS^T rows
+//   into every block), then adds P^T dO and dS^T Q to its slices. Each
+//   score product is thus computed once: at head_dim 512, 4 slice-widths
+//   of products a slice (S^T, dP^T, dV, dK over 128 columns each) where
+//   the streamed kernel below took 14 (4 + 1 for dv, 4 + 4 + 1 for dk).
+//   Each P and dS entry is finished by one block, so every slice uses the
+//   same bits and dk and dv repeat bit for bit. The price is two cluster
+//   barriers a query tile and the f32 partials crossing the cluster (see
+//   flash_bwd_dq.cu). A block takes 102,784 bytes of shared memory for a
+//   16-bit type (two blocks of 4 warps an SM) and 178,560 for f32 (one
+//   block of 8 warps: S^T and dv on 4 of them, dP^T and dk on the other
+//   4, since one thread with both f32 accumulators spilled).
+// - head_dim above 1024 (more than 8 blocks a cluster) takes the streamed
+//   kernel (flash_bwd_dkv_stream_kernel): each 128-column slice's dv and
+//   dk get a block each (one of the 256 instance's halves; dk and dv of a
+//   slice in one block, beside the state of a streamed stage, spilled),
+//   and the depth of S^T = K Q^T (and for dk of dP^T = V dO^T) is
+//   recomputed by every block, streamed through shared memory in chunks
+//   of 256 bytes a row of a 16-bit type and 128 of f32, two buffers
+//   whatever head_dim (104,448 bytes a block in bf16 and f16, 55,296 in
+//   f32), so that any head_dim reaches a kernel.
 // - Q, dO, lse and delta of the next query tile are copied with cp.async
 //   (16 bytes a thread; 4 for lse and delta) into the second of two
 //   buffers while the current tile computes: one wait and one barrier
@@ -90,6 +113,7 @@
 // add_xb) are mma_sm90.cuh's, shared with the forward (flash_fwd.cu) and
 // dq (flash_bwd_dq.cu).
 
+#include "cluster_sm90.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
@@ -123,35 +147,74 @@ __host__ __device__ constexpr int q_bufs(bool f32, int dp) {
   return f32 && dp > 128 ? 1 : 2;
 }
 
-// The wide route (head_dim above 256): output columns a block, and rows of
-// each query tile.
+// The wide and streamed routes (head_dim above 256): output columns a
+// block, and rows of each query tile.
 constexpr int W_COLS = 128;
 constexpr int W_QROWS = 32;
+static_assert(BKV == X_ROWS, "the cluster exchanges the KV tile");
 
-// Depth of one chunk of the wide route's score products: 256 bytes of a
-// row of a 16-bit type (128 columns; 128-byte chunks ran slower on an
+// Blocks an SM the wide route's registers must allow: two for a 16-bit
+// type, one for f32, whose tiles take 163 KB.
+template <typename T>
+__host__ __device__ constexpr int wide_min_blocks() {
+  return sizeof(T) == 2 ? 2 : 1;
+}
+
+// Threads of a wide-route block: 4 warps, each with both accumulators of
+// its 16 KV rows, for a 16-bit type; 8 for f32, warps 0-3 computing S^T
+// and holding dv, warps 4-7 computing dP^T and holding dk (both f32
+// accumulators beside the 3xTF32 operands of a product spilled).
+template <typename T>
+__host__ __device__ constexpr int wide_threads() {
+  return sizeof(T) == 2 ? NT : 2 * NT;
+}
+
+// Bytes of one of the wide route's two query-tile stages: the tile's 128
+// columns of Q and of dO, then its lse and delta.
+template <typename T>
+__host__ __device__ constexpr int wide_stage_bytes() {
+  return 2 * W_QROWS * (W_COLS + Pad<T>::value) * (int)sizeof(T) +
+         2 * W_QROWS * (int)sizeof(float);
+}
+
+// Dynamic shared memory of one block of the wide route, whatever head_dim
+// up to 1024: K and V (128 columns), two query-tile stages, the receive
+// buffers of the partial S^T and dP^T (f32), and the tile's P^T and
+// dS^T.
+template <typename T>
+__host__ __device__ constexpr int wide_smem_bytes() {
+  constexpr int LX = W_QROWS + X_PAD;
+  return 2 * BKV * (W_COLS + Pad<T>::value) * (int)sizeof(T) +
+         2 * wide_stage_bytes<T>() +
+         2 * recv_rows() * LX * (int)sizeof(float) +
+         2 * BKV * LX * (int)sizeof(T);
+}
+
+// Depth of one chunk of the streamed route's score products: 256 bytes of
+// a row of a 16-bit type (128 columns; 128-byte chunks ran slower on an
 // H100), 128 of f32 (32 columns; 64 columns spilled).
 template <typename T>
-__host__ __device__ constexpr int wide_chunk() {
+__host__ __device__ constexpr int stream_chunk() {
   return sizeof(T) == 4 ? 32 : 128;
 }
 
-// Bytes of one of the wide route's two stage buffers: a chunk of K, Q, V
-// and dO, or a Q or dO slice with the query tile's lse and delta,
+// Bytes of one of the streamed route's two stage buffers: a chunk of K,
+// Q, V and dO, or a Q or dO slice with the query tile's lse and delta,
 // whichever is larger.
 template <typename T>
-__host__ __device__ constexpr int wide_buf_bytes() {
+__host__ __device__ constexpr int stream_buf_bytes() {
   constexpr int chunk = (2 * BKV + 2 * W_QROWS) *
-                        (wide_chunk<T>() + Pad<T>::value) * (int)sizeof(T);
+                        (stream_chunk<T>() + Pad<T>::value) * (int)sizeof(T);
   constexpr int slice = W_QROWS * (W_COLS + Pad<T>::value) * (int)sizeof(T) +
                         2 * W_QROWS * (int)sizeof(float);
   return chunk > slice ? chunk : slice;
 }
 
-// Dynamic shared memory of one block of the wide route, whatever head_dim.
+// Dynamic shared memory of one block of the streamed route, whatever
+// head_dim.
 template <typename T>
-constexpr int wide_smem_bytes() {
-  return 2 * wide_buf_bytes<T>();
+constexpr int stream_smem_bytes() {
+  return 2 * stream_buf_bytes<T>();
 }
 
 struct Strides {                   // row (ss) and head (sh) strides, elements
@@ -161,7 +224,7 @@ struct Strides {                   // row (ss) and head (sh) strides, elements
 // Bits of `vec`: the 16-byte copy path may be used for q, k, v, dO.
 constexpr int VEC_Q = 1, VEC_K = 2, VEC_V = 4, VEC_DO = 8;
 
-// The wide route's tile arithmetic (the instances up to 256 keep the
+// The streamed route's tile arithmetic (the instances up to 256 keep the
 // same arithmetic inline: folding them onto these helpers changed their
 // register allocation and made one of them spill).
 
@@ -388,8 +451,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// The wide route's kernel (head_dim above 256; the file's header says
-// why): one block of 4 warps owns one 128-column slice of dv, or of dk,
+// The streamed route's kernel (head_dim above 1024; the file's header
+// says why): one block of 4 warps owns one 128-column slice of dv, or of dk,
 // for one (KV head, 64-row KV tile), 16 KV rows a warp. Per 32-row query
 // tile it streams the depth of S^T = K Q^T, and for dk of dP^T = V dO^T,
 // through shared memory, DC columns of K and Q (and V and dO) at a time,
@@ -399,20 +462,21 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // while the other one computes.
 template <typename T, int DC>
 __global__ void __launch_bounds__(NT, 1)
-flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const T* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv, int S,
-                          int KVH, int group, int D, Strides st, int vec,
-                          int causal, int window, float scale) {
+flash_bwd_dkv_stream_kernel(const T* __restrict__ q,
+                            const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dk, T* __restrict__ dv, int S,
+                            int KVH, int group, int D, Strides st, int vec,
+                            int causal, int window, float scale) {
   constexpr int BQ = W_QROWS;
   constexpr int NJ = BQ / 8;            // 8-column score tiles per warp
   constexpr int ND = W_COLS / 8;        // 8-column accumulator tiles
   constexpr int LDC = DC + Pad<T>::value;   // row stride of a chunk tile
   constexpr int LDS = W_COLS + Pad<T>::value;   // row stride of a slice
-  constexpr int BUF = wide_buf_bytes<T>();
+  constexpr int BUF = stream_buf_bytes<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
   const int lane = threadIdx.x & 31;
@@ -535,6 +599,185 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+// The wide route's kernel (head_dim 257-1024; the file's header says
+// why): a cluster of n = ceil(D / 128) blocks owns one (KV head, 64-row
+// KV tile), 16 KV rows a warp; block r (its rank in the cluster) owns
+// dk's and dv's columns [128 r, 128 r + 128) and holds those columns of
+// K and V (staged once) and of each query tile's Q and dO (two cp.async
+// stages, with the tile's lse and delta). Per query tile: the partial
+// S^T and dP^T over the block's 128 columns of depth, the cluster's sum
+// of them into P^T and dS^T (cluster_sm90.cuh), then dV += P^T dO and
+// dK += dS^T Q on the block's slices. A 16-bit block's 4 warps do both
+// halves of the work for their rows; an f32 block's 8 warps split them
+// (wide_threads()).
+template <typename T, int BQ>
+__global__ void
+__launch_bounds__((wide_threads<T>()), (wide_min_blocks<T>()))
+flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int S,
+                          int KVH, int group, int D, Strides st, int vec,
+                          int causal, int window, float scale) {
+  constexpr int NTB = wide_threads<T>();
+  constexpr bool SPLIT = NTB > NT;      // the f32 warps split the work
+  constexpr int NACC = SPLIT ? 1 : 2;   // accumulators a thread
+  constexpr int NJ = BQ / 8;            // 8-column score tiles per warp
+  constexpr int ND = W_COLS / 8;        // 8-column accumulator tiles
+  constexpr int LD = W_COLS + Pad<T>::value;
+  constexpr int LX = BQ + X_PAD;        // row stride of the tile buffers
+  constexpr int STAGE = wide_stage_bytes<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sk = reinterpret_cast<T*>(smem_raw);     // BKV x LD
+  T* sv = sk + BKV * LD;                      // BKV x LD
+  unsigned char* stages = reinterpret_cast<unsigned char*>(sv + BKV * LD);
+  // receive buffers of the partial S^T and dP^T, recv_rows() x LX each
+  float* xs = reinterpret_cast<float*>(stages + 2 * STAGE);
+  float* xdp = xs + recv_rows() * LX;
+  T* fp = reinterpret_cast<T*>(xdp + recv_rows() * LX);   // BKV x LX
+  T* fds = fp + BKV * LX;                                  // BKV x LX
+
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5;
+  const int wrow = (warp % WARPS) * 16;       // the warp's first KV row
+  // The warp's share: m = 0 is S^T, P^T and dv, m = 1 dP^T, dS^T and dk;
+  // a 16-bit warp takes both.
+  const int m_first = SPLIT ? warp / WARPS : 0;
+  const int m_end = SPLIT ? m_first + 1 : 2;
+  const int kvh = blockIdx.y;
+  const int n = (D + W_COLS - 1) / W_COLS;    // blocks of the cluster
+  const int rank = cluster_rank();
+  const int col0 = rank * W_COLS;
+  // Under causality the first KV tiles see the most query tiles; their
+  // clusters come first.
+  const int k0 = blockIdx.x / n * BKV;
+  // The tile rows whose P^T and dS^T this block finishes.
+  const int own = own_rows(n);
+  const int row0 = rank * own;
+  const int n_own = max(0, min(own, BKV - row0));
+
+  int q_begin = 0, q_end = S;
+  if (causal) {
+    q_begin = k0;
+    if (window > 0) q_end = min(S, k0 + BKV - 1 + window);
+  }
+  const int n_qt = (q_end - q_begin + BQ - 1) / BQ;  // per query head
+  const int n_it = group * n_qt;                     // at least 1
+
+  // Stages the block's columns of query tile `it` (head it / n_qt of the
+  // group), Q then dO, BQ rows LD apart, followed by BQ floats each of
+  // lse and delta, into stage it & 1.
+  auto stage = [&](int it) {
+    const int h = kvh * group + it / n_qt;
+    const int q0 = q_begin + (it % n_qt) * BQ;
+    T* b = reinterpret_cast<T*>(stages + (it & 1) * STAGE);
+    load_tile<T, W_COLS, BQ, NTB>(b, q + h * st.q_sh + col0, q0, S,
+                                  D - col0, st.q_ss, vec & VEC_Q);
+    load_tile<T, W_COLS, BQ, NTB>(b + BQ * LD, dout + h * st.do_sh + col0,
+                                  q0, S, D - col0, st.do_ss, vec & VEC_DO);
+    float* stats = reinterpret_cast<float*>(b + 2 * BQ * LD);
+    for (int i = threadIdx.x; i < 2 * BQ; i += NTB) {
+      const bool is_delta = i >= BQ;
+      const int r = is_delta ? i - BQ : i;
+      const float* row = (is_delta ? delta : lse) + (long long)h * S;
+      const bool ok = q0 + r < S;
+      cp_async4(stats + i, ok ? row + q0 + r : row, ok ? 4 : 0);
+    }
+  };
+
+  load_tile<T, W_COLS, BKV, NTB>(sk, k + kvh * st.k_sh + col0, k0, S,
+                                 D - col0, st.k_ss, vec & VEC_K);
+  load_tile<T, W_COLS, BKV, NTB>(sv, v + kvh * st.v_sh + col0, k0, S,
+                                 D - col0, st.v_ss, vec & VEC_V);
+  stage(0);
+  cp_async_commit();
+
+  // One 16-row m-tile a warp (the [1] of every fragment array); acc[0]
+  // is dv, acc[1] dk (on f32, acc[0] is the warp's one output).
+  float acc[NACC][1][ND][4];
+#pragma unroll
+  for (int a = 0; a < NACC; ++a) zero(acc[a]);
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_it; ++it) {
+    // Tile `it` has landed, and every warp is done with tile it - 1, whose
+    // stage the copy of tile it + 1 now overwrites.
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_it) stage(it + 1);
+    cp_async_commit();
+    const int q0 = q_begin + (it % n_qt) * BQ;
+    const T* cq = reinterpret_cast<const T*>(stages + (it & 1) * STAGE);
+    const T* cdo = cq + BQ * LD;
+    const float* clse = reinterpret_cast<const float*>(cdo + BQ * LD);
+    const float* cdelta = clse + BQ;
+    // The partial S^T = K Q^T and dP^T = V dO^T over this block's
+    // columns, each stored before the next is computed (registers).
+#pragma unroll
+    for (int m = m_first; m < m_end; ++m) {
+      float part[1][NJ][4];
+      abt<W_COLS, 1, NJ>(part, m ? sv : sk, m ? cdo : cq, wrow, lane);
+      push_partial(m ? xdp : xs, part, wrow, rank, n, lane);
+    }
+    // Every block's partials are in their owners' buffers (and every
+    // block is done reading the P^T and dS^T of tile it - 1).
+    cluster_sync();
+    // P^T = exp(S^T scale - lse) (masked entries 0) and dS^T = P^T o
+    // (dP^T - delta) of the owned rows, packed to T, into every block.
+    reduce_rows<BQ, NTB>(
+        xs, xdp, n_own, n,
+        [&](int lr, int c, const float4& s, const float4& dpt) {
+          const int kj = k0 + row0 + lr;
+          const float sv4[4] = {s.x, s.y, s.z, s.w};
+          const float dv4[4] = {dpt.x, dpt.y, dpt.z, dpt.w};
+          float pe[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c + e;
+            pe[e] = keep(q0 + col, kj, S, causal, window)
+                        ? ex2(fmaf(sv4[e], scale_log2, -clse[col] * LOG2E))
+                        : 0.f;
+            ds[e] = pe[e] * (dv4[e] - cdelta[col]);
+          }
+          bcast4(fp + (row0 + lr) * LX + c, pe, n);
+          bcast4(fds + (row0 + lr) * LX + c, ds, n);
+        });
+    // The tile's P^T and dS^T are in every block (and every block is done
+    // reading its partials).
+    cluster_sync();
+    // dV += P^T dO, dK += dS^T Q.
+#pragma unroll
+    for (int m = m_first; m < m_end; ++m) {
+      float x[1][NJ][4];
+      gather_rows(x, m ? fds : fp, wrow, lane);
+      add_xb<W_COLS, 1, NJ>(acc[SPLIT ? 0 : m], x, m ? cq : cdo, lane);
+    }
+  }
+  // No block leaves while a peer may still write into it.
+  cluster_sync();
+
+  // dk = scale * acc, dv = acc: the warp's KV rows, columns col0 + 8 ND
+  // of them (those below D).
+#pragma unroll
+  for (int m = m_first; m < m_end; ++m) {
+    T* out = m ? dk : dv;
+    const float f = m ? scale : 1.f;
+#pragma unroll
+    for (int nn = 0; nn < ND; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = k0 + wrow + g + (e >> 1) * 8;
+        const int col = col0 + nn * 8 + 2 * t + (e & 1);
+        if (kj < S && col < D)
+          store(out + ((long long)kj * KVH + kvh) * D + col,
+                acc[SPLIT ? 0 : m][0][nn][e] * f);
+      }
+  }
+}
+
 // Bits of `vec` for q, k, v and dO: a tensor takes the 16-byte copy path
 // when its pointer, row and head strides and head_dim are all whole
 // 16-byte units.
@@ -586,14 +829,38 @@ cudaError_t launch_dkv_wide(const void* const* p, int S, int H, int KVH,
                             int D, const Strides& st, int causal, int window,
                             float scale, cudaStream_t stream) {
   constexpr int smem = wide_smem_bytes<T>();
-  constexpr int DC = wide_chunk<T>();
+  auto* kernel = flash_bwd_dkv_wide_kernel<T, W_QROWS>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_wide_kernel<T, DC>,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n = (D + W_COLS - 1) / W_COLS;
+  const ClusterLaunch l(dim3((S + BKV - 1) / BKV * n, KVH),
+                        wide_threads<T>(), smem, stream, n);
+  err = cudaLaunchKernelEx(
+      &l.cfg, kernel, static_cast<const T*>(p[0]),
+      static_cast<const T*>(p[1]), static_cast<const T*>(p[2]),
+      static_cast<const T*>(p[3]), static_cast<const float*>(p[4]),
+      static_cast<const float*>(p[5]),
+      static_cast<T*>(const_cast<void*>(p[6])),
+      static_cast<T*>(const_cast<void*>(p[7])), S, KVH, H / KVH, D, st,
+      vec_bits<T>(p, st, D), causal, window, scale);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+template <typename T>
+cudaError_t launch_dkv_stream(const void* const* p, int S, int H, int KVH,
+                              int D, const Strides& st, int causal,
+                              int window, float scale, cudaStream_t stream) {
+  constexpr int smem = stream_smem_bytes<T>();
+  constexpr int DC = stream_chunk<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_stream_kernel<T, DC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int n_slices = (D + W_COLS - 1) / W_COLS;
   const dim3 grid((S + BKV - 1) / BKV * n_slices * 2, KVH);
-  flash_bwd_dkv_wide_kernel<T, DC><<<grid, NT, smem, stream>>>(
+  flash_bwd_dkv_stream_kernel<T, DC><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
       static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
       static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
@@ -607,8 +874,11 @@ using Launcher = cudaError_t (*)(const void* const*, int, int, int, int,
                                  const Strides&, int, int, float,
                                  cudaStream_t);
 
+// The widest head_dim of the wide route: 8 blocks a cluster.
+constexpr int WIDE_MAX_D = W_COLS * X_MAX_N;
+
 // The template instances with head_dim padded to 16, 32, 64, 128 or 256,
-// and the wide route beyond.
+// the wide route to 1024 and the streamed route beyond.
 template <typename T>
 Launcher dkv_for(int D) {
   return D <= 16 ? &launch_dkv<T, 16>
@@ -616,7 +886,8 @@ Launcher dkv_for(int D) {
        : D <= 64 ? &launch_dkv<T, 64>
        : D <= 128 ? &launch_dkv<T, 128>
        : D <= 256 ? &launch_dkv<T, 256>
-                  : &launch_dkv_wide<T>;
+       : D <= WIDE_MAX_D ? &launch_dkv_wide<T>
+                         : &launch_dkv_stream<T>;
 }
 
 template <typename T>
@@ -626,7 +897,15 @@ int smem_for(int D) {
        : D <= 64 ? smem_bytes<T, 64>()
        : D <= 128 ? smem_bytes<T, 128>()
        : D <= 256 ? smem_bytes<T, 256>()
-                  : wide_smem_bytes<T>();
+       : D <= WIDE_MAX_D ? wide_smem_bytes<T>()
+                         : stream_smem_bytes<T>();
+}
+
+template <typename T>
+int clusters_for(int D) {
+  return max_clusters(flash_bwd_dkv_wide_kernel<T, W_QROWS>,
+                      wide_threads<T>(), wide_smem_bytes<T>(),
+                      (D + W_COLS - 1) / W_COLS);
 }
 
 }  // namespace
@@ -665,6 +944,16 @@ int flash_bwd_dkv_smem_bytes(int D, int dtype) {
   return dtype == 0   ? smem_for<float>(D)
          : dtype == 1 ? smem_for<bf16>(D)
                       : smem_for<f16>(D);
+}
+
+// Clusters of the wide route's kernel for (D, dtype) the card can hold at
+// once (cudaOccupancyMaxActiveClusters; 0: none fits, and a launch
+// fails), minus a CUDA error, or -1 for a head_dim outside the route.
+int flash_bwd_dkv_max_clusters(int D, int dtype) {
+  if (D <= 256 || D > WIDE_MAX_D) return -1;
+  return dtype == 0   ? clusters_for<float>(D)
+         : dtype == 1 ? clusters_for<bf16>(D)
+                      : clusters_for<f16>(D);
 }
 
 const char* flash_bwd_dkv_error_string(int code) {

@@ -50,18 +50,37 @@
 //   (the next tile's copy after a barrier at the end of this one), since
 //   the Q and dO tiles and two buffers of K and V would take 266 KB of
 //   shared memory against the block's 227 KB.
-// - head_dim above 256 takes the wide route (flash_bwd_dq_wide_kernel),
-//   as the forward does: a dq accumulator of 512 columns would be 256
-//   registers a thread, and full-width tiles do not fit. Each block owns
-//   one 128-column slice of dq (the 128 instance's accumulator), and the
-//   depth of S = Q K^T and dP = dO V^T is streamed through shared memory
-//   in chunks of 256 bytes a row of Q, dO, K and V, with 32-row KV tiles
-//   as at 256, two buffers whatever head_dim (104,448 bytes a block in
-//   every type). Each slice's block computes both score tiles again: at
-//   head_dim 512 that is 4x the S and dP products, 3x the products of one
-//   pass (4 + 4 + 1 against 1 + 1 + 1). Every slice runs the same
-//   instructions on the same scores, so P and dS agree bit for bit across
-//   slices.
+// - head_dim 257-1024 takes the wide route (flash_bwd_dq_wide_kernel): a
+//   dq accumulator of 512 columns would be 256 registers a thread, and
+//   full-width tiles do not fit. A thread-block cluster of n = ceil(D /
+//   128) blocks (3 to 8, the portable limit) owns one (query head, 64-row
+//   query tile), and block r owns dq's columns [128 r, 128 r + 128), the
+//   128 instance's accumulator. Block r holds the same 128 columns of the
+//   operands: Q and dO staged once, K and V of each 32-row KV tile in two
+//   cp.async stages of a whole slice (one wait a tile). Per KV tile it
+//   computes S and dP over its 128 columns of depth only, and the
+//   cluster sums those partials into dS through distributed shared
+//   memory (cluster_sm90.cuh: block r finishes rows [r own, r own + own)
+//   of the tile, own = ceil(64 / n); every block stores its partial rows
+//   into their owner, which sums the n partials in rank order and stores
+//   the finished dS rows into every block), then adds dS K to its slice.
+//   Each score product is thus computed once: at head_dim 512, 3
+//   products of one pass (1 + 1 + 1), where the streamed kernel below
+//   computed 9 (4 + 4 + 1). Each dS entry is finished by one block, so
+//   every slice uses the same bits and dq repeats bit for bit. The price
+//   is two cluster barriers a KV tile and the f32 partials crossing the
+//   cluster (8 bytes an entry from each block but its owner). A block
+//   takes 97,328 bytes of shared memory for a 16-bit type (two blocks of
+//   4 warps an SM) and 167,984 for f32 (one block of 8 warps, which
+//   split S and dP, then dq's two 64-column halves, between them).
+// - head_dim above 1024 (more than 8 blocks a cluster) takes the streamed
+//   kernel (flash_bwd_dq_stream_kernel): one block per 128-column slice
+//   of dq, each computing S and dP again over the full depth, streamed
+//   through shared memory in chunks of 256 bytes a row of Q, dO, K and V,
+//   two buffers whatever head_dim (104,448 bytes a block), so that any
+//   head_dim reaches a kernel. Every slice runs the same instructions on
+//   the same scores, so P and dS agree bit for bit across slices there
+//   too.
 // - Per KV tile a warp computes S = Q K^T and dP = dO V^T (16 x 64 an
 //   m-tile each) as mma accumulators, P = 2^(S scale log2 e - lse log2 e)
 //   and dS = P (dP - delta) in registers (the mask only on tiles that
@@ -82,6 +101,7 @@
 // q, k, v and dO are read through their (S, heads, head_dim) strides; dq
 // is written contiguous, (S, H, D), in q's type.
 
+#include "cluster_sm90.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
@@ -100,35 +120,73 @@ __host__ __device__ constexpr int kv_bufs(bool f32, int dp) {
   return f32 && dp > 128 ? 1 : 2;
 }
 
-// The wide route (head_dim above 256): output columns a block, rows of
-// its query tile, and rows of each KV tile (32, as at head_dim 256, so
-// that the two score tiles fit beside dq's 128-column accumulator).
+// The wide and streamed routes (head_dim above 256): output columns a
+// block, and rows of its query tile.
 constexpr int W_COLS = 128;
 constexpr int W_ROWS = 64;
-constexpr int W_KVROWS = 32;
+static_assert(W_ROWS == X_ROWS, "the cluster exchanges the query tile");
 
-// Depth of one chunk of the wide route's score products: 256 bytes of a
-// row (64 f32, 128 of a 16-bit type): half as many stages, and so
+// The wide route (head_dim 257-1024): rows of each KV tile (32, so that
+// Q, dO and two stages of K and V of a 16-bit type fit twice in an SM),
+// and blocks an SM the registers must allow (two for a 16-bit type, one
+// for f32, whose tiles take 159 KB).
+constexpr int W_KVROWS = 32;
+template <typename T>
+__host__ __device__ constexpr int wide_min_blocks() {
+  return sizeof(T) == 2 ? 2 : 1;
+}
+
+// Threads of a wide-route block: 4 warps, each computing both score tiles
+// and all 128 output columns of its 16 rows, for a 16-bit type; 8 for
+// f32 (one block an SM), warps 0-3 computing S and warps 4-7 dP, then
+// each pair of warps sharing a 16-row m-tile and adding dS K to one
+// 64-column half of the slice.
+template <typename T>
+__host__ __device__ constexpr int wide_threads() {
+  return sizeof(T) == 2 ? NT : 2 * NT;
+}
+
+// Dynamic shared memory of one block of the wide route, whatever head_dim
+// up to 1024: Q and dO, two stages of K and V (128 columns each), the
+// receive buffers of the partial S and dP (f32), the tile's dS, and the
+// lse and delta of the block's own rows.
+template <typename T>
+__host__ __device__ constexpr int wide_smem_bytes() {
+  constexpr int LX = W_KVROWS + X_PAD;
+  return (int)((2 * W_ROWS + 4 * W_KVROWS) * (W_COLS + Pad<T>::value) *
+                   sizeof(T) +
+               2 * recv_rows() * LX * sizeof(float) +
+               X_ROWS * LX * sizeof(T) + 2 * X_OWN_MAX * sizeof(float));
+}
+
+// The streamed route (head_dim above 1024): rows of each KV tile (32, as
+// at head_dim 256, so that the two score tiles fit beside dq's 128-column
+// accumulator).
+constexpr int ST_KVROWS = 32;
+
+// Depth of one chunk of the streamed route's score products: 256 bytes
+// of a row (64 f32, 128 of a 16-bit type): half as many stages, and so
 // barriers, as 128-byte chunks, which ran slower on an H100.
 template <typename T>
-__host__ __device__ constexpr int wide_chunk() {
+__host__ __device__ constexpr int stream_chunk() {
   return 256 / (int)sizeof(T);
 }
 
-// Elements of one of the wide route's two stage buffers: a chunk of Q,
-// dO, K and V, or a K slice, whichever is larger.
+// Elements of one of the streamed route's two stage buffers: a chunk of
+// Q, dO, K and V, or a K slice, whichever is larger.
 template <typename T>
-__host__ __device__ constexpr int wide_buf() {
+__host__ __device__ constexpr int stream_buf() {
   constexpr int chunk =
-      2 * (W_ROWS + W_KVROWS) * (wide_chunk<T>() + Pad<T>::value);
-  constexpr int slice = W_KVROWS * (W_COLS + Pad<T>::value);
+      2 * (W_ROWS + ST_KVROWS) * (stream_chunk<T>() + Pad<T>::value);
+  constexpr int slice = ST_KVROWS * (W_COLS + Pad<T>::value);
   return chunk > slice ? chunk : slice;
 }
 
-// Dynamic shared memory of one block of the wide route, whatever head_dim.
+// Dynamic shared memory of one block of the streamed route, whatever
+// head_dim.
 template <typename T>
-constexpr int wide_smem_bytes() {
-  return (int)(2 * wide_buf<T>() * sizeof(T));
+constexpr int stream_smem_bytes() {
+  return (int)(2 * stream_buf<T>() * sizeof(T));
 }
 
 struct Strides {                   // row (ss) and head (sh) strides, elements
@@ -173,7 +231,7 @@ __host__ __device__ constexpr int min_blocks() {
   return fit < 1 ? 1 : fit > most ? most : fit;
 }
 
-// The wide route's tile arithmetic (the instances up to 256 keep the
+// The streamed route's tile arithmetic (the instances up to 256 keep the
 // same arithmetic inline: folding them onto these helpers changed their
 // register allocation and made one of them spill).
 
@@ -427,8 +485,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// The wide route's kernel (head_dim above 256; the file's header says
-// why): one block of 4 warps owns one 128-column slice of dq for one
+// The streamed route's kernel (head_dim above 1024; the file's header
+// says why): one block of 4 warps owns one 128-column slice of dq for one
 // (query head, 64-row query tile), one 16-row m-tile a warp. Per 32-row
 // KV tile it streams the depth of S = Q K^T and dP = dO V^T through
 // shared memory, DC columns of Q, dO, K and V at a time, then stages the
@@ -438,17 +496,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // buffers by cp.async while the other one computes.
 template <typename T, int DC>
 __global__ void __launch_bounds__(NT, 2)
-flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dq,
-                         int S, int H, int group, int D, Strides st, int vec,
-                         int causal, int window, float scale) {
-  constexpr int BQ = W_ROWS, BKV = W_KVROWS;
+flash_bwd_dq_stream_kernel(const T* __restrict__ q,
+                           const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dq, int S, int H, int group,
+                           int D, Strides st, int vec, int causal,
+                           int window, float scale) {
+  constexpr int BQ = W_ROWS, BKV = ST_KVROWS;
   constexpr int NJ = BKV / 8;           // 8-column score tiles
   constexpr int ND = W_COLS / 8;        // 8-column accumulator tiles
   constexpr int LDC = DC + Pad<T>::value;   // row stride of a chunk tile
-  constexpr int BUF = wide_buf<T>();
+  constexpr int BUF = stream_buf<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sbuf = reinterpret_cast<T*>(smem_raw);   // 2 stage buffers of BUF
 
@@ -544,6 +605,150 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_dq(acc, dq, q0, wrow, lane, S, H, h, D, col0, scale);
 }
 
+// The wide route's kernel (head_dim 257-1024; the file's header says
+// why): a cluster of n = ceil(D / 128) blocks of 4 warps owns one (query
+// head, 64-row query tile), one 16-row m-tile a warp; block r (its rank
+// in the cluster) owns dq's columns [128 r, 128 r + 128) and holds those
+// columns of Q and dO (staged once) and of each KV tile's K and V (two
+// cp.async stages). Per KV tile: the partial S and dP over the block's
+// 128 columns of depth, the cluster's sum of them into dS
+// (cluster_sm90.cuh), then dQ += dS K on the block's slice.
+template <typename T, int BKV>
+__global__ void
+__launch_bounds__((wide_threads<T>()), (wide_min_blocks<T>()))
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dq,
+                         int S, int H, int group, int D, Strides st, int vec,
+                         int causal, int window, float scale) {
+  constexpr int NTB = wide_threads<T>();
+  constexpr bool SPLIT = NTB > NT;      // the f32 warps split the work
+  constexpr int BQ = W_ROWS;
+  constexpr int NJ = BKV / 8;           // 8-column score tiles
+  constexpr int DN = SPLIT ? W_COLS / 2 : W_COLS;   // a warp's columns
+  constexpr int LD = W_COLS + Pad<T>::value;
+  constexpr int LX = BKV + X_PAD;       // row stride of the tile buffers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sq = reinterpret_cast<T*>(smem_raw);        // BQ x LD
+  T* sdo = sq + BQ * LD;                         // BQ x LD
+  T* skv = sdo + BQ * LD;                        // 2 x (K, V), BKV x LD
+  // receive buffers of the partial S and dP, recv_rows() x LX each
+  float* xs = reinterpret_cast<float*>(skv + 4 * BKV * LD);
+  float* xdp = xs + recv_rows() * LX;
+  T* fds = reinterpret_cast<T*>(xdp + recv_rows() * LX);   // BQ x LX
+  float* olse = reinterpret_cast<float*>(fds + BQ * LX);
+  float* odlt = olse + X_OWN_MAX;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wrow = (warp % WARPS) * 16;       // the warp's first row
+  // The warp's share: m = 0 is S, m = 1 dP (a 16-bit warp takes both),
+  // and its first output column in the slice.
+  const int m_first = SPLIT ? warp / WARPS : 0;
+  const int m_end = SPLIT ? m_first + 1 : 2;
+  const int wcol = SPLIT ? warp / WARPS * DN : 0;
+  const int h = blockIdx.y;
+  const int kvh = h / group;
+  const int n = (D + W_COLS - 1) / W_COLS;    // blocks of the cluster
+  const int rank = cluster_rank();
+  const int col0 = rank * W_COLS;
+  // The heaviest causal tiles (the last query rows) are scheduled first.
+  const int q0 = (gridDim.x / n - 1 - blockIdx.x / n) * BQ;
+  // The tile rows whose P and dS this block finishes.
+  const int own = own_rows(n);
+  const int row0 = rank * own;
+  const int n_own = max(0, min(own, BQ - row0));
+
+  int kv_begin = 0, kv_end = S;
+  if (causal) {
+    kv_end = min(S, q0 + BQ);
+    if (window > 0) {
+      const int lo = q0 - window + 1;
+      if (lo > 0) kv_begin = (lo / BKV) * BKV;
+    }
+  }
+  const int n_it = (kv_end - kv_begin + BKV - 1) / BKV;   // at least 1
+
+  // Stages the block's columns of KV tile `it`'s K and V into stage it & 1.
+  auto stage = [&](int it) {
+    const int k0 = kv_begin + it * BKV;
+    T* b = skv + (it & 1) * 2 * BKV * LD;
+    load_tile<T, W_COLS, BKV, NTB>(b, k + kvh * st.k_sh + col0, k0, S,
+                                   D - col0, st.k_ss, vec & VEC_K);
+    load_tile<T, W_COLS, BKV, NTB>(b + BKV * LD, v + kvh * st.v_sh + col0,
+                                   k0, S, D - col0, st.v_ss, vec & VEC_V);
+  };
+
+  load_tile<T, W_COLS, BQ, NTB>(sq, q + h * st.q_sh + col0, q0, S,
+                                D - col0, st.q_ss, vec & VEC_Q);
+  load_tile<T, W_COLS, BQ, NTB>(sdo, dout + h * st.do_sh + col0, q0, S,
+                                D - col0, st.do_ss, vec & VEC_DO);
+  stage(0);
+  cp_async_commit();
+  // lse (base 2) and delta of the owned rows (0 past S, where every entry
+  // is masked).
+  for (int i = threadIdx.x; i < n_own; i += NTB) {
+    const int qi = q0 + row0 + i;
+    olse[i] = qi < S ? lse[(long long)h * S + qi] * LOG2E : 0.f;
+    odlt[i] = qi < S ? delta[(long long)h * S + qi] : 0.f;
+  }
+
+  float acc[1][DN / 8][4];
+  zero(acc);
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_it; ++it) {
+    // Tile `it` has landed, and every warp is done with tile it - 1, whose
+    // stage the copy of tile it + 1 now overwrites.
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_it) stage(it + 1);
+    cp_async_commit();
+    const int k0 = kv_begin + it * BKV;
+    const T* ck = skv + (it & 1) * 2 * BKV * LD;
+    // The partial S = Q K^T and dP = dO V^T over this block's columns,
+    // each stored before the next is computed (registers).
+#pragma unroll
+    for (int m = m_first; m < m_end; ++m) {
+      float part[1][NJ][4];
+      abt<W_COLS, 1, NJ>(part, m ? sdo : sq, ck + m * BKV * LD, wrow, lane);
+      push_partial(m ? xdp : xs, part, wrow, rank, n, lane);
+    }
+    // Every block's partials are in their owners' buffers (and every
+    // block is done reading the dS of tile it - 1).
+    cluster_sync();
+    // P = 2^(S scale log2 e - lse log2 e) (masked entries 0) and dS = P o
+    // (dP - delta) of the owned rows, packed to T, into every block.
+    reduce_rows<BKV, NTB>(
+        xs, xdp, n_own, n,
+        [&](int lr, int c, const float4& s, const float4& dp) {
+          const int qi = q0 + row0 + lr;
+          const float sv[4] = {s.x, s.y, s.z, s.w};
+          const float dv[4] = {dp.x, dp.y, dp.z, dp.w};
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pe =
+                keep(qi, k0 + c + e, S, causal, window)
+                    ? ex2(fmaf(sv[e], scale_log2, -olse[lr]))
+                    : 0.f;
+            ds[e] = pe * (dv[e] - odlt[lr]);
+          }
+          bcast4(fds + (row0 + lr) * LX + c, ds, n);
+        });
+    // The tile's dS is in every block (and every block is done reading
+    // its partials).
+    cluster_sync();
+    float x[1][NJ][4];
+    gather_rows(x, fds, wrow, lane);
+    add_xb<W_COLS, 1, NJ, DN>(acc, x, ck + wcol, lane);
+  }
+  // No block leaves while a peer may still write into it.
+  cluster_sync();
+  store_dq(acc, dq, q0, wrow, lane, S, H, h, D, col0 + wcol, scale);
+}
+
 // Bits of `vec` for q, k, v and dO: a tensor takes the 16-byte copy path
 // when its pointer, row and head strides and head_dim are all whole
 // 16-byte units.
@@ -585,14 +790,37 @@ cudaError_t launch_dq_wide(const void* const* p, int S, int H, int KVH,
                            int D, const Strides& st, int causal, int window,
                            float scale, cudaStream_t stream) {
   constexpr int smem = wide_smem_bytes<T>();
-  constexpr int DC = wide_chunk<T>();
+  auto* kernel = flash_bwd_dq_wide_kernel<T, W_KVROWS>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_wide_kernel<T, DC>,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n = (D + W_COLS - 1) / W_COLS;
+  const ClusterLaunch l(dim3((S + W_ROWS - 1) / W_ROWS * n, H),
+                        wide_threads<T>(), smem, stream, n);
+  err = cudaLaunchKernelEx(
+      &l.cfg, kernel, static_cast<const T*>(p[0]),
+      static_cast<const T*>(p[1]), static_cast<const T*>(p[2]),
+      static_cast<const T*>(p[3]), static_cast<const float*>(p[4]),
+      static_cast<const float*>(p[5]),
+      static_cast<T*>(const_cast<void*>(p[6])), S, H, H / KVH, D, st,
+      vec_bits<T>(p, st, D), causal, window, scale);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+template <typename T>
+cudaError_t launch_dq_stream(const void* const* p, int S, int H, int KVH,
+                             int D, const Strides& st, int causal,
+                             int window, float scale, cudaStream_t stream) {
+  constexpr int smem = stream_smem_bytes<T>();
+  constexpr int DC = stream_chunk<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_stream_kernel<T, DC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int n_slices = (D + W_COLS - 1) / W_COLS;
   const dim3 grid((S + W_ROWS - 1) / W_ROWS * n_slices, H);
-  flash_bwd_dq_wide_kernel<T, DC><<<grid, NT, smem, stream>>>(
+  flash_bwd_dq_stream_kernel<T, DC><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
       static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
       static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
@@ -605,8 +833,11 @@ using Launcher = cudaError_t (*)(const void* const*, int, int, int, int,
                                  const Strides&, int, int, float,
                                  cudaStream_t);
 
+// The widest head_dim of the wide route: 8 blocks a cluster.
+constexpr int WIDE_MAX_D = W_COLS * X_MAX_N;
+
 // The template instances with head_dim padded to 16, 32, 64, 128 or 256,
-// and the wide route beyond.
+// the wide route to 1024 and the streamed route beyond.
 template <typename T>
 Launcher dq_for(int D) {
   return D <= 16 ? &launch_dq<T, 16>
@@ -614,7 +845,8 @@ Launcher dq_for(int D) {
        : D <= 64 ? &launch_dq<T, 64>
        : D <= 128 ? &launch_dq<T, 128>
        : D <= 256 ? &launch_dq<T, 256>
-                  : &launch_dq_wide<T>;
+       : D <= WIDE_MAX_D ? &launch_dq_wide<T>
+                         : &launch_dq_stream<T>;
 }
 
 template <typename T>
@@ -624,7 +856,15 @@ int smem_for(int D) {
        : D <= 64 ? smem_bytes<T, 64>()
        : D <= 128 ? smem_bytes<T, 128>()
        : D <= 256 ? smem_bytes<T, 256>()
-                  : wide_smem_bytes<T>();
+       : D <= WIDE_MAX_D ? wide_smem_bytes<T>()
+                         : stream_smem_bytes<T>();
+}
+
+template <typename T>
+int clusters_for(int D) {
+  return max_clusters(flash_bwd_dq_wide_kernel<T, W_KVROWS>,
+                      wide_threads<T>(), wide_smem_bytes<T>(),
+                      (D + W_COLS - 1) / W_COLS);
 }
 
 }  // namespace
@@ -662,6 +902,16 @@ int flash_bwd_dq_smem_bytes(int D, int dtype) {
   return dtype == 0   ? smem_for<float>(D)
          : dtype == 1 ? smem_for<bf16>(D)
                       : smem_for<f16>(D);
+}
+
+// Clusters of the wide route's kernel for (D, dtype) the card can hold at
+// once (cudaOccupancyMaxActiveClusters; 0: none fits, and a launch
+// fails), minus a CUDA error, or -1 for a head_dim outside the route.
+int flash_bwd_dq_max_clusters(int D, int dtype) {
+  if (D <= 256 || D > WIDE_MAX_D) return -1;
+  return dtype == 0   ? clusters_for<float>(D)
+         : dtype == 1 ? clusters_for<bf16>(D)
+                      : clusters_for<f16>(D);
 }
 
 const char* flash_bwd_dq_error_string(int code) {

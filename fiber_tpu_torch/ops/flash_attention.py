@@ -12,9 +12,12 @@ are the JAX package's: q ``(S, heads, head_dim)``, k and v
 The kernels and the plain versions take f32, bf16 and f16 and any
 head_dim, as the Pallas kernels do: the kernels pad a head_dim up to 256
 to an instance of 16, 32, 64, 128 or 256 columns, and a larger one takes
-their wide route (128-column output slices, the depth of the score
-products streamed in chunks), whose shared memory does not grow with
-head_dim; the only bound is the card's memory for the tensors. As in
+their wide route (128-column output slices; in the forward the depth of
+the score products streamed in chunks; in the backward, to head_dim
+1024, a thread-block cluster of one block a slice that computes each
+score product once across the cluster, and above it the streamed
+slices), whose shared memory does not grow with head_dim; the only
+bound is the card's memory for the tensors. As in
 the Pallas kernels, scores, softmax statistics and sums are f32
 whatever the input type, and O and the gradients come back in it. A
 CUDA tensor goes through the kernels or raises; a CPU tensor goes

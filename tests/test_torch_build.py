@@ -76,6 +76,12 @@ def test_every_quoted_include_is_a_header_of_csrc():
     ("_ZN69_GLOBAL__N__flash_fwd_cu_21flash_fwd_wide_kernelI13__nv_bfloat16"
      "Li128EEvPKT_S5_S5_PS3_Pfiiii7Stridesiiif",
      "flash_fwd_wide_kernel<bfloat16,128>"),
+    ("_ZN69_GLOBAL__N__flash_bwd_dq_cu_24flash_bwd_dq_wide_kernelI13__nv_"
+     "bfloat16Li32EEvPKT_S5_S5_S5_PKfS7_PS3_iiiii7Stridesiiif",
+     "flash_bwd_dq_wide_kernel<bfloat16,32>"),
+    ("_ZN69_GLOBAL__N__flash_bwd_dkv_cu_27flash_bwd_dkv_stream_kernelIfLi32EE"
+     "vPKT_S4_S4_S4_PKfS6_PS2_S7_iiii7Stridesiiif",
+     "flash_bwd_dkv_stream_kernel<float,32>"),
     ("_Z20ring_exchange_kernelPKPKvPKPvPKxii", "ring_exchange_kernel"),
 ])
 def test_ptxas_report_names_each_template(tmp_path, monkeypatch, mangled,

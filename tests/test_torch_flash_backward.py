@@ -432,3 +432,117 @@ def test_bwd_f16_rounding_stays_inside_the_f16_bound(head_dim):
             for g, w in zip(got, want)]
     assert max(errs) < F16_BWD_TOL, errs
     assert ds_max <= bound < F16_MAX / 10, (ds_max, bound)
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of the backward kernels' wide route (head_dim 257-1024:
+# flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel), emulated. A
+# cluster block holds one 128-column depth slice of the operands, so S and
+# dP are sums of one partial product a slice (3xTF32 for f32), added in
+# f32 in the order of the slices; P and dS come from the sums, and are
+# packed to the input's type where the kernels pack them (16-bit types)
+# before the products dQ += dS K, dV += P^T dO and dK += dS^T Q.
+# ---------------------------------------------------------------------------
+
+#: max abs error over max |gradient| against the f64 recomputation: a
+#: tenth of chip_smoke.py's f32 bound (5e-5), as for the 3xTF32 cases
+#: above; the f16 bound of the f16 cases; chip_smoke.py's bf16 bound
+WIDE_EMULATION_BOUND = {"float32": 5e-5 / 10, "float16": F16_BWD_TOL,
+                        "bfloat16": 3e-2}
+_ROUND = {"float32": lambda x: x, "float16": _f16,
+          "bfloat16": lambda x: x.bfloat16().float()}
+
+
+def _wide_product(a, b, dtype):
+    """a @ b in f32 as the wide route's products run it: 3xTF32 for f32
+    inputs; exact products of 16-bit values summed in f32 otherwise."""
+    return product(a, b, "3xtf32") if dtype == "float32" else a @ b
+
+
+def _wide_scores(a, b, dtype):
+    """a b^T (rows of a against rows of b, over head_dim) as the cluster
+    sums it: one partial product per 128-column depth slice, in f32 and
+    in the order of the slices (the blocks' ranks)."""
+    d = a.shape[1]
+    total = None
+    for c in range(0, d, 128):
+        part = _wide_product(a[:, c:c + 128], b[:, c:c + 128].T, dtype)
+        total = part if total is None else total + part
+    return total
+
+
+def _wide_bwd_emulated(q, k, v, dout, lse, delta, keep, dtype):
+    """(dq, dk, dv) of the wide route and the largest |dS| it packs, from
+    f32 tensors holding values of ``dtype``; ``keep`` (query, key)."""
+    s, h, d = q.shape
+    group = h // k.shape[1]
+    pack = _ROUND[dtype]
+    dq = torch.empty_like(q)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    ds_max = 0.0
+    for ih in range(h):
+        kvh = ih // group
+        kh, vh = k[:, kvh], v[:, kvh]
+        p = torch.exp(_wide_scores(q[:, ih], kh, dtype) / d ** 0.5
+                      - lse[ih][:, None]) * keep
+        ds = p * (_wide_scores(dout[:, ih], vh, dtype) - delta[ih][:, None])
+        ds_max = max(ds_max, ds.abs().max().item())
+        p, ds = pack(p), pack(ds)
+        dq[:, ih] = _wide_product(ds, kh, dtype) / d ** 0.5
+        dv[:, kvh] += _wide_product(p.T, dout[:, ih], dtype)
+        dk[:, kvh] += _wide_product(ds.T, q[:, ih], dtype) / d ** 0.5
+    return tuple(pack(x) for x in (dq, dk, dv)), ds_max
+
+
+@functools.cache
+def _wide_case(dtype, head_dim, window):
+    """Inputs of ``dtype`` at S = 256 (4 query heads, 2 KV heads), held in
+    f32, causal and, when given, over a window; lse and delta from an f64
+    forward, rounded to f32; dq, dk, dv recomputed in f64; the keep mask;
+    and the kernels' bound on |dS|, 2 max_i |dO_i| max_j |v_j|."""
+    s, h, kvh, d = 256, 4, 2, head_dim
+    rng = np.random.default_rng(23)
+    rnd = _ROUND[dtype]
+    q, dout = (rnd(torch.from_numpy(rng.standard_normal((s, h, d))).float())
+               for _ in range(2))
+    k, v = (rnd(torch.from_numpy(rng.standard_normal((s, kvh, d))).float())
+            for _ in range(2))
+    pos = torch.arange(s)
+    keep = pos[:, None] >= pos[None, :]
+    if window is not None:
+        keep &= pos[:, None] - pos[None, :] < window
+    group = h // kvh
+    kf, vf = (x.double().repeat_interleave(group, dim=1).permute(1, 0, 2)
+              for x in (k, v))
+    qf, dof = q.double().permute(1, 0, 2), dout.double().permute(1, 0, 2)
+    sc = (qf @ kf.transpose(1, 2) / d ** 0.5).masked_fill(~keep, -torch.inf)
+    lse = torch.logsumexp(sc, dim=-1)
+    p = torch.exp(sc - lse[..., None])
+    delta = (dof * (p @ vf)).sum(-1)
+    ds = p * (dof @ vf.transpose(1, 2) - delta[..., None])
+    dk = (ds.transpose(1, 2) @ qf / d ** 0.5).reshape(
+        kvh, group, s, d).sum(1).permute(1, 0, 2)
+    dv = (p.transpose(1, 2) @ dof).reshape(kvh, group, s, d).sum(
+        1).permute(1, 0, 2)
+    dq = (ds @ kf / d ** 0.5).permute(1, 0, 2)
+    bound = 2 * dout.norm(dim=-1).max().item() * v.norm(dim=-1).max().item()
+    inputs = (q, k, v, dout, lse.float(), delta.float(), keep.float())
+    return inputs, (dq, dk, dv), bound
+
+
+@pytest.mark.parametrize("window", [None, 32], ids=["causal", "window"])
+@pytest.mark.parametrize("head_dim", [512, 576])
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+def test_wide_bwd_slice_sums_stay_inside_the_bounds(dtype, head_dim, window):
+    """The wide route's arithmetic (partial scores per 128-column depth
+    slice summed in rank order, P and dS packed where the kernels pack
+    them), at head_dim 512 and 576 (a ragged last slice of 64 columns),
+    causal and over a window: against an f64 recomputation from the same
+    inputs, dq, dk and dv stay inside the bound of their type, and |dS|
+    inside its bound, far under f16's largest value."""
+    inputs, want, bound = _wide_case(dtype, head_dim, window)
+    got, ds_max = _wide_bwd_emulated(*inputs, dtype)
+    errs = [((g.double() - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(got, want)]
+    assert max(errs) < WIDE_EMULATION_BOUND[dtype], errs
+    assert ds_max <= bound < F16_MAX / 10, (ds_max, bound)
