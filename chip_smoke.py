@@ -97,11 +97,13 @@ MAIN_SHAPES = (
 )
 # Small shapes for the kernel's edges: ragged tiles, every head-dim
 # template, non-causal, windows shorter than a tile; head_dims 160 and
-# 192 pad to the 256 instance; 257 and beyond take the wide route, its
-# last 128-column slice and last depth chunk ragged (257, 384 with a
-# window, 576 as sarvamai/sarvam-105b's head_dim with GQA and a ragged
-# S, causal and not, 1024 at a small S, 512 with a window); above 1024
-# the backward kernels take their streamed route (1100 in f16).
+# 192 pad to the 256 instance; 257 and beyond take the wide route (257
+# and 384 pad the forward's to 512, 512 with a window, 576 as
+# sarvamai/sarvam-105b's head_dim with GQA and a ragged S, causal and
+# not, and in f16 over a window at a small S, the forward wide route's
+# last width); 577 (f16, small S) is the first width of the forward's
+# streamed route, and 1024 at a small S; above 1024 the backward kernels
+# take their streamed route (1100 in f16).
 EDGE_SHAPES = (
     ("edge_noncausal_d8", 100, 4, 2, 8, "float32", None, False),
     ("edge_d40_ragged", 77, 2, 2, 40, "float32", None, True),
@@ -119,6 +121,8 @@ EDGE_SHAPES = (
     ("edge_d1024_f16", 70, 2, 1, 1024, "float16", None, True),
     ("edge_d512_window_f32", 300, 4, 1, 512, "float32", 70, True),
     ("edge_d1100_f16", 70, 2, 1, 1100, "float16", None, True),
+    ("edge_d576_window_f16", 70, 2, 1, 576, "float16", 20, True),
+    ("edge_d577_f16", 70, 2, 1, 577, "float16", None, True),
 )
 # Edge shapes whose inputs the flash kernels cannot copy in 16-byte
 # units, so they take their scalar load paths: head_dim 20 in bf16 (not
@@ -487,13 +491,16 @@ DTYPE_CODE = {"float": 0, "bfloat16": 1, "float16": 2}
 ENGINE = {"float32": "mma.sync 3xtf32", "bfloat16": "mma.sync bf16",
           "float16": "mma.sync f16"}
 # The head_dims the flash kernels' instances pad to; above the last, the
-# kernels take their wide route (one template per type, whose shared
-# memory does not depend on head_dim; the build reports it at
-# WIDE_HEAD_DIM). The backward kernels' wide route runs a thread-block
-# cluster of one block per 128 columns, up to CLUSTER_MAX_HEAD_DIM; above
-# it their streamed route (one template per type, reported at
-# STREAM_HEAD_DIM).
+# kernels take their wide route. The forward's pads head_dim to
+# FWD_WIDE_HEAD_DIMS (a template per type and width); above the last,
+# its streamed route. The backward kernels' wide route (one template per
+# type, whose shared memory does not depend on head_dim; the build
+# reports it at WIDE_HEAD_DIM) runs a thread-block cluster of one block
+# per 128 columns, up to CLUSTER_MAX_HEAD_DIM; above it their streamed
+# route. A streamed template's shared memory does not depend on head_dim
+# either; the build reports it at STREAM_HEAD_DIM.
 HEAD_DIM_INSTANCES = (16, 32, 64, 128, 256)
+FWD_WIDE_HEAD_DIMS = (512, 576)
 WIDE_HEAD_DIM = 512
 CLUSTER_COLS = 128
 CLUSTER_MAX_HEAD_DIM = 1024
@@ -632,20 +639,23 @@ def phase_build():
         for row in ptxas[name]:
             dtype, dp = re.search(r"<(\w+),(\d+)>",
                                   row["function"]).groups()
-            # a wide or streamed template's second argument is a tile's
-            # rows or depth chunk, not its head_dim
-            d = (WIDE_HEAD_DIM if "_wide_" in row["function"]
+            # a backward wide or a streamed template's second argument is
+            # a tile's rows or depth chunk, not its head_dim
+            wide = "_wide_" in row["function"] and name in CLUSTER_LIBS
+            d = (WIDE_HEAD_DIM if wide
                  else STREAM_HEAD_DIM if "_stream_" in row["function"]
                  else int(dp))
             row["smem_bytes"] = smem(d, DTYPE_CODE[dtype])
-            if "_wide_" in row["function"] and name in CLUSTER_LIBS:
+            if wide:
                 row["head_dim"] = d
                 row["cluster_blocks"] = -(-d // CLUSTER_COLS)
                 row["max_active_clusters"] = _max_clusters(
                     libs[name], name, DTYPE_CODE[dtype])
             check(row["spill_stores"] == row["spill_loads"] == 0,
                   f"{row['function']} spills")
-        routes = len(HEAD_DIM_INSTANCES) + 1 + (name in CLUSTER_LIBS)
+        wide_routes = (len(FWD_WIDE_HEAD_DIMS) if name == "flash_fwd"
+                       else 1)
+        routes = len(HEAD_DIM_INSTANCES) + wide_routes + 1
         check(len(ptxas[name]) == len(DTYPE_CODE) * routes,
               f"{name} templates built: {ptxas[name]}")
     emit({"phase": "build", "seconds": secs,
@@ -778,6 +788,16 @@ def phase_kernels(torch, card):
         check(err < TOL[dt] and lse_err < LSE_TOL,
               f"{name}: max_abs_err {err} lse_err {lse_err}")
         del ro, rlse
+        wide = d > HEAD_DIM_INSTANCES[-1]
+        if wide:
+            # the wide routes: a second launch gives the same bits (no
+            # atomics; m, l and lse agree across the warps of an m-tile)
+            o2, lse2 = fa.flash_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(_bits(torch, o), _bits(torch, o2))
+                  and torch.equal(_bits(torch, lse), _bits(torch, lse2)),
+                  f"{name}: two flash_fwd launches differ")
+            del o2, lse2
         ms = cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, **kw), reps=10)
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_reference(
             q, k, v, **kw), reps=3)
@@ -795,8 +815,9 @@ def phase_kernels(torch, card):
                "peak_flops": flops.op_peak(dt)[0],
                "bound_engine": flops.op_peak(dt)[1],
                "tflops": n_flops / ms / 1e9}
-        if d > HEAD_DIM_INSTANCES[-1]:
+        if wide:
             row["library_backend"] = _sdpa_backend(torch, q, k, v, window)
+            row["bitwise_repeat"] = True
         rows.append(row)
         main[name] = row
         del q, k, v, o, lse

@@ -46,25 +46,53 @@
 //   registers fewer than 64 rows' (which spilled 32 bytes a thread), and
 //   two buffers of each fit in 199,680 bytes of shared memory, where
 //   64-row ones would take 333 KB against the block's 227 KB.
-// - head_dim above 256 takes the wide route (flash_fwd_wide_kernel): no
-//   larger instance fits, as the output accumulator of 256 columns is
-//   already 128 registers a thread and one 64-row f32 K tile at 512
-//   columns (padded to D + 4) is 132,096 bytes. So each block owns one
-//   128-column slice of O (the 128 instance's accumulators), and the
-//   depth of S = Q K^T is streamed through shared memory in chunks of
-//   256 bytes a row (64 f32 or 128 16-bit columns of Q and of K), two
-//   buffers whatever head_dim: 69,632 bytes a block in every type, so any
-//   head_dim runs. The price is that each slice's block computes the
-//   full-width scores again: at head_dim 512 the forward does 4x its
-//   Q K^T products, 2.5x the products of one pass (4 + 1 against 1 + 1),
-//   and reads Q and K once a slice. Every slice runs the same
-//   instructions on the same scores, so m, l and lse agree bit for bit
-//   across slices; slice 0 writes lse. The alternatives, O in shared
-//   memory across the KV sweep (64 rows x 512 f32 columns is 131,072
-//   bytes, and no room left to stream K and V) or wgmma, would each be a
-//   new kernel; the split reuses the tested 128-column accumulators.
-// - Per KV tile a warp computes its scores S = Q K^T (16 x BKV an m-tile)
-//   as mma accumulators, the online softmax in registers in base 2 (scores
+// - head_dim 257-576 takes the wide route (flash_fwd_wide_kernel<type, DP>,
+//   head_dim padded to DP = 512 or 576): no instance of the design above
+//   fits, as the output accumulator of 256 columns is already 128 registers a
+//   thread. One block of 8 warps owns one (query head, query tile) and all DP
+//   output columns, and computes each score product once per (query tile, KV
+//   tile): the WPM warps that share an m-tile (16 query rows) split the tile's
+//   keys for S = Q K^T, each over the full depth, and its output columns for
+//   O += P V. A 16-bit type takes 64-row query tiles, 2 warps an m-tile, each
+//   owning DP / 2 output columns (128 f32 registers at 512, the 256 instance's
+//   accumulator) and scoring 32 of a 64-key tile (16 of a 32-key tile at 576);
+//   f32 takes 32-row query tiles, 4 warps an m-tile, each owning DP / 4
+//   columns (64 registers) and scoring 8 of a 32-key tile, in four partial
+//   sums of interleaved depth steps (one chain of 3 DP / 8 products, whose
+//   sums the tensor cores round toward zero, measured 2.5x the error at 512 on
+//   an H100). Per KV tile the warps of an m-tile exchange their rows' maxima
+//   through shared memory under one named barrier of their own (bar.sync over
+//   64 or 128 threads), write P (packed to a 16-bit input's type, f32 as it
+//   is) and each thread's part of the row sums to shared memory, and after the
+//   block's next barrier every warp reads the whole of its rows' P as the A
+//   operand of P V and sums l from all the parts in one order. So m, l and lse
+//   agree bit for bit across an m-tile's warps, and its first warp writes lse.
+//   No f32 partial of a score crosses a warp. Q is staged once a block; K and
+//   V, one full-depth tile each in shared memory, are copied in turn by
+//   cp.async: V of tile j while S of tile j computes, K of tile j + 1 while
+//   P V of tile j does. One wait and one block barrier cover each copy, plus
+//   the m-tile's barrier a tile. At head_dim 512 the forward thus runs 1 + 1
+//   products a tile (the streamed route below, one block a 128-column slice of
+//   O, runs 4 + 1: each slice recomputes the full-depth scores). In a 16-bit
+//   type, per 64 query rows x 64 keys, it copies K and V once (128 KB from L2
+//   into shared memory, where the slices copied 576 KB: Q, K and a V slice
+//   each, four times), and its warps read 656 KB of operands from shared
+//   memory (Q 16 KB, K 32 KB, V 32 KB and P 2 KB a warp), where the streamed
+//   slices read 1.5 MB. Shared memory: Q, K and V at DP + pad columns and P,
+//   211,456 bytes at 512 in a 16-bit type and 205,312 in f32 (one block an
+//   SM); at 576, 157,184 (32-key tiles) and 229,888.
+// - head_dim above 576 takes the streamed route (flash_fwd_stream_kernel): Q,
+//   K and V tiles of that width do not fit in shared memory beside P. Each
+//   block owns one 128-column slice of O (the 128 instance's accumulators),
+//   and the depth of S = Q K^T is streamed through shared memory in chunks of
+//   256 bytes a row (64 f32 or 128 16-bit columns of Q and of K), two buffers
+//   whatever head_dim: 69,632 bytes a block in every type, so any head_dim
+//   runs. Each slice's block computes the full-width scores again, and every
+//   slice runs the same instructions on the same scores, so m, l and lse agree
+//   bit for bit across slices; slice 0 writes lse.
+// - Per KV tile a warp of the instances (and of the streamed route)
+//   computes its scores S = Q K^T (16 x BKV an m-tile) as mma
+//   accumulators, the online softmax in registers in base 2 (scores
 //   scaled by scale * log2 e, ex2.approx; a row spans the 4 threads of a
 //   quad, so its max takes two shuffles, and its sum stays a per-thread
 //   partial until the end), then O += P V with P never leaving the
@@ -130,31 +158,61 @@ __host__ __device__ constexpr int pv_group(int dp) {
   return dp <= 32 ? dp / 8 : 2;
 }
 
-// The wide route (head_dim above 256): output columns a block, and rows of
-// its query tile and of each KV tile.
-constexpr int W_COLS = 128;
-constexpr int W_ROWS = 64;
+// The wide route (head_dim 257-576, padded to 512 or W_MAX_DP): warps a
+// block, and the widest padded head_dim it takes; the streamed route takes
+// the widths above.
+constexpr int W_WARPS = 8;
+constexpr int W_NT = 32 * W_WARPS;
+constexpr int W_MAX_DP = 576;
 
-// Depth of one chunk of the wide route's score product: 256 bytes of a row
-// (64 f32, 128 of a 16-bit type).
+// The wide route's tiles for type T and padded head_dim DP: BQ query rows
+// a block, BKV keys a tile, WPM warps an m-tile (each scoring KPW keys of
+// a tile and owning DP / WPM output columns), and P's row stride LDP.
+template <typename T, int DP> struct Wide {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int BQ = F32 ? 32 : 64;
+  static constexpr int BKV = F32 || DP > 512 ? 32 : 64;
+  static constexpr int WPM = W_WARPS * 16 / BQ;
+  static constexpr int KPW = BKV / WPM;
+  static constexpr int LDP = BKV + Pad<T>::value;
+};
+
+// Dynamic shared memory of one block of the wide route: the Q, K and V
+// tiles, P, and the m-tiles' row maxima and sum parts.
+template <typename T, int DP>
+constexpr int wide_smem_bytes() {
+  using W = Wide<T, DP>;
+  return (int)((W::BQ + 2 * W::BKV) * (DP + Pad<T>::value) * sizeof(T) +
+               W::BQ * W::LDP * sizeof(T) +
+               W_WARPS * (16 + 64) * sizeof(float));
+}
+
+// The streamed route (head_dim above 576): output columns a block, and
+// rows of its query tile and of each KV tile.
+constexpr int ST_COLS = 128;
+constexpr int ST_ROWS = 64;
+
+// Depth of one chunk of the streamed route's score product: 256 bytes of
+// a row (64 f32, 128 of a 16-bit type).
 template <typename T>
-__host__ __device__ constexpr int wide_chunk() {
+__host__ __device__ constexpr int stream_chunk() {
   return 256 / (int)sizeof(T);
 }
 
-// Elements of one of the wide route's two stage buffers: a chunk of Q and
-// of K, or a V slice, whichever is larger.
+// Elements of one of the streamed route's two stage buffers: a chunk of Q
+// and of K, or a V slice, whichever is larger.
 template <typename T>
-__host__ __device__ constexpr int wide_buf() {
-  constexpr int qk = 2 * W_ROWS * (wide_chunk<T>() + Pad<T>::value);
-  constexpr int vs = W_ROWS * (W_COLS + Pad<T>::value);
+__host__ __device__ constexpr int stream_buf() {
+  constexpr int qk = 2 * ST_ROWS * (stream_chunk<T>() + Pad<T>::value);
+  constexpr int vs = ST_ROWS * (ST_COLS + Pad<T>::value);
   return qk > vs ? qk : vs;
 }
 
-// Dynamic shared memory of one block of the wide route, whatever head_dim.
+// Dynamic shared memory of one block of the streamed route, whatever
+// head_dim.
 template <typename T>
-constexpr int wide_smem_bytes() {
-  return (int)(2 * wide_buf<T>() * sizeof(T));
+constexpr int stream_smem_bytes() {
+  return (int)(2 * stream_buf<T>() * sizeof(T));
 }
 
 struct Strides {                   // row (ss) and head (sh) strides, elements
@@ -570,8 +628,325 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_out(acc, m, l, o, lse, q0, wrow, lane, S, H, h, D, 0);
 }
 
-// The wide route's kernel (head_dim above 256; the file's header says
-// why): one block of 4 warps owns one 128-column slice of O for one
+// Barrier `id` (1-15; __syncthreads takes 0) over the n threads of the
+// warps that name it.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// An f32 warp's scores of its keys over the full depth, as abt computes
+// them but in NA partial sums of interleaved depth steps (kk, kk + NA,
+// ...), added with rounded f32 adds at the end: one 8-key tile would be a
+// single chain of 3 DP / 8 dependent products, whose sums the tensor cores
+// round toward zero.
+template <int DP, int NJ>
+__device__ __forceinline__ void wide_scores_f32(float (&s)[1][NJ][4],
+                                                const float* sq,
+                                                const float* sk, int wrow,
+                                                int lane) {
+  constexpr int NA = 4;
+  constexpr int LD = DP + Pad<float>::value;
+  static_assert(DP / 8 % NA == 0, "whole rounds of the partial sums");
+  const int g = lane >> 2, t = lane & 3;
+  float part[NA][NJ][4];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[a][j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 8; ++kk) {
+    const float* ra = sq + (wrow + g) * LD + kk * 8 + t;
+    uint32_t ab[4], as[4];
+    split(ra[0], ab[0], as[0]);
+    split(ra[8 * LD], ab[1], as[1]);
+    split(ra[4], ab[2], as[2]);
+    split(ra[8 * LD + 4], ab[3], as[3]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float* rb = sk + (j * 8 + g) * LD + kk * 8 + t;
+      uint32_t bb[2], bs[2];
+      split(rb[0], bb[0], bs[0]);
+      split(rb[4], bb[1], bs[1]);
+      mma_3xtf32(part[kk % NA][j], ab, as, bb, bs);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[0][j][e] = (part[0][j][e] + part[1][j][e]) +
+                   (part[2][j][e] + part[3][j][e]);
+}
+
+// The wide route's online softmax for one KV tile (keys from k0), on the
+// warp's raw scores s of its KPW keys (from key0 of the tile) for the 16
+// rows of m-tile mt (query rows q0 + 16 mt..): masks them, takes each
+// row's max over the keys of all WPM warps of the m-tile (their maxima
+// meet in smax under the m-tile's barrier), updates m and gives the
+// rescale corr, leaves the probabilities in s, writes them to P (sp,
+// rows of LDP) in the P V operand's type, and this thread's part of each
+// row's sum to ssum. The block's next barrier makes P and the parts
+// visible to the m-tile's warps.
+template <typename T, int BQ, int BKV, int WPM, int LDP, int NJ>
+__device__ __forceinline__ void wide_softmax(
+    float (&s)[1][NJ][4], float (&m)[1][2], float (&corr)[2], T* sp,
+    float* smax, float* ssum, int q0, int k0, int key0, int mt, int warp,
+    int lane, int S, int causal, int window, float scale_log2) {
+  static_assert(NJ * 4 <= 32, "a thread's keep bits of a tile fit a word");
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = mt * 16;
+  // Whether any entry of the block's tile is masked: the same for every
+  // warp (softmax_step's predicate).
+  bool masked = k0 + BKV > S;
+  if (causal)
+    masked = masked || k0 + BKV - 1 > q0 ||
+             (window > 0 && q0 + BQ - 1 - k0 >= window);
+  uint32_t kept = 0xffffffffu;    // bit 4j + e: entry s[0][j][e] is kept
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + wrow + g + (e >> 1) * 8;
+        const int kj = k0 + key0 + j * 8 + 2 * t + (e & 1);
+        if (!keep(qi, kj, S, causal, window)) {
+          kept &= ~(1u << (4 * j + e));
+          s[0][j][e] = kNegInf;
+        }
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      mx = fmaxf(mx, fmaxf(s[0][j][2 * r], s[0][j][2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    if (t == 0) smax[warp * 16 + g + 8 * r] = mx;
+  }
+  bar_sync(1 + mt, 32 * WPM);
+  const int first = mt * WPM;     // the m-tile's first warp
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // The row's max over the whole tile, raw; times scale_log2 it is the
+    // scaled max, and p = 2^(raw * scale_log2 - m).
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < WPM; ++w)
+      mx = fmaxf(mx, smax[(first + w) * 16 + g + 8 * r]);
+    const float m_new = fmaxf(m[0][r], mx * scale_log2);
+    corr[r] = ex2(m[0][r] - m_new);
+    m[0][r] = m_new;
+    float ls = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 2 * r + c;
+        float p = ex2(fmaf(s[0][j][e], scale_log2, -m_new));
+        if (masked && !(kept >> (4 * j + e) & 1u)) p = 0.f;
+        s[0][j][e] = p;
+        ls += p;
+      }
+    ssum[(warp * 2 + r) * 32 + lane] = ls;
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      T* row = sp + (wrow + g + 8 * r) * LDP + key0 + j * 8 + 2 * t;
+      if constexpr (sizeof(T) == 2)
+        *reinterpret_cast<uint32_t*>(row) =
+            pack16<T>(s[0][j][2 * r], s[0][j][2 * r + 1]);
+      else
+        *reinterpret_cast<float2*>(row) =
+            make_float2(s[0][j][2 * r], s[0][j][2 * r + 1]);
+    }
+}
+
+// o = o * corr + P V for the warp's 16 rows (from wrow) and DN output
+// columns (from col0): P (BKV keys, rows of LDP in shared memory, the
+// m-tile's warps' parts together) as the A operand, read with ldmatrix;
+// V the BKV x DP tile sv, read with ldmatrix .trans.
+template <int DP, int DN, int BKV, int LDP, typename T, if_16bit<T> = 0>
+__device__ __forceinline__ void wide_pv(float (&o)[1][DN / 8][4],
+                                        const float (&corr)[2], const T* sp,
+                                        const T* sv, int wrow, int col0,
+                                        int lane) {
+  constexpr int LD = DP + Pad<T>::value;
+#pragma unroll
+  for (int n = 0; n < DN / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[0][n][e] *= corr[e >> 1];
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, sp + (wrow + (lane & 15)) * LDP + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int nn = 0; nn < DN / 16; ++nn) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, sv + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               LD + col0 + nn * 16 + (lane >> 4) * 8);
+      mma16<T>(o[0][2 * nn], a, b[0], b[1]);
+      mma16<T>(o[0][2 * nn + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// f32 as 3xTF32, P's fragments split once a tile. The depth index is
+// permuted as in accumulate (A's k = t is key 8j + 2t, k = t + 4 is
+// 8j + 2t + 1), which keeps V's reads free of bank conflicts. The tile's
+// product is summed from zero, NG accumulator tiles at a time, then
+// folded into o with one rounded fma: the tensor cores' own f32 sums
+// round toward zero.
+template <int DP, int DN, int BKV, int LDP>
+__device__ __forceinline__ void wide_pv(float (&o)[1][DN / 8][4],
+                                        const float (&corr)[2],
+                                        const float* sp, const float* sv,
+                                        int wrow, int col0, int lane) {
+  constexpr int LD = DP + Pad<float>::value;
+  constexpr int ND = DN / 8, NK = BKV / 8;
+  constexpr int NG = ND % 4 == 0 ? 4 : 2;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t ab[NK][4], as[NK][4];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    const float* ra = sp + (wrow + g) * LDP + j * 8 + 2 * t;
+    split(ra[0], ab[j][0], as[j][0]);
+    split(ra[8 * LDP], ab[j][1], as[j][1]);
+    split(ra[1], ab[j][2], as[j][2]);
+    split(ra[8 * LDP + 1], ab[j][3], as[j][3]);
+  }
+#pragma unroll
+  for (int n0 = 0; n0 < ND; n0 += NG) {
+    float part[NG][4];
+#pragma unroll
+    for (int n = 0; n < NG; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const float* rb = sv + (j * 8 + 2 * t) * LD + col0 + g;
+#pragma unroll
+      for (int n = 0; n < NG; ++n) {
+        uint32_t bb[2], bs[2];
+        split(rb[(n0 + n) * 8], bb[0], bs[0]);
+        split(rb[LD + (n0 + n) * 8], bb[1], bs[1]);
+        mma_3xtf32(part[n], ab[j], as[j], bb, bs);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NG; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[0][n0 + n][e] = fmaf(o[0][n0 + n][e], corr[e >> 1], part[n][e]);
+  }
+}
+
+// The wide route's kernel (head_dim 257-576 padded to DP; the file's
+// header says how it works and why). Per KV tile: wait for K, stage V,
+// S = Q K^T over the warp's keys, the m-tile's softmax exchange; wait for
+// V, stage the next K, O += P V over the warp's columns.
+template <typename T, int DP>
+__global__ void __launch_bounds__(W_NT, 1)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, int S, int H, int group,
+                      int D, Strides st, int vec, int causal, int window,
+                      float scale) {
+  using W = Wide<T, DP>;
+  constexpr int BQ = W::BQ, BKV = W::BKV, WPM = W::WPM, LDP = W::LDP;
+  constexpr int NJ = W::KPW / 8;        // 8-key score tiles a warp
+  constexpr int DN = DP / WPM;          // output columns a warp
+  constexpr int LD = DP + Pad<T>::value;
+  static_assert(DN % 16 == 0, "a warp's columns are whole 16-column steps");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sq = reinterpret_cast<T*>(smem_raw);     // BQ x LD
+  T* sk = sq + BQ * LD;                       // BKV x LD
+  T* sv = sk + BKV * LD;                      // BKV x LD
+  T* sp = sv + BKV * LD;                      // BQ x LDP: the tile's P
+  float* smax = reinterpret_cast<float*>(sp + BQ * LDP);  // [warp][16]
+  float* ssum = smax + W_WARPS * 16;          // [warp][2][32]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int mt = warp / WPM, part = warp % WPM;
+  const int wrow = mt * 16;             // the m-tile's first row
+  const int key0 = part * W::KPW;       // the warp's first key of a tile
+  const int col0 = part * DN;           // and its first output column
+  const int h = blockIdx.y;
+  const T* kh = k + (h / group) * st.k_sh;
+  const T* vh = v + (h / group) * st.v_sh;
+  // Heaviest causal tiles (the last query rows) are scheduled first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+
+  int kv_begin = 0, kv_end = S;
+  if (causal) {
+    kv_end = min(S, q0 + BQ);
+    if (window > 0) {
+      const int lo = q0 - window + 1;
+      if (lo > 0) kv_begin = (lo / BKV) * BKV;
+    }
+  }
+  const int n_it = (kv_end - kv_begin + BKV - 1) / BKV;
+
+  load_tile<T, DP, BQ, W_NT>(sq, q + h * st.q_sh, q0, S, D, st.q_ss,
+                             vec & VEC_Q);
+  if (n_it > 0)
+    load_tile<T, DP, BKV, W_NT>(sk, kh, kv_begin, S, D, st.k_ss,
+                                vec & VEC_K);
+  cp_async_commit();
+
+  float acc[1][DN / 8][4];
+  zero(acc);
+  // Rows g and g + 8 of the m-tile: running max (base 2, scaled) and this
+  // thread's part of the running sum, the same in each of its warps.
+  float m[1][2] = {{kNegInf, kNegInf}}, l[1][2] = {{0.f, 0.f}};
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int k0 = kv_begin + it * BKV;
+    // Q and K of this tile have landed, and every warp is done with the
+    // last tile's V, whose buffer this tile's V now fills.
+    cp_async_wait_all();
+    __syncthreads();
+    load_tile<T, DP, BKV, W_NT>(sv, vh, k0, S, D, st.v_ss, vec & VEC_V);
+    cp_async_commit();
+
+    float s[1][NJ][4];
+    if constexpr (sizeof(T) == 2)
+      abt<DP, 1, NJ>(s, sq, sk + key0 * LD, wrow, lane);
+    else
+      wide_scores_f32<DP>(s, sq, sk + key0 * LD, wrow, lane);
+    float corr[2];
+    wide_softmax<T, BQ, BKV, WPM, LDP>(s, m, corr, sp, smax, ssum, q0, k0,
+                                       key0, mt, warp, lane, S, causal,
+                                       window, scale_log2);
+    // V has landed, P and the sum parts are visible, and every warp is
+    // done with K, whose buffer the next tile's K now fills.
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_it)
+      load_tile<T, DP, BKV, W_NT>(sk, kh, k0 + BKV, S, D, st.k_ss,
+                                  vec & VEC_K);
+    cp_async_commit();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float ls = 0.f;
+#pragma unroll
+      for (int w = 0; w < WPM; ++w)
+        ls += ssum[((mt * WPM + w) * 2 + r) * 32 + lane];
+      l[0][r] = l[0][r] * corr[r] + ls;
+    }
+    wide_pv<DP, DN, BKV, LDP>(acc, corr, sp, sv, wrow, col0, lane);
+  }
+  store_out(acc, m, l, o, lse, q0, wrow, lane, S, H, h, D, col0);
+}
+
+// The streamed route's kernel (head_dim above 576; the file's header
+// says why): one block of 4 warps owns one 128-column slice of O for one
 // (query head, 64-row query tile), one 16-row m-tile a warp. Per KV tile
 // it streams the depth of S = Q K^T through shared memory, DC columns of
 // Q and of K at a time, then stages the tile's V slice and folds P V into
@@ -580,16 +955,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // other one computes: one wait and one barrier a stage.
 template <typename T, int DC>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
-flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o,
-                      float* __restrict__ lse, int S, int H, int group,
-                      int D, Strides st, int vec, int causal, int window,
-                      float scale) {
-  constexpr int BQ = W_ROWS, BKV = W_ROWS;
+flash_fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o,
+                        float* __restrict__ lse, int S, int H, int group,
+                        int D, Strides st, int vec, int causal, int window,
+                        float scale) {
+  constexpr int BQ = ST_ROWS, BKV = ST_ROWS;
   constexpr int NJ = BKV / 8;           // 8-column score tiles
-  constexpr int ND = W_COLS / 8;        // 8-column accumulator tiles
+  constexpr int ND = ST_COLS / 8;       // 8-column accumulator tiles
   constexpr int LDC = DC + Pad<T>::value;   // row stride of a chunk tile
-  constexpr int BUF = wide_buf<T>();
+  constexpr int BUF = stream_buf<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sbuf = reinterpret_cast<T*>(smem_raw);   // 2 stage buffers of BUF
 
@@ -600,8 +975,8 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // The slices of one query tile are neighbours in the grid, so they read
   // the same Q and K chunks at about the same time (from L2); the
   // heaviest causal tiles (the last query rows) are scheduled first.
-  const int n_slices = (D + W_COLS - 1) / W_COLS;
-  const int col0 = (blockIdx.x % n_slices) * W_COLS;
+  const int n_slices = (D + ST_COLS - 1) / ST_COLS;
+  const int col0 = (blockIdx.x % n_slices) * ST_COLS;
   const int q0 = (gridDim.x / n_slices - 1 - blockIdx.x / n_slices) * BQ;
 
   int kv_begin = 0, kv_end = S;
@@ -618,7 +993,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_st = n_it * per_tile;
 
   // Stages `u` into buffer u & 1: chunk c of Q and K (rows BQ of Q, then
-  // BKV of K, LDC apart), or the V slice (BKV rows, W_COLS + pad apart).
+  // BKV of K, LDC apart), or the V slice (BKV rows, ST_COLS + pad apart).
   auto stage = [&](int u) {
     const int k0 = kv_begin + (u / per_tile) * BKV;
     const int c = u % per_tile;
@@ -630,7 +1005,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_tile<T, DC, BKV, NT>(b + BQ * LDC, k + kvh * st.k_sh + c0, k0, S,
                                 D - c0, st.k_ss, vec & VEC_K);
     } else {
-      load_tile<T, W_COLS, BKV, NT>(b, v + kvh * st.v_sh + col0, k0, S,
+      load_tile<T, ST_COLS, BKV, NT>(b, v + kvh * st.v_sh + col0, k0, S,
                                     D - col0, st.v_ss, vec & VEC_V);
     }
   };
@@ -661,7 +1036,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       softmax_step<BQ, BKV>(s, m, l, corr, q0,
                             kv_begin + (u / per_tile) * BKV, wrow, lane, S,
                             causal, window, scale_log2);
-      accumulate<W_COLS, 1, NJ>(acc, s, corr, b, lane);
+      accumulate<ST_COLS, 1, NJ>(acc, s, corr, b, lane);
     }
   }
   store_out(acc, m, l, o, lse, q0, wrow, lane, S, H, h, D, col0);
@@ -710,19 +1085,38 @@ cudaError_t launch_fwd(const void* const* p, int S, int H, int KVH, int D,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int DP>
 cudaError_t launch_fwd_wide(const void* const* p, int S, int H, int KVH,
                             int D, const Strides& st, int causal, int window,
                             float scale, cudaStream_t stream) {
-  constexpr int smem = wide_smem_bytes<T>();
-  constexpr int DC = wide_chunk<T>();
+  constexpr int smem = wide_smem_bytes<T, DP>();
+  constexpr int BQ = Wide<T, DP>::BQ;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wide_kernel<T, DC>,
+      flash_fwd_wide_kernel<T, DP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int n_slices = (D + W_COLS - 1) / W_COLS;
-  const dim3 grid((S + W_ROWS - 1) / W_ROWS * n_slices, H);
-  flash_fwd_wide_kernel<T, DC><<<grid, NT, smem, stream>>>(
+  const dim3 grid((S + BQ - 1) / BQ, H);
+  flash_fwd_wide_kernel<T, DP><<<grid, W_NT, smem, stream>>>(
+      static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
+      static_cast<const T*>(p[2]), static_cast<T*>(const_cast<void*>(p[3])),
+      static_cast<float*>(const_cast<void*>(p[4])), S, H, H / KVH, D, st,
+      vec_bits<T>(p, st, D), causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fwd_stream(const void* const* p, int S, int H, int KVH,
+                              int D, const Strides& st, int causal,
+                              int window, float scale, cudaStream_t stream) {
+  constexpr int smem = stream_smem_bytes<T>();
+  constexpr int DC = stream_chunk<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_stream_kernel<T, DC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_slices = (D + ST_COLS - 1) / ST_COLS;
+  const dim3 grid((S + ST_ROWS - 1) / ST_ROWS * n_slices, H);
+  flash_fwd_stream_kernel<T, DC><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
       static_cast<const T*>(p[2]), static_cast<T*>(const_cast<void*>(p[3])),
       static_cast<float*>(const_cast<void*>(p[4])), S, H, H / KVH, D, st,
@@ -735,7 +1129,7 @@ using Launcher = cudaError_t (*)(const void* const*, int, int, int, int,
                                  cudaStream_t);
 
 // The template instances with head_dim padded to 16, 32, 64, 128 or 256,
-// and the wide route beyond.
+// the wide route's padded to 512 or 576, and the streamed route beyond.
 template <typename T>
 Launcher fwd_for(int D) {
   return D <= 16 ? &launch_fwd<T, 16>
@@ -743,7 +1137,9 @@ Launcher fwd_for(int D) {
        : D <= 64 ? &launch_fwd<T, 64>
        : D <= 128 ? &launch_fwd<T, 128>
        : D <= 256 ? &launch_fwd<T, 256>
-                  : &launch_fwd_wide<T>;
+       : D <= 512 ? &launch_fwd_wide<T, 512>
+       : D <= W_MAX_DP ? &launch_fwd_wide<T, W_MAX_DP>
+                       : &launch_fwd_stream<T>;
 }
 
 template <typename T>
@@ -753,7 +1149,9 @@ int smem_for(int D) {
        : D <= 64 ? smem_bytes<T, 64>()
        : D <= 128 ? smem_bytes<T, 128>()
        : D <= 256 ? smem_bytes<T, 256>()
-                  : wide_smem_bytes<T>();
+       : D <= 512 ? wide_smem_bytes<T, 512>()
+       : D <= W_MAX_DP ? wide_smem_bytes<T, W_MAX_DP>()
+                       : stream_smem_bytes<T>();
 }
 
 }  // namespace

@@ -76,6 +76,11 @@ def test_every_quoted_include_is_a_header_of_csrc():
     ("_ZN69_GLOBAL__N__flash_fwd_cu_21flash_fwd_wide_kernelI13__nv_bfloat16"
      "Li128EEvPKT_S5_S5_PS3_Pfiiii7Stridesiiif",
      "flash_fwd_wide_kernel<bfloat16,128>"),
+    ("_ZN69_GLOBAL__N__flash_fwd_cu_21flash_fwd_wide_kernelIfLi512EEvPKT_"
+     "S4_S4_PS2_Pfiiii7Stridesiiif", "flash_fwd_wide_kernel<float,512>"),
+    ("_ZN69_GLOBAL__N__flash_fwd_cu_23flash_fwd_stream_kernelI6__halfLi128EE"
+     "vPKT_S5_S5_PS3_Pfiiii7Stridesiiif",
+     "flash_fwd_stream_kernel<float16,128>"),
     ("_ZN69_GLOBAL__N__flash_bwd_dq_cu_24flash_bwd_dq_wide_kernelI13__nv_"
      "bfloat16Li32EEvPKT_S5_S5_S5_PKfS7_PS3_iiiii7Stridesiiif",
      "flash_bwd_dq_wide_kernel<bfloat16,32>"),

@@ -10,6 +10,7 @@ both sides take as they are and whose outputs both round once from f32,
 """
 
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -322,3 +323,124 @@ def test_fwd_f16_rounding_stays_inside_the_f16_bound(head_dim):
     inputs, want = _f16_case(head_dim)
     err = (_fwd_emulated_f16(*inputs).double() - want).abs().max().item()
     assert err < F16_TOL, err
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of csrc/flash_fwd.cu's wide route (flash_fwd_wide_kernel,
+# head_dim 257-576), emulated: per KV tile (64 keys in a 16-bit type up to
+# head_dim 512, else 32), S = Q K^T as one full-depth product (exact
+# products summed in f32 for a 16-bit type; 3xTF32 for f32, summed in four
+# interleaved partial products over the 8-column depth steps, then
+# added), each row's max
+# over the whole tile (the maxima of the warps that split its keys), P in
+# base 2, l summed from those warps' parts in their order, P V with P
+# packed to a 16-bit input's type (f32 as it is, its 3xTF32 product summed
+# from zero and folded into O with one rounding), and O rounded once.
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+#: chip_smoke.py's TOL and LSE_TOL, by dtype
+CHIP_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2, torch.float16: 4e-3}
+CHIP_LSE_TOL = 1e-4
+
+
+def _wide_tiles(dtype, d):
+    """(keys a tile, warps an m-tile) of the wide route's template for
+    ``dtype`` and head_dim ``d``."""
+    if dtype == torch.float32:
+        return 32, 4
+    return (64 if d <= 512 else 32), 2
+
+
+def _wide_f32_scores(q, k):
+    """q @ k.T as the wide route computes it in f32: 3xTF32 products of
+    depth steps 8kk..8kk+7 summed into partial a = kk mod 4, then
+    (p0 + p1) + (p2 + p3)."""
+    steps = torch.arange(q.shape[1]).view(-1, 8)
+    p = [product(q[:, steps[a::4].flatten()], k[:, steps[a::4].flatten()].T,
+                 "3xtf32") for a in range(4)]
+    return (p[0] + p[1]) + (p[2] + p[3])
+
+
+def _causal_keep(s, window, k0=0, n=None):
+    pos = torch.arange(s)
+    diff = pos[:, None] - pos[None, k0:None if n is None else k0 + n]
+    keep = diff >= 0
+    if window is not None:
+        keep &= diff < window
+    return keep
+
+
+def _fwd_wide_emulated(q, k, v, dtype, window):
+    """(O, lse) of the wide route, causal, from f32 tensors that hold
+    ``dtype`` values; S a whole number of KV tiles."""
+    s, h, d = q.shape
+    group = h // k.shape[1]
+    bkv, wpm = _wide_tiles(dtype, d)
+    f32 = dtype == torch.float32
+    scale_log2 = torch.tensor(d ** -0.5 * LOG2E, dtype=torch.float32)
+    out, lse = torch.empty_like(q), torch.empty(h, s)
+    for ih in range(h):
+        qh, kh, vh = q[:, ih], k[:, ih // group], v[:, ih // group]
+        m = torch.full((s, 1), -1e30)
+        l = torch.zeros(s, 1)
+        o = torch.zeros(s, d)
+        for k0 in range(0, s, bkv):
+            keep = _causal_keep(s, window, k0, bkv)
+            kt, vt = kh[k0:k0 + bkv], vh[k0:k0 + bkv]
+            raw = _wide_f32_scores(qh, kt) if f32 else qh @ kt.T
+            raw = raw.masked_fill(~keep, -1e30)
+            m_new = torch.maximum(m, raw.amax(1, keepdim=True) * scale_log2)
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(raw * scale_log2 - m_new) * keep
+            parts = p.view(s, wpm, bkv // wpm).sum(-1)
+            ls = torch.zeros(s, 1)
+            for w in range(wpm):
+                ls = ls + parts[:, w:w + 1]
+            l = l * corr + ls
+            if f32:
+                pv = product(p, vt, "3xtf32")
+                o = (o.double() * corr.double() + pv.double()).float()
+            else:
+                o = o * corr + p.to(dtype).float() @ vt
+            m = m_new
+        li = torch.where(l == 0, torch.ones_like(l), l)
+        out[:, ih] = o / li
+        lse[ih] = (m * math.log(2) + torch.log(li))[:, 0]
+    return out.to(dtype).float(), lse
+
+
+@functools.cache
+def _wide_case(dtype, head_dim, window):
+    """Inputs of ``dtype`` at S = 512 (2 query heads, 1 KV head), held in
+    f32, and (O, lse) recomputed from them in f64."""
+    s, h = 512, 2
+    q, k, v = (torch.from_numpy(a).to(dtype).float()
+               for a in _qkv(s, h, 1, head_dim, seed=19))
+    sc = (q.double().permute(1, 0, 2) @ k.double()[:, 0].T) / head_dim ** 0.5
+    sc = sc.masked_fill(~_causal_keep(s, window), -torch.inf)
+    want = (torch.softmax(sc, dim=-1) @ v.double()[:, 0]).permute(1, 0, 2)
+    return (q, k, v), want, torch.logsumexp(sc, dim=-1)
+
+
+@pytest.mark.parametrize("window", [None, 128], ids=["causal", "window128"])
+@pytest.mark.parametrize("head_dim", [512, 576])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16],
+                         ids=["f32", "f16", "bf16"])
+def test_fwd_wide_arithmetic_stays_inside_the_chip_bounds(dtype, head_dim,
+                                                          window):
+    """The wide route's order of sums (full-depth scores, row maxima and
+    sums over the warps that split a tile's keys, P packed where the kernel
+    packs it) against an f64 recomputation from the same inputs: O under a
+    tenth of chip_smoke.py's f32 TOL in f32, under F16_TOL in f16 and the
+    bf16 TOL in bf16, and lse under LSE_TOL."""
+    inputs, want, want_lse = _wide_case(dtype, head_dim, window)
+    o, lse = _fwd_wide_emulated(*inputs, dtype, window)
+    bound = {torch.float32: CHIP_TOL[torch.float32] / 10,
+             torch.float16: F16_TOL,
+             torch.bfloat16: CHIP_TOL[torch.bfloat16]}[dtype]
+    err = (o.double() - want).abs().max().item()
+    assert err < bound, err
+    lse_err = (lse.double() - want_lse).abs().max().item()
+    assert lse_err < CHIP_LSE_TOL, lse_err
