@@ -103,7 +103,9 @@ MAIN_SHAPES = (
 # not, and in f16 over a window at a small S, the forward wide route's
 # last width); 577 (f16, small S) is the first width of the forward's
 # streamed route, and 1024 at a small S; above 1024 the backward kernels
-# take their streamed route (1100 in f16).
+# take their streamed route (1100 in f16). The dk/dv kernel's 256
+# instance splits a KV tile's query heads over a cluster of blocks where
+# the grid would not fill the card (DKV_PARTS_EDGES).
 EDGE_SHAPES = (
     ("edge_noncausal_d8", 100, 4, 2, 8, "float32", None, False),
     ("edge_d40_ragged", 77, 2, 2, 40, "float32", None, True),
@@ -123,7 +125,14 @@ EDGE_SHAPES = (
     ("edge_d1100_f16", 70, 2, 1, 1100, "float16", None, True),
     ("edge_d576_window_f16", 70, 2, 1, 576, "float16", 20, True),
     ("edge_d577_f16", 70, 2, 1, 577, "float16", None, True),
+    ("edge_d256_mha_bf16", 200, 4, 4, 256, "bfloat16", None, True),
+    ("edge_d200_gqa8_ragged_f16", 333, 8, 1, 200, "float16", None, True),
 )
+# The blocks that share each KV tile of the dk/dv kernel's 256 instance
+# (flash_bwd_dkv_parts) at two edges: 1 under MHA, where every block owns
+# its tile alone, and 8, the most, with a GQA group of 8 at a ragged S of
+# 6 KV tiles, where 8 blocks sum their partials across a cluster.
+DKV_PARTS_EDGES = {"edge_d256_mha_bf16": 1, "edge_d200_gqa8_ragged_f16": 8}
 # Edge shapes whose inputs the flash kernels cannot copy in 16-byte
 # units, so they take their scalar load paths: head_dim 20 in bf16 (not
 # a whole number of 8-element vectors), f32 tensors that start one
@@ -500,6 +509,9 @@ ENGINE = {"float32": "mma.sync 3xtf32", "bfloat16": "mma.sync bf16",
 # route. A streamed template's shared memory does not depend on head_dim
 # either; the build reports it at STREAM_HEAD_DIM.
 HEAD_DIM_INSTANCES = (16, 32, 64, 128, 256)
+# Warps an SM of the backward kernels' 256 instances (one block of two
+# groups of 4 warps), which the build checks
+SPLIT_WARPS = 8
 FWD_WIDE_HEAD_DIMS = (512, 576)
 WIDE_HEAD_DIM = 512
 CLUSTER_COLS = 128
@@ -646,6 +658,15 @@ def phase_build():
                  else STREAM_HEAD_DIM if "_stream_" in row["function"]
                  else int(dp))
             row["smem_bytes"] = smem(d, DTYPE_CODE[dtype])
+            if (name in CLUSTER_LIBS and not wide
+                    and "_stream_" not in row["function"]):
+                row["warps_per_sm"] = _warps_per_sm(libs[name], name, d,
+                                                    DTYPE_CODE[dtype])
+                check(row["warps_per_sm"] > 0
+                      and (d != HEAD_DIM_INSTANCES[-1]
+                           or row["warps_per_sm"] == SPLIT_WARPS),
+                      f"{row['function']}: {row['warps_per_sm']} warps "
+                      "an SM")
             if wide:
                 row["head_dim"] = d
                 row["cluster_blocks"] = -(-d // CLUSTER_COLS)
@@ -661,6 +682,31 @@ def phase_build():
     emit({"phase": "build", "seconds": secs,
           "libraries": {k: v.name for k, v in libs.items()},
           "sass_hmma": hmma, "ptxas": ptxas})
+
+
+def _warps_per_sm(path, name, d, dtype):
+    """Warps an SM of a backward kernel's instance for head_dim ``d`` and
+    ``dtype`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    query = getattr(ctypes.CDLL(str(path)), f"{name}_warps_per_sm")
+    query.argtypes = [ctypes.c_int, ctypes.c_int]
+    return query(d, dtype)
+
+
+def _dkv_parts(torch, s, h, kvh, d):
+    """Blocks that share each KV tile in the dk/dv kernel's launch at this
+    shape (``flash_bwd_dkv_parts``), held to the plain function the CPU
+    tests check, ``flash_attention.dkv_parts``."""
+    from fiber_tpu_torch.ops import flash_attention as fa
+
+    query = fa._bwd_lib("flash_bwd_dkv").flash_bwd_dkv_parts
+    query.argtypes = [ctypes.c_int] * 4
+    parts = query(s, kvh, h // kvh, d)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = (fa.dkv_parts(s, kvh, h // kvh, sms)
+            if HEAD_DIM_INSTANCES[-2] < d <= HEAD_DIM_INSTANCES[-1] else 1)
+    check(parts == want, f"(S {s}, heads {h}, kv_heads {kvh}, head_dim "
+          f"{d}): the dk/dv launch takes {parts} parts, dkv_parts {want}")
+    return parts
 
 
 def _max_clusters(path, name, dtype):
@@ -758,6 +804,7 @@ def phase_kernels(torch, card):
              for e in EDGE_SHAPES + MESH_BLOCK_SHAPES + GRID_BLOCK_SHAPES]
     edges += list(SCALAR_EDGE_SHAPES)
     for name, s, h, kvh, d, dt, window, causal, offset in edges:
+        t0 = time.perf_counter()
         dtype = getattr(torch, dt)
         q, k, v = _inputs(torch, s, h, kvh, d, dtype, seed=len(rows),
                           offset=offset)
@@ -771,7 +818,7 @@ def phase_kernels(torch, card):
               f"{name}: max_abs_err {err} lse_err {lse_err}")
         rows.append({"shape": name, "offset": offset, "engine": ENGINE[dt],
                      "max_abs_err": err, "lse_err": lse_err,
-                     "tol": TOL[dt]})
+                     "tol": TOL[dt], "seconds": time.perf_counter() - t0})
 
     main = {}
     timed = [m + (True,) for m in MAIN_SHAPES] + [RING_BLOCK_SHAPE]
@@ -923,9 +970,8 @@ def _bwd_times(torch, q, k, v, dout, lse, delta, window):
                 *args, **kw, **plain[part]), reps=2)}
     row["library_ms"] = cuda_ms(
         torch, _sdpa_bwd(torch, q, k, v, dout, window), reps=3)
-    if d > HEAD_DIM_INSTANCES[-1]:
-        row["library_backend"] = _sdpa_backend(torch, q, k, v, window,
-                                               grad=True)
+    row["library_backend"] = _sdpa_backend(torch, q, k, v, window,
+                                           grad=True)
     return row
 
 
@@ -935,7 +981,9 @@ def phase_kernels_bwd(torch, card):
     random lse cotangent on the edge and mesh-block shapes and on one
     main shape. At the main shapes a second launch of each kernel on the
     same inputs must give the same dq, dk and dv bit for bit (no
-    atomics, a fixed order)."""
+    atomics, a fixed order). Every row carries the blocks that share
+    each KV tile of dk/dv (``_dkv_parts``, DKV_PARTS_EDGES at two edges)
+    and its seconds."""
     from fiber_tpu_torch.ops import flash_attention as fa
     from fiber_tpu_torch.utils import flops
 
@@ -945,6 +993,7 @@ def phase_kernels_bwd(torch, card):
     shapes += [m + (True, m[0] == "lm_f32_gqa", 0) for m in MAIN_SHAPES]
     rows, main = [], {}
     for name, s, h, kvh, d, dt, window, causal, with_dlse, offset in shapes:
+        t0 = time.perf_counter()
         dtype = getattr(torch, dt)
         seed = 100 + len(rows)
         q, k, v = _inputs(torch, s, h, kvh, d, dtype, seed=seed,
@@ -974,7 +1023,11 @@ def phase_kernels_bwd(torch, card):
                "tol": BWD_TOL[dt],
                "dq_engine": ENGINE[dt], "dkv_engine": ENGINE[dt],
                "dq_max_abs_err": dq_err, "dq_rel_err": dq_rel,
-               "dkv_max_abs_err": dkv_err, "dkv_rel_err": dkv_rel}
+               "dkv_max_abs_err": dkv_err, "dkv_rel_err": dkv_rel,
+               "dkv_parts": _dkv_parts(torch, s, h, kvh, d)}
+        check(row["dkv_parts"] == DKV_PARTS_EDGES.get(name, row["dkv_parts"]),
+              f"{name}: {row['dkv_parts']} dk/dv parts, want "
+              f"{DKV_PARTS_EDGES.get(name)}")
         if dt == "float16":
             # the kernels pack dS = P (dP - delta) to f16 before its
             # scale: |dS_ij| <= 2 |dO_i| max_j |v_j| + |dlse_i| must fit
@@ -997,6 +1050,7 @@ def phase_kernels_bwd(torch, card):
             del dq2, dk2, dv2
             row.update(_bwd_times(torch, q, k, v, dout, lse, delta, window))
             main[name] = row
+        row["seconds"] = time.perf_counter() - t0
         rows.append(row)
         del q, k, v, o, lse, dout, dlse, delta, dq, dk, dv
         torch.cuda.empty_cache()

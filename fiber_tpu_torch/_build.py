@@ -97,12 +97,13 @@ def build_all() -> dict:
     return dict(zip(names, paths))
 
 
-def ptxas_report(name: str) -> list:
-    """What ptxas said of each kernel in the last build of ``name``: one
-    ``{"function", "registers", "spill_stores", "spill_loads"}`` per
-    kernel (bytes of spills), with a template kernel named as
+def ptxas_report(name: str, build_dir=None) -> list:
+    """What ptxas said of each kernel in the last build of ``name`` (in
+    ``build_dir``, by default ``BUILD_DIR``): one ``{"function",
+    "registers", "spill_stores", "spill_loads"}`` per kernel (bytes of
+    spills), with a template kernel named as
     ``flash_bwd_dkv_kernel<float,32>``. Empty if ``name`` was not built."""
-    log = BUILD_DIR / f"{name}.log"
+    log = Path(build_dir or BUILD_DIR) / f"{name}.log"
     if not log.is_file():
         return []
     rows, row = [], None

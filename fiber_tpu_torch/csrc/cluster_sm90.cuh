@@ -23,6 +23,12 @@
 // types packed as the products' A operands take them, f32 as it is), C
 // + 8 a row. Both paddings keep a warp's fragment accesses free of bank
 // conflicts.
+//
+// The head_dim-256 instances of both kernels (flash_bwd_*_split_kernel)
+// pass whole score tiles between the two warp groups of one block in the
+// same row layout (scatter_rows, gather_rows), and the dk/dv instance's
+// cluster of parts sums its partial dk and dv with the same remote stores
+// (st_peer) and barriers (cluster_sync).
 
 #pragma once
 
@@ -115,6 +121,16 @@ __device__ __forceinline__ float2 ld_pair(const f16* p) {
   return __half22float2(*reinterpret_cast<const __half2*>(p));
 }
 
+// Two adjacent entries of a tile row from floats: f32 as they are, a
+// 16-bit type rounded to nearest into one packed pair.
+__device__ __forceinline__ void st_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+template <typename T, if_16bit<T> = 0>
+__device__ __forceinline__ void st_pair(T* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) = pack16<T>(x, y);
+}
+
 // A warp's 16-row m-tile (rows wrow..) of a C-column partial score tile
 // (accumulator fragments) into the receive buffers of the rows' owners:
 // `xr` is this block's receive buffer, and the same offset in the owner
@@ -186,6 +202,24 @@ __device__ __forceinline__ void gather_rows(float (&x)[1][NJ][4],
       x[0][j][2 * h] = v.x;
       x[0][j][2 * h + 1] = v.y;
     }
+  }
+}
+
+// The inverse of gather_rows: a warp's 16 rows of a C-column tile (its
+// accumulator fragments) into a tile of this block's shared memory, rows
+// C + X_PAD apart, for the warps of another group to gather.
+template <int NJ, typename T>
+__device__ __forceinline__ void scatter_rows(T* fin,
+                                             const float (&x)[1][NJ][4],
+                                             int wrow, int lane) {
+  constexpr int LF = 8 * NJ + X_PAD;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    T* p = fin + (wrow + g + 8 * h) * LF + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      st_pair(p + 8 * j, x[0][j][2 * h], x[0][j][2 * h + 1]);
   }
 }
 

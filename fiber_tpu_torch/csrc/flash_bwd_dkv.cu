@@ -34,19 +34,52 @@
 //
 // Design (FlashAttention-2's backward structure, warp-level mma.sync):
 //
-// - One block of 4 warps owns one (KV head, 64-row KV tile, output
-//   column slice); each warp owns 16 KV rows. The slice is all of
-//   head_dim up to 128; the 256 instance (head_dim 129-256) splits it in
-//   two 128-column halves, one block each, because dk and dv over all
-//   256 columns would be 256 accumulator registers a thread. Each half
-//   computes the full-width scores S^T and dP^T again (one and a half
-//   times the products of one block), and its accumulators are those of
-//   the 128 instance. K and V are staged in shared memory once. The block
-//   loops over the group's query heads and their query tiles (64 rows; 32
-//   at head_dim 128, to keep the accumulators in registers), from the
-//   causal diagonal on and, with a window, up to k0 + 63 + window. dk and
-//   dv accumulate in registers; a block owns its outputs, so there are no
-//   atomics and the gradients repeat bit for bit.
+// - Up to head_dim 128 one block of 4 warps owns one (KV head, 64-row KV
+//   tile); each warp owns 16 KV rows and both of their accumulators, dk
+//   and dv over all of head_dim. K and V are staged in shared memory
+//   once. The block loops over the group's query heads and their query
+//   tiles (64 rows; 32 at head_dim 128, to keep the accumulators in
+//   registers), from the causal diagonal on and, with a window, up to k0
+//   + 63 + window. dk and dv accumulate in registers; a block owns its
+//   outputs, so there are no atomics and the gradients repeat bit for bit.
+// - head_dim 129-256 pads to one 256 instance (flash_bwd_dkv_split_kernel):
+//   dk and dv over 256 columns would be 256 accumulator registers a
+//   thread, so one block of 8 warps owns the (KV head, 64-row KV tile) and
+//   all 256 output columns, in two groups of 4 warps, 16 KV rows a warp
+//   in each group. Group A computes S^T = K Q^T over the full depth, P^T,
+//   and holds dV; group B computes dP^T = V dO^T over the full depth,
+//   reads P^T (f32) from shared memory to form dS^T, and holds dK: one
+//   128-register accumulator a thread, and 8 warps an SM. Per query tile
+//   only P^T crosses between the groups, inside the block: group A stores
+//   it and arrives on a named barrier, group B waits there (bar.sync over
+//   the block's 256 threads), and the block barrier that opens the next
+//   tile frees the buffer. Each score product is thus computed once a
+//   (KV tile, query tile): 4 products of 64 x BQ x 256 (S^T, dP^T, dV,
+//   dK), where blocks that each owned a 128-column half of dk and dv
+//   would compute S^T and dP^T in each half, 6. The other split with the
+//   same count, groups that each own 128
+//   columns of both dk and dv, would exchange P^T and dS^T, one exchange
+//   more; here group B needs P^T anyway, and A's dV and B's dK products
+//   are of one size, so the groups stay in step; on an H100 the other
+//   split ran 3-4% slower in 16 bits and spilled in f32. Query tiles are
+//   64 rows in a 16-bit type (the accumulator and a 16 x 64 score tile
+//   fit the 255 registers a thread that 8 warps an SM leave; 32-row
+//   tiles ran 20% slower), 32 in f32 (one query-tile buffer; two would
+//   not fit the block's shared memory), whose 3xTF32 products add two
+//   accumulator tiles a pass (four spilled).
+//   With few KV heads one block a KV tile would not fill the card (one
+//   KV head at S 8192 gives 128 blocks for 132 SMs, and under causality
+//   the first does twice the mean work), so the launcher splits each KV
+//   tile's work over `parts` blocks (dkv_parts(): a power of two, at most
+//   the GQA group and 8, doubled while the grid has no more blocks than
+//   the card has SMs), each taking a share of the group's query heads.
+//   The parts of a tile form a thread-block cluster; after the loop they
+//   sum their f32 partial dk and dv through distributed shared memory
+//   (cluster_sm90.cuh's remote stores, into the shared memory the tiles
+//   used): block r owns rows [64 r / parts, 64 (r + 1) / parts) of the
+//   tile, every block stores those rows of its partials there, and the
+//   owner adds the parts in rank order and writes them. The order is
+//   fixed, so two launches agree bit for bit, with no atomics.
 // - Per query tile a warp computes S^T = K Q^T and dP^T = V dO^T for its
 //   16 rows (accumulator fragments), P^T and dS^T from them in registers,
 //   then dV += P^T dO and dK += dS^T Q. P^T and dS^T never leave the
@@ -101,8 +134,7 @@
 //   (16 bytes a thread; 4 for lse and delta) into the second of two
 //   buffers while the current tile computes: one wait and one barrier
 //   per tile; for f32 at head_dim 256 one buffer, the next tile's copy
-//   after a barrier at the end of this one (two would take 266 KB of
-//   shared memory against the block's 227 KB). A tensor whose pointer,
+//   after a barrier at the end of this one. A tensor whose pointer,
 //   strides or head_dim are not in whole 16-byte units takes a scalar
 //   load path inside the kernel instead (per tensor, chosen by the
 //   launcher).
@@ -135,16 +167,34 @@ __host__ __device__ constexpr int min_blocks(bool f32, int dp) {
   return (f32 ? dp <= 32 : dp <= 64) ? 3 : 1;
 }
 
-// Output columns (of dk and dv) per block: all of head_dim up to 128,
-// else 128, a half of the 256 instance.
-__host__ __device__ constexpr int out_cols(int dp) {
-  return dp > 128 ? 128 : dp;
+// The 256 instance (head_dim 129-256): threads of a block (two groups of
+// 4 warps), query rows a tile and query-tile buffers (64 rows and two
+// buffers in a 16-bit type, 32 rows and one in f32), and the most blocks
+// that share a KV tile (the portable cluster size).
+constexpr int SPLIT_NT = 2 * NT;
+template <typename T>
+__host__ __device__ constexpr int split_q_tile() {
+  return sizeof(T) == 2 ? 64 : 32;
 }
+template <typename T>
+__host__ __device__ constexpr int split_q_bufs() {
+  return sizeof(T) == 2 ? 2 : 1;
+}
+constexpr int MAX_PARTS = 8;
 
-// Q and dO (and lse and delta) buffers: two, or one for f32 beyond
-// head_dim 128.
-__host__ __device__ constexpr int q_bufs(bool f32, int dp) {
-  return f32 && dp > 128 ? 1 : 2;
+// Blocks of the 256 instance that share one KV tile, each with a share
+// of the GQA group's query heads: a power of two, at most the group and
+// MAX_PARTS, doubled while the grid (KV tiles x KV heads x parts) has no
+// more blocks than the card has SMs. flash_attention.py's dkv_parts is
+// this function.
+__host__ __device__ constexpr int dkv_parts(int S, int KVH, int group,
+                                            int sms) {
+  const long long tiles = (long long)((S + BKV - 1) / BKV) * KVH;
+  int parts = 1;
+  while (2 * parts <= group && 2 * parts <= MAX_PARTS &&
+         tiles * parts <= sms)
+    parts *= 2;
+  return parts;
 }
 
 // The wide and streamed routes (head_dim above 256): output columns a
@@ -289,6 +339,28 @@ __device__ __forceinline__ void to_dst(float (&ds)[1][NJ][4],
     }
 }
 
+// to_dst with P^T read from shared memory, the tile group A wrote (rows
+// 8 NJ + X_PAD apart), a pair at a time: no second score tile in the
+// registers, which f32 at head_dim 256 has no room for.
+template <int NJ>
+__device__ __forceinline__ void to_dst_shared(float (&ds)[1][NJ][4],
+                                              const float* fp,
+                                              const float* cdelta, int wrow,
+                                              int lane) {
+  constexpr int LF = 8 * NJ + X_PAD;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float2 pt = ld_pair(fp + (wrow + g + 8 * h) * LF + 8 * j + 2 * t);
+      const int col = j * 8 + 2 * t;
+      ds[0][j][2 * h] = pt.x * (ds[0][j][2 * h] - cdelta[col]);
+      ds[0][j][2 * h + 1] = pt.y * (ds[0][j][2 * h + 1] - cdelta[col + 1]);
+    }
+}
+
+// The instances up to head_dim 128 (the file's header says why).
 template <typename T, int DP>
 __global__ void __launch_bounds__(NT, min_blocks(sizeof(T) == 4, DP))
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -298,11 +370,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dv, int S, int KVH, int group, int D,
                      Strides st, int vec, int causal, int window,
                      float scale) {
+  static_assert(DP <= 128, "head_dim 129-256 is the split kernel's");
   constexpr int BQ = q_tile(DP);
-  constexpr int NB = q_bufs(sizeof(T) == 4, DP);
-  constexpr int DN = out_cols(DP);  // output columns of this block
+  constexpr int NB = 2;             // Q and dO (lse, delta) buffers
   constexpr int NJ = BQ / 8;        // 8-column score tiles per warp
-  constexpr int ND = DN / 8;        // 8-column accumulator tiles
+  constexpr int ND = DP / 8;        // 8-column accumulator tiles
   constexpr int LD = DP + Pad<T>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sk = reinterpret_cast<T*>(smem_raw);     // BKV x LD
@@ -316,7 +388,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int wrow = (threadIdx.x >> 5) * 16;   // the warp's first KV row
   const int kvh = blockIdx.y;
-  const int col0 = blockIdx.z * DN;           // the block's first column
   // Under causality the first KV tiles see the most query tiles; they
   // have the lowest block index and are scheduled first.
   const int k0 = blockIdx.x * BKV;
@@ -369,14 +440,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int it = 0; it < n_it; ++it) {
     // Tile `it` has landed, and every warp is done with tile it - 1, whose
-    // buffer the copy of tile it + 1 now overwrites (with two buffers;
-    // with one, that copy waits for the end of this tile, below).
+    // buffer the copy of tile it + 1 now overwrites.
     cp_async_wait_all();
     __syncthreads();
-    if constexpr (NB == 2) {
-      if (it + 1 < n_it) stage(it + 1);
-      cp_async_commit();
-    }
+    if (it + 1 < n_it) stage(it + 1);
+    cp_async_commit();
 
     const int b = it % NB;
     const int q0 = q_begin + (it % n_qt) * BQ;
@@ -417,7 +485,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
               ex2(fmaf(p[0][j][e], scale_log2, -clse[col] * LOG2E));
         }
     }
-    add_xb<DP, 1, NJ, DN>(acc_v, p, cdo + col0, lane);
+    add_xb<DP, 1, NJ>(acc_v, p, cdo, lane);
 
     // dS^T = P^T o (dP^T - delta), dP^T = V dO^T; then dK += dS^T Q.
     float ds[1][NJ][4];
@@ -429,12 +497,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int col = j * 8 + 2 * t + (e & 1);
         ds[0][j][e] = p[0][j][e] * (ds[0][j][e] - cdelta[col]);
       }
-    add_xb<DP, 1, NJ, DN>(acc_k, ds, cq + col0, lane);
-    if constexpr (NB == 1) {
-      __syncthreads();              // every warp is done with the buffer
-      if (it + 1 < n_it) stage(it + 1);
-      cp_async_commit();
-    }
+    add_xb<DP, 1, NJ>(acc_k, ds, cq, lane);
   }
 
 #pragma unroll
@@ -442,13 +505,213 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int kj = k0 + wrow + g + (e >> 1) * 8;
-      const int col = col0 + n * 8 + 2 * t + (e & 1);
+      const int col = n * 8 + 2 * t + (e & 1);
       if (kj < S && col < D) {
         const long long at = ((long long)kj * KVH + kvh) * D + col;
         store(dk + at, acc_k[0][n][e] * scale);
         store(dv + at, acc_v[0][n][e]);
       }
     }
+}
+
+// Dynamic shared memory of one block of the 256 instance: K and V, the
+// query-tile buffers (Q, dO, lse, delta) and P^T (f32) while the block
+// loops; then, where parts of a cluster sum their partials, the receive
+// buffers of dv and dk (f32, 64 rows each) in the same bytes.
+template <typename T, int DP>
+__host__ __device__ constexpr int split_smem_bytes() {
+  constexpr int BQ = split_q_tile<T>();
+  constexpr int NB = split_q_bufs<T>();
+  constexpr int loop = (2 * BKV + 2 * NB * BQ) * (DP + Pad<T>::value) *
+                           (int)sizeof(T) +
+                       2 * NB * BQ * (int)sizeof(float) +
+                       BKV * (BQ + X_PAD) * (int)sizeof(float);
+  constexpr int sum = 2 * BKV * (DP + X_PAD) * (int)sizeof(float);
+  return loop > sum ? loop : sum;
+}
+
+// The 256 instance (head_dim 129-256; the file's header says why): one
+// block of 8 warps owns the (KV head, 64-row KV tile) and every output
+// column, for the query heads [rank group / parts, (rank + 1) group /
+// parts) of its GQA group, where rank is its place among the `parts`
+// blocks of the tile's cluster. Warps 0-3 (group A) compute S^T and P^T
+// and hold dv, warps 4-7 (group B) dP^T and dS^T and hold dk, 16 KV rows
+// a warp in each group.
+template <typename T, int DP>
+__global__ void __launch_bounds__(SPLIT_NT, 1)
+flash_bwd_dkv_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dk, T* __restrict__ dv, int S,
+                           int KVH, int group, int D, Strides st, int vec,
+                           int causal, int window, float scale,
+                           int parts) {
+  constexpr int BQ = split_q_tile<T>();
+  constexpr int NB = split_q_bufs<T>();
+  constexpr int NJ = BQ / 8;        // 8-column score tiles per warp
+  constexpr int ND = DP / 8;        // 8-column accumulator tiles
+  constexpr int LD = DP + Pad<T>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sk = reinterpret_cast<T*>(smem_raw);     // BKV x LD
+  T* sv = sk + BKV * LD;                      // BKV x LD
+  T* sq = sv + BKV * LD;                      // NB buffers of BQ x LD
+  T* sdo = sq + NB * BQ * LD;                 // NB buffers of BQ x LD
+  float* slse = reinterpret_cast<float*>(sdo + NB * BQ * LD);  // NB x BQ
+  float* sdelta = slse + NB * BQ;                              // NB x BQ
+  float* fp = sdelta + NB * BQ;               // P^T, BKV x (BQ + X_PAD)
+
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5;
+  const int wrow = (warp % WARPS) * 16;       // the warp's first KV row
+  const bool is_b = warp >= WARPS;            // dP^T, dS^T and dk
+  const int kvh = blockIdx.y;
+  // The parts of one KV tile are neighbours in the grid (a cluster along
+  // x); under causality the first KV tiles see the most query tiles and
+  // are scheduled first.
+  const int rank = blockIdx.x % parts;
+  const int k0 = blockIdx.x / parts * BKV;
+  const int h_begin = rank * group / parts;
+  const int n_heads = (rank + 1) * group / parts - h_begin;
+
+  int q_begin = 0, q_end = S;
+  if (causal) {
+    q_begin = k0;
+    if (window > 0) q_end = min(S, k0 + BKV - 1 + window);
+  }
+  const int n_qt = (q_end - q_begin + BQ - 1) / BQ;  // per query head
+  const int n_it = n_heads * n_qt;                   // at least 1
+
+  // Stages query tile `it` (head h_begin + it / n_qt of the group) into
+  // buffer it % NB.
+  auto stage = [&](int it) {
+    const int h = kvh * group + h_begin + it / n_qt;
+    const int q0 = q_begin + (it % n_qt) * BQ;
+    const int b = it % NB;
+    load_tile<T, DP, BQ, SPLIT_NT>(sq + b * BQ * LD, q + h * st.q_sh, q0, S,
+                                   D, st.q_ss, vec & VEC_Q);
+    load_tile<T, DP, BQ, SPLIT_NT>(sdo + b * BQ * LD, dout + h * st.do_sh,
+                                   q0, S, D, st.do_ss, vec & VEC_DO);
+    for (int i = threadIdx.x; i < 2 * BQ; i += SPLIT_NT) {
+      const bool is_delta = i >= BQ;
+      const int c = is_delta ? i - BQ : i;
+      const float* row = (is_delta ? delta : lse) + (long long)h * S;
+      float* dst = (is_delta ? sdelta : slse) + b * BQ + c;
+      const bool ok = q0 + c < S;
+      cp_async4(dst, ok ? row + q0 + c : row, ok ? 4 : 0);
+    }
+  };
+
+  load_tile<T, DP, BKV, SPLIT_NT>(sk, k + kvh * st.k_sh, k0, S, D, st.k_ss,
+                                  vec & VEC_K);
+  load_tile<T, DP, BKV, SPLIT_NT>(sv, v + kvh * st.v_sh, k0, S, D, st.v_ss,
+                                  vec & VEC_V);
+  stage(0);
+  cp_async_commit();
+
+  // One 16-row m-tile a warp: dv in group A, dk in group B.
+  float acc[1][ND][4];
+  zero(acc);
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_it; ++it) {
+    // Tile `it` has landed, and every warp is done with tile it - 1: its
+    // query-tile buffer (which, with two buffers, the copy of tile it + 1
+    // now overwrites) and its P^T.
+    cp_async_wait_all();
+    __syncthreads();
+    if constexpr (NB == 2) {
+      if (it + 1 < n_it) stage(it + 1);
+      cp_async_commit();
+    }
+    const int b = it % NB;
+    const int q0 = q_begin + (it % n_qt) * BQ;
+    const T* cq = sq + b * BQ * LD;
+    const T* cdo = sdo + b * BQ * LD;
+
+    // S^T = K Q^T (group A) or dP^T = V dO^T (group B), full depth.
+    float x[1][NJ][4];
+    abt<DP, 1, NJ>(x, is_b ? sv : sk, is_b ? cdo : cq, wrow, lane);
+    if (!is_b) {
+      // P^T = exp(S^T scale - lse), masked entries 0, for group B too.
+      to_pt(x, slse + b * BQ,
+            tile_masked<BQ, BKV>(q0, k0, S, causal, window), q0, k0, wrow,
+            lane, S, causal, window, scale_log2);
+      scatter_rows(fp, x, wrow, lane);
+      bar_arrive(1, SPLIT_NT);
+    } else {
+      // dS^T = P^T o (dP^T - delta), once group A's P^T is in.
+      bar_sync(1, SPLIT_NT);
+      to_dst_shared(x, fp, sdelta + b * BQ, wrow, lane);
+    }
+    // dV += P^T dO (group A), dK += dS^T Q (group B); f32 two
+    // accumulator tiles a pass, since four spilled beside the 128
+    // accumulator registers.
+    if constexpr (sizeof(T) == 4)
+      add_xb<DP, 1, NJ, DP, 2>(acc, x, is_b ? cq : cdo, lane);
+    else
+      add_xb<DP, 1, NJ>(acc, x, is_b ? cq : cdo, lane);
+    if constexpr (NB == 1) {
+      __syncthreads();              // every warp is done with the buffer
+      if (it + 1 < n_it) stage(it + 1);
+      cp_async_commit();
+    }
+  }
+
+  // dk = scale * acc (group B), dv = acc (group A).
+  if (parts == 1) {
+    T* out = is_b ? dk : dv;
+    const float f = is_b ? scale : 1.f;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = k0 + wrow + g + (e >> 1) * 8;
+        const int col = n * 8 + 2 * t + (e & 1);
+        if (kj < S && col < D)
+          store(out + ((long long)kj * KVH + kvh) * D + col, acc[0][n][e] * f);
+      }
+    return;
+  }
+
+  // The cluster's sum of the parts' partial dv and dk: block r owns rows
+  // [r own, r own + own) of the tile; xr holds dv's then dk's receive
+  // rows, row r own + lr of each being block r's partial of owned row lr.
+  constexpr int LR = DP + X_PAD;
+  float* xr = reinterpret_cast<float*>(smem_raw);
+  const int own = BKV / parts;
+  // Every block of the cluster is done with its tiles' shared memory.
+  cluster_sync();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wrow + g + 8 * h;
+    const int o = row / own;
+    const uint32_t base = peer_addr(
+        xr + ((is_b ? BKV : 0) + rank * own + row - o * own) * LR + 2 * t, o);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      st_peer(base + 32 * n, acc[0][n][2 * h], acc[0][n][2 * h + 1]);
+  }
+  // Every part's rows are in their owners' buffers.
+  cluster_sync();
+  for (int i = threadIdx.x; i < 2 * own * (DP / 4); i += SPLIT_NT) {
+    const int m = i / (own * (DP / 4));      // 0: dv, 1: dk
+    const int lr = i / (DP / 4) % own, c = i % (DP / 4) * 4;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < parts; ++r)
+      add4(sum, *reinterpret_cast<const float4*>(
+                    xr + (m * BKV + r * own + lr) * LR + c));
+    const int kj = k0 + rank * own + lr;
+    if (kj >= S) continue;
+    T* row = (m ? dk : dv) + ((long long)kj * KVH + kvh) * D;
+    const float fm = m ? scale : 1.f;
+    const float s4[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c + e < D) store(row + c + e, s4[e] * fm);
+  }
 }
 
 // The streamed route's kernel (head_dim above 1024; the file's header
@@ -794,14 +1057,13 @@ int vec_bits(const void* const* p, const Strides& st, int D) {
          (whole(p[3], st.do_ss, st.do_sh) ? VEC_DO : 0);
 }
 
-// Dynamic shared memory of one block: K, V, NB Q and NB dO tiles, and NB
-// buffers each of lse and delta.
+// Dynamic shared memory of one block of an instance up to head_dim 128:
+// K, V, two Q and two dO tiles, and two buffers each of lse and delta.
 template <typename T, int DP>
 constexpr int smem_bytes() {
-  constexpr int NB = q_bufs(sizeof(T) == 4, DP);
-  return (int)((2 * BKV + 2 * NB * q_tile(DP)) * (DP + Pad<T>::value) *
+  return (int)((2 * BKV + 4 * q_tile(DP)) * (DP + Pad<T>::value) *
                    sizeof(T) +
-               2 * NB * q_tile(DP) * sizeof(float));
+               4 * q_tile(DP) * sizeof(float));
 }
 
 template <typename T, int DP>
@@ -813,7 +1075,7 @@ cudaError_t launch_dkv(const void* const* p, int S, int H, int KVH, int D,
       flash_bwd_dkv_kernel<T, DP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BKV - 1) / BKV, KVH, DP / out_cols(DP));
+  const dim3 grid((S + BKV - 1) / BKV, KVH);
   flash_bwd_dkv_kernel<T, DP><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
       static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
@@ -822,6 +1084,43 @@ cudaError_t launch_dkv(const void* const* p, int S, int H, int KVH, int D,
       static_cast<T*>(const_cast<void*>(p[7])), S, KVH, H / KVH, D, st,
       vec_bits<T>(p, st, D), causal, window, scale);
   return cudaGetLastError();
+}
+
+// SMs of the current device, or minus the CUDA error.
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return err == cudaSuccess ? sms : -(int)err;
+}
+
+template <typename T, int DP>
+cudaError_t launch_dkv_split(const void* const* p, int S, int H, int KVH,
+                             int D, const Strides& st, int causal,
+                             int window, float scale, cudaStream_t stream) {
+  constexpr int smem = split_smem_bytes<T, DP>();
+  auto* kernel = flash_bwd_dkv_split_kernel<T, DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int sms = sm_count();
+  if (sms < 0) return static_cast<cudaError_t>(-sms);
+  const int parts = dkv_parts(S, KVH, H / KVH, sms);
+  // The parts of a KV tile form a cluster; one part is a plain launch.
+  ClusterLaunch l(dim3((S + BKV - 1) / BKV * parts, KVH), SPLIT_NT, smem,
+                  stream, parts);
+  if (parts == 1) l.cfg.numAttrs = 0;
+  err = cudaLaunchKernelEx(
+      &l.cfg, kernel, static_cast<const T*>(p[0]),
+      static_cast<const T*>(p[1]), static_cast<const T*>(p[2]),
+      static_cast<const T*>(p[3]), static_cast<const float*>(p[4]),
+      static_cast<const float*>(p[5]),
+      static_cast<T*>(const_cast<void*>(p[6])),
+      static_cast<T*>(const_cast<void*>(p[7])), S, KVH, H / KVH, D, st,
+      vec_bits<T>(p, st, D), causal, window, scale, parts);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
 }
 
 template <typename T>
@@ -885,7 +1184,7 @@ Launcher dkv_for(int D) {
        : D <= 32 ? &launch_dkv<T, 32>
        : D <= 64 ? &launch_dkv<T, 64>
        : D <= 128 ? &launch_dkv<T, 128>
-       : D <= 256 ? &launch_dkv<T, 256>
+       : D <= 256 ? &launch_dkv_split<T, 256>
        : D <= WIDE_MAX_D ? &launch_dkv_wide<T>
                          : &launch_dkv_stream<T>;
 }
@@ -896,9 +1195,26 @@ int smem_for(int D) {
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
        : D <= 128 ? smem_bytes<T, 128>()
-       : D <= 256 ? smem_bytes<T, 256>()
+       : D <= 256 ? split_smem_bytes<T, 256>()
        : D <= WIDE_MAX_D ? wide_smem_bytes<T>()
                          : stream_smem_bytes<T>();
+}
+
+// Warps an SM of the instance for D, or -1 on the wide and streamed
+// routes.
+template <typename T>
+int warps_for(int D) {
+  return D <= 16 ? warps_per_sm(flash_bwd_dkv_kernel<T, 16>, NT,
+                                smem_bytes<T, 16>())
+       : D <= 32 ? warps_per_sm(flash_bwd_dkv_kernel<T, 32>, NT,
+                                smem_bytes<T, 32>())
+       : D <= 64 ? warps_per_sm(flash_bwd_dkv_kernel<T, 64>, NT,
+                                smem_bytes<T, 64>())
+       : D <= 128 ? warps_per_sm(flash_bwd_dkv_kernel<T, 128>, NT,
+                                 smem_bytes<T, 128>())
+       : D <= 256 ? warps_per_sm(flash_bwd_dkv_split_kernel<T, 256>,
+                                 SPLIT_NT, split_smem_bytes<T, 256>())
+                  : -1;
 }
 
 template <typename T>
@@ -954,6 +1270,24 @@ int flash_bwd_dkv_max_clusters(int D, int dtype) {
   return dtype == 0   ? clusters_for<float>(D)
          : dtype == 1 ? clusters_for<bf16>(D)
                       : clusters_for<f16>(D);
+}
+
+// Warps of the instance for (D, dtype) an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), minus a CUDA error, or
+// -1 for a head_dim on the wide or streamed route.
+int flash_bwd_dkv_warps_per_sm(int D, int dtype) {
+  return dtype == 0   ? warps_for<float>(D)
+         : dtype == 1 ? warps_for<bf16>(D)
+                      : warps_for<f16>(D);
+}
+
+// Blocks of the head_dim-256 instance that share each KV tile in a launch
+// on the current device (dkv_parts()); 1 for a head_dim outside 129-256;
+// minus a CUDA error.
+int flash_bwd_dkv_parts(int S, int KVH, int group, int D) {
+  if (D <= 128 || D > 256) return 1;
+  const int sms = sm_count();
+  return sms < 0 ? sms : dkv_parts(S, KVH, group, sms);
 }
 
 const char* flash_bwd_dkv_error_string(int code) {

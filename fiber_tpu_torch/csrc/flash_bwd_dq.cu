@@ -27,9 +27,10 @@
 // Design (FlashAttention-2's dq pass, warp-level mma.sync, on the tile
 // products that dk/dv uses, abt and add_xb of mma_sm90.cuh):
 //
-// - One block of 4 warps owns one (query head, query tile); each warp
-//   owns MT 16-row m-tiles (m_tiles(), below), so that every K and V
-//   fragment it loads (and, for f32, splits) feeds MT products. The TPU
+// - Up to head_dim 128 one block of 4 warps owns one (query head, query
+//   tile); each warp owns MT 16-row m-tiles (m_tiles(), below), so that
+//   every K and V fragment it loads (and, for f32, splits) feeds MT
+//   products. The TPU
 //   kernel carries dq in VMEM scratch across a sequential KV grid axis;
 //   here that axis is a loop inside the block, over _run_window's tiles,
 //   and dq stays in registers. A block owns its output, so there are no
@@ -44,12 +45,26 @@
 //   tile. A tensor whose pointer, strides or head_dim are not whole
 //   16-byte units takes a scalar load path instead (per tensor, chosen
 //   by the launcher).
-// - head_dim 129-256 pads to one 256 instance, whose dq accumulator is
-//   128 registers a thread: its K and V tiles are 32 rows (two score
-//   tiles of 16 registers each beside dq), and for f32 single-buffered
-//   (the next tile's copy after a barrier at the end of this one), since
-//   the Q and dO tiles and two buffers of K and V would take 266 KB of
-//   shared memory against the block's 227 KB.
+// - head_dim 129-256 pads to one 256 instance (flash_bwd_dq_split_kernel),
+//   where dq over 256 columns would be 128 accumulator registers a thread
+//   beside both score tiles, which left room for one block of 4 warps an
+//   SM. One block of 8 warps owns the (query head, 64-row query tile), in
+//   two groups of 4 warps, 16 query rows a warp in each group. Group A
+//   computes S = Q K^T over the full depth and P, and stores P (f32) to
+//   shared memory; group B computes dP = dO V^T over the full depth, reads
+//   A's P to form dS = P (dP - delta), and stores dS (packed to a 16-bit
+//   input's type, f32 for f32) to shared memory, each exchange a named
+//   barrier over the block's 256 threads (the producing group arrives,
+//   the other waits). Then each group adds dS K into its 128 of dq's
+//   columns (64 accumulator registers a thread): group B from its own
+//   registers, group A from the shared dS, which holds the same packed
+//   bits. So each score product is computed once a (query tile, KV tile),
+//   3 products of 64 x BKV x 256, and an SM runs 8 warps (beside both
+//   score tiles, a 256-column accumulator leaves room for 4). K and V tiles are 64 rows in a 16-bit type (two buffers:
+//   230 KB of shared memory; 32-row tiles ran 18% slower on an H100) and
+//   32 in f32, single-buffered (the next tile's copy after a barrier at
+//   the end of this one), since the f32 Q and dO tiles alone take 133
+//   KB.
 // - head_dim 257-1024 takes the wide route (flash_bwd_dq_wide_kernel): a
 //   dq accumulator of 512 columns would be 256 registers a thread, and
 //   full-width tiles do not fit. A thread-block cluster of n = ceil(D /
@@ -110,14 +125,20 @@ constexpr int WARPS = 4;           // warps per block
 constexpr int NT = 32 * WARPS;     // threads per block
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Key/value rows per tile: 64, or 32 beyond head_dim 128.
-__host__ __device__ constexpr int kv_rows(int dp) {
-  return dp > 128 ? 32 : 64;
-}
+// Key/value rows per tile up to head_dim 128 (two buffers of each).
+constexpr int BKV_MAX = 64;
 
-// K and V buffers: two, or one for f32 beyond head_dim 128.
-__host__ __device__ constexpr int kv_bufs(bool f32, int dp) {
-  return f32 && dp > 128 ? 1 : 2;
+// The 256 instance (head_dim 129-256): threads of a block (two groups of
+// 4 warps), and the rows and buffers of its K and V tiles (64 rows and
+// two buffers in a 16-bit type, 32 rows and one in f32).
+constexpr int SPLIT_NT = 2 * NT;
+template <typename T>
+__host__ __device__ constexpr int split_kv_rows() {
+  return sizeof(T) == 2 ? 64 : 32;
+}
+template <typename T>
+__host__ __device__ constexpr int split_kv_bufs() {
+  return sizeof(T) == 2 ? 2 : 1;
 }
 
 // The wide and streamed routes (head_dim above 256): output columns a
@@ -210,13 +231,23 @@ __host__ __device__ constexpr int q_rows(bool f32, int dp) {
   return 16 * WARPS * m_tiles(f32, dp);
 }
 
-// Dynamic shared memory of one block: the Q and dO tiles and NB K and NB
-// V tiles.
+// Dynamic shared memory of one block up to head_dim 128: the Q and dO
+// tiles and two K and two V tiles.
 template <typename T, int DP>
 __host__ __device__ constexpr int smem_bytes() {
-  return (int)((2 * q_rows(sizeof(T) == 4, DP) +
-                2 * kv_bufs(sizeof(T) == 4, DP) * kv_rows(DP)) *
+  return (int)((2 * q_rows(sizeof(T) == 4, DP) + 4 * BKV_MAX) *
                (DP + Pad<T>::value) * sizeof(T));
+}
+
+// Dynamic shared memory of one block of the 256 instance: the Q and dO
+// tiles, the K and V buffers, P (f32) and dS (in T).
+template <typename T, int DP>
+__host__ __device__ constexpr int split_smem_bytes() {
+  constexpr int BKV = split_kv_rows<T>();
+  constexpr int LX = BKV + X_PAD;
+  return (int)((2 * 16 * WARPS + 2 * split_kv_bufs<T>() * BKV) *
+                   (DP + Pad<T>::value) * sizeof(T) +
+               16 * WARPS * LX * (sizeof(float) + sizeof(T)));
 }
 
 // Blocks per SM the compiler must leave registers for: as many as the
@@ -323,6 +354,7 @@ __device__ __forceinline__ void store_dq(const float (&acc)[MT][ND][4],
     }
 }
 
+// The instances up to head_dim 128 (the file's header says why).
 template <typename T, int DP>
 __global__ void __launch_bounds__(NT, (min_blocks<T, DP>()))
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -331,10 +363,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int S, int H, int group, int D, Strides st, int vec,
                     int causal, int window, float scale) {
+  static_assert(DP <= 128, "head_dim 129-256 is the split kernel's");
   constexpr int MT = m_tiles(sizeof(T) == 4, DP);
   constexpr int BQ = q_rows(sizeof(T) == 4, DP);
-  constexpr int BKV = kv_rows(DP);
-  constexpr int NB = kv_bufs(sizeof(T) == 4, DP);
+  constexpr int BKV = BKV_MAX;
+  constexpr int NB = 2;             // K and V buffers
   constexpr int NJ = BKV / 8;       // 8-column score tiles per warp
   constexpr int ND = DP / 8;        // 8-column accumulator tiles
   constexpr int LD = DP + Pad<T>::value;
@@ -403,14 +436,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int it = 0; it < n_it; ++it) {
     // Tile `it` has landed, and every warp is done with tile it - 1, whose
-    // buffers the copy of tile it + 1 now overwrites (with two buffers;
-    // with one, that copy waits for the end of this tile, below).
+    // buffers the copy of tile it + 1 now overwrites.
     cp_async_wait_all();
     __syncthreads();
-    if constexpr (NB == 2) {
-      if (it + 1 < n_it) stage(it + 1);
-      cp_async_commit();
-    }
+    if (it + 1 < n_it) stage(it + 1);
+    cp_async_commit();
 
     const int k0 = kv_begin + it * BKV;
     const T* ck = sk + (it % NB) * BKV * LD;
@@ -461,11 +491,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e)
           ds[mt][j][e] = p[mt][j][e] * (ds[mt][j][e] - dlt[mt][e >> 1]);
     add_xb<DP, MT, NJ>(acc, ds, ck, lane);
-    if constexpr (NB == 1) {
-      __syncthreads();              // every warp is done with the buffer
-      if (it + 1 < n_it) stage(it + 1);
-      cp_async_commit();
-    }
   }
 
 #pragma unroll
@@ -483,6 +508,133 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if (col < D) store(row + col, acc[mt][n][2 * r + c] * scale);
         }
     }
+}
+
+// The 256 instance (head_dim 129-256; the file's header says why): one
+// block of 8 warps owns one (query head, 64-row query tile); warps 0-3
+// (group A) compute S and P, warps 4-7 (group B) dP and dS, 16 query rows
+// a warp in each group, and each group adds dS K into one 128-column half
+// of dq.
+template <typename T, int DP>
+__global__ void __launch_bounds__(SPLIT_NT, 1)
+flash_bwd_dq_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dq, int S, int H, int group,
+                          int D, Strides st, int vec, int causal,
+                          int window, float scale) {
+  constexpr int BQ = 16 * WARPS;
+  constexpr int BKV = split_kv_rows<T>();
+  constexpr int NB = split_kv_bufs<T>();
+  constexpr int NJ = BKV / 8;       // 8-column score tiles per warp
+  constexpr int DN = DP / 2;        // dq's columns a group
+  constexpr int LD = DP + Pad<T>::value;
+  constexpr int LX = BKV + X_PAD;   // row stride of P and dS
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sq = reinterpret_cast<T*>(smem_raw);     // BQ x LD
+  T* sdo = sq + BQ * LD;                      // BQ x LD
+  T* sk = sdo + BQ * LD;                      // NB buffers of BKV x LD
+  T* sv = sk + NB * BKV * LD;                 // NB buffers of BKV x LD
+  float* fp = reinterpret_cast<float*>(sv + NB * BKV * LD);   // BQ x LX
+  T* fds = reinterpret_cast<T*>(fp + BQ * LX);                // BQ x LX
+
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int warp = threadIdx.x >> 5;
+  const int wrow = (warp % WARPS) * 16;       // the warp's first row
+  const bool is_b = warp >= WARPS;            // dP and dS
+  const int wcol = is_b ? DN : 0;             // the group's first column
+  const int h = blockIdx.y;
+  const int kvh = h / group;
+  // Heaviest causal tiles (the last query rows) are scheduled first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+
+  int kv_begin = 0, kv_end = S;
+  if (causal) {
+    kv_end = min(S, q0 + BQ);
+    if (window > 0) {
+      const int lo = q0 - window + 1;
+      if (lo > 0) kv_begin = (lo / BKV) * BKV;
+    }
+  }
+  const int n_it = (kv_end - kv_begin + BKV - 1) / BKV;   // at least 1
+
+  // Stages KV tile `it` into buffer it % NB.
+  auto stage = [&](int it) {
+    const int k0 = kv_begin + it * BKV;
+    const int b = it % NB;
+    load_tile<T, DP, BKV, SPLIT_NT>(sk + b * BKV * LD, k + kvh * st.k_sh,
+                                    k0, S, D, st.k_ss, vec & VEC_K);
+    load_tile<T, DP, BKV, SPLIT_NT>(sv + b * BKV * LD, v + kvh * st.v_sh,
+                                    k0, S, D, st.v_ss, vec & VEC_V);
+  };
+
+  load_tile<T, DP, BQ, SPLIT_NT>(sq, q + h * st.q_sh, q0, S, D, st.q_ss,
+                                 vec & VEC_Q);
+  load_tile<T, DP, BQ, SPLIT_NT>(sdo, dout + h * st.do_sh, q0, S, D,
+                                 st.do_ss, vec & VEC_DO);
+  stage(0);
+  cp_async_commit();
+
+  // lse (base 2) and delta of the warp's rows g and g + 8 (0 past S, as
+  // in the instances up to 128).
+  float lse2[1][2], dlt[1][2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + wrow + g + 8 * r;
+    lse2[0][r] = qi < S ? lse[(long long)h * S + qi] * LOG2E : 0.f;
+    dlt[0][r] = qi < S ? delta[(long long)h * S + qi] : 0.f;
+  }
+  float acc[1][DN / 8][4];
+  zero(acc);
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_it; ++it) {
+    // Tile `it` has landed, and every warp is done with tile it - 1: its
+    // K and V (which, with two buffers, the copy of tile it + 1 now
+    // overwrites), its P and its dS.
+    cp_async_wait_all();
+    __syncthreads();
+    if constexpr (NB == 2) {
+      if (it + 1 < n_it) stage(it + 1);
+      cp_async_commit();
+    }
+    const int k0 = kv_begin + it * BKV;
+    const T* ck = sk + (it % NB) * BKV * LD;
+    const T* cv = sv + (it % NB) * BKV * LD;
+
+    // S = Q K^T (group A) or dP = dO V^T (group B), full depth.
+    float x[1][NJ][4];
+    abt<DP, 1, NJ>(x, is_b ? sdo : sq, is_b ? cv : ck, wrow, lane);
+    if (!is_b) {
+      // P = 2^(S scale log2 e - lse log2 e), masked entries 0, to group
+      // B; then group B's dS.
+      to_p(x, lse2, tile_masked<BQ, BKV>(q0, k0, S, causal, window), q0,
+           k0, wrow, lane, S, causal, window, scale_log2);
+      scatter_rows(fp, x, wrow, lane);
+      bar_arrive(1, SPLIT_NT);
+      bar_sync(2, SPLIT_NT);
+      gather_rows(x, fds, wrow, lane);
+    } else {
+      // dS = P o (dP - delta), once group A's P is in, to group A.
+      bar_sync(1, SPLIT_NT);
+      float p[1][NJ][4];
+      gather_rows(p, fp, wrow, lane);
+      to_ds(x, p, dlt);
+      scatter_rows(fds, x, wrow, lane);
+      bar_arrive(2, SPLIT_NT);
+    }
+    // dQ += dS K over the group's columns.
+    add_xb<DP, 1, NJ, DN>(acc, x, ck + wcol, lane);
+    if constexpr (NB == 1) {
+      __syncthreads();              // every warp is done with the buffers
+      if (it + 1 < n_it) stage(it + 1);
+      cp_async_commit();
+    }
+  }
+  store_dq(acc, dq, q0, wrow, lane, S, H, h, D, wcol, scale);
 }
 
 // The streamed route's kernel (head_dim above 1024; the file's header
@@ -785,6 +937,25 @@ cudaError_t launch_dq(const void* const* p, int S, int H, int KVH, int D,
   return cudaGetLastError();
 }
 
+template <typename T, int DP>
+cudaError_t launch_dq_split(const void* const* p, int S, int H, int KVH,
+                            int D, const Strides& st, int causal, int window,
+                            float scale, cudaStream_t stream) {
+  constexpr int smem = split_smem_bytes<T, DP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_split_kernel<T, DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + 16 * WARPS - 1) / (16 * WARPS), H);
+  flash_bwd_dq_split_kernel<T, DP><<<grid, SPLIT_NT, smem, stream>>>(
+      static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
+      static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
+      static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
+      static_cast<T*>(const_cast<void*>(p[6])), S, H, H / KVH, D, st,
+      vec_bits<T>(p, st, D), causal, window, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_dq_wide(const void* const* p, int S, int H, int KVH,
                            int D, const Strides& st, int causal, int window,
@@ -844,7 +1015,7 @@ Launcher dq_for(int D) {
        : D <= 32 ? &launch_dq<T, 32>
        : D <= 64 ? &launch_dq<T, 64>
        : D <= 128 ? &launch_dq<T, 128>
-       : D <= 256 ? &launch_dq<T, 256>
+       : D <= 256 ? &launch_dq_split<T, 256>
        : D <= WIDE_MAX_D ? &launch_dq_wide<T>
                          : &launch_dq_stream<T>;
 }
@@ -855,9 +1026,26 @@ int smem_for(int D) {
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
        : D <= 128 ? smem_bytes<T, 128>()
-       : D <= 256 ? smem_bytes<T, 256>()
+       : D <= 256 ? split_smem_bytes<T, 256>()
        : D <= WIDE_MAX_D ? wide_smem_bytes<T>()
                          : stream_smem_bytes<T>();
+}
+
+// Warps an SM of the instance for D, or -1 on the wide and streamed
+// routes.
+template <typename T>
+int warps_for(int D) {
+  return D <= 16 ? warps_per_sm(flash_bwd_dq_kernel<T, 16>, NT,
+                                smem_bytes<T, 16>())
+       : D <= 32 ? warps_per_sm(flash_bwd_dq_kernel<T, 32>, NT,
+                                smem_bytes<T, 32>())
+       : D <= 64 ? warps_per_sm(flash_bwd_dq_kernel<T, 64>, NT,
+                                smem_bytes<T, 64>())
+       : D <= 128 ? warps_per_sm(flash_bwd_dq_kernel<T, 128>, NT,
+                                 smem_bytes<T, 128>())
+       : D <= 256 ? warps_per_sm(flash_bwd_dq_split_kernel<T, 256>,
+                                 SPLIT_NT, split_smem_bytes<T, 256>())
+                  : -1;
 }
 
 template <typename T>
@@ -912,6 +1100,15 @@ int flash_bwd_dq_max_clusters(int D, int dtype) {
   return dtype == 0   ? clusters_for<float>(D)
          : dtype == 1 ? clusters_for<bf16>(D)
                       : clusters_for<f16>(D);
+}
+
+// Warps of the instance for (D, dtype) an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), minus a CUDA error, or
+// -1 for a head_dim on the wide or streamed route.
+int flash_bwd_dq_warps_per_sm(int D, int dtype) {
+  return dtype == 0   ? warps_for<float>(D)
+         : dtype == 1 ? warps_for<bf16>(D)
+                      : warps_for<f16>(D);
 }
 
 const char* flash_bwd_dq_error_string(int code) {

@@ -628,12 +628,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_out(acc, m, l, o, lse, q0, wrow, lane, S, H, h, D, 0);
 }
 
-// Barrier `id` (1-15; __syncthreads takes 0) over the n threads of the
-// warps that name it.
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
 // An f32 warp's scores of its keys over the full depth, as abt computes
 // them but in NA partial sums of interleaved depth steps (kk, kk + NA,
 // ...), added with rounded f32 adds at the end: one 8-key tile would be a

@@ -4,11 +4,12 @@
 // 4-byte copies into shared memory, ldmatrix, the bf16, f16 and TF32
 // products,
 // the 3xTF32 split that gives f32 precision on TF32 tensor cores, the
-// base-2 exponential, the attention keep mask, the zeroing of
-// accumulator fragments, the staging of a padded tile, and the two
-// warp-level tile products of the backward kernels and the forward's
+// base-2 exponential, the attention keep mask, named barriers, the
+// zeroing of accumulator fragments, the staging of a padded tile, the
+// two warp-level tile products of the backward kernels and the forward's
 // wide route (abt: A B^T for a warp's 16-row m-tiles, or one depth chunk
-// of it; add_xb: acc += X B with X in registers).
+// of it; add_xb: acc += X B with X in registers), and a kernel's warps an
+// SM.
 //
 // Fragment layouts are PTX's for mma.m16n8k16 (bf16 and f16, which share
 // them) and mma.m16n8k8 (TF32): lane = 4 g + t; an accumulator holds rows
@@ -203,6 +204,17 @@ __device__ __forceinline__ void store(f16* p, float x) {
   *p = __float2half_rn(x);
 }
 
+// Barrier `id` (1-15; __syncthreads takes 0) over the n threads of the
+// warps that name it: bar_sync waits for all n, bar_arrive counts the
+// caller's warp and goes on. Shared-memory writes before a warp's arrive
+// are visible to the warps that pass the barrier's sync.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 template <int MT, int N>
 __device__ __forceinline__ void zero(float (&acc)[MT][N][4]) {
 #pragma unroll
@@ -363,14 +375,15 @@ __device__ __forceinline__ void add_xb(float (&acc)[MT][DN / 8][4],
 // zero; over the 16384 rows a long-lived accumulator sums, that bias
 // reached 1.2e-4 of the largest gradient on an H100 (against a 5e-5
 // bound), so each call's product is summed from zero and then added to
-// acc with round-to-nearest adds.
-template <int DP, int MT, int NJ, int DN = DP>
+// acc with round-to-nearest adds, NG_MAX accumulator tiles a pass (their
+// partial sums are registers beside acc).
+template <int DP, int MT, int NJ, int DN = DP, int NG_MAX = 4>
 __device__ __forceinline__ void add_xb(float (&acc)[MT][DN / 8][4],
                                        const float (&x)[MT][NJ][4],
                                        const float* sb, int lane) {
   constexpr int LD = DP + Pad<float>::value;
   constexpr int ND = DN / 8;
-  constexpr int NG = ND < 4 ? ND : 4;   // accumulator tiles per pass
+  constexpr int NG = ND < NG_MAX ? ND : NG_MAX;   // tiles per pass
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int n0 = 0; n0 < ND; n0 += NG) {
@@ -410,6 +423,20 @@ __device__ __forceinline__ void add_xb(float (&acc)[MT][DN / 8][4],
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][n0 + n][e] += part[mt][n][e];
   }
+}
+
+// Warps of `kernel` (nt threads, smem bytes of dynamic shared memory) an
+// SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or
+// minus the CUDA error.
+template <typename K>
+int warps_per_sm(K* kernel, int nt, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, nt,
+                                                      smem);
+  return err == cudaSuccess ? blocks * nt / 32 : -(int)err;
 }
 
 }  // namespace

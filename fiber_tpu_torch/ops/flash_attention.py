@@ -151,16 +151,21 @@ def _fwd_lib():
 _BWD_OUTPUTS = {"flash_bwd_dq": 1, "flash_bwd_dkv": 2}
 
 
-@functools.cache
-def _bwd_lib(name):
-    """The loaded library of backward kernel ``name``."""
-    lib = _build.load(name)
+def declare_bwd(lib, name):
+    """``lib`` (a loaded build of ``csrc/<name>.cu``) with the argument
+    types of backward kernel ``name``'s C entry point declared."""
     p, i = ctypes.c_void_p, ctypes.c_int
     # q, k, v, dO, lse, delta, outputs..., S, H, KVH, D, strides,
     # causal, window, scale, dtype, stream
     _declare(lib, name, [p] * (6 + _BWD_OUTPUTS[name]) + [i] * 4
              + [p, i, i, ctypes.c_float, i, p])
     return lib
+
+
+@functools.cache
+def _bwd_lib(name):
+    """The loaded library of backward kernel ``name``."""
+    return declare_bwd(_build.load(name), name)
 
 
 def flash_fwd(q, k, v, *, causal: bool = False,
@@ -296,10 +301,33 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, dlse=None, *,
                                causal=causal, window=window)
 
 
-def _launch_bwd(name, outs, q, k, v, dout, lse, delta, causal, window):
+#: KV rows a block of the dk/dv kernel owns, and the most blocks of its
+#: head_dim-256 instance that share one KV tile (a cluster's portable size)
+_DKV_TILE = 64
+_DKV_MAX_PARTS = 8
+
+
+def dkv_parts(s, kv_heads, group, sms):
+    """Blocks of the dk/dv kernel's head_dim-256 instance (head_dim
+    129-256) that share one KV tile, each taking a share of the GQA
+    group's query heads and their partial dk and dv summed in a cluster:
+    a power of two, at most ``group`` and 8, doubled while the grid (KV
+    tiles x ``kv_heads`` x parts) has no more blocks than the card's
+    ``sms`` SMs. The kernel's launcher (``dkv_parts`` in
+    ``csrc/flash_bwd_dkv.cu``) computes the same."""
+    tiles = -(-s // _DKV_TILE) * kv_heads
+    parts = 1
+    while 2 * parts <= min(group, _DKV_MAX_PARTS) and tiles * parts <= sms:
+        parts *= 2
+    return parts
+
+
+def _launch_bwd(name, outs, q, k, v, dout, lse, delta, causal, window,
+                lib=None):
     """Launches backward kernel ``name`` (``_BWD_OUTPUTS``) on q's
     device and current stream, writing ``outs``; raises with the CUDA
-    error string when the launch fails."""
+    error string when the launch fails. ``lib``: the loaded library to
+    launch from (another build of the source), by default this tree's."""
     _check_cuda(q=q, k=k, v=v, dout=dout)
     lse, delta = lse.contiguous(), delta.contiguous()
     s, h, d = q.shape
@@ -307,7 +335,7 @@ def _launch_bwd(name, outs, q, k, v, dout, lse, delta, causal, window):
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
         v.stride(1), dout.stride(0), dout.stride(1))
     ptrs = [x.data_ptr() for x in (q, k, v, dout, lse, delta, *outs)]
-    lib = _bwd_lib(name)
+    lib = lib or _bwd_lib(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, name)(*ptrs, s, h, k.shape[1], d, strides,

@@ -1,0 +1,175 @@
+#!/usr/bin/env python3
+"""Times the flash backward kernels (dq and dk/dv) of several builds of
+their sources in turns, in one process on one NVIDIA card, beside the
+library's backward (SDPA).
+
+    python3 kernel_ab.py --tree parent=DIR --tree change=fiber_tpu_torch/csrc
+
+Each ``--tree NAME=DIR`` names a directory of kernel sources
+(``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu`` and the headers they include),
+for example this checkout's ``fiber_tpu_torch/csrc`` and the ``csrc`` of
+a parent commit unpacked with ``git archive``. Every tree's two
+libraries are built with the port's nvcc flags (one nvcc a source, all
+started together), and what ptxas reports of each template is printed.
+Then at each shape (a name of ``chip_smoke.MAIN_SHAPES``): inputs from
+a seed, O and lse from this checkout's forward kernel, and for every
+tree both kernels held against the plain backward within
+``chip_smoke.BWD_TOL`` and a second launch equal bit for bit; then
+each kernel of each tree timed by CUDA events, the trees in order and
+then in reverse in every pair of rounds (parent, change, change,
+parent), and the library's backward timed in the same call with the
+backend ``torch._fused_sdp_choice`` picks for it. One JSON line a shape,
+after the card's name and power limit (``nvidia-smi``) and the build's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import pathlib
+import subprocess
+import sys
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import chip_smoke
+from chip_smoke import check, emit
+
+#: the kernels timed, by source name
+KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+DEFAULT_SHAPES = ("gemma_f32", "gemma_bf16", "gemma_f16", "lm_f32",
+                  "attention_bf16", "v4_f16")
+#: rounds of timings (every second one in reverse order), and launches a
+#: timing after one warm-up
+ROUNDS = 4
+REPS = 5
+
+
+def build_tree(tree, src, out):
+    """Both backward libraries of one tree of sources: ``{kernel: (library
+    path, ptxas rows)}``, built into ``out``."""
+    from fiber_tpu_torch import _build
+
+    out.mkdir(parents=True, exist_ok=True)
+
+    def one(name):
+        lib = out / f"{name}.so"
+        proc = subprocess.run(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(src), "-o",
+             str(lib), str(src / f"{name}.cu")],
+            capture_output=True, text=True)
+        (out / f"{name}.log").write_text(proc.stdout + proc.stderr)
+        check(proc.returncode == 0,
+              f"{tree}: nvcc failed on {name}.cu:\n{proc.stderr[-4000:]}")
+        return lib, _build.ptxas_report(name, out)
+
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        return dict(zip(KERNELS, pool.map(one, KERNELS)))
+
+
+def _query(lib, fn, *args):
+    """A query function of a library, or None where that build has none."""
+    try:
+        f = getattr(lib, fn)
+    except AttributeError:
+        return None
+    f.argtypes = [ctypes.c_int] * len(args)
+    return f(*args)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", action="append", required=True,
+                    help="NAME=DIR of kernel sources; two or more")
+    ap.add_argument("--shapes", default=",".join(DEFAULT_SHAPES),
+                    help="names of chip_smoke.MAIN_SHAPES")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: CUDA is not available", file=sys.stderr)
+        return 2
+    from fiber_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    trees = dict(t.split("=", 1) for t in args.tree)
+    check(len(trees) >= 2, "give two trees or more")
+    card = chip_smoke.card_line()
+    print(card, flush=True)
+    out_dir = pathlib.Path(tempfile.mkdtemp(prefix="kernel_ab_"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(trees)) as pool:
+        built = dict(zip(trees, pool.map(
+            lambda item: build_tree(item[0], pathlib.Path(item[1]).resolve(),
+                                    out_dir / item[0]),
+            trees.items())))
+    libs = {tree: {name: fa.declare_bwd(ctypes.CDLL(str(path)), name)
+                   for name, (path, _) in b.items()}
+            for tree, b in built.items()}
+    emit({"phase": "build", "build_seconds": time.perf_counter() - t0,
+          "ptxas": {tree: {name: rows for name, (_, rows) in b.items()}
+                    for tree, b in built.items()}})
+    shapes = {m[0]: m for m in chip_smoke.MAIN_SHAPES}
+    for name in args.shapes.split(","):
+        _, s, h, kvh, d, dt, window = shapes[name]
+        dtype = getattr(torch, dt)
+        q, k, v = chip_smoke._inputs(torch, s, h, kvh, d, dtype, seed=7)
+        o, lse = fa.flash_fwd(q, k, v, causal=True, window=window)
+        g = torch.Generator(device="cuda").manual_seed(8)
+        dout = chip_smoke._randn(torch, (s, h, d), dtype, g)
+        delta = fa.flash_bwd_delta(o, dout)
+        kw = dict(causal=True, window=window)
+        want = fa.flash_bwd_reference(q, k, v, dout, lse, delta, **kw)
+        bufs = {"flash_bwd_dq": (torch.empty_like(q),),
+                "flash_bwd_dkv": (torch.empty_like(k), torch.empty_like(v))}
+
+        def launch(tree, kernel):
+            fa._launch_bwd(kernel, bufs[kernel], q, k, v, dout, lse, delta,
+                           lib=libs[tree][kernel], **kw)
+
+        row = {"shape": name, "S": s, "heads": h, "kv_heads": kvh,
+               "head_dim": d, "dtype": dt, "window": window, "trees": {}}
+        for tree in trees:
+            entry = {"dkv_parts": _query(libs[tree]["flash_bwd_dkv"],
+                                         "flash_bwd_dkv_parts", s, kvh,
+                                         h // kvh, d)}
+            for kernel, ref in (("flash_bwd_dq", want[:1]),
+                                ("flash_bwd_dkv", want[1:])):
+                launch(tree, kernel)
+                first = [x.clone() for x in bufs[kernel]]
+                launch(tree, kernel)
+                torch.cuda.synchronize()
+                _, rel = chip_smoke._bwd_errors(first, ref)
+                check(rel < chip_smoke.BWD_TOL[dt],
+                      f"{tree} {kernel} at {name}: rel err {rel}")
+                check(all(torch.equal(chip_smoke._bits(torch, a),
+                                      chip_smoke._bits(torch, b))
+                          for a, b in zip(first, bufs[kernel])),
+                      f"{tree} {kernel} at {name}: two launches differ")
+                entry[kernel] = {"rel_err": rel, "ms": []}
+            row["trees"][tree] = entry
+        order = list(trees)
+        for r in range(ROUNDS):
+            for tree in (order if r % 2 == 0 else order[::-1]):
+                for kernel in KERNELS:
+                    row["trees"][tree][kernel]["ms"].append(chip_smoke.cuda_ms(
+                        torch, lambda: launch(tree, kernel), reps=REPS))
+        for entry in row["trees"].values():
+            for kernel in KERNELS:
+                times = entry[kernel]["ms"]
+                entry[kernel]["mean_ms"] = sum(times) / len(times)
+            entry["pair_ms"] = sum(entry[k]["mean_ms"] for k in KERNELS)
+        row["library_ms"] = chip_smoke.cuda_ms(
+            torch, chip_smoke._sdpa_bwd(torch, q, k, v, dout, window), reps=3)
+        row["library_backend"] = chip_smoke._sdpa_backend(torch, q, k, v,
+                                                          window, grad=True)
+        emit(row)
+        del q, k, v, o, lse, dout, delta, want, bufs
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -87,6 +87,12 @@ def test_every_quoted_include_is_a_header_of_csrc():
     ("_ZN69_GLOBAL__N__flash_bwd_dkv_cu_27flash_bwd_dkv_stream_kernelIfLi32EE"
      "vPKT_S4_S4_S4_PKfS6_PS2_S7_iiii7Stridesiiif",
      "flash_bwd_dkv_stream_kernel<float,32>"),
+    ("_ZN69_GLOBAL__N__flash_bwd_dkv_cu_26flash_bwd_dkv_split_kernelI6__half"
+     "Li256EEvPKT_S5_S5_S5_PKfS7_PS3_S8_iiii7Stridesiiifi",
+     "flash_bwd_dkv_split_kernel<float16,256>"),
+    ("_ZN69_GLOBAL__N__flash_bwd_dq_cu_25flash_bwd_dq_split_kernelIfLi256EE"
+     "vPKT_S4_S4_S4_PKfS6_PS2_iiiii7Stridesiiif",
+     "flash_bwd_dq_split_kernel<float,256>"),
     ("_Z20ring_exchange_kernelPKPKvPKPvPKxii", "ring_exchange_kernel"),
 ])
 def test_ptxas_report_names_each_template(tmp_path, monkeypatch, mangled,

@@ -546,3 +546,123 @@ def test_wide_bwd_slice_sums_stay_inside_the_bounds(dtype, head_dim, window):
             for g, w in zip(got, want)]
     assert max(errs) < WIDE_EMULATION_BOUND[dtype], errs
     assert ds_max <= bound < F16_MAX / 10, (ds_max, bound)
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of the backward kernels' head_dim-256 instances (head_dim
+# 129-256: flash_bwd_dq_split_kernel, flash_bwd_dkv_split_kernel),
+# emulated. Each score product runs once over the full depth (3xTF32 for
+# f32); P and dS are packed where the kernels pack them (16-bit types)
+# before dQ += dS K, dV += P^T dO and dK += dS^T Q, which add one tile at
+# a time (KV tiles for dq, query tiles for dk and dv); and the parts of a
+# KV tile (dkv_parts(): blocks that each take a share of the GQA group's
+# query heads) add their f32 partial dk and dv in rank order.
+# ---------------------------------------------------------------------------
+
+#: an H100's SMs, for the parts the dk/dv launcher takes there
+H100_SMS = 132
+#: rows of the tiles the products add one at a time (dk/dv's query
+#: tiles, dq's KV tiles), by input type
+_SPLIT_ROWS = {"float32": 32, "float16": 64, "bfloat16": 64}
+
+
+def _tile_sum(a, b, rows, dtype):
+    """a @ b over the depth a tile of ``rows`` at a time, each tile's
+    product added to the running f32 sum."""
+    total = torch.zeros(a.shape[0], b.shape[1])
+    for c in range(0, a.shape[1], rows):
+        total = total + _wide_product(a[:, c:c + rows], b[c:c + rows],
+                                      dtype)
+    return total
+
+
+def _split_bwd_emulated(q, k, v, dout, lse, delta, keep, dtype, parts):
+    """(dq, dk, dv) of the 256 instances and the largest |dS| they pack,
+    from f32 tensors holding values of ``dtype``; ``keep`` (query, key);
+    ``parts`` blocks a KV tile of dk/dv, part r taking the group's query
+    heads [r group / parts, (r + 1) group / parts)."""
+    s, h, d = q.shape
+    kvh = k.shape[1]
+    group = h // kvh
+    pack, rows = _ROUND[dtype], _SPLIT_ROWS[dtype]
+    dq = torch.empty_like(q)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    ds_max = 0.0
+    for j in range(kvh):
+        kh, vh = k[:, j], v[:, j]
+        part_k = [torch.zeros_like(kh) for _ in range(parts)]
+        part_v = [torch.zeros_like(vh) for _ in range(parts)]
+        for ih in range(group):
+            rank = next(r for r in range(parts)
+                        if ih < (r + 1) * group // parts)
+            head = j * group + ih
+            p = torch.exp(_wide_product(q[:, head], kh.T, dtype) / d ** 0.5
+                          - lse[head][:, None]) * keep
+            ds = p * (_wide_product(dout[:, head], vh.T, dtype)
+                      - delta[head][:, None])
+            ds_max = max(ds_max, ds.abs().max().item())
+            p, ds = pack(p), pack(ds)
+            dq[:, head] = _tile_sum(ds, kh, rows, dtype) / d ** 0.5
+            part_v[rank] += _tile_sum(p.T, dout[:, head], rows, dtype)
+            part_k[rank] += _tile_sum(ds.T, q[:, head], rows, dtype)
+        sum_k, sum_v = torch.zeros_like(kh), torch.zeros_like(vh)
+        for r in range(parts):
+            sum_k, sum_v = sum_k + part_k[r], sum_v + part_v[r]
+        dk[:, j], dv[:, j] = sum_k / d ** 0.5, sum_v
+    return tuple(pack(x) for x in (dq, dk, dv)), ds_max
+
+
+@pytest.mark.parametrize("window", [None, 32], ids=["causal", "window"])
+@pytest.mark.parametrize("head_dim", [160, 256])
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+def test_split_bwd_arithmetic_stays_inside_the_bounds(dtype, head_dim,
+                                                      window):
+    """The 256 instances' arithmetic (full-depth scores computed once, P
+    and dS packed where the kernels pack them, dk and dv summed over the
+    parts the launcher takes on an H100 in rank order), at head_dim 160
+    and 256, causal and over a window: against an f64 recomputation from
+    the same inputs, dq, dk and dv stay inside the bound of their type,
+    and |dS| inside its bound, far under f16's largest value."""
+    inputs, want, bound = _wide_case(dtype, head_dim, window)
+    s, h, _ = inputs[0].shape
+    kvh = inputs[1].shape[1]
+    parts = fa.dkv_parts(s, kvh, h // kvh, H100_SMS)
+    assert parts > 1          # the parts' sum is part of what is held
+    got, ds_max = _split_bwd_emulated(*inputs, dtype, parts)
+    errs = [((g.double() - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(got, want)]
+    assert max(errs) < WIDE_EMULATION_BOUND[dtype], errs
+    assert ds_max <= bound < F16_MAX / 10, (ds_max, bound)
+
+
+@pytest.mark.parametrize("s, kv_heads, group, want", [
+    (8192, 8, 1, 1),       # MHA: every block owns its KV tile alone
+    (1000, 1, 1, 1),
+    (8192, 8, 8, 1),       # the grid (1024 blocks) fills the card
+    (16384, 2, 4, 1),      # 512 blocks
+    (8192, 1, 8, 2),       # Gemma-2B's widths: 128 blocks for 132 SMs
+    (8192, 1, 3, 2),       # a group that is not a power of two
+    (2048, 1, 8, 8),       # 32 KV tiles: 8 parts, the most
+    (333, 1, 8, 8),        # chip_smoke.py's edge_d200_gqa8_ragged_f16
+    (256, 2, 2, 2),        # the emulation's shape: the group's 2 heads
+])
+def test_dkv_parts_fill_the_card(s, kv_heads, group, want):
+    """The blocks that share a KV tile of the dk/dv kernel's 256
+    instance on an H100: 1 under MHA and where the grid fills the card,
+    above 1 where one KV head leaves SMs idle."""
+    assert fa.dkv_parts(s, kv_heads, group, H100_SMS) == want
+
+
+def test_dkv_parts_never_exceed_the_group():
+    """parts is a power of two, at most the GQA group and 8 (a cluster's
+    portable size), doubled only while the grid had no more blocks than
+    the card has SMs."""
+    for group in range(1, 17):
+        for s in (1, 64, 65, 1000, 8192, 65536):
+            for kv_heads in (1, 2, 8):
+                for sms in (1, 78, 132):
+                    parts = fa.dkv_parts(s, kv_heads, group, sms)
+                    assert 1 <= parts <= min(group, 8)
+                    assert parts & (parts - 1) == 0
+                    tiles = -(-s // 64) * kv_heads
+                    assert parts == 1 or tiles * parts // 2 <= sms
