@@ -105,7 +105,8 @@ MAIN_SHAPES = (
 # streamed route, and 1024 at a small S; above 1024 the backward kernels
 # take their streamed route (1100 in f16). The dk/dv kernel's 256
 # instance splits a KV tile's query heads over a cluster of blocks where
-# the grid would not fill the card (DKV_PARTS_EDGES).
+# the grid would not fill the card (DKV_PARTS_EDGES). bf16 and f16 at
+# 129-256 take the forward's wgmma route (FWD_ROUTE_EDGES).
 EDGE_SHAPES = (
     ("edge_noncausal_d8", 100, 4, 2, 8, "float32", None, False),
     ("edge_d40_ragged", 77, 2, 2, 40, "float32", None, True),
@@ -127,6 +128,7 @@ EDGE_SHAPES = (
     ("edge_d577_f16", 70, 2, 1, 577, "float16", None, True),
     ("edge_d256_mha_bf16", 200, 4, 4, 256, "bfloat16", None, True),
     ("edge_d200_gqa8_ragged_f16", 333, 8, 1, 200, "float16", None, True),
+    ("edge_d136_gqa4_f16", 100, 8, 2, 136, "float16", None, True),
 )
 # The blocks that share each KV tile of the dk/dv kernel's 256 instance
 # (flash_bwd_dkv_parts) at two edges: 1 under MHA, where every block owns
@@ -136,8 +138,10 @@ DKV_PARTS_EDGES = {"edge_d256_mha_bf16": 1, "edge_d200_gqa8_ragged_f16": 8}
 # Edge shapes whose inputs the flash kernels cannot copy in 16-byte
 # units, so they take their scalar load paths: head_dim 20 in bf16 (not
 # a whole number of 8-element vectors), f32 tensors that start one
-# element into their buffers (rows 4 bytes off 16-byte alignment), and on
-# the wide route head_dim 300 in f16 (600-byte rows) and an f32 offset.
+# element into their buffers (rows 4 bytes off 16-byte alignment), on
+# the wide route head_dim 300 in f16 (600-byte rows) and an f32 offset,
+# and head_dim 196 in bf16 (392-byte rows), which the forward's wgmma
+# route cannot take.
 # (name, S, heads, kv_heads, head_dim, dtype, window, causal, offset)
 SCALAR_EDGE_SHAPES = (
     ("edge_d20_bf16_scalar", 70, 2, 1, 20, "bfloat16", None, True, 0),
@@ -145,7 +149,16 @@ SCALAR_EDGE_SHAPES = (
     ("edge_d24_f32_unaligned", 90, 4, 2, 24, "float32", 7, True, 1),
     ("edge_d300_f16_scalar", 150, 2, 1, 300, "float16", None, True, 0),
     ("edge_d264_f32_unaligned", 90, 4, 2, 264, "float32", 7, True, 1),
+    ("edge_d196_bf16_scalar", 150, 2, 1, 196, "bfloat16", None, True, 0),
 )
+# The forward's route at the two edges that bound its wgmma route: head_dim
+# 196 in bf16 (392-byte rows, not whole 16-byte units, which TMA needs)
+# takes the mma.sync instance; head_dim 136 in f16 at S 100 (one partial
+# 128-row query tile, GQA 4:1) takes the wgmma route. Every shape's route
+# is the launcher's own answer (flash_fwd_route), held to
+# flash_attention.fwd_route.
+FWD_ROUTE_EDGES = {"edge_d196_bf16_scalar": "instance",
+                   "edge_d136_gqa4_f16": "wgmma"}
 # The ring's off-diagonal forward launch, timed: one rank's 4096-row
 # block of bench.py --attention's shape against another rank's keys, not
 # causal. (name, S, heads, kv_heads, head_dim, dtype, window, causal)
@@ -220,6 +233,16 @@ GEMMA_TRAIN_STEPS = 3
 # kernels' plain versions; 1e-4: 5.908 -> 5.206)
 GEMMA_LR = 1e-4
 GEMMA_DECODE = (16, 16)          # prompt tokens, greedy tokens
+# The gemma_lm phase's bf16 forward (the flash forward's wgmma route at
+# head_dim 256, which the f32 model does not take) against the same bf16
+# model on the kernels' plain versions at S = GRAD_SEQ: max |logit
+# difference|. The kernel packs P to bf16 before P V, which moves a bf16
+# output by about an ulp, and two layers carry that to the logits: an
+# emulation of the kernel's arithmetic on the CPU (64-key tiles, P packed
+# to bf16) against the plain version, through this bf16 model at S 2048,
+# moved logits of magnitude up to 4.3 by up to 0.047 (three bf16 ulps at
+# |logit| in [2, 4)); the bound is eight.
+BF16_LM_TOL = 0.125
 # TinyLM at DeepSeek-V4-Flash's attention widths (deepseek-ai/
 # DeepSeek-V4-Flash's config.json: hidden_size 4096, head_dim 512,
 # num_attention_heads 64, num_key_value_heads 1, sliding_window 128, rope):
@@ -496,9 +519,13 @@ ICI_KEY_SHAPES = ((256 << 10, 8), (512 << 10, 8), (2 << 20, 8),
                   (512 << 10, 4), (512 << 10, 16), (1 << 20, 16))
 # The C interface's dtype codes
 DTYPE_CODE = {"float": 0, "bfloat16": 1, "float16": 2}
-# What runs the products of the flash kernels, by input type
+# What runs the products of the flash kernels, by input type, and of the
+# forward's wgmma route (flash_attention.fwd_route) by its own
 ENGINE = {"float32": "mma.sync 3xtf32", "bfloat16": "mma.sync bf16",
           "float16": "mma.sync f16"}
+WGMMA_ENGINE = {"bfloat16": "wgmma bf16", "float16": "wgmma f16"}
+# Bits of the 16-byte copy path of q, k and v (csrc/flash_fwd.cu's vec)
+VEC_ALL = 7
 # The head_dims the flash kernels' instances pad to; above the last, the
 # kernels take their wide route. The forward's pads head_dim to
 # FWD_WIDE_HEAD_DIMS (a template per type and width); above the last,
@@ -639,15 +666,22 @@ def phase_build():
     check({"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "dma_ring"}
           <= set(libs), f"kernels missing from the build: {sorted(libs)}")
     # The flash kernels' products run on the tensor cores: their SASS
-    # holds HMMA instructions (counted where the toolkit has cuobjdump).
+    # holds HMMA instructions, and the forward's wgmma route HGMMA ones
+    # (counted where the toolkit has cuobjdump).
     hmma = {k: _build.sass_count(k, "HMMA") for k in libs}
+    hgmma = _build.sass_count("flash_fwd", "HGMMA")
+    check(hgmma is None or hgmma > 0,
+          "flash_fwd's SASS holds no HGMMA instruction")
     ptxas = {k: _build.ptxas_report(k) for k in libs}
     for name in TENSOR_CORE_LIBS:
         check(hmma[name] is None or hmma[name] > 0,
               f"{name}'s SASS holds no HMMA instruction")
-        # Every template: no spills, and its shared memory per block.
+        # Every template: no spills, and its shared memory per block (the
+        # forward's at the route of its name: flash_fwd_smem_bytes takes
+        # the 16-byte copy bits too).
         smem = getattr(ctypes.CDLL(str(libs[name])), f"{name}_smem_bytes")
-        smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        fwd = name == "flash_fwd"
+        smem.argtypes = [ctypes.c_int] * (3 if fwd else 2)
         for row in ptxas[name]:
             dtype, dp = re.search(r"<(\w+),(\d+)>",
                                   row["function"]).groups()
@@ -657,7 +691,10 @@ def phase_build():
             d = (WIDE_HEAD_DIM if wide
                  else STREAM_HEAD_DIM if "_stream_" in row["function"]
                  else int(dp))
-            row["smem_bytes"] = smem(d, DTYPE_CODE[dtype])
+            row["smem_bytes"] = smem(
+                d, DTYPE_CODE[dtype],
+                *([VEC_ALL if "_wgmma_" in row["function"] else 0]
+                  if fwd else []))
             if (name in CLUSTER_LIBS and not wide
                     and "_stream_" not in row["function"]):
                 row["warps_per_sm"] = _warps_per_sm(libs[name], name, d,
@@ -674,14 +711,16 @@ def phase_build():
                     libs[name], name, DTYPE_CODE[dtype])
             check(row["spill_stores"] == row["spill_loads"] == 0,
                   f"{row['function']} spills")
-        wide_routes = (len(FWD_WIDE_HEAD_DIMS) if name == "flash_fwd"
-                       else 1)
+        wide_routes = len(FWD_WIDE_HEAD_DIMS) if fwd else 1
         routes = len(HEAD_DIM_INSTANCES) + wide_routes + 1
-        check(len(ptxas[name]) == len(DTYPE_CODE) * routes,
+        # the forward's wgmma route: one template per 16-bit type
+        check(len(ptxas[name])
+              == len(DTYPE_CODE) * routes + (len(WGMMA_ENGINE) if fwd else 0),
               f"{name} templates built: {ptxas[name]}")
     emit({"phase": "build", "seconds": secs,
           "libraries": {k: v.name for k, v in libs.items()},
-          "sass_hmma": hmma, "ptxas": ptxas})
+          "sass_hmma": hmma, "sass_hgmma_flash_fwd": hgmma,
+          "ptxas": ptxas})
 
 
 def _warps_per_sm(path, name, d, dtype):
@@ -707,6 +746,34 @@ def _dkv_parts(torch, s, h, kvh, d):
     check(parts == want, f"(S {s}, heads {h}, kv_heads {kvh}, head_dim "
           f"{d}): the dk/dv launch takes {parts} parts, dkv_parts {want}")
     return parts
+
+
+def _fwd_route(torch, q, k, v):
+    """The forward kernel's route for these tensors: the launcher's own
+    answer (``flash_fwd_route``, from head_dim, dtype and the bits of the
+    tensors that are whole 16-byte units), held to the plain function the
+    CPU tests check, ``flash_attention.fwd_route``."""
+    from fiber_tpu_torch.ops import flash_attention as fa
+
+    def whole(x):
+        unit = 16 // x.element_size()
+        return (x.data_ptr() % 16 == 0 and x.stride(0) % unit == 0
+                and x.stride(1) % unit == 0 and x.shape[2] % unit == 0)
+
+    vec = sum(bit for x, bit in zip((q, k, v), (1, 2, 4)) if whole(x))
+    d = q.shape[2]
+    query = fa._fwd_lib().flash_fwd_route
+    query.argtypes = [ctypes.c_int] * 3
+    route = fa.FWD_ROUTES[query(d, fa._DTYPES.index(q.dtype), vec)]
+    want = fa.fwd_route(d, q.dtype, vec == VEC_ALL)
+    check(route == want, f"head_dim {d} {q.dtype}, 16-byte bits {vec}: "
+          f"the launch takes route {route}, fwd_route {want}")
+    return route
+
+
+def _engine(route, dt):
+    """What runs a forward launch's products on ``route``."""
+    return WGMMA_ENGINE[dt] if route == "wgmma" else ENGINE[dt]
 
 
 def _max_clusters(path, name, dtype):
@@ -808,6 +875,9 @@ def phase_kernels(torch, card):
         dtype = getattr(torch, dt)
         q, k, v = _inputs(torch, s, h, kvh, d, dtype, seed=len(rows),
                           offset=offset)
+        route = _fwd_route(torch, q, k, v)
+        check(route == FWD_ROUTE_EDGES.get(name, route),
+              f"{name}: route {route}, want {FWD_ROUTE_EDGES.get(name)}")
         o, lse = fa.flash_fwd(q, k, v, causal=causal, window=window)
         ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal,
                                                 window=window)
@@ -816,7 +886,8 @@ def phase_kernels(torch, card):
         lse_err = (lse - rlse).abs().max().item()
         check(err < TOL[dt] and lse_err < LSE_TOL,
               f"{name}: max_abs_err {err} lse_err {lse_err}")
-        rows.append({"shape": name, "offset": offset, "engine": ENGINE[dt],
+        rows.append({"shape": name, "offset": offset, "route": route,
+                     "engine": _engine(route, dt),
                      "max_abs_err": err, "lse_err": lse_err,
                      "tol": TOL[dt], "seconds": time.perf_counter() - t0})
 
@@ -835,10 +906,12 @@ def phase_kernels(torch, card):
         check(err < TOL[dt] and lse_err < LSE_TOL,
               f"{name}: max_abs_err {err} lse_err {lse_err}")
         del ro, rlse
-        wide = d > HEAD_DIM_INSTANCES[-1]
-        if wide:
-            # the wide routes: a second launch gives the same bits (no
-            # atomics; m, l and lse agree across the warps of an m-tile)
+        route = _fwd_route(torch, q, k, v)
+        repeat = route in ("wgmma", "wide", "stream")
+        if repeat:
+            # the wide and wgmma routes: a second launch gives the same
+            # bits (no atomics; m, l and lse agree across the warps of an
+            # m-tile)
             o2, lse2 = fa.flash_fwd(q, k, v, **kw)
             torch.cuda.synchronize()
             check(torch.equal(_bits(torch, o), _bits(torch, o2))
@@ -855,14 +928,15 @@ def phase_kernels(torch, card):
         bound, bound_by = flops.bound_ms(n_flops, nbytes, dt)
         row = {"shape": name, "S": s, "heads": h, "kv_heads": kvh,
                "head_dim": d, "dtype": dt, "window": window,
-               "causal": causal, "engine": ENGINE[dt],
+               "causal": causal, "route": route,
+               "engine": _engine(route, dt),
                "max_abs_err": err, "lse_err": lse_err, "tol": TOL[dt],
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound, "bound_by": bound_by,
                "peak_flops": flops.op_peak(dt)[0],
                "bound_engine": flops.op_peak(dt)[1],
                "tflops": n_flops / ms / 1e9}
-        if wide:
+        if repeat:
             row["library_backend"] = _sdpa_backend(torch, q, k, v, window)
             row["bitwise_repeat"] = True
         rows.append(row)
@@ -1403,10 +1477,70 @@ def _wide_lm(torch, card, phase, cfg, lr):
     return {"forward": fwd_counts, "train": train_counts}
 
 
+def _bf16_lm_forward(torch, card, phase, cfg):
+    """One forward of TinyLM at ``cfg``'s widths in bf16, every kernel's
+    count at 0 before it and flash_fwd launched once a layer (none of the
+    others), its device time; then the same weights at S = GRAD_SEQ, the
+    flash plane against itself on the kernels' plain versions: logits
+    within BF16_LM_TOL. Emits the ``phase`` line; returns the counts."""
+    from unittest import mock
+
+    from fiber_tpu_torch.models import transformer
+    from fiber_tpu_torch.models.transformer import TinyLM
+
+    layers, seq = cfg["layers"], cfg["max_seq"]
+    model = TinyLM(**cfg, attention="flash", device="cuda",
+                   dtype=torch.bfloat16,
+                   generator=torch.Generator().manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(0, cfg["vocab"], (seq,), generator=g,
+                           device="cuda")
+    want = {"flash_fwd": layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "ring_exchange": 0}
+    with torch.no_grad():
+        model.apply(tokens)                   # warm-up, not counted
+        _reset_counts()
+        t0 = time.perf_counter()
+        logits = model.apply(tokens)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        check(counts == want, f"{phase}: launches {counts}, want {want}")
+        check(tuple(logits.shape) == (seq, cfg["vocab"])
+              and bool(torch.isfinite(logits.float()).all()),
+              f"{phase}: shape or non-finite logits")
+        ms = cuda_ms(torch, lambda: model.apply(tokens), reps=3)
+        short = TinyLM(**dict(cfg, max_seq=GRAD_SEQ), attention="flash",
+                       device="cuda", dtype=torch.bfloat16)
+        short.load_state_dict(model.state_dict())
+        del model, logits
+        flash = short.apply(tokens[:GRAD_SEQ]).float()
+        with mock.patch.object(transformer, "flash_attention",
+                               _plain_flash_attention(torch)):
+            plain = short.apply(tokens[:GRAD_SEQ]).float()
+    err = (flash - plain).abs().max().item()
+    check(err < BF16_LM_TOL, f"{phase} S={GRAD_SEQ}: flash vs plain "
+          f"versions' logits differ by {err}")
+    emit({"phase": phase, "card": card, **cfg, "dtype": "bfloat16",
+          "attention": "flash", "head_dim": cfg["dim"] // cfg["heads"],
+          "launches": counts, "seconds": secs, "ms": ms,
+          "tokens_per_s": seq / ms * 1e3,
+          "check": {"S": GRAD_SEQ, "reference": "plain versions",
+                    "logit_err": err, "max_abs_logit":
+                    plain.abs().max().item(), "tol": BF16_LM_TOL}})
+    return counts
+
+
 def phase_gemma_lm(torch, card):
     """TinyLM at Gemma-2B's attention widths (GEMMA_CFG): the flash
-    kernels' head_dim-256 instances with GQA 8:1 (``_wide_lm``)."""
-    return _wide_lm(torch, card, "gemma_lm", GEMMA_CFG, GEMMA_LR)
+    kernels' head_dim-256 instances with GQA 8:1 (``_wide_lm``), in f32,
+    and one forward in bf16 through the forward's wgmma route
+    (``_bf16_lm_forward``)."""
+    launches = _wide_lm(torch, card, "gemma_lm", GEMMA_CFG, GEMMA_LR)
+    torch.cuda.empty_cache()
+    launches["forward_bf16"] = _bf16_lm_forward(torch, card,
+                                                "gemma_lm_bf16", GEMMA_CFG)
+    return launches
 
 
 def phase_deepseek_v4_lm(torch, card):
@@ -5060,6 +5194,8 @@ def main():
                      launches_gemma_lm_train=gemma_launches["train"][
                          entry["name"]],
                      gemma_lm_train_steps=GEMMA_TRAIN_STEPS,
+                     launches_gemma_lm_bf16_forward=gemma_launches[
+                         "forward_bf16"][entry["name"]],
                      launches_deepseek_v4_lm_forward=v4_launches["forward"][
                          entry["name"]],
                      launches_deepseek_v4_lm_train=v4_launches["train"][

@@ -46,6 +46,32 @@
 //   registers fewer than 64 rows' (which spilled 32 bytes a thread), and
 //   two buffers of each fit in 199,680 bytes of shared memory, where
 //   64-row ones would take 333 KB against the block's 227 KB.
+// - bf16 and f16 at head_dim 129-256 whose q, k and v are whole 16-byte
+//   units take the wgmma route instead (flash_fwd_wgmma_kernel<type, 256>;
+//   wgmma_sm90.cuh): the instance above runs one block of 4 warps an SM
+//   (168,960 bytes of shared memory), issue-bound on ldmatrix and mma.sync
+//   with nothing to hide their latency, each warp reading the whole K and V
+//   tiles for its 16 rows and Q again at every use. Here one block of three
+//   warpgroups owns 128 query rows of one head. A producer warpgroup (its
+//   registers given back by setmaxnreg) has one thread issue the TMA copies,
+//   in the 128-byte swizzle: Q once (4 boxes of 64 columns), then each KV
+//   tile's K and V (80 keys) into a ring of two stages, each copy
+//   completing on a full mbarrier and each stage handed back by an empty
+//   one (K as soon as the scores are computed, V after P V). Two consumer
+//   warpgroups own 64 query rows each and all 256 output columns (an m64n256
+//   f32 accumulator, 128 registers a thread): per KV tile S = Q K^T by
+//   wgmma m64n80k16 with both operands in shared memory (16 steps of depth
+//   16), the online softmax of the instances on the accumulator in
+//   registers (a warp's share of it is the m16n8 layout softmax_step
+//   takes), O rescaled, P packed to the input's type as the A fragment, and
+//   O += P V by wgmma m64n256k16, A from registers and V read in place as
+//   an MN-major operand. Each product is computed once per (warpgroup, KV
+//   tile), its operands read from shared memory by the tensor cores
+//   themselves; a tile none of a warpgroup's rows may use (past the causal
+//   diagonal, before the window) computes nothing. TMA fills rows past S
+//   and columns past head_dim with zeros, as the copy path does. f32 stays
+//   on mma.sync: a TF32 wgmma takes both operands K-major, and V as P V's B
+//   operand is not.
 // - head_dim 257-576 takes the wide route (flash_fwd_wide_kernel<type, DP>,
 //   head_dim padded to DP = 512 or 576): no instance of the design above
 //   fits, as the output accumulator of 256 columns is already 128 registers a
@@ -119,6 +145,7 @@
 // in q's type.
 
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -440,7 +467,8 @@ __device__ __forceinline__ void softmax_step(
     float (&s)[MT][NJ][4], float (&m)[MT][2], float (&l)[MT][2],
     float (&corr)[MT][2], int q0, int k0, int wrow, int lane, int S,
     int causal, int window, float scale_log2) {
-  static_assert(NJ * 4 <= 32, "a thread's keep bits of a tile fit a word");
+  // A thread's keep bits of a tile: a word, or two beyond 8 score tiles.
+  using Bits = std::conditional_t<(NJ * 4 > 32), uint64_t, uint32_t>;
   const int g = lane >> 2, t = lane & 3;
   // Whether any entry of this tile is masked (diagonal, window edge or
   // ragged keys); the same for the whole block, so no warp diverges.
@@ -450,10 +478,10 @@ __device__ __forceinline__ void softmax_step(
   if (causal)
     masked = masked || k0 + BKV - 1 > q0 ||
              (window > 0 && q0 + BQ - 1 - k0 >= window);
-  uint32_t kept[MT];              // bit 4j + e: entry s[mt][j][e] is kept
+  Bits kept[MT];                  // bit 4j + e: entry s[mt][j][e] is kept
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
-    kept[mt] = 0xffffffffu;
+    kept[mt] = ~Bits(0);
     if (masked) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
@@ -462,7 +490,7 @@ __device__ __forceinline__ void softmax_step(
           const int qi = q0 + wrow + mt * 16 + g + (e >> 1) * 8;
           const int kj = k0 + j * 8 + 2 * t + (e & 1);
           if (!keep(qi, kj, S, causal, window)) {
-            kept[mt] &= ~(1u << (4 * j + e));
+            kept[mt] &= ~(Bits(1) << (4 * j + e));
             s[mt][j][e] = kNegInf;
           }
         }
@@ -491,7 +519,7 @@ __device__ __forceinline__ void softmax_step(
         for (int c = 0; c < 2; ++c) {
           const int e = 2 * r + c;
           float p = ex2(fmaf(s[mt][j][e], scale_log2, -m_new));
-          if (masked && !(kept[mt] >> (4 * j + e) & 1u)) p = 0.f;
+          if (masked && !(kept[mt] >> (4 * j + e) & 1)) p = 0.f;
           s[mt][j][e] = p;
           ls += p;
         }
@@ -1036,6 +1064,233 @@ flash_fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_out(acc, m, l, o, lse, q0, wrow, lane, S, H, h, D, col0);
 }
 
+// The wgmma route (16-bit head_dim 129-256, whole 16-byte units; the
+// file's header says how it works and why): query rows a block, keys a KV
+// tile (80, FlashAttention-3's tile at this width: 5% faster than 64 on an
+// H100, with 230,472 bytes of shared memory), threads a block (a producer
+// and two consumer warpgroups), columns of a TMA box (128 bytes of a
+// 16-bit type, the swizzle's width), and the registers a thread of each
+// role keeps (24 to 256, multiples of 8, at most 65,536 a block: 128 x 40
+// + 256 x 232).
+constexpr int G_BQ = 128;
+constexpr int G_BKV = 80;
+constexpr int G_NT = 384;
+constexpr int G_BOX = 64;
+constexpr int G_PRODUCER_REGS = 40;
+constexpr int G_CONSUMER_REGS = 232;
+
+// The wgmma route's shared memory for type T and padded head_dim DP, in
+// bytes: Q's boxes (G_BQ rows of 128 bytes each), one K or V tile (DP /
+// G_BOX boxes of G_BKV rows), and the block's total: 1024 to align the
+// tiles, Q, two stages of K and of V, and 9 mbarriers (Q full; K full, V
+// full, K empty and V empty of each stage).
+template <typename T, int DP> struct Gmma {
+  static_assert(sizeof(T) == 2 && DP % G_BOX == 0, "16-bit, whole boxes");
+  static constexpr int BOXES = DP / G_BOX;
+  static constexpr int Q_BOX = G_BQ * G_BOX * (int)sizeof(T);
+  static constexpr int KV_BOX = G_BKV * G_BOX * (int)sizeof(T);
+  static constexpr int Q_BYTES = BOXES * Q_BOX;
+  static constexpr int KV_BYTES = BOXES * KV_BOX;
+  static constexpr int SMEM = 1024 + Q_BYTES + 4 * KV_BYTES + 9 * 8;
+};
+
+// The wgmma route's kernel. tq, tk and tv are the 3-D tensor maps (D,
+// heads, S) of q, k and v, with boxes of G_BOX columns, one head and G_BQ
+// (q) or G_BKV (k, v) rows.
+template <typename T, int DP>
+__global__ void __launch_bounds__(G_NT, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       T* __restrict__ o, float* __restrict__ lse, int S,
+                       int H, int group, int D, int causal, int window,
+                       float scale) {
+  using G = Gmma<T, DP>;
+  static_assert(G_BKV == 80, "the score product is m64n80k16");
+  constexpr int NJ = G_BKV / 8;         // 8-key score tiles
+  extern __shared__ __align__(16) unsigned char gsmem_raw[];
+  // Shared-window addresses: Q, K's and V's two stages, the barriers.
+  const uint32_t sq = (smem_addr(gsmem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + G::Q_BYTES;
+  const uint32_t sv = sk + 2 * G::KV_BYTES;
+  const uint32_t q_full = sv + 2 * G::KV_BYTES;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 16;
+  const uint32_t k_empty = v_full + 16, v_empty = k_empty + 16;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // The warpgroup, read from lane 0 so that the compiler knows that it is
+  // the same across the warp: the two roles then keep their own register
+  // budgets (setmaxnreg), and the consumers' descriptors live in uniform
+  // registers, as wgmma takes them.
+  const int wg = __shfl_sync(0xffffffffu, warp / 4, 0);
+  const int h = blockIdx.y;
+  // Heaviest causal tiles (the last query rows) are scheduled first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * G_BQ;
+  int kv_begin = 0, kv_end = S;
+  if (causal) {
+    kv_end = min(S, q0 + G_BQ);
+    if (window > 0) {
+      const int lo = q0 - window + 1;
+      if (lo > 0) kv_begin = (lo / G_BKV) * G_BKV;
+    }
+  }
+  const int n_it = (kv_end - kv_begin + G_BKV - 1) / G_BKV;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);   // one arrival a consumer warp
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // The producer warpgroup; one thread issues every copy. The stage of
+    // tile it is it & 1, its use (it >> 1) & 1 the phase parity: a
+    // stage's first empty wait passes at once.
+    setmaxnreg_dec<G_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, G::Q_BYTES);
+      for (int b = 0; b < G::BOXES; ++b)
+        tma_load_3d(sq + b * G::Q_BOX, &tq, q_full, b * G_BOX, h, q0);
+      const int kvh = h / group;
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it & 1;
+        const uint32_t ph = (it >> 1) & 1;
+        const int k0 = kv_begin + it * G_BKV;
+        mbar_wait(k_empty + 8 * s, ph ^ 1);
+        mbar_expect_tx(k_full + 8 * s, G::KV_BYTES);
+        for (int b = 0; b < G::BOXES; ++b)
+          tma_load_3d(sk + s * G::KV_BYTES + b * G::KV_BOX, &tk,
+                      k_full + 8 * s, b * G_BOX, kvh, k0);
+        mbar_wait(v_empty + 8 * s, ph ^ 1);
+        mbar_expect_tx(v_full + 8 * s, G::KV_BYTES);
+        for (int b = 0; b < G::BOXES; ++b)
+          tma_load_3d(sv + s * G::KV_BYTES + b * G::KV_BOX, &tv,
+                      v_full + 8 * s, b * G_BOX, kvh, k0);
+      }
+    }
+  } else {
+    // A consumer warpgroup: query rows q0w.. (64 of them), the warp's 16
+    // from 16 wq.
+    setmaxnreg_inc<G_CONSUMER_REGS>();
+    const int wq = warp & 3, cw = wg - 1;
+    const int q0w = q0 + 64 * cw;
+    // Descriptors of the warpgroup's Q rows, of K's and of V's stage 0;
+    // a box, a 16-deep step and a stage are offsets added to them.
+    const uint64_t dq = sw128_desc(sq + cw * 64 * G_BOX * (int)sizeof(T), 16,
+                                   1024);
+    const uint64_t dk = sw128_desc(sk, 16, 1024);
+    const uint64_t dv = sw128_desc(sv, G::KV_BOX, 1024);
+    float acc[1][DP / 8][4];
+    zero(acc);
+    float m[1][2] = {{kNegInf, kNegInf}}, l[1][2] = {{0.f, 0.f}};
+    const float scale_log2 = scale * LOG2E;
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it & 1;
+      const uint32_t ph = (it >> 1) & 1;
+      const int k0 = kv_begin + it * G_BKV;
+      // No row of the warpgroup may use any key of the tile: past the
+      // causal diagonal, before the window, or rows past S.
+      const bool skip =
+          q0w >= S ||
+          (causal && (k0 > q0w + 63 ||
+                      (window > 0 && q0w - (k0 + G_BKV - 1) >= window)));
+      mbar_wait(k_full + 8 * st, ph);
+      float s[1][NJ][4];               // written whole by the first step
+      if (!skip) {
+        // S = Q K^T over DP / 16 steps of depth 16: 4 a box, 32 bytes
+        // apart inside the swizzle atom (offsets in 16-byte units).
+        const uint64_t dks = dk + st * (G::KV_BYTES >> 4);
+        fence_regs(s[0]);
+        wgmma_fence();
+#pragma unroll
+        for (int b = 0; b < G::BOXES; ++b)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_n80<T>(s[0], dq + ((b * G::Q_BOX + kk * 32) >> 4),
+                            dks + ((b * G::KV_BOX + kk * 32) >> 4), b | kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s[0]);
+      }
+      if (lane == 0) mbar_arrive(k_empty + 8 * st);
+      uint32_t p[G_BKV / 16][4];       // P as A fragments, 16 keys a step
+      if (!skip) {
+        float corr[1][2];
+        softmax_step<64, G_BKV>(s, m, l, corr, q0w, k0, 16 * wq, lane, S,
+                                causal, window, scale_log2);
+#pragma unroll
+        for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[0][n][e] *= corr[0][e >> 1];
+#pragma unroll
+        for (int kk = 0; kk < G_BKV / 16; ++kk) {
+          p[kk][0] = pack16<T>(s[0][2 * kk][0], s[0][2 * kk][1]);
+          p[kk][1] = pack16<T>(s[0][2 * kk][2], s[0][2 * kk][3]);
+          p[kk][2] = pack16<T>(s[0][2 * kk + 1][0], s[0][2 * kk + 1][1]);
+          p[kk][3] = pack16<T>(s[0][2 * kk + 1][2], s[0][2 * kk + 1][3]);
+        }
+      }
+      mbar_wait(v_full + 8 * st, ph);
+      if (!skip) {
+        // O += P V: V's rows are the depth (16 keys, 2048 bytes a step),
+        // its boxes of 64 columns G::KV_BOX apart.
+        const uint64_t dvs = dv + st * (G::KV_BYTES >> 4);
+        fence_regs(acc[0]);
+        fence_regs(p);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < G_BKV / 16; ++kk)
+          wgmma_rs_n256<T>(acc[0], p[kk],
+                           dvs + ((kk * 16 * G_BOX * (int)sizeof(T)) >> 4),
+                           1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc[0]);
+        fence_regs(p);
+      }
+      if (lane == 0) mbar_arrive(v_empty + 8 * st);
+    }
+
+    // O = acc / l in q's type, two columns a 32-bit store; lse from the
+    // quad's sum of l. A fully masked row has l = 0: it takes l = 1 and
+    // the reference's masked max, -1e30. Every other row has l >= 1 (its
+    // largest score gives p = 1), so O takes l's approximate reciprocal
+    // (relative error 2^-22, far below the rounding to 16 bits): a
+    // division's slow path is a subroutine call, which would keep ptxas
+    // from giving the consumers their own register budget.
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[0][r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int qi = q0w + 16 * wq + g + 8 * r;
+      if (qi >= S) continue;
+      const float li = lr == 0.f ? 1.f : lr;
+      float inv;
+      asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(inv) : "f"(li));
+      T* orow = o + ((long long)qi * H + h) * D;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = n * 8 + 2 * t;
+        if (col < D)
+          *reinterpret_cast<uint32_t*>(orow + col) = pack16<T>(
+              acc[0][n][2 * r] * inv, acc[0][n][2 * r + 1] * inv);
+      }
+      if (t == 0)
+        lse[(long long)h * S + qi] =
+            lr == 0.f ? kNegInf : m[0][r] * LN2 + logf(li);
+    }
+  }
+}
+
 // Dynamic shared memory of one block: the Q tile and two K and two V
 // tiles.
 template <typename T, int DP>
@@ -1098,6 +1353,78 @@ cudaError_t launch_fwd_wide(const void* const* p, int S, int H, int KVH,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, CUDA's encoder of a TMA tensor map, resolved
+// once through the runtime's entry-point query, so that the library needs
+// no -lcuda; null where it is missing.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of one (S, heads, D) tensor of 16-bit type T with row and
+// head strides ss and sh (elements), as 3-D (D, heads, S), with boxes of
+// G_BOX columns, one head and `rows` rows, in the 128-byte swizzle; reads
+// past S or D give zeros.
+template <typename T>
+cudaError_t tile_map(CUtensorMap* map, const void* ptr, int D, int heads,
+                     int S, long long ss, long long sh, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S};
+  const cuuint64_t strides[2] = {(cuuint64_t)sh * sizeof(T),
+                                 (cuuint64_t)ss * sizeof(T)};
+  const cuuint32_t box[3] = {G_BOX, 1, (cuuint32_t)rows};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map,
+      std::is_same_v<T, bf16> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                              : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      3, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int DP>
+cudaError_t launch_fwd_wgmma(const void* const* p, int S, int H, int KVH,
+                             int D, const Strides& st, int causal,
+                             int window, float scale, cudaStream_t stream) {
+  constexpr int smem = Gmma<T, DP>::SMEM;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = tile_map<T>(&tq, p[0], D, H, S, st.q_ss, st.q_sh, G_BQ);
+  if (err == cudaSuccess)
+    err = tile_map<T>(&tk, p[1], D, KVH, S, st.k_ss, st.k_sh, G_BKV);
+  if (err == cudaSuccess)
+    err = tile_map<T>(&tv, p[2], D, KVH, S, st.v_ss, st.v_sh, G_BKV);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<T, DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + G_BQ - 1) / G_BQ, H);
+  flash_fwd_wgmma_kernel<T, DP><<<grid, G_NT, smem, stream>>>(
+      tq, tk, tv, static_cast<T*>(const_cast<void*>(p[3])),
+      static_cast<float*>(const_cast<void*>(p[4])), S, H, H / KVH, D, causal,
+      window, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_fwd_stream(const void* const* p, int S, int H, int KVH,
                               int D, const Strides& st, int causal,
@@ -1122,10 +1449,26 @@ using Launcher = cudaError_t (*)(const void* const*, int, int, int, int,
                                  const Strides&, int, int, float,
                                  cudaStream_t);
 
-// The template instances with head_dim padded to 16, 32, 64, 128 or 256,
-// the wide route's padded to 512 or 576, and the streamed route beyond.
+// The forward's routes, by the codes flash_fwd_route gives them
+// (flash_attention.FWD_ROUTES): the instances (head_dim padded to 16, 32,
+// 64, 128 or 256), the wgmma route (bf16 and f16 at 129-256 whose q, k and
+// v all take the 16-byte copy path, as TMA needs), the wide route (257-576)
+// and the streamed route beyond.
+enum Route { R_INSTANCE = 0, R_WGMMA = 1, R_WIDE = 2, R_STREAM = 3 };
+
 template <typename T>
-Launcher fwd_for(int D) {
+Route route_for(int D, int vec) {
+  return D > W_MAX_DP ? R_STREAM
+       : D > 256      ? R_WIDE
+       : sizeof(T) == 2 && D > 128 && vec == (VEC_Q | VEC_K | VEC_V)
+           ? R_WGMMA
+           : R_INSTANCE;
+}
+
+template <typename T>
+Launcher fwd_for(int D, int vec) {
+  if constexpr (sizeof(T) == 2)
+    if (route_for<T>(D, vec) == R_WGMMA) return &launch_fwd_wgmma<T, 256>;
   return D <= 16 ? &launch_fwd<T, 16>
        : D <= 32 ? &launch_fwd<T, 32>
        : D <= 64 ? &launch_fwd<T, 64>
@@ -1137,7 +1480,9 @@ Launcher fwd_for(int D) {
 }
 
 template <typename T>
-int smem_for(int D) {
+int smem_for(int D, int vec) {
+  if constexpr (sizeof(T) == 2)
+    if (route_for<T>(D, vec) == R_WGMMA) return Gmma<T, 256>::SMEM;
   return D <= 16 ? smem_bytes<T, 16>()
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
@@ -1168,19 +1513,29 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   const void* p[] = {q, k, v, o, lse};
   const Strides st{q_ss, q_sh, k_ss, k_sh, v_ss, v_sh};
-  const Launcher f = dtype == 0   ? fwd_for<float>(D)
-                     : dtype == 1 ? fwd_for<bf16>(D)
-                                  : fwd_for<f16>(D);
+  const Launcher f =
+      dtype == 0   ? fwd_for<float>(D, vec_bits<float>(p, st, D))
+      : dtype == 1 ? fwd_for<bf16>(D, vec_bits<bf16>(p, st, D))
+                   : fwd_for<f16>(D, vec_bits<f16>(p, st, D));
   return (int)f(p, S, H, KVH, D, st, causal, window, scale,
                 static_cast<cudaStream_t>(stream));
 }
 
-// Bytes of dynamic shared memory a block of the instance for (D, dtype)
-// takes.
-int flash_fwd_smem_bytes(int D, int dtype) {
-  return dtype == 0   ? smem_for<float>(D)
-         : dtype == 1 ? smem_for<bf16>(D)
-                      : smem_for<f16>(D);
+// The route (R_INSTANCE 0, R_WGMMA 1, R_WIDE 2, R_STREAM 3) a launch takes at
+// head_dim D and dtype, with `vec` the bits (1 q, 2 k, 4 v) of the
+// tensors whose pointer, strides and head_dim are whole 16-byte units.
+int flash_fwd_route(int D, int dtype, int vec) {
+  return dtype == 0   ? route_for<float>(D, vec)
+         : dtype == 1 ? route_for<bf16>(D, vec)
+                      : route_for<f16>(D, vec);
+}
+
+// Bytes of dynamic shared memory a block of the template that (D, dtype,
+// vec) takes.
+int flash_fwd_smem_bytes(int D, int dtype, int vec) {
+  return dtype == 0   ? smem_for<float>(D, vec)
+         : dtype == 1 ? smem_for<bf16>(D, vec)
+                      : smem_for<f16>(D, vec);
 }
 
 const char* flash_fwd_error_string(int code) {

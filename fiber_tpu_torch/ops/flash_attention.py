@@ -11,7 +11,9 @@ are the JAX package's: q ``(S, heads, head_dim)``, k and v
 
 The kernels and the plain versions take f32, bf16 and f16 and any
 head_dim, as the Pallas kernels do: the kernels pad a head_dim up to 256
-to an instance of 16, 32, 64, 128 or 256 columns, and a larger one takes
+to an instance of 16, 32, 64, 128 or 256 columns (the forward in bf16
+and f16 at 129-256 takes its wgmma route instead, :func:`fwd_route`),
+and a larger one takes
 their wide route (128-column output slices; in the forward the depth of
 the score products streamed in chunks; in the backward, to head_dim
 1024, a thread-block cluster of one block a slice that computes each
@@ -137,14 +139,19 @@ def _declare(lib, name, args):
     err.restype = ctypes.c_char_p
 
 
-@functools.cache
-def _fwd_lib():
-    lib = _build.load("flash_fwd")
+def declare_fwd(lib):
+    """``lib`` (a loaded build of ``csrc/flash_fwd.cu``) with the
+    argument types of its C entry point ``flash_fwd`` declared."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     _declare(lib, "flash_fwd", [p, p, p, p, p, i, i, i, i,
                                 ll, ll, ll, ll, ll, ll,
                                 i, i, ctypes.c_float, i, p])
     return lib
+
+
+@functools.cache
+def _fwd_lib():
+    return declare_fwd(_build.load("flash_fwd"))
 
 
 #: backward kernel (and its source, ``csrc/<name>.cu``) -> its outputs
@@ -168,12 +175,38 @@ def _bwd_lib(name):
     return declare_bwd(_build.load(name), name)
 
 
+#: the forward kernel's routes, in the order of the codes that
+#: ``flash_fwd_route`` in ``csrc/flash_fwd.cu`` gives them
+FWD_ROUTES = ("instance", "wgmma", "wide", "stream")
+#: query rows a block and keys a KV tile of the forward's wgmma route
+FWD_WGMMA_TILES = (128, 80)
+
+
+def fwd_route(head_dim, dtype, aligned):
+    """The route of the forward kernel that a launch takes
+    (``FWD_ROUTES``): ``"wgmma"`` for bf16 and f16 at head_dim 129-256
+    when q, k and v are all ``aligned`` (pointer, row and head strides
+    and head_dim whole 16-byte units, as TMA needs), ``"instance"`` for
+    every other head_dim up to 256 (the mma.sync instances padded to 16,
+    32, 64, 128 or 256), ``"wide"`` at 257-576 and ``"stream"`` above.
+    The launcher (``route_for`` in ``csrc/flash_fwd.cu``) decides the
+    same."""
+    if head_dim > 576:
+        return "stream"
+    if head_dim > 256:
+        return "wide"
+    if dtype != torch.float32 and head_dim > 128 and aligned:
+        return "wgmma"
+    return "instance"
+
+
 def flash_fwd(q, k, v, *, causal: bool = False,
               window: Optional[int] = None):
     """The forward kernel's wrapper: (O, lse). On CUDA tensors it
     launches ``flash_fwd`` from ``csrc/flash_fwd.cu`` (tensor cores:
-    bf16 and f16 directly, f32 as 3xTF32) and counts the launch in
-    ``flash_fwd.launches``; on CPU tensors it runs the plain version.
+    bf16 and f16 directly, f32 as 3xTF32; the route by
+    :func:`fwd_route`) and counts the launch in ``flash_fwd.launches``;
+    on CPU tensors it runs the plain version.
     Not differentiable: :func:`flash_attention` is."""
     _check(q, k, v, causal, window)
     if q.device.type == "cpu":
@@ -183,7 +216,19 @@ def flash_fwd(q, k, v, *, causal: bool = False,
     s, h, d = q.shape
     out = torch.empty(s, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(h, s, dtype=torch.float32, device=q.device)
-    lib = _fwd_lib()
+    _launch_fwd(q, k, v, out, lse, causal, window)
+    flash_fwd.launches += 1
+    return out, lse
+
+
+def _launch_fwd(q, k, v, out, lse, causal, window, lib=None):
+    """Launches the forward kernel on q's device and current stream,
+    writing ``out`` and ``lse``; raises with the CUDA error string when
+    the launch fails. ``lib``: the loaded library to launch from (another
+    build of the source, declared by :func:`declare_fwd`), by default
+    this tree's."""
+    s, h, d = q.shape
+    lib = lib or _fwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_fwd(
@@ -196,8 +241,6 @@ def flash_fwd(q, k, v, *, causal: bool = False,
         raise RuntimeError(
             "flash_fwd launch failed: "
             + lib.flash_fwd_error_string(rc).decode())
-    flash_fwd.launches += 1
-    return out, lse
 
 
 flash_fwd.launches = 0

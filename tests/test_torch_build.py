@@ -93,6 +93,12 @@ def test_every_quoted_include_is_a_header_of_csrc():
     ("_ZN69_GLOBAL__N__flash_bwd_dq_cu_25flash_bwd_dq_split_kernelIfLi256EE"
      "vPKT_S4_S4_S4_PKfS6_PS2_iiiii7Stridesiiif",
      "flash_bwd_dq_split_kernel<float,256>"),
+    ("_ZN45_GLOBAL__N__5aa4ffdc_12_flash_fwd_cu_b294bfd022flash_fwd_wgmma_"
+     "kernelI13__nv_bfloat16Li256EEEv14CUtensorMap_stS2_S2_PT_Pfiiiiiif",
+     "flash_fwd_wgmma_kernel<bfloat16,256>"),
+    ("_ZN45_GLOBAL__N__5aa4ffdc_12_flash_fwd_cu_b294bfd022flash_fwd_wgmma_"
+     "kernelI6__halfLi256EEEv14CUtensorMap_stS2_S2_PT_Pfiiiiiif",
+     "flash_fwd_wgmma_kernel<float16,256>"),
     ("_Z20ring_exchange_kernelPKPKvPKPvPKxii", "ring_exchange_kernel"),
 ])
 def test_ptxas_report_names_each_template(tmp_path, monkeypatch, mangled,

@@ -444,3 +444,97 @@ def test_fwd_wide_arithmetic_stays_inside_the_chip_bounds(dtype, head_dim,
     assert err < bound, err
     lse_err = (lse.double() - want_lse).abs().max().item()
     assert lse_err < CHIP_LSE_TOL, lse_err
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of csrc/flash_fwd.cu's wgmma route (flash_fwd_wgmma_kernel,
+# bf16 and f16 at head_dim 129-256), emulated: per 128-row query tile and
+# each of its KV tiles of FWD_WGMMA_TILES[1] keys (the causal end and the
+# window's start taken from the query tile), S = Q K^T (exact products of
+# 16-bit values summed in f32), the online softmax in base 2, O rescaled by
+# corr, P packed to the input's type and O += P V in f32, and O rounded
+# once.
+# ---------------------------------------------------------------------------
+
+
+def _fwd_wgmma_emulated(q, k, v, dtype, window):
+    """(O, lse) of the wgmma route, causal, from f32 tensors that hold
+    ``dtype`` values."""
+    bq, bkv = fa.FWD_WGMMA_TILES
+    s, h, d = q.shape
+    group = h // k.shape[1]
+    scale_log2 = torch.tensor(d ** -0.5 * LOG2E, dtype=torch.float32)
+    out, lse = torch.empty_like(q), torch.empty(h, s)
+    for ih in range(h):
+        kh, vh = k[:, ih // group], v[:, ih // group]
+        for q0 in range(0, s, bq):
+            q1 = min(s, q0 + bq)
+            kv_begin = 0
+            if window is not None and q0 - window + 1 > 0:
+                kv_begin = (q0 - window + 1) // bkv * bkv
+            m = torch.full((q1 - q0, 1), -1e30)
+            l = torch.zeros(q1 - q0, 1)
+            o = torch.zeros(q1 - q0, d)
+            for k0 in range(kv_begin, q1, bkv):
+                k1 = min(s, k0 + bkv)
+                keep = _causal_keep(s, window, k0, k1 - k0)[q0:q1]
+                raw = (q[q0:q1, ih] @ kh[k0:k1].T).masked_fill(~keep, -1e30)
+                m_new = torch.maximum(m, raw.amax(1, keepdim=True)
+                                      * scale_log2)
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(raw * scale_log2 - m_new) * keep
+                l = l * corr + p.sum(1, keepdim=True)
+                o = o * corr + p.to(dtype).float() @ vh[k0:k1]
+                m = m_new
+            li = torch.where(l == 0, torch.ones_like(l), l)
+            out[q0:q1, ih] = o / li
+            lse[ih, q0:q1] = (m * math.log(2) + torch.log(li))[:, 0]
+    return out.to(dtype).float(), lse
+
+
+@pytest.mark.parametrize("window", [None, 128], ids=["causal", "window128"])
+@pytest.mark.parametrize("head_dim", [192, 256])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16],
+                         ids=["f16", "bf16"])
+def test_fwd_wgmma_arithmetic_stays_inside_the_chip_bounds(dtype, head_dim,
+                                                           window):
+    """The wgmma route's order of sums (128-row query tiles, 80-key tiles,
+    P packed to the input's type before P V) against an f64 recomputation
+    from the same inputs at S = 512: O under F16_TOL in f16 and the bf16
+    TOL in bf16, and lse under LSE_TOL."""
+    inputs, want, want_lse = _wide_case(dtype, head_dim, window)
+    o, lse = _fwd_wgmma_emulated(*inputs, dtype, window)
+    bound = F16_TOL if dtype == torch.float16 else CHIP_TOL[torch.bfloat16]
+    err = (o.double() - want).abs().max().item()
+    assert err < bound, err
+    lse_err = (lse.double() - want_lse).abs().max().item()
+    assert lse_err < CHIP_LSE_TOL, lse_err
+
+
+# (head_dim, dtype, aligned, route): the wgmma route takes only bf16 and
+# f16 at head_dim 129-256 whose q, k and v are whole 16-byte units
+FWD_ROUTE_TABLE = [
+    (64, torch.bfloat16, True, "instance"),
+    (128, torch.float16, True, "instance"),
+    (129, torch.bfloat16, True, "wgmma"),
+    (136, torch.float16, True, "wgmma"),
+    (192, torch.bfloat16, True, "wgmma"),
+    (196, torch.bfloat16, False, "instance"),
+    (256, torch.float16, True, "wgmma"),
+    (256, torch.bfloat16, False, "instance"),
+    (256, torch.float32, True, "instance"),
+    (160, torch.float32, True, "instance"),
+    (257, torch.bfloat16, True, "wide"),
+    (576, torch.float16, True, "wide"),
+    (577, torch.bfloat16, True, "stream"),
+    (1024, torch.float32, True, "stream"),
+]
+
+
+@pytest.mark.parametrize("head_dim,dtype,aligned,route", FWD_ROUTE_TABLE)
+def test_fwd_route_table(head_dim, dtype, aligned, route):
+    """Which route of the forward kernel each (head_dim, dtype, whole
+    16-byte units) takes; chip_smoke.py holds the launcher's own answer
+    (flash_fwd_route) to fwd_route at every shape it launches."""
+    assert fa.fwd_route(head_dim, dtype, aligned) == route
+    assert route in fa.FWD_ROUTES
