@@ -11,7 +11,9 @@ counts the tensor-core instructions in the SASS of the three flash
 kernels), drives the port's main paths at full width (the TinyLM flash
 forward, greedy decoding and training, also at Gemma-2B's attention
 widths, head_dim 256 with one KV head, and at DeepSeek-V4-Flash's,
-head_dim 512 with one KV head over a window of 128; the OpenAI-ES CartPole flagship,
+head_dim 512 with one KV head over a window of 128; TinyLM training in
+bf16 at Llama-3.2-1B's attention widths, head_dim 64 with GQA 4:1; the
+OpenAI-ES CartPole flagship,
 eager and as CUDA-graph replays; ring and Ulysses attention, the TinyLM
 forward and TinyLM training over a 4-rank mesh on the card; the ES step
 over that mesh; the population-search families: PGPE, SepCMAES and CMAES
@@ -36,7 +38,7 @@ checks what comes out;
 the ES, POET and env lines carry model FLOP/s and MFU, and the es
 phase writes one generation's profiler trace under TRACE_DIR. Phases
 print one JSON line each (build, kernels, kernels_bwd, kernels_ring,
-lm_forward, lm_generate, lm_train, gemma_lm, deepseek_v4_lm, es,
+lm_forward, lm_generate, lm_train, gemma_lm, deepseek_v4_lm, llama_lm, es,
 ring_attention, mesh_2d, lm_mesh, planes_wide, lm_mesh_train, es_mesh,
 es_families, es_families_smooth, novelty, map_elites, ask_tell, device_map, poet, poet_mesh,
 checkpoint, es_envs, pool, managers, host_ring, ring_es, poet_pool,
@@ -73,7 +75,9 @@ import time
 # attention at full width (TinyLM dim 256 / 8 heads at the repo's
 # default --seq 16384), its GQA and sliding-window variants
 # (bench.py's window leg uses 1024), bench.py --attention's shape in bf16
-# and f16, Gemma-2B's attention (8 query heads, 1 KV head, head_dim
+# and f16, Llama-3.2-1B's attention (32 query heads, 8 KV heads, head_dim
+# 64; the llama_lm phase's TinyLM at S 8192) in bf16 and f16, Gemma-2B's
+# attention (8 query heads, 1 KV head, head_dim
 # 256; the gemma_lm phase's TinyLM at S 8192) in f32, bf16 and f16, and
 # DeepSeek-V4-Flash's (head_dim 512, 1 KV head; deepseek-ai/
 # DeepSeek-V4-Flash's config.json): its 64 query heads in bf16, causal and
@@ -86,6 +90,8 @@ MAIN_SHAPES = (
     ("lm_f32_window", 16384, 8, 8, 32, "float32", 1024),
     ("attention_bf16", 16384, 8, 8, 64, "bfloat16", None),
     ("attention_f16", 16384, 8, 8, 64, "float16", None),
+    ("llama1b_bf16", 8192, 32, 8, 64, "bfloat16", None),
+    ("llama1b_f16", 8192, 32, 8, 64, "float16", None),
     ("gemma_f32", 8192, 8, 1, 256, "float32", None),
     ("gemma_bf16", 8192, 8, 1, 256, "bfloat16", None),
     ("gemma_f16", 8192, 8, 1, 256, "float16", None),
@@ -106,7 +112,10 @@ MAIN_SHAPES = (
 # take their streamed route (1100 in f16). The dk/dv kernel's 256
 # instance splits a KV tile's query heads over a cluster of blocks where
 # the grid would not fill the card (DKV_PARTS_EDGES). bf16 and f16 at
-# 129-256 take the forward's wgmma route (FWD_ROUTE_EDGES).
+# 129-256 take the forward's wgmma route (FWD_ROUTE_EDGES), and at 33-64
+# the backward kernels' (BWD_ROUTE_EDGES): head_dim 64 and 40, a ragged S
+# of 333 with GQA 4:1, causal, over a window of 40 (shorter than a tile)
+# and not causal, in bf16 and f16.
 EDGE_SHAPES = (
     ("edge_noncausal_d8", 100, 4, 2, 8, "float32", None, False),
     ("edge_d40_ragged", 77, 2, 2, 40, "float32", None, True),
@@ -129,6 +138,10 @@ EDGE_SHAPES = (
     ("edge_d256_mha_bf16", 200, 4, 4, 256, "bfloat16", None, True),
     ("edge_d200_gqa8_ragged_f16", 333, 8, 1, 200, "float16", None, True),
     ("edge_d136_gqa4_f16", 100, 8, 2, 136, "float16", None, True),
+    ("edge_d64_gqa4_window_bf16", 333, 8, 2, 64, "bfloat16", 40, True),
+    ("edge_d40_gqa4_ragged_f16", 333, 8, 2, 40, "float16", None, True),
+    ("edge_d64_noncausal_f16", 200, 4, 4, 64, "float16", None, False),
+    ("edge_d40_noncausal_bf16", 150, 2, 1, 40, "bfloat16", None, False),
 )
 # The blocks that share each KV tile of the dk/dv kernel's 256 instance
 # (flash_bwd_dkv_parts) at two edges: 1 under MHA, where every block owns
@@ -140,8 +153,9 @@ DKV_PARTS_EDGES = {"edge_d256_mha_bf16": 1, "edge_d200_gqa8_ragged_f16": 8}
 # a whole number of 8-element vectors), f32 tensors that start one
 # element into their buffers (rows 4 bytes off 16-byte alignment), on
 # the wide route head_dim 300 in f16 (600-byte rows) and an f32 offset,
-# and head_dim 196 in bf16 (392-byte rows), which the forward's wgmma
-# route cannot take.
+# head_dim 196 in bf16 (392-byte rows), which the forward's wgmma route
+# cannot take, and head_dim 36 in f16 (72-byte rows), 65 in bf16 and 64 in
+# bf16 one element into its buffer, which the backward's cannot.
 # (name, S, heads, kv_heads, head_dim, dtype, window, causal, offset)
 SCALAR_EDGE_SHAPES = (
     ("edge_d20_bf16_scalar", 70, 2, 1, 20, "bfloat16", None, True, 0),
@@ -150,7 +164,32 @@ SCALAR_EDGE_SHAPES = (
     ("edge_d300_f16_scalar", 150, 2, 1, 300, "float16", None, True, 0),
     ("edge_d264_f32_unaligned", 90, 4, 2, 264, "float32", 7, True, 1),
     ("edge_d196_bf16_scalar", 150, 2, 1, 196, "bfloat16", None, True, 0),
+    ("edge_d36_f16_scalar", 100, 4, 2, 36, "float16", None, True, 0),
+    ("edge_d65_bf16_scalar", 100, 4, 1, 65, "bfloat16", None, True, 0),
+    ("edge_d64_bf16_unaligned", 130, 4, 2, 64, "bfloat16", None, True, 1),
 )
+# A backward edge whose tensors are head_dim-64 views of wider rows (a row
+# stride of 4 x 65 elements, a head stride of 65), which the backward
+# kernels' wgmma route cannot take.
+# (name, S, heads, kv_heads, head_dim, dtype, window, causal, extra
+# columns a row)
+STRIDED_EDGE_SHAPES = (
+    ("edge_d64_f16_stride65", 200, 4, 2, 64, "float16", None, True, 1),
+)
+# The backward kernels' route at the edges that bound their wgmma route
+# (bf16 and f16 at head_dim 33-64 whose q, k, v and dO are whole 16-byte
+# units): on it head_dim 64 and 40; off it head_dim 36 in f16 (72-byte
+# rows), 65, a pointer one element off and a row stride of 65 elements.
+# Every shape's route is the launchers' own answer (flash_bwd_dq_route,
+# flash_bwd_dkv_route), held to flash_attention.bwd_route.
+BWD_ROUTE_EDGES = {"edge_d64_gqa4_window_bf16": "wgmma",
+                   "edge_d40_gqa4_ragged_f16": "wgmma",
+                   "edge_d64_noncausal_f16": "wgmma",
+                   "edge_d40_noncausal_bf16": "wgmma",
+                   "edge_d36_f16_scalar": "instance",
+                   "edge_d65_bf16_scalar": "instance",
+                   "edge_d64_bf16_unaligned": "instance",
+                   "edge_d64_f16_stride65": "instance"}
 # The forward's route at the two edges that bound its wgmma route: head_dim
 # 196 in bf16 (392-byte rows, not whole 16-byte units, which TMA needs)
 # takes the mma.sync instance; head_dim 136 in f16 at S 100 (one partial
@@ -257,6 +296,32 @@ BF16_LM_TOL = 0.125
 V4_CFG = dict(vocab=256, dim=4096, heads=8, kv_heads=1, pos="rope",
               window=128, mlp_mult=4, max_seq=8192, layers=2)
 V4_LR = 1e-4
+# TinyLM in bf16 at Llama-3.2-1B's attention widths (meta-llama/
+# Llama-3.2-1B's config.json: hidden_size 2048, num_attention_heads 32,
+# num_key_value_heads 8, head_dim 64, intermediate_size 8192) with
+# TinyLM's own tanh-GELU MLP (mlp_mult 4: 8192 hidden), norms, byte
+# vocabulary and rope base 10000 (Llama's: SwiGLU, 128,256 tokens, base
+# 500,000); 2 of its 16 layers, S 8192 of its 131,072 (the script's time).
+# bf16 weights from seed 0. The llama_lm phase runs one forward (the
+# forward kernel's instance route at head_dim 64), LLAMA_TRAIN_STEPS AdamW
+# steps at LLAMA_LR (the backward kernels' wgmma route), and the flash
+# plane against itself on the kernels' plain versions at S = GRAD_SEQ.
+LLAMA_CFG = dict(vocab=256, dim=2048, heads=32, kv_heads=8, pos="rope",
+                 mlp_mult=4, max_seq=8192, layers=2)
+LLAMA_TRAIN_STEPS = 3
+LLAMA_LR = 1e-4
+# The llama_lm check's bounds, flash kernels against their plain versions
+# on one set of bf16 weights at S = GRAD_SEQ: |loss difference|, and for
+# each parameter max |gradient difference| over max |plain gradient|.
+# The kernels pack P (forward and backward) and dS to bf16 before their
+# products where the plain versions keep f32; an emulation of that
+# arithmetic through a bf16 TinyLM at head_dim 64 and GQA 4:1, narrow, on
+# the CPU (tests/test_torch_flash_backward.py,
+# test_llama_lm_bound_covers_the_kernels_bf16_arithmetic) moved the loss
+# by 1.1e-4 and a gradient by 1.12% of its largest (1.7% at dim 256): the
+# bounds are ten and two times that, for full width at S 2048.
+LLAMA_LOSS_TOL = 5e-3
+LLAMA_GRAD_TOL = 0.05
 RANKS = 4
 RING_SHAPE = (16384, 8, 64, "bfloat16")
 # The planes in f16 (planes_wide): ring and Ulysses with local="flash" at
@@ -315,7 +380,9 @@ ES_PARAM_TOL = 1e-6   # fused vs eager params (the same kernels: 0 expected)
 # (32, 32); CMAES at es_cartpole.py --algo fullcma's default pop 1024.
 FAMILY_POP = 4096
 FAMILY_STEPS = 500
-FAMILY_GENS = 5   # 10 until the bench phase came (the script's time)
+# 10 until the bench phase came, 5 until the llama_lm phase came (the
+# script's time)
+FAMILY_GENS = 3
 FAMILY_MESH_GENS = 3
 # one step over 4 ranks vs one rank: the same returns, sums per rank
 FAMILY_MESH_TOL = 1e-5
@@ -477,9 +544,10 @@ CKPT_POET_ITERS = 1
 TRACE_DIR = ".traces"
 # bench.py --biped (pop 4096, 400 steps) and --pixels (pop 1024, 60
 # steps) through run_fused, cut from bench.py's default 10 generations
-# to 2 (5 until the bench phase came, 3 until the gemma_lm phase came,
-# for the script's time)
-ES_ENV_GENS = 2
+# to 1 (5 until the bench phase came, 3 until the gemma_lm phase came, 2
+# until the llama_lm phase came, for the script's time; the flagship's es
+# phase holds 10 replayed generations to 10 eager steps)
+ES_ENV_GENS = 1
 # the other envs and policies, one ES step each, card against CPU at
 # pop 4096 (CartPole episodes of 200 steps): survival returns that agree
 # exactly on ENV_SURVIVAL_SHARE of the members (as phase_es); continuous
@@ -519,13 +587,38 @@ ICI_KEY_SHAPES = ((256 << 10, 8), (512 << 10, 8), (2 << 20, 8),
                   (512 << 10, 4), (512 << 10, 16), (1 << 20, 16))
 # The C interface's dtype codes
 DTYPE_CODE = {"float": 0, "bfloat16": 1, "float16": 2}
-# What runs the products of the flash kernels, by input type, and of the
-# forward's wgmma route (flash_attention.fwd_route) by its own
+# What runs the products of the flash kernels, by input type, and of
+# their wgmma routes (flash_attention.fwd_route, bwd_route) by its own
 ENGINE = {"float32": "mma.sync 3xtf32", "bfloat16": "mma.sync bf16",
           "float16": "mma.sync f16"}
 WGMMA_ENGINE = {"bfloat16": "wgmma bf16", "float16": "wgmma f16"}
-# Bits of the 16-byte copy path of q, k and v (csrc/flash_fwd.cu's vec)
+# Bits of the 16-byte copy path of q, k and v (csrc/flash_fwd.cu's vec),
+# and of q, k, v and dO (the backward sources' vec)
 VEC_ALL = 7
+BWD_VEC_ALL = 15
+# Warps an SM of a wgmma-route template: one block of three warpgroups
+WGMMA_WARPS = 12
+# What ptxas says when it serializes a warpgroup's products (wgmma after
+# wgmma, each waiting for the last), which no template may trigger
+SERIALIZED = re.compile(r"C751[24]")
+# Each flash library's template by route (flash_attention.FWD_ROUTES and
+# BWD_ROUTES), for the kernels line
+ROUTE_KERNELS = {
+    "flash_fwd": {"instance": "flash_fwd_kernel<type, 16-256>",
+                  "wgmma": "flash_fwd_wgmma_kernel<bf16|f16, 256>",
+                  "wide": "flash_fwd_wide_kernel<type, 512|576>",
+                  "stream": "flash_fwd_stream_kernel<type, chunk>"},
+    "flash_bwd_dq": {"instance": "flash_bwd_dq_kernel<type, 16-128>, "
+                                 "flash_bwd_dq_split_kernel<type, 256>",
+                     "wgmma": "flash_bwd_dq_wgmma_kernel<bf16|f16, 64>",
+                     "wide": "flash_bwd_dq_wide_kernel<type, 32>",
+                     "stream": "flash_bwd_dq_stream_kernel<type, chunk>"},
+    "flash_bwd_dkv": {"instance": "flash_bwd_dkv_kernel<type, 16-128>, "
+                                  "flash_bwd_dkv_split_kernel<type, 256>",
+                      "wgmma": "flash_bwd_dkv_wgmma_kernel<bf16|f16, 64>",
+                      "wide": "flash_bwd_dkv_wide_kernel<type, 32>",
+                      "stream": "flash_bwd_dkv_stream_kernel<type, chunk>"},
+}
 # The head_dims the flash kernels' instances pad to; above the last, the
 # kernels take their wide route. The forward's pads head_dim to
 # FWD_WIDE_HEAD_DIMS (a template per type and width); above the last,
@@ -666,22 +759,28 @@ def phase_build():
     check({"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "dma_ring"}
           <= set(libs), f"kernels missing from the build: {sorted(libs)}")
     # The flash kernels' products run on the tensor cores: their SASS
-    # holds HMMA instructions, and the forward's wgmma route HGMMA ones
-    # (counted where the toolkit has cuobjdump).
-    hmma = {k: _build.sass_count(k, "HMMA") for k in libs}
-    hgmma = _build.sass_count("flash_fwd", "HGMMA")
-    check(hgmma is None or hgmma > 0,
-          "flash_fwd's SASS holds no HGMMA instruction")
+    # holds HMMA instructions, and their wgmma routes' HGMMA ones (counted
+    # where the toolkit has cuobjdump).
+    sass = {k: _build.sass_counts(k, "HMMA", "HGMMA") for k in libs}
+    hmma = {k: c and c["HMMA"] for k, c in sass.items()}
+    hgmma = {k: sass[k] and sass[k]["HGMMA"] for k in TENSOR_CORE_LIBS}
     ptxas = {k: _build.ptxas_report(k) for k in libs}
     for name in TENSOR_CORE_LIBS:
         check(hmma[name] is None or hmma[name] > 0,
               f"{name}'s SASS holds no HMMA instruction")
-        # Every template: no spills, and its shared memory per block (the
-        # forward's at the route of its name: flash_fwd_smem_bytes takes
-        # the 16-byte copy bits too).
+        check(hgmma[name] is None or hgmma[name] > 0,
+              f"{name}'s SASS holds no HGMMA instruction")
+        serialized = [line for line in (
+            _build.BUILD_DIR / f"{name}.log").read_text().splitlines()
+            if SERIALIZED.search(line)]
+        check(not serialized, f"ptxas serialized {name}'s wgmma: "
+              f"{serialized[:3]}")
+        # Every template: no spills, and its shared memory per block at
+        # the route of its name (a wgmma template's with every 16-byte
+        # copy bit).
         smem = getattr(ctypes.CDLL(str(libs[name])), f"{name}_smem_bytes")
         fwd = name == "flash_fwd"
-        smem.argtypes = [ctypes.c_int] * (3 if fwd else 2)
+        smem.argtypes = [ctypes.c_int] * 3
         for row in ptxas[name]:
             dtype, dp = re.search(r"<(\w+),(\d+)>",
                                   row["function"]).groups()
@@ -691,17 +790,18 @@ def phase_build():
             d = (WIDE_HEAD_DIM if wide
                  else STREAM_HEAD_DIM if "_stream_" in row["function"]
                  else int(dp))
-            row["smem_bytes"] = smem(
-                d, DTYPE_CODE[dtype],
-                *([VEC_ALL if "_wgmma_" in row["function"] else 0]
-                  if fwd else []))
+            wgmma = "_wgmma_" in row["function"]
+            vec = (VEC_ALL if fwd else BWD_VEC_ALL) if wgmma else 0
+            row["smem_bytes"] = smem(d, DTYPE_CODE[dtype], vec)
             if (name in CLUSTER_LIBS and not wide
                     and "_stream_" not in row["function"]):
                 row["warps_per_sm"] = _warps_per_sm(libs[name], name, d,
-                                                    DTYPE_CODE[dtype])
+                                                    DTYPE_CODE[dtype], vec)
+                want = (WGMMA_WARPS if wgmma
+                        else SPLIT_WARPS if d == HEAD_DIM_INSTANCES[-1]
+                        else None)
                 check(row["warps_per_sm"] > 0
-                      and (d != HEAD_DIM_INSTANCES[-1]
-                           or row["warps_per_sm"] == SPLIT_WARPS),
+                      and want in (None, row["warps_per_sm"]),
                       f"{row['function']}: {row['warps_per_sm']} warps "
                       "an SM")
             if wide:
@@ -713,22 +813,22 @@ def phase_build():
                   f"{row['function']} spills")
         wide_routes = len(FWD_WIDE_HEAD_DIMS) if fwd else 1
         routes = len(HEAD_DIM_INSTANCES) + wide_routes + 1
-        # the forward's wgmma route: one template per 16-bit type
+        # each wgmma route: one template per 16-bit type
         check(len(ptxas[name])
-              == len(DTYPE_CODE) * routes + (len(WGMMA_ENGINE) if fwd else 0),
+              == len(DTYPE_CODE) * routes + len(WGMMA_ENGINE),
               f"{name} templates built: {ptxas[name]}")
     emit({"phase": "build", "seconds": secs,
           "libraries": {k: v.name for k, v in libs.items()},
-          "sass_hmma": hmma, "sass_hgmma_flash_fwd": hgmma,
-          "ptxas": ptxas})
+          "sass_hmma": hmma, "sass_hgmma": hgmma, "ptxas": ptxas})
 
 
-def _warps_per_sm(path, name, d, dtype):
-    """Warps an SM of a backward kernel's instance for head_dim ``d`` and
-    ``dtype`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+def _warps_per_sm(path, name, d, dtype, vec):
+    """Warps an SM of a backward kernel's template for head_dim ``d``,
+    ``dtype`` and 16-byte copy bits ``vec``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     query = getattr(ctypes.CDLL(str(path)), f"{name}_warps_per_sm")
-    query.argtypes = [ctypes.c_int, ctypes.c_int]
-    return query(d, dtype)
+    query.argtypes = [ctypes.c_int] * 3
+    return query(d, dtype, vec)
 
 
 def _dkv_parts(torch, s, h, kvh, d):
@@ -755,12 +855,8 @@ def _fwd_route(torch, q, k, v):
     CPU tests check, ``flash_attention.fwd_route``."""
     from fiber_tpu_torch.ops import flash_attention as fa
 
-    def whole(x):
-        unit = 16 // x.element_size()
-        return (x.data_ptr() % 16 == 0 and x.stride(0) % unit == 0
-                and x.stride(1) % unit == 0 and x.shape[2] % unit == 0)
-
-    vec = sum(bit for x, bit in zip((q, k, v), (1, 2, 4)) if whole(x))
+    vec = sum(bit for x, bit in zip((q, k, v), (1, 2, 4))
+              if _whole_units(x))
     d = q.shape[2]
     query = fa._fwd_lib().flash_fwd_route
     query.argtypes = [ctypes.c_int] * 3
@@ -771,8 +867,38 @@ def _fwd_route(torch, q, k, v):
     return route
 
 
+def _whole_units(x):
+    """Whether a tensor's pointer, row and head strides and head_dim are
+    whole 16-byte units (the kernels' 16-byte copy path, TMA's need)."""
+    unit = 16 // x.element_size()
+    return (x.data_ptr() % 16 == 0 and x.stride(0) % unit == 0
+            and x.stride(1) % unit == 0 and x.shape[2] % unit == 0)
+
+
+def _bwd_route(torch, q, k, v, dout):
+    """Both backward kernels' route for these tensors: each launcher's own
+    answer (``flash_bwd_dq_route``, ``flash_bwd_dkv_route``, from head_dim,
+    dtype and the bits of the tensors that are whole 16-byte units), held
+    to each other and to the plain function the CPU tests check,
+    ``flash_attention.bwd_route``."""
+    from fiber_tpu_torch.ops import flash_attention as fa
+
+    vec = sum(bit for x, bit in zip((q, k, v, dout), (1, 2, 4, 8))
+              if _whole_units(x))
+    d, code = q.shape[2], fa._DTYPES.index(q.dtype)
+    routes = set()
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        query = getattr(fa._bwd_lib(name), f"{name}_route")
+        query.argtypes = [ctypes.c_int] * 3
+        routes.add(fa.BWD_ROUTES[query(d, code, vec)])
+    want = fa.bwd_route(d, q.dtype, vec == BWD_VEC_ALL)
+    check(routes == {want}, f"head_dim {d} {q.dtype}, 16-byte bits {vec}: "
+          f"the launches take routes {routes}, bwd_route {want}")
+    return want
+
+
 def _engine(route, dt):
-    """What runs a forward launch's products on ``route``."""
+    """What runs a launch's products on ``route``."""
     return WGMMA_ENGINE[dt] if route == "wgmma" else ENGINE[dt]
 
 
@@ -793,17 +919,19 @@ def _max_clusters(path, name, dtype):
     return counts
 
 
-def _randn(torch, shape, dtype, g, offset=0):
+def _randn(torch, shape, dtype, g, offset=0, pad=0):
     """A random (S, heads, head_dim) tensor that starts ``offset``
-    elements into its own buffer."""
+    elements into its own buffer, its rows ``pad`` columns wider than
+    head_dim (a view of the first head_dim columns)."""
     s, n, d = shape
-    return (torch.randn(offset + s * n * d, generator=g, device="cuda")
-            .to(dtype)[offset:].view(s, n, d))
+    return (torch.randn(offset + s * n * (d + pad), generator=g,
+                        device="cuda")
+            .to(dtype)[offset:].view(s, n, d + pad)[..., :d])
 
 
-def _inputs(torch, s, h, kvh, d, dtype, seed, offset=0):
+def _inputs(torch, s, h, kvh, d, dtype, seed, offset=0, pad=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return tuple(_randn(torch, (s, n, d), dtype, g, offset)
+    return tuple(_randn(torch, (s, n, d), dtype, g, offset, pad)
                  for n in (h, kvh, kvh))
 
 
@@ -1055,26 +1183,33 @@ def phase_kernels_bwd(torch, card):
     random lse cotangent on the edge and mesh-block shapes and on one
     main shape. At the main shapes a second launch of each kernel on the
     same inputs must give the same dq, dk and dv bit for bit (no
-    atomics, a fixed order). Every row carries the blocks that share
-    each KV tile of dk/dv (``_dkv_parts``, DKV_PARTS_EDGES at two edges)
-    and its seconds."""
+    atomics, a fixed order). Every row carries its route (``_bwd_route``,
+    BWD_ROUTE_EDGES at the edges of the wgmma route), the blocks that
+    share each KV tile of dk/dv (``_dkv_parts``, DKV_PARTS_EDGES at two
+    edges) and its seconds."""
     from fiber_tpu_torch.ops import flash_attention as fa
     from fiber_tpu_torch.utils import flops
 
-    shapes = [e + (True, 0) for e in EDGE_SHAPES + MESH_BLOCK_SHAPES]
-    shapes += [e[:8] + (True, e[8]) for e in SCALAR_EDGE_SHAPES]
+    shapes = [e + (True, 0, 0) for e in EDGE_SHAPES + MESH_BLOCK_SHAPES]
+    shapes += [e[:8] + (True, e[8], 0) for e in SCALAR_EDGE_SHAPES]
+    shapes += [e[:8] + (True, 0, e[8]) for e in STRIDED_EDGE_SHAPES]
     mains = {m[0] for m in MAIN_SHAPES}
-    shapes += [m + (True, m[0] == "lm_f32_gqa", 0) for m in MAIN_SHAPES]
+    shapes += [m + (True, m[0] == "lm_f32_gqa", 0, 0) for m in MAIN_SHAPES]
     rows, main = [], {}
-    for name, s, h, kvh, d, dt, window, causal, with_dlse, offset in shapes:
+    for (name, s, h, kvh, d, dt, window, causal, with_dlse, offset,
+         pad) in shapes:
         t0 = time.perf_counter()
         dtype = getattr(torch, dt)
         seed = 100 + len(rows)
         q, k, v = _inputs(torch, s, h, kvh, d, dtype, seed=seed,
-                          offset=offset)
+                          offset=offset, pad=pad)
         o, lse = fa.flash_fwd(q, k, v, causal=causal, window=window)
         g = torch.Generator(device="cuda").manual_seed(seed + 50)
-        dout = _randn(torch, (s, h, d), dtype, g, offset)
+        dout = _randn(torch, (s, h, d), dtype, g, offset, pad)
+        route = _bwd_route(torch, q, k, v, dout)
+        check(route == BWD_ROUTE_EDGES.get(name, route),
+              f"{name}: backward route {route}, want "
+              f"{BWD_ROUTE_EDGES.get(name)}")
         dlse = (torch.randn(h, s, generator=g, device="cuda")
                 if with_dlse else None)
         delta = fa.flash_bwd_delta(o, dout, dlse)
@@ -1094,8 +1229,9 @@ def phase_kernels_bwd(torch, card):
         row = {"shape": name, "S": s, "heads": h, "kv_heads": kvh,
                "head_dim": d, "dtype": dt, "window": window,
                "causal": causal, "dlse": with_dlse, "offset": offset,
-               "tol": BWD_TOL[dt],
-               "dq_engine": ENGINE[dt], "dkv_engine": ENGINE[dt],
+               "pad": pad, "tol": BWD_TOL[dt], "route": route,
+               "dq_engine": _engine(route, dt),
+               "dkv_engine": _engine(route, dt),
                "dq_max_abs_err": dq_err, "dq_rel_err": dq_rel,
                "dkv_max_abs_err": dkv_err, "dkv_rel_err": dkv_rel,
                "dkv_parts": _dkv_parts(torch, s, h, kvh, d)}
@@ -1548,6 +1684,161 @@ def phase_deepseek_v4_lm(torch, card):
     kernels' wide route at head_dim 512, multi-query, over a causal
     window of 128 (``_wide_lm``)."""
     return _wide_lm(torch, card, "deepseek_v4_lm", V4_CFG, V4_LR)
+
+
+def _llama_grad_check(torch, cfg, state):
+    """The bf16 flash plane against itself on the kernels' plain versions
+    (``_plain_flash_attention``) at S = GRAD_SEQ on ``cfg``'s widths and
+    the bf16 weights ``state``: the loss, and each parameter's gradient
+    relative to the largest plain one, within LLAMA_LOSS_TOL and
+    LLAMA_GRAD_TOL."""
+    from unittest import mock
+
+    from fiber_tpu_torch.models import transformer
+    from fiber_tpu_torch.models.transformer import TinyLM
+
+    cfg = dict(cfg, max_seq=GRAD_SEQ)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    tokens = torch.randint(0, cfg["vocab"], (GRAD_SEQ,), generator=g,
+                           device="cuda")
+    planes = {"flash": contextlib.nullcontext(),
+              "plain": mock.patch.object(transformer, "flash_attention",
+                                         _plain_flash_attention(torch))}
+    losses, grads = {}, {}
+    for leg, plane in planes.items():
+        with plane:
+            m = TinyLM(**cfg, attention="flash", device="cuda",
+                       dtype=torch.bfloat16)
+            m.load_state_dict(state)
+            loss = m.loss(tokens)
+            loss.backward()
+        losses[leg] = loss.item()
+        grads[leg] = {n: p.grad.float() for n, p in m.named_parameters()}
+        del m, loss
+    loss_err = abs(losses["flash"] - losses["plain"])
+    rel = {n: ((grads["flash"][n] - grads["plain"][n]).abs().max()
+               / grads["plain"][n].abs().max()).item()
+           for n in grads["plain"]}
+    worst = max(rel, key=rel.get)
+    check(loss_err < LLAMA_LOSS_TOL, f"llama_lm S={GRAD_SEQ}: losses differ "
+          f"by {loss_err}")
+    check(rel[worst] < LLAMA_GRAD_TOL, f"llama_lm S={GRAD_SEQ}: {worst}'s "
+          f"gradient differs by {rel[worst]} of its largest")
+    return {"S": GRAD_SEQ, "reference": "plain versions",
+            "loss": losses["flash"], "loss_err": loss_err,
+            "loss_tol": LLAMA_LOSS_TOL, "max_grad_rel_err": rel[worst],
+            "worst_param": worst, "grad_tol": LLAMA_GRAD_TOL}
+
+
+def phase_llama_lm(torch, card):
+    """TinyLM in bf16 at Llama-3.2-1B's attention widths (LLAMA_CFG): one
+    forward (flash_fwd once a layer, on the instance route), then
+    LLAMA_TRAIN_STEPS AdamW steps (each flash kernel once a layer and
+    step, both backward kernels on the wgmma route), every kernel's count
+    at 0 before each and held exactly after, and every launch's route
+    read from its own tensors (``_fwd_route``, ``_bwd_route``); tokens/s
+    of both; then ``_llama_grad_check``. Emits the phase's line and
+    returns the forward's and the train steps' launches."""
+    from unittest import mock
+
+    from fiber_tpu_torch.models.transformer import (
+        TinyLM,
+        adamw,
+        make_train_step,
+    )
+    from fiber_tpu_torch.ops import flash_attention as fa
+    from fiber_tpu_torch.utils import flops
+
+    cfg = LLAMA_CFG
+    layers, seq = cfg["layers"], cfg["max_seq"]
+    model = TinyLM(**cfg, attention="flash", device="cuda",
+                   dtype=torch.bfloat16,
+                   generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(0, cfg["vocab"], (seq,), generator=g,
+                           device="cuda")
+    routes = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
+    launch_fwd, launch_bwd = fa._launch_fwd, fa._launch_bwd
+
+    def fwd_recorded(q, k, v, *args, **kw):
+        routes["flash_fwd"].append(_fwd_route(torch, q, k, v))
+        return launch_fwd(q, k, v, *args, **kw)
+
+    def bwd_recorded(name, outs, q, k, v, dout, *args, **kw):
+        routes[name].append(_bwd_route(torch, q, k, v, dout))
+        return launch_bwd(name, outs, q, k, v, dout, *args, **kw)
+
+    def counted(fn, want):
+        """``fn()`` with every count at 0 before it and each launch's
+        route recorded; its result, wall seconds and counts, the counts
+        held to ``want``."""
+        for r in routes.values():
+            r.clear()
+        _reset_counts()
+        with mock.patch.object(fa, "_launch_fwd", fwd_recorded), \
+                mock.patch.object(fa, "_launch_bwd", bwd_recorded):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        counts = _counts()
+        check(counts == want, f"llama_lm: launches {counts}, want {want}")
+        return out, secs, counts
+
+    def launches(fwd=0, bwd=0):
+        return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd,
+                "ring_exchange": 0}
+
+    with torch.no_grad():
+        model.apply(tokens)                   # warm-up, not counted
+        logits, fwd_s, fwd_counts = counted(lambda: model.apply(tokens),
+                                            launches(fwd=layers))
+        check(tuple(logits.shape) == (seq, cfg["vocab"])
+              and bool(torch.isfinite(logits.float()).all()),
+              "llama_lm: shape or non-finite logits")
+        check(set(routes["flash_fwd"]) == {"instance"},
+              f"llama_lm forward routes {routes['flash_fwd']}")
+        fwd_routes = list(routes["flash_fwd"])
+        fwd_ms = cuda_ms(torch, lambda: model.apply(tokens), reps=3)
+    del logits
+
+    step = make_train_step(model, adamw(model.parameters(), LLAMA_LR))
+    step(tokens)                              # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = LLAMA_TRAIN_STEPS
+    losses, train_s, train_counts = counted(
+        lambda: [float(step(tokens)) for _ in range(n_steps)],
+        launches(fwd=layers * n_steps, bwd=layers * n_steps))
+    peak_bytes = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses),
+          f"llama_lm: losses {losses}")
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        check(routes[name] == ["wgmma"] * layers * n_steps,
+              f"llama_lm: {name} routes {routes[name]}")
+    train_routes = {k: sorted(set(v)) for k, v in routes.items()}
+    step_ms = cuda_ms(torch, lambda: step(tokens), reps=2, warmup=0)
+    n_fwd = flops.tinylm_flops_per_step(model, seq, train=False)
+    n_train = flops.tinylm_flops_per_step(model, seq, train=True)
+    del model, step
+    torch.cuda.empty_cache()
+    grad = _llama_grad_check(torch, cfg, state)
+    emit({"phase": "llama_lm", "card": card, **cfg, "dtype": "bfloat16",
+          "attention": "flash", "head_dim": cfg["dim"] // cfg["heads"],
+          "params": params,
+          "forward": {"launches": fwd_counts, "routes": sorted(set(
+                          fwd_routes)), "seconds": fwd_s, "ms": fwd_ms,
+                      "tokens_per_s": seq / fwd_ms * 1e3,
+                      "tflops": n_fwd / fwd_ms / 1e9},
+          "train": {"optimizer": f"adamw({LLAMA_LR})", "steps": n_steps,
+                    "losses": losses, "launches": train_counts,
+                    "routes": train_routes, "seconds": train_s,
+                    "step_ms": step_ms, "tokens_per_s": seq / step_ms * 1e3,
+                    "tflops": n_train / step_ms / 1e9,
+                    "peak_memory_bytes": peak_bytes},
+          "grad_check": grad})
+    return {"forward": fwd_counts, "train": train_counts}
 
 
 def phase_es(torch):
@@ -5115,6 +5406,8 @@ def main():
     torch.cuda.empty_cache()
     v4_launches = timed("deepseek_v4_lm", phase_deepseek_v4_lm, torch, card)
     torch.cuda.empty_cache()
+    llama_launches = timed("llama_lm", phase_llama_lm, torch, card)
+    torch.cuda.empty_cache()
     timed("es", phase_es, torch)
     # The mesh phases measure inference too.
     with torch.no_grad():
@@ -5147,6 +5440,8 @@ def main():
     lm, lm_bwd = fwd_rows["lm_f32"], bwd_rows["lm_f32"]
     # the other timed shapes of each flash kernel, by their key in the line
     others = {"bfloat16": "attention_bf16", "float16": "attention_f16",
+              "llama1b_bfloat16": "llama1b_bf16",
+              "llama1b_float16": "llama1b_f16",
               "head_dim256_float32": "gemma_f32",
               "head_dim256_bfloat16": "gemma_bf16",
               "head_dim256_float16": "gemma_f16",
@@ -5200,7 +5495,12 @@ def main():
                          entry["name"]],
                      launches_deepseek_v4_lm_train=v4_launches["train"][
                          entry["name"]],
-                     deepseek_v4_lm_train_steps=GEMMA_TRAIN_STEPS)
+                     deepseek_v4_lm_train_steps=GEMMA_TRAIN_STEPS,
+                     launches_llama_lm_forward=llama_launches["forward"][
+                         entry["name"]],
+                     launches_llama_lm_train=llama_launches["train"][
+                         entry["name"]],
+                     llama_lm_train_steps=LLAMA_TRAIN_STEPS)
     ring = ring_rows["attention_bf16_kv"]
     summary.append({
         "name": "ring_exchange", "max_abs_err": ring["max_abs_err"],
@@ -5217,6 +5517,8 @@ def main():
         entry["launches_planes_wide"] = {
             label: counts[entry["name"]]
             for label, counts in wide_launches.items()}
+    for entry in summary[:3]:
+        entry["routes"] = ROUTE_KERNELS[entry["name"]]
     for entry in summary:
         entry.update(route="cuda", source=SOURCES[entry["name"]],
                      replaces=REPLACES[entry["name"]],

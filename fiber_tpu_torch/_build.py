@@ -135,18 +135,21 @@ def _short_name(mangled: str) -> str:
     return m.group(1) if m else mangled
 
 
-def sass_count(name: str, opcode: str):
+def sass_counts(name: str, *opcodes: str):
     """How many SASS instructions of the built library of ``name`` start
-    with ``opcode`` (e.g. ``HMMA``, the tensor cores' warp-level product),
-    by the toolkit's ``cuobjdump``; None where the toolkit has none."""
+    with each of ``opcodes`` (e.g. ``HMMA``, the tensor cores' warp-level
+    product, and ``HGMMA``, the warpgroup-level one), from one
+    disassembly by the toolkit's ``cuobjdump``: ``{opcode: count}``, or
+    None where the toolkit has none."""
     tool = Path(nvcc_path()).with_name("cuobjdump")
     if not tool.is_file():
         return None
     proc = subprocess.run([str(tool), "-sass", str(build(name))],
                           capture_output=True, text=True, check=True)
     # an instruction line reads "/*0a40*/  HMMA.16816.F32.BF16 R4, ... ;"
-    return sum(1 for line in proc.stdout.splitlines()
-               if line.split("*/", 1)[-1].strip().startswith(opcode))
+    ops = [line.split("*/", 1)[-1].strip()
+           for line in proc.stdout.splitlines()]
+    return {op: sum(1 for x in ops if x.startswith(op)) for op in opcodes}
 
 
 def load(name: str) -> ctypes.CDLL:

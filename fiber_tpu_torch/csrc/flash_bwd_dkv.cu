@@ -96,6 +96,27 @@
 //   On f32 each query tile's dV and dK products are summed from zero and
 //   then added to the running sums (add_xb() in mma_sm90.cuh).
 //   Both paddings make the fragment reads free of bank conflicts.
+// - bf16 and f16 at head_dim 33-64 whose q, k, v and dO are whole 16-byte
+//   units take the wgmma route instead (flash_bwd_dkv_wgmma_kernel<type,
+//   64>; wgmma_sm90.cuh), Hopper's warpgroup products fed by the Tensor
+//   Memory Accelerator, where the 64 instance runs warp-level mma.sync at
+//   a quarter of its bound. One block of three warpgroups owns one (KV
+//   head, 128-key tile). A producer warpgroup (its registers given back by
+//   setmaxnreg) has one thread issue the TMA copies in the 128-byte
+//   swizzle: K and V once, then Q and dO of each 64-row query tile (every
+//   query head of the GQA group, the tiles the mask lets through) into a
+//   ring of two stages, each completing on a full mbarrier and handed back
+//   by an empty one; one of its warps stores each tile's lse (times log2
+//   e) and delta beside them and arrives on the same full barrier (TMA
+//   cannot copy a row of lse whose S is not a multiple of 4). Two consumer
+//   warpgroups own 64 keys each: S^T = K Q^T and dP^T = V dO^T by wgmma
+//   m64n64k16 with both operands in shared memory (one commit group, one
+//   wait), P^T and dS^T formed in the accumulators' registers and packed
+//   there to the input's type as the A fragments of dV += P^T dO and dK +=
+//   dS^T Q (m64n64k16, dO and Q read MN-major: their rows are the depth),
+//   so neither goes through shared memory. dk's scale is applied in f32 at
+//   the end. The block owns its outputs, with no atomics, and each score
+//   product is computed once a (KV tile, query tile).
 // - head_dim 257-1024 takes the wide route (flash_bwd_dkv_wide_kernel):
 //   dk and dv over 512 columns would be 512 accumulator registers a
 //   thread. A thread-block cluster of n = ceil(D / 128) blocks (3 to 8,
@@ -147,6 +168,7 @@
 
 #include "cluster_sm90.cuh"
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -512,6 +534,281 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         store(dv + at, acc_v[0][n][e]);
       }
     }
+}
+
+// The wgmma route (bf16 and f16 at head_dim 33-64 whose q, k, v and dO
+// are whole 16-byte units; the file's header says how it works and why):
+// keys a block (two consumer warpgroups of 64), query rows a tile,
+// threads a block (a producer and two consumer warpgroups), and the
+// registers a thread of each role keeps (128 x 40 + 256 x 232 <= 65,536).
+constexpr int G_BKV = 128;
+constexpr int G_BQ = 64;
+constexpr int G_NT = 384;
+constexpr int G_PRODUCER_REGS = 40;
+constexpr int G_CONSUMER_REGS = 232;
+
+// The wgmma route's shared memory for type T, in bytes: a row (one TMA box
+// of 64 columns), the K or V tile, the Q or dO tile, a query tile's stage
+// (Q, then dO), and the block's total: 1024 to align the tiles, K, V, two
+// stages, the lse (base 2) and delta of each stage (f32), and 5 mbarriers
+// (K and V full; Q full and Q empty of each stage).
+template <typename T> struct Gmma {
+  static_assert(sizeof(T) == 2, "16-bit types");
+  static constexpr int ROW = TMA_COLS * (int)sizeof(T);
+  static constexpr int KV_BYTES = G_BKV * ROW;
+  static constexpr int Q_BYTES = G_BQ * ROW;
+  static constexpr int STAGE = 2 * Q_BYTES;
+  static constexpr int SMEM =
+      1024 + 2 * KV_BYTES + 2 * STAGE + 4 * G_BQ * (int)sizeof(float) + 5 * 8;
+};
+
+// The wgmma route's kernel: one block of three warpgroups owns one (KV
+// head, 128-key tile) and both its outputs, summed over the query tiles
+// of every query head of the GQA group. tq, tk, tv and tdo are the 3-D
+// tensor maps (D, heads, S) of q, k, v and dO, with boxes of 64 columns,
+// one head and G_BQ (q, dO) or G_BKV (k, v) rows.
+template <typename T, int DP>
+__global__ void __launch_bounds__(G_NT, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dk, T* __restrict__ dv, int S,
+                           int KVH, int group, int D, int causal, int window,
+                           float scale) {
+  static_assert(DP == TMA_COLS, "head_dim 33-64: one box a row");
+  using G = Gmma<T>;
+  constexpr int NJ = G_BQ / 8;           // 8-query score tiles
+  constexpr int ND = DP / 8;             // 8-column tiles of dk and dv
+  extern __shared__ __align__(16) unsigned char gsmem_raw[];
+  // Shared-window addresses: K, V, the two query-tile stages (Q, then dO),
+  // lse and delta of each stage, the barriers.
+  const uint32_t base = smem_addr(gsmem_raw);
+  const uint32_t sk = (base + 1023) & ~1023u;
+  const uint32_t sv = sk + G::KV_BYTES;
+  const uint32_t sq = sv + G::KV_BYTES;
+  const uint32_t slse = sq + 2 * G::STAGE;
+  const uint32_t kv_full = slse + 4 * G_BQ * (int)sizeof(float);
+  const uint32_t q_full = kv_full + 8, q_empty = q_full + 16;
+  // lse (base 2) and delta of stage s: G_BQ floats each, lse first.
+  float* const lse_delta =
+      reinterpret_cast<float*>(gsmem_raw + (slse - base));
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // The warpgroup, read from lane 0 so that the compiler knows that it is
+  // the same across the warp (flash_fwd.cu's wgmma route says why).
+  const int wg = __shfl_sync(0xffffffffu, warp / 4, 0);
+  const int kvh = blockIdx.y;
+  // Under causality the first KV tiles see the most query tiles; they
+  // have the lowest block index and are scheduled first.
+  const int k0 = blockIdx.x * G_BKV;
+  // The transpose of _run_window, as in the instances.
+  int q_begin = 0, q_end = S;
+  if (causal) {
+    q_begin = k0;
+    if (window > 0) q_end = min(S, k0 + G_BKV - 1 + window);
+  }
+  const int n_qt = (q_end - q_begin + G_BQ - 1) / G_BQ;  // per query head
+  const int n_it = group * n_qt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      // the copies' thread and the 32 lanes that store lse and delta
+      mbar_init(q_full + 8 * s, 33);
+      mbar_init(q_empty + 8 * s, 8);   // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // The producer warpgroup. Its thread 0 issues every copy: K and V
+    // once, then Q and dO of each query tile (head it / n_qt of the
+    // group) into stage it & 1, whose use (it >> 1) & 1 is the phase
+    // parity (a stage's first empty wait passes at once); its warp 1
+    // stores the tile's lse (times log2 e) and delta beside them.
+    setmaxnreg_dec<G_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * G::KV_BYTES);
+      tma_load_3d(sk, &tk, kv_full, 0, kvh, k0);
+      tma_load_3d(sv, &tv, kv_full, 0, kvh, k0);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it & 1;
+        const uint32_t ph = (it >> 1) & 1;
+        const int h = kvh * group + it / n_qt;
+        const int q0 = q_begin + (it % n_qt) * G_BQ;
+        const uint32_t dst = sq + s * G::STAGE;
+        mbar_wait(q_empty + 8 * s, ph ^ 1);
+        mbar_expect_tx(q_full + 8 * s, G::STAGE);
+        tma_load_3d(dst, &tq, q_full + 8 * s, 0, h, q0);
+        tma_load_3d(dst + G::Q_BYTES, &tdo, q_full + 8 * s, 0, h, q0);
+      }
+    } else if (warp == 1) {
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it & 1;
+        const uint32_t ph = (it >> 1) & 1;
+        const int h = kvh * group + it / n_qt;
+        const int q0 = q_begin + (it % n_qt) * G_BQ;
+        float* const dst = lse_delta + 2 * G_BQ * s;
+        mbar_wait(q_empty + 8 * s, ph ^ 1);
+        for (int i = lane; i < G_BQ; i += 32) {
+          const int qi = q0 + i;
+          const bool in = qi < S;
+          dst[i] = in ? lse[(long long)h * S + qi] * LOG2E : 0.f;
+          dst[G_BQ + i] = in ? delta[(long long)h * S + qi] : 0.f;
+        }
+        mbar_arrive(q_full + 8 * s);
+      }
+    }
+  } else {
+    // A consumer warpgroup: KV rows k0w.. (64 of them), the warp's 16 from
+    // 16 wq.
+    setmaxnreg_inc<G_CONSUMER_REGS>();
+    const int wq = warp & 3, cw = wg - 1;
+    const int k0w = k0 + 64 * cw;
+    const int g = lane >> 2, t = lane & 3;
+    // Descriptors of the warpgroup's K and V rows (A, K-major), of stage
+    // 0's Q and dO as the B of the score products (K-major) and as the B
+    // of P^T dO and dS^T Q (MN-major: their rows are the depth); a 16-deep
+    // step and a stage are offsets added to them (16-byte units).
+    const uint64_t da_k = sw128_desc(sk + cw * 64 * G::ROW, 16, 1024);
+    const uint64_t da_v = sw128_desc(sv + cw * 64 * G::ROW, 16, 1024);
+    const uint64_t db_q = sw128_desc(sq, 16, 1024);
+    const uint64_t db_do = sw128_desc(sq + G::Q_BYTES, 16, 1024);
+    const uint64_t db_qt = sw128_desc(sq, G::Q_BYTES, 1024);
+    const uint64_t db_dot = sw128_desc(sq + G::Q_BYTES, G::Q_BYTES, 1024);
+    float acc_k[ND][4], acc_v[ND][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+    const float scale_log2 = scale * LOG2E;
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it & 1;
+      const uint32_t ph = (it >> 1) & 1;
+      const int q0 = q_begin + (it % n_qt) * G_BQ;
+      const uint32_t off = st * (G::STAGE >> 4);
+      // No key of the warpgroup is seen by any row of the tile: every row
+      // before the keys, or past the window of the last key, or keys past
+      // S.
+      const bool skip =
+          k0w >= S ||
+          (causal && (q0 + G_BQ - 1 < k0w ||
+                      (window > 0 && q0 - (k0w + 63) >= window)));
+      // Some entry of the warpgroup's keys against the tile is masked.
+      const bool masked =
+          q0 + G_BQ > S || k0w + 64 > S ||
+          (causal && (q0 < k0w + 63 ||
+                      (window > 0 && q0 + G_BQ - 1 - k0w >= window)));
+      mbar_wait(q_full + 8 * st, ph);
+      if (!skip) {
+        // S^T = K Q^T and dP^T = V dO^T, 4 steps of depth 16 each, 32
+        // bytes apart inside the swizzle atom.
+        float s[NJ][4], dp[NJ][4];
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<T>(s, da_k + 2 * kk, db_q + off + 2 * kk, kk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<T>(dp, da_v + 2 * kk, db_do + off + 2 * kk, kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        // P^T = 2^(S^T scale log2 e - lse log2 e) (masked entries 0) in
+        // place of S^T, dS^T = P^T o (dP^T - delta) in place of dP^T; the
+        // accumulators' columns are the tile's query rows.
+        const float* const cl = lse_delta + 2 * G_BQ * st;
+        const float* const cd = cl + G_BQ;
+        if (masked) {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + 2 * t + (e & 1);
+              const int kj = k0w + 16 * wq + g + 8 * (e >> 1);
+              const float p =
+                  keep(q0 + col, kj, S, causal, window)
+                      ? ex2(fmaf(s[j][e], scale_log2, -cl[col]))
+                      : 0.f;
+              s[j][e] = p;
+              dp[j][e] = p * (dp[j][e] - cd[col]);
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + 2 * t + (e & 1);
+              const float p = ex2(fmaf(s[j][e], scale_log2, -cl[col]));
+              s[j][e] = p;
+              dp[j][e] = p * (dp[j][e] - cd[col]);
+            }
+        }
+        // P^T and dS^T as A fragments of the input's type, 16 query rows
+        // a step; then dV += P^T dO and dK += dS^T Q, dO's and Q's rows
+        // the depth (16 rows, 2048 bytes a step).
+        uint32_t ap[NJ / 2][4], ad[NJ / 2][4];
+#pragma unroll
+        for (int kk = 0; kk < NJ / 2; ++kk) {
+          ap[kk][0] = pack16<T>(s[2 * kk][0], s[2 * kk][1]);
+          ap[kk][1] = pack16<T>(s[2 * kk][2], s[2 * kk][3]);
+          ap[kk][2] = pack16<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+          ap[kk][3] = pack16<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+          ad[kk][0] = pack16<T>(dp[2 * kk][0], dp[2 * kk][1]);
+          ad[kk][1] = pack16<T>(dp[2 * kk][2], dp[2 * kk][3]);
+          ad[kk][2] = pack16<T>(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+          ad[kk][3] = pack16<T>(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+        }
+        fence_regs(acc_v);
+        fence_regs(acc_k);
+        fence_regs(ap);
+        fence_regs(ad);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NJ / 2; ++kk)
+          wgmma_rs_n64<T>(acc_v, ap[kk],
+                          db_dot + off + ((kk * 16 * G::ROW) >> 4), 1);
+#pragma unroll
+        for (int kk = 0; kk < NJ / 2; ++kk)
+          wgmma_rs_n64<T>(acc_k, ad[kk],
+                          db_qt + off + ((kk * 16 * G::ROW) >> 4), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc_v);
+        fence_regs(acc_k);
+        fence_regs(ap);
+        fence_regs(ad);
+      }
+      if (lane == 0) mbar_arrive(q_empty + 8 * st);
+    }
+
+    // dk = scale * acc_k and dv = acc_v in k's type, two columns a 32-bit
+    // store (head_dim is a whole number of 8-column units on this route).
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kj = k0w + 16 * wq + g + 8 * r;
+      if (kj >= S) continue;
+      const long long at = ((long long)kj * KVH + kvh) * D;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        const int col = 8 * n + 2 * t;
+        if (col < D) {
+          *reinterpret_cast<uint32_t*>(dk + at + col) = pack16<T>(
+              acc_k[n][2 * r] * scale, acc_k[n][2 * r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + at + col) =
+              pack16<T>(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
+        }
+      }
+    }
+  }
 }
 
 // Dynamic shared memory of one block of the 256 instance: K and V, the
@@ -1086,6 +1383,34 @@ cudaError_t launch_dkv(const void* const* p, int S, int H, int KVH, int D,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_dkv_wgmma(const void* const* p, int S, int H, int KVH,
+                             int D, const Strides& st, int causal,
+                             int window, float scale, cudaStream_t stream) {
+  constexpr int smem = Gmma<T>::SMEM;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = tile_map<T>(&tq, p[0], D, H, S, st.q_ss, st.q_sh, G_BQ);
+  if (err == cudaSuccess)
+    err = tile_map<T>(&tk, p[1], D, KVH, S, st.k_ss, st.k_sh, G_BKV);
+  if (err == cudaSuccess)
+    err = tile_map<T>(&tv, p[2], D, KVH, S, st.v_ss, st.v_sh, G_BKV);
+  if (err == cudaSuccess)
+    err = tile_map<T>(&tdo, p[3], D, H, S, st.do_ss, st.do_sh, G_BQ);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<T, TMA_COLS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + G_BKV - 1) / G_BKV, KVH);
+  flash_bwd_dkv_wgmma_kernel<T, TMA_COLS><<<grid, G_NT, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(p[4]),
+      static_cast<const float*>(p[5]),
+      static_cast<T*>(const_cast<void*>(p[6])),
+      static_cast<T*>(const_cast<void*>(p[7])), S, KVH, H / KVH, D, causal,
+      window, scale);
+  return cudaGetLastError();
+}
+
 // SMs of the current device, or minus the CUDA error.
 int sm_count() {
   int dev = 0, sms = 0;
@@ -1176,10 +1501,29 @@ using Launcher = cudaError_t (*)(const void* const*, int, int, int, int,
 // The widest head_dim of the wide route: 8 blocks a cluster.
 constexpr int WIDE_MAX_D = W_COLS * X_MAX_N;
 
-// The template instances with head_dim padded to 16, 32, 64, 128 or 256,
-// the wide route to 1024 and the streamed route beyond.
+// The routes, by the codes flash_bwd_dkv_route gives them
+// (flash_attention.BWD_ROUTES): the instances (head_dim padded to 16, 32,
+// 64, 128 or 256), the wgmma route (bf16 and f16 at 33-64 whose q, k, v
+// and dO all take the 16-byte copy path, as TMA needs), the wide route
+// (257-1024) and the streamed route beyond.
+enum Route { R_INSTANCE = 0, R_WGMMA = 1, R_WIDE = 2, R_STREAM = 3 };
+constexpr int VEC_ALL = VEC_Q | VEC_K | VEC_V | VEC_DO;
+
 template <typename T>
-Launcher dkv_for(int D) {
+Route route_for(int D, int vec) {
+  return D > WIDE_MAX_D ? R_STREAM
+       : D > 256        ? R_WIDE
+       : sizeof(T) == 2 && D > 32 && D <= TMA_COLS && vec == VEC_ALL
+           ? R_WGMMA
+           : R_INSTANCE;
+}
+
+// The template instances with head_dim padded to 16, 32, 64, 128 or 256,
+// the wgmma route, the wide route to 1024 and the streamed route beyond.
+template <typename T>
+Launcher dkv_for(int D, int vec) {
+  if constexpr (sizeof(T) == 2)
+    if (route_for<T>(D, vec) == R_WGMMA) return &launch_dkv_wgmma<T>;
   return D <= 16 ? &launch_dkv<T, 16>
        : D <= 32 ? &launch_dkv<T, 32>
        : D <= 64 ? &launch_dkv<T, 64>
@@ -1190,7 +1534,9 @@ Launcher dkv_for(int D) {
 }
 
 template <typename T>
-int smem_for(int D) {
+int smem_for(int D, int vec) {
+  if constexpr (sizeof(T) == 2)
+    if (route_for<T>(D, vec) == R_WGMMA) return Gmma<T>::SMEM;
   return D <= 16 ? smem_bytes<T, 16>()
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
@@ -1200,10 +1546,14 @@ int smem_for(int D) {
                          : stream_smem_bytes<T>();
 }
 
-// Warps an SM of the instance for D, or -1 on the wide and streamed
-// routes.
+// Warps an SM of the template for (D, vec), or -1 on the wide and
+// streamed routes.
 template <typename T>
-int warps_for(int D) {
+int warps_for(int D, int vec) {
+  if constexpr (sizeof(T) == 2)
+    if (route_for<T>(D, vec) == R_WGMMA)
+      return warps_per_sm(flash_bwd_dkv_wgmma_kernel<T, TMA_COLS>, G_NT,
+                          Gmma<T>::SMEM);
   return D <= 16 ? warps_per_sm(flash_bwd_dkv_kernel<T, 16>, NT,
                                 smem_bytes<T, 16>())
        : D <= 32 ? warps_per_sm(flash_bwd_dkv_kernel<T, 32>, NT,
@@ -1247,19 +1597,29 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
   const void* p[] = {q, k, v, dout, lse, delta, dk, dv};
   const Strides st{strides[0], strides[1], strides[2], strides[3],
                    strides[4], strides[5], strides[6], strides[7]};
-  const Launcher f = dtype == 0   ? dkv_for<float>(D)
-                     : dtype == 1 ? dkv_for<bf16>(D)
-                                  : dkv_for<f16>(D);
+  const Launcher f =
+      dtype == 0   ? dkv_for<float>(D, vec_bits<float>(p, st, D))
+      : dtype == 1 ? dkv_for<bf16>(D, vec_bits<bf16>(p, st, D))
+                   : dkv_for<f16>(D, vec_bits<f16>(p, st, D));
   return (int)f(p, S, H, KVH, D, st, causal, window, scale,
                 static_cast<cudaStream_t>(stream));
 }
 
-// Bytes of dynamic shared memory a block of the instance for (D, dtype)
-// takes.
-int flash_bwd_dkv_smem_bytes(int D, int dtype) {
-  return dtype == 0   ? smem_for<float>(D)
-         : dtype == 1 ? smem_for<bf16>(D)
-                      : smem_for<f16>(D);
+// The route (R_INSTANCE 0, R_WGMMA 1, R_WIDE 2, R_STREAM 3) a launch takes at
+// head_dim D and dtype, with `vec` the bits (1 q, 2 k, 4 v, 8 dO) of the
+// tensors whose pointer, strides and head_dim are whole 16-byte units.
+int flash_bwd_dkv_route(int D, int dtype, int vec) {
+  return dtype == 0   ? route_for<float>(D, vec)
+         : dtype == 1 ? route_for<bf16>(D, vec)
+                      : route_for<f16>(D, vec);
+}
+
+// Bytes of dynamic shared memory a block of the template that (D, dtype,
+// vec) takes.
+int flash_bwd_dkv_smem_bytes(int D, int dtype, int vec) {
+  return dtype == 0   ? smem_for<float>(D, vec)
+         : dtype == 1 ? smem_for<bf16>(D, vec)
+                      : smem_for<f16>(D, vec);
 }
 
 // Clusters of the wide route's kernel for (D, dtype) the card can hold at
@@ -1272,13 +1632,13 @@ int flash_bwd_dkv_max_clusters(int D, int dtype) {
                       : clusters_for<f16>(D);
 }
 
-// Warps of the instance for (D, dtype) an SM holds at once
+// Warps of the template that (D, dtype, vec) takes an SM holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), minus a CUDA error, or
 // -1 for a head_dim on the wide or streamed route.
-int flash_bwd_dkv_warps_per_sm(int D, int dtype) {
-  return dtype == 0   ? warps_for<float>(D)
-         : dtype == 1 ? warps_for<bf16>(D)
-                      : warps_for<f16>(D);
+int flash_bwd_dkv_warps_per_sm(int D, int dtype, int vec) {
+  return dtype == 0   ? warps_for<float>(D, vec)
+         : dtype == 1 ? warps_for<bf16>(D, vec)
+                      : warps_for<f16>(D, vec);
 }
 
 // Blocks of the head_dim-256 instance that share each KV tile in a launch

@@ -45,6 +45,28 @@
 //   tile. A tensor whose pointer, strides or head_dim are not whole
 //   16-byte units takes a scalar load path instead (per tensor, chosen
 //   by the launcher).
+// - bf16 and f16 at head_dim 33-64 whose q, k, v and dO are whole 16-byte
+//   units take the wgmma route instead (flash_bwd_dq_wgmma_kernel<type,
+//   64>; wgmma_sm90.cuh), Hopper's warpgroup products fed by the Tensor
+//   Memory Accelerator: the 64 instance above runs warp-level mma.sync
+//   with ldmatrix and cp.async, each warp reading the whole K and V tiles
+//   for its 16 rows, at a quarter of its bound. One block of three
+//   warpgroups owns 128 query rows of one head. A producer warpgroup (its
+//   registers given back by setmaxnreg) has one thread issue the TMA
+//   copies in the 128-byte swizzle: Q and dO once, then each KV tile's K
+//   and V (128 keys, one 64-column box a row) into a ring of two stages,
+//   each copy completing on a full mbarrier and each stage handed back by
+//   an empty one (V once dP is computed, K after dS K). Two consumer
+//   warpgroups own 64 query rows each: S = Q K^T and dP = dO V^T by wgmma
+//   m64n128k16 with both operands in shared memory (one commit group, one
+//   wait), P and dS in the accumulators' registers, dS packed there to
+//   the input's type as the A fragments of dQ += dS K (m64n64k16, K read
+//   MN-major: its rows are the depth). As in the instance, the block owns
+//   its output, with no atomics, and each score product is computed once
+//   a (query tile, KV tile). The wgmma route of flash_fwd.cu says what
+//   keeps ptxas from serializing the products (no trap block, roles
+//   branched on a warp-uniform index, no subroutine call in a consumer,
+//   no branch between a product and its wait).
 // - head_dim 129-256 pads to one 256 instance (flash_bwd_dq_split_kernel),
 //   where dq over 256 columns would be 128 accumulator registers a thread
 //   beside both score tiles, which left room for one block of 4 warps an
@@ -118,6 +140,7 @@
 
 #include "cluster_sm90.cuh"
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -901,6 +924,248 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_dq(acc, dq, q0, wrow, lane, S, H, h, D, col0 + wcol, scale);
 }
 
+// The wgmma route (bf16 and f16 at head_dim 33-64 whose q, k, v and dO
+// are whole 16-byte units; the file's header says how it works and why):
+// query rows a block, keys a KV tile, threads a block (a producer and two
+// consumer warpgroups), and the registers a thread of each role keeps (24
+// to 256, multiples of 8, at most 65,536 a block: 128 x 40 + 256 x 232).
+constexpr int G_BQ = 128;
+constexpr int G_BKV = 128;
+constexpr int G_NT = 384;
+constexpr int G_PRODUCER_REGS = 40;
+constexpr int G_CONSUMER_REGS = 232;
+
+// The wgmma route's shared memory for type T, in bytes: a row (one TMA box
+// of 64 columns), the Q or dO tile, one K or V tile, and the block's
+// total: 1024 to align the tiles, Q, dO, two stages of K and of V, and 9
+// mbarriers (Q and dO full; K full, V full, K empty and V empty of each
+// stage).
+template <typename T> struct Gmma {
+  static_assert(sizeof(T) == 2, "16-bit types");
+  static constexpr int ROW = TMA_COLS * (int)sizeof(T);
+  static constexpr int Q_BYTES = G_BQ * ROW;
+  static constexpr int KV_BYTES = G_BKV * ROW;
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + 4 * KV_BYTES + 9 * 8;
+};
+
+// The wgmma route's kernel: one block of three warpgroups owns one (query
+// head, 128-row query tile). tq, tk, tv and tdo are the 3-D tensor maps
+// (D, heads, S) of q, k, v and dO, with boxes of 64 columns, one head and
+// G_BQ (q, dO) or G_BKV (k, v) rows.
+template <typename T, int DP>
+__global__ void __launch_bounds__(G_NT, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dq, int S, int H, int group, int D,
+                          int causal, int window, float scale) {
+  static_assert(DP == TMA_COLS, "head_dim 33-64: one box a row");
+  using G = Gmma<T>;
+  constexpr int NJ = G_BKV / 8;          // 8-key score tiles
+  constexpr int ND = DP / 8;             // 8-column tiles of dq
+  extern __shared__ __align__(16) unsigned char gsmem_raw[];
+  // Shared-window addresses: Q, dO, K's and V's two stages, the barriers.
+  const uint32_t sq = (smem_addr(gsmem_raw) + 1023) & ~1023u;
+  const uint32_t sdo = sq + G::Q_BYTES;
+  const uint32_t sk = sdo + G::Q_BYTES;
+  const uint32_t sv = sk + 2 * G::KV_BYTES;
+  const uint32_t q_full = sv + 2 * G::KV_BYTES;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 16;
+  const uint32_t k_empty = v_full + 16, v_empty = k_empty + 16;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // The warpgroup, read from lane 0 so that the compiler knows that it is
+  // the same across the warp (each role then keeps its own register
+  // budget; flash_fwd.cu's wgmma route says why).
+  const int wg = __shfl_sync(0xffffffffu, warp / 4, 0);
+  const int h = blockIdx.y;
+  // Heaviest causal tiles (the last query rows) are scheduled first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * G_BQ;
+  int kv_begin = 0, kv_end = S;
+  if (causal) {
+    kv_end = min(S, q0 + G_BQ);
+    if (window > 0) {
+      const int lo = q0 - window + 1;
+      if (lo > 0) kv_begin = (lo / G_BKV) * G_BKV;
+    }
+  }
+  const int n_it = (kv_end - kv_begin + G_BKV - 1) / G_BKV;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);   // one arrival a consumer warp
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // The producer warpgroup; one thread issues every copy: Q and dO once,
+    // then K and V of each tile into stage it & 1, whose use (it >> 1) & 1
+    // is the phase parity (a stage's first empty wait passes at once).
+    setmaxnreg_dec<G_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * G::Q_BYTES);
+      tma_load_3d(sq, &tq, q_full, 0, h, q0);
+      tma_load_3d(sdo, &tdo, q_full, 0, h, q0);
+      const int kvh = h / group;
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it & 1;
+        const uint32_t ph = (it >> 1) & 1;
+        const int k0 = kv_begin + it * G_BKV;
+        mbar_wait(k_empty + 8 * s, ph ^ 1);
+        mbar_expect_tx(k_full + 8 * s, G::KV_BYTES);
+        tma_load_3d(sk + s * G::KV_BYTES, &tk, k_full + 8 * s, 0, kvh, k0);
+        mbar_wait(v_empty + 8 * s, ph ^ 1);
+        mbar_expect_tx(v_full + 8 * s, G::KV_BYTES);
+        tma_load_3d(sv + s * G::KV_BYTES, &tv, v_full + 8 * s, 0, kvh, k0);
+      }
+    }
+  } else {
+    // A consumer warpgroup: query rows q0w.. (64 of them), the warp's 16
+    // from 16 wq.
+    setmaxnreg_inc<G_CONSUMER_REGS>();
+    const int wq = warp & 3, cw = wg - 1;
+    const int q0w = q0 + 64 * cw;
+    const int g = lane >> 2, t = lane & 3;
+    // lse (base 2) and delta of rows g and g + 8 of the warp. Rows past S
+    // take 0: their Q and dO rows are zeros (the copies fill them), so
+    // their dS is 0 where the tile is not masked, and they are never
+    // written.
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0w + 16 * wq + g + 8 * r;
+      lse2[r] = qi < S ? lse[(long long)h * S + qi] * LOG2E : 0.f;
+      dlt[r] = qi < S ? delta[(long long)h * S + qi] : 0.f;
+    }
+    // Descriptors of the warpgroup's Q and dO rows (A, K-major), of K's
+    // and V's stage 0 as the B of the score products (K-major) and of K's
+    // as the B of dS K (MN-major: its rows are the depth); a 16-deep step
+    // and a stage are offsets added to them (16-byte units).
+    const uint64_t da_q = sw128_desc(sq + cw * 64 * G::ROW, 16, 1024);
+    const uint64_t da_do = sw128_desc(sdo + cw * 64 * G::ROW, 16, 1024);
+    const uint64_t db_k = sw128_desc(sk, 16, 1024);
+    const uint64_t db_v = sw128_desc(sv, 16, 1024);
+    const uint64_t db_kt = sw128_desc(sk, G::KV_BYTES, 1024);
+    float acc[ND][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    const float scale_log2 = scale * LOG2E;
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it & 1;
+      const uint32_t ph = (it >> 1) & 1;
+      const int k0 = kv_begin + it * G_BKV;
+      const uint32_t off = st * (G::KV_BYTES >> 4);
+      // No row of the warpgroup may use any key of the tile: past the
+      // causal diagonal, before the window, or rows past S.
+      const bool skip =
+          q0w >= S ||
+          (causal && (k0 > q0w + 63 ||
+                      (window > 0 && q0w - (k0 + G_BKV - 1) >= window)));
+      // Some entry of the warpgroup's rows against the tile is masked.
+      const bool masked =
+          k0 + G_BKV > S ||
+          (causal && (k0 + G_BKV - 1 > q0w ||
+                      (window > 0 && q0w + 63 - k0 >= window)));
+      mbar_wait(k_full + 8 * st, ph);
+      mbar_wait(v_full + 8 * st, ph);
+      float s[NJ][4], dp[NJ][4];       // written whole by the first step
+      if (!skip) {
+        // S = Q K^T and dP = dO V^T, 4 steps of depth 16 each, 32 bytes
+        // apart inside the swizzle atom.
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<T>(s, da_q + 2 * kk, db_k + off + 2 * kk, kk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<T>(dp, da_do + 2 * kk, db_v + off + 2 * kk, kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+      }
+      if (lane == 0) mbar_arrive(v_empty + 8 * st);
+      if (!skip) {
+        // dS = P o (dP - delta), P = 2^(S scale log2 e - lse log2 e)
+        // (masked entries 0), in place of S.
+        if (masked) {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qi = q0w + 16 * wq + g + 8 * (e >> 1);
+              const int kj = k0 + 8 * j + 2 * t + (e & 1);
+              const float p =
+                  keep(qi, kj, S, causal, window)
+                      ? ex2(fmaf(s[j][e], scale_log2, -lse2[e >> 1]))
+                      : 0.f;
+              s[j][e] = p * (dp[j][e] - dlt[e >> 1]);
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[j][e] = ex2(fmaf(s[j][e], scale_log2, -lse2[e >> 1])) *
+                        (dp[j][e] - dlt[e >> 1]);
+        }
+        // dS as A fragments of the input's type, 16 keys a step; then dQ
+        // += dS K, K's rows the depth (16 keys, 2048 bytes a step).
+        uint32_t a[G_BKV / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < G_BKV / 16; ++kk) {
+          a[kk][0] = pack16<T>(s[2 * kk][0], s[2 * kk][1]);
+          a[kk][1] = pack16<T>(s[2 * kk][2], s[2 * kk][3]);
+          a[kk][2] = pack16<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+          a[kk][3] = pack16<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        }
+        fence_regs(acc);
+        fence_regs(a);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < G_BKV / 16; ++kk)
+          wgmma_rs_n64<T>(acc, a[kk],
+                          db_kt + off + ((kk * 16 * G::ROW) >> 4), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(a);
+      }
+      if (lane == 0) mbar_arrive(k_empty + 8 * st);
+    }
+
+    // dq = scale * acc in q's type, two columns a 32-bit store (head_dim
+    // is a whole number of 8-column units on this route).
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0w + 16 * wq + g + 8 * r;
+      if (qi >= S) continue;
+      T* row = dq + ((long long)qi * H + h) * D;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        const int col = 8 * n + 2 * t;
+        if (col < D)
+          *reinterpret_cast<uint32_t*>(row + col) = pack16<T>(
+              acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
 // Bits of `vec` for q, k, v and dO: a tensor takes the 16-byte copy path
 // when its pointer, row and head strides and head_dim are all whole
 // 16-byte units.
@@ -957,6 +1222,33 @@ cudaError_t launch_dq_split(const void* const* p, int S, int H, int KVH,
 }
 
 template <typename T>
+cudaError_t launch_dq_wgmma(const void* const* p, int S, int H, int KVH,
+                            int D, const Strides& st, int causal, int window,
+                            float scale, cudaStream_t stream) {
+  constexpr int smem = Gmma<T>::SMEM;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = tile_map<T>(&tq, p[0], D, H, S, st.q_ss, st.q_sh, G_BQ);
+  if (err == cudaSuccess)
+    err = tile_map<T>(&tk, p[1], D, KVH, S, st.k_ss, st.k_sh, G_BKV);
+  if (err == cudaSuccess)
+    err = tile_map<T>(&tv, p[2], D, KVH, S, st.v_ss, st.v_sh, G_BKV);
+  if (err == cudaSuccess)
+    err = tile_map<T>(&tdo, p[3], D, H, S, st.do_ss, st.do_sh, G_BQ);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<T, TMA_COLS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + G_BQ - 1) / G_BQ, H);
+  flash_bwd_dq_wgmma_kernel<T, TMA_COLS><<<grid, G_NT, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(p[4]),
+      static_cast<const float*>(p[5]),
+      static_cast<T*>(const_cast<void*>(p[6])), S, H, H / KVH, D, causal,
+      window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t launch_dq_wide(const void* const* p, int S, int H, int KVH,
                            int D, const Strides& st, int causal, int window,
                            float scale, cudaStream_t stream) {
@@ -1007,10 +1299,29 @@ using Launcher = cudaError_t (*)(const void* const*, int, int, int, int,
 // The widest head_dim of the wide route: 8 blocks a cluster.
 constexpr int WIDE_MAX_D = W_COLS * X_MAX_N;
 
-// The template instances with head_dim padded to 16, 32, 64, 128 or 256,
-// the wide route to 1024 and the streamed route beyond.
+// The routes, by the codes flash_bwd_dq_route gives them
+// (flash_attention.BWD_ROUTES): the instances (head_dim padded to 16, 32,
+// 64, 128 or 256), the wgmma route (bf16 and f16 at 33-64 whose q, k, v
+// and dO all take the 16-byte copy path, as TMA needs), the wide route
+// (257-1024) and the streamed route beyond.
+enum Route { R_INSTANCE = 0, R_WGMMA = 1, R_WIDE = 2, R_STREAM = 3 };
+constexpr int VEC_ALL = VEC_Q | VEC_K | VEC_V | VEC_DO;
+
 template <typename T>
-Launcher dq_for(int D) {
+Route route_for(int D, int vec) {
+  return D > WIDE_MAX_D ? R_STREAM
+       : D > 256        ? R_WIDE
+       : sizeof(T) == 2 && D > 32 && D <= TMA_COLS && vec == VEC_ALL
+           ? R_WGMMA
+           : R_INSTANCE;
+}
+
+// The template instances with head_dim padded to 16, 32, 64, 128 or 256,
+// the wgmma route, the wide route to 1024 and the streamed route beyond.
+template <typename T>
+Launcher dq_for(int D, int vec) {
+  if constexpr (sizeof(T) == 2)
+    if (route_for<T>(D, vec) == R_WGMMA) return &launch_dq_wgmma<T>;
   return D <= 16 ? &launch_dq<T, 16>
        : D <= 32 ? &launch_dq<T, 32>
        : D <= 64 ? &launch_dq<T, 64>
@@ -1021,7 +1332,9 @@ Launcher dq_for(int D) {
 }
 
 template <typename T>
-int smem_for(int D) {
+int smem_for(int D, int vec) {
+  if constexpr (sizeof(T) == 2)
+    if (route_for<T>(D, vec) == R_WGMMA) return Gmma<T>::SMEM;
   return D <= 16 ? smem_bytes<T, 16>()
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
@@ -1031,10 +1344,14 @@ int smem_for(int D) {
                          : stream_smem_bytes<T>();
 }
 
-// Warps an SM of the instance for D, or -1 on the wide and streamed
-// routes.
+// Warps an SM of the template for (D, vec), or -1 on the wide and
+// streamed routes.
 template <typename T>
-int warps_for(int D) {
+int warps_for(int D, int vec) {
+  if constexpr (sizeof(T) == 2)
+    if (route_for<T>(D, vec) == R_WGMMA)
+      return warps_per_sm(flash_bwd_dq_wgmma_kernel<T, TMA_COLS>, G_NT,
+                          Gmma<T>::SMEM);
   return D <= 16 ? warps_per_sm(flash_bwd_dq_kernel<T, 16>, NT,
                                 smem_bytes<T, 16>())
        : D <= 32 ? warps_per_sm(flash_bwd_dq_kernel<T, 32>, NT,
@@ -1077,19 +1394,29 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
   const void* p[] = {q, k, v, dout, lse, delta, dq};
   const Strides st{strides[0], strides[1], strides[2], strides[3],
                    strides[4], strides[5], strides[6], strides[7]};
-  const Launcher f = dtype == 0   ? dq_for<float>(D)
-                     : dtype == 1 ? dq_for<bf16>(D)
-                                  : dq_for<f16>(D);
+  const Launcher f =
+      dtype == 0   ? dq_for<float>(D, vec_bits<float>(p, st, D))
+      : dtype == 1 ? dq_for<bf16>(D, vec_bits<bf16>(p, st, D))
+                   : dq_for<f16>(D, vec_bits<f16>(p, st, D));
   return (int)f(p, S, H, KVH, D, st, causal, window, scale,
                 static_cast<cudaStream_t>(stream));
 }
 
-// Bytes of dynamic shared memory a block of the instance for (D, dtype)
-// takes.
-int flash_bwd_dq_smem_bytes(int D, int dtype) {
-  return dtype == 0   ? smem_for<float>(D)
-         : dtype == 1 ? smem_for<bf16>(D)
-                      : smem_for<f16>(D);
+// The route (R_INSTANCE 0, R_WGMMA 1, R_WIDE 2, R_STREAM 3) a launch takes at
+// head_dim D and dtype, with `vec` the bits (1 q, 2 k, 4 v, 8 dO) of the
+// tensors whose pointer, strides and head_dim are whole 16-byte units.
+int flash_bwd_dq_route(int D, int dtype, int vec) {
+  return dtype == 0   ? route_for<float>(D, vec)
+         : dtype == 1 ? route_for<bf16>(D, vec)
+                      : route_for<f16>(D, vec);
+}
+
+// Bytes of dynamic shared memory a block of the template that (D, dtype,
+// vec) takes.
+int flash_bwd_dq_smem_bytes(int D, int dtype, int vec) {
+  return dtype == 0   ? smem_for<float>(D, vec)
+         : dtype == 1 ? smem_for<bf16>(D, vec)
+                      : smem_for<f16>(D, vec);
 }
 
 // Clusters of the wide route's kernel for (D, dtype) the card can hold at
@@ -1102,13 +1429,13 @@ int flash_bwd_dq_max_clusters(int D, int dtype) {
                       : clusters_for<f16>(D);
 }
 
-// Warps of the instance for (D, dtype) an SM holds at once
+// Warps of the template that (D, dtype, vec) takes an SM holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), minus a CUDA error, or
 // -1 for a head_dim on the wide or streamed route.
-int flash_bwd_dq_warps_per_sm(int D, int dtype) {
-  return dtype == 0   ? warps_for<float>(D)
-         : dtype == 1 ? warps_for<bf16>(D)
-                      : warps_for<f16>(D);
+int flash_bwd_dq_warps_per_sm(int D, int dtype, int vec) {
+  return dtype == 0   ? warps_for<float>(D, vec)
+         : dtype == 1 ? warps_for<bf16>(D, vec)
+                      : warps_for<f16>(D, vec);
 }
 
 const char* flash_bwd_dq_error_string(int code) {

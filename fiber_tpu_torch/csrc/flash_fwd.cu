@@ -1075,7 +1075,7 @@ flash_fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int G_BQ = 128;
 constexpr int G_BKV = 80;
 constexpr int G_NT = 384;
-constexpr int G_BOX = 64;
+constexpr int G_BOX = TMA_COLS;
 constexpr int G_PRODUCER_REGS = 40;
 constexpr int G_CONSUMER_REGS = 232;
 
@@ -1351,54 +1351,6 @@ cudaError_t launch_fwd_wide(const void* const* p, int S, int H, int KVH,
       static_cast<float*>(const_cast<void*>(p[4])), S, H, H / KVH, D, st,
       vec_bits<T>(p, st, D), causal, window, scale);
   return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, CUDA's encoder of a TMA tensor map, resolved
-// once through the runtime's entry-point query, so that the library needs
-// no -lcuda; null where it is missing.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The tensor map of one (S, heads, D) tensor of 16-bit type T with row and
-// head strides ss and sh (elements), as 3-D (D, heads, S), with boxes of
-// G_BOX columns, one head and `rows` rows, in the 128-byte swizzle; reads
-// past S or D give zeros.
-template <typename T>
-cudaError_t tile_map(CUtensorMap* map, const void* ptr, int D, int heads,
-                     int S, long long ss, long long sh, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)S};
-  const cuuint64_t strides[2] = {(cuuint64_t)sh * sizeof(T),
-                                 (cuuint64_t)ss * sizeof(T)};
-  const cuuint32_t box[3] = {G_BOX, 1, (cuuint32_t)rows};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map,
-      std::is_same_v<T, bf16> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                              : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-      3, const_cast<void*>(ptr), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <typename T, int DP>

@@ -2,10 +2,12 @@
 // on Hopper's warpgroup-level tensor-core instruction, wgmma, with their
 // tiles copied by the Tensor Memory Accelerator (TMA): the shared-memory
 // matrix descriptor of the 128-byte swizzle, wgmma's fence, commit and
-// wait, the bf16 and f16 products m64nNk16 with A in shared memory and
-// with A in registers, the 3-D TMA tile load, mbarrier init, arrive,
-// arrive.expect_tx and a bounded wait on a phase, and setmaxnreg. sm_90a
-// only (wgmma and setmaxnreg exist for no other target).
+// wait, the bf16 and f16 products m64nNk16 with A in shared memory (N 64,
+// 80, 128) and with A in registers (N 64, 256; B MN-major), the 3-D TMA
+// tile load and the host's tensor map of a (S, heads, head_dim) tensor,
+// mbarrier init, arrive, arrive.expect_tx and a wait on a phase, and
+// setmaxnreg. sm_90a only (wgmma and setmaxnreg exist for no other
+// target).
 //
 // Layouts. TMA's CU_TENSOR_MAP_SWIZZLE_128B writes a box of 64 16-bit
 // columns (128 bytes) and R rows as R rows of 128 bytes, the 16-byte unit
@@ -152,10 +154,87 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)); \
   }
 
+#define FIBER_WGMMA_SS_N64(NAME, TY)                                      \
+  __device__ __forceinline__ void NAME(float (&d)[8][4], uint64_t da,        \
+                                       uint64_t db, int scale_d) {          \
+    asm volatile(                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                 \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), \
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), \
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), \
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), \
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]) \
+      : "l"(da), "l"(db), "r"(scale_d));                                   \
+  }
+
+#define FIBER_WGMMA_SS_N128(NAME, TY)                                      \
+  __device__ __forceinline__ void NAME(float (&d)[16][4], uint64_t da,        \
+                                       uint64_t db, int scale_d) {          \
+    asm volatile(                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                 \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), \
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), \
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), \
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), \
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), \
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), \
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), \
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), \
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), \
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), \
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), \
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), \
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]) \
+      : "l"(da), "l"(db), "r"(scale_d));                                   \
+  }
+
+#define FIBER_WGMMA_RS_N64_TB(NAME, TY)                                   \
+  __device__ __forceinline__ void NAME(float (&d)[8][4],                    \
+                                       const uint32_t (&a)[4], uint64_t db, \
+                                       int scale_d) {                        \
+    asm volatile(                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"             \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), \
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), \
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), \
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), \
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)); \
+  }
+
 FIBER_WGMMA_SS_N80(wgmma_ss_bf16_n80, "bf16")
 FIBER_WGMMA_SS_N80(wgmma_ss_f16_n80, "f16")
 FIBER_WGMMA_RS_N256_TB(wgmma_rs_bf16_n256_tb, "bf16")
 FIBER_WGMMA_RS_N256_TB(wgmma_rs_f16_n256_tb, "f16")
+FIBER_WGMMA_SS_N64(wgmma_ss_bf16_n64, "bf16")
+FIBER_WGMMA_SS_N64(wgmma_ss_f16_n64, "f16")
+FIBER_WGMMA_SS_N128(wgmma_ss_bf16_n128, "bf16")
+FIBER_WGMMA_SS_N128(wgmma_ss_f16_n128, "f16")
+FIBER_WGMMA_RS_N64_TB(wgmma_rs_bf16_n64_tb, "bf16")
+FIBER_WGMMA_RS_N64_TB(wgmma_rs_f16_n64_tb, "f16")
 
 // d (+)= A B^T, m64 x 80 x k16 of 16-bit type T, both operands in shared
 // memory, K-major (descriptors da, db); scale_d 0 overwrites d.
@@ -178,6 +257,35 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[32][4],
     wgmma_rs_bf16_n256_tb(d, a, db, scale_d);
   else
     wgmma_rs_f16_n256_tb(d, a, db, scale_d);
+}
+
+// d (+)= A B^T, m64 x 8 NJ x k16 of 16-bit type T (NJ 8 or 16: 64 or 128
+// columns), both operands in shared memory, K-major; scale_d 0 overwrites
+// d.
+template <typename T, int NJ>
+__device__ __forceinline__ void wgmma_ss(float (&d)[NJ][4], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  static_assert(NJ == 8 || NJ == 16, "m64n64k16 or m64n128k16");
+  constexpr bool B16 = std::is_same_v<T, bf16>;
+  if constexpr (NJ == 8) {
+    if constexpr (B16) wgmma_ss_bf16_n64(d, da, db, scale_d);
+    else wgmma_ss_f16_n64(d, da, db, scale_d);
+  } else {
+    if constexpr (B16) wgmma_ss_bf16_n128(d, da, db, scale_d);
+    else wgmma_ss_f16_n128(d, da, db, scale_d);
+  }
+}
+
+// d (+)= A B, m64 x 64 x k16 of 16-bit type T: A the warp's fragment in
+// registers, B (k16 x n64) MN-major in shared memory (descriptor db).
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  if constexpr (std::is_same_v<T, bf16>)
+    wgmma_rs_bf16_n64_tb(d, a, db, scale_d);
+  else
+    wgmma_rs_f16_n64_tb(d, a, db, scale_d);
 }
 
 // The mbarrier at `bar` (shared window address) expects `count` arrivals
@@ -242,6 +350,57 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Columns of a TMA box: 128 bytes of a 16-bit type, the swizzle's width.
+constexpr int TMA_COLS = 64;
+
+// cuTensorMapEncodeTiled, CUDA's encoder of a TMA tensor map, resolved
+// once through the runtime's entry-point query, so that a library needs no
+// -lcuda; null where it is missing.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of one (S, heads, D) tensor of 16-bit type T with row and
+// head strides ss and sh (elements), as 3-D (D, heads, S), with boxes of
+// TMA_COLS columns, one head and `rows` rows, in the 128-byte swizzle;
+// reads past S or D give zeros.
+template <typename T>
+cudaError_t tile_map(CUtensorMap* map, const void* ptr, int D, int heads,
+                     int S, long long ss, long long sh, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S};
+  const cuuint64_t strides[2] = {(cuuint64_t)sh * sizeof(T),
+                                 (cuuint64_t)ss * sizeof(T)};
+  const cuuint32_t box[3] = {TMA_COLS, 1, (cuuint32_t)rows};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map,
+      std::is_same_v<T, bf16> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                              : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      3, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace

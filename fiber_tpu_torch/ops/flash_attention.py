@@ -12,8 +12,9 @@ are the JAX package's: q ``(S, heads, head_dim)``, k and v
 The kernels and the plain versions take f32, bf16 and f16 and any
 head_dim, as the Pallas kernels do: the kernels pad a head_dim up to 256
 to an instance of 16, 32, 64, 128 or 256 columns (the forward in bf16
-and f16 at 129-256 takes its wgmma route instead, :func:`fwd_route`),
-and a larger one takes
+and f16 at 129-256 takes its wgmma route instead, :func:`fwd_route`,
+and the backward kernels in bf16 and f16 at 33-64 theirs,
+:func:`bwd_route`), and a larger one takes
 their wide route (128-column output slices; in the forward the depth of
 the score products streamed in chunks; in the backward, to head_dim
 1024, a thread-block cluster of one block a slice that computes each
@@ -365,6 +366,33 @@ def dkv_parts(s, kv_heads, group, sms):
     return parts
 
 
+#: the backward kernels' routes, in the order of the codes that
+#: ``flash_bwd_dq_route`` and ``flash_bwd_dkv_route`` in
+#: ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` give them
+BWD_ROUTES = ("instance", "wgmma", "wide", "stream")
+#: the backward kernels' wgmma route: dq's query rows a block and keys a KV
+#: tile; dk/dv's keys a block and query rows a tile
+BWD_DQ_WGMMA_TILES = (128, 128)
+BWD_DKV_WGMMA_TILES = (128, 64)
+
+
+def bwd_route(head_dim, dtype, aligned):
+    """The route of both backward kernels that a launch takes
+    (``BWD_ROUTES``): ``"wgmma"`` for bf16 and f16 at head_dim 33-64 when
+    q, k, v and dO are all ``aligned`` (pointer, row and head strides and
+    head_dim whole 16-byte units, as TMA needs), ``"instance"`` for every
+    other head_dim up to 256 (the mma.sync instances padded to 16, 32,
+    64, 128 or 256), ``"wide"`` at 257-1024 and ``"stream"`` above. The
+    launchers (``route_for`` in each backward source) decide the same."""
+    if head_dim > 1024:
+        return "stream"
+    if head_dim > 256:
+        return "wide"
+    if dtype != torch.float32 and 32 < head_dim <= 64 and aligned:
+        return "wgmma"
+    return "instance"
+
+
 def _launch_bwd(name, outs, q, k, v, dout, lse, delta, causal, window,
                 lib=None):
     """Launches backward kernel ``name`` (``_BWD_OUTPUTS``) on q's
@@ -395,8 +423,9 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = False,
     """The dq kernel's wrapper: dq ``(S, heads, head_dim)`` in q's dtype.
     On CUDA tensors it launches ``flash_bwd_dq`` from
     ``csrc/flash_bwd_dq.cu`` (tensor cores: bf16 and f16 directly, f32
-    as 3xTF32) and counts the launch in ``flash_bwd_dq.launches``; on CPU
-    tensors it runs the plain version."""
+    as 3xTF32; the route by :func:`bwd_route`) and counts the launch in
+    ``flash_bwd_dq.launches``; on CPU tensors it runs the plain
+    version."""
     _check_bwd(q, k, v, dout, lse, delta, causal, window)
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, dout, lse, delta, causal=causal,
@@ -417,7 +446,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = False,
     head_dim)`` in k's dtype, summed over every query head of a GQA
     group. On CUDA tensors it launches ``flash_bwd_dkv`` from
     ``csrc/flash_bwd_dkv.cu`` (tensor cores: bf16 and f16 directly, f32
-    as 3xTF32) and counts the launch in
+    as 3xTF32; the route by :func:`bwd_route`) and counts the launch in
     ``flash_bwd_dkv.launches``; on CPU tensors it runs the plain
     version."""
     _check_bwd(q, k, v, dout, lse, delta, causal, window)

@@ -457,10 +457,12 @@ def test_fwd_wide_arithmetic_stays_inside_the_chip_bounds(dtype, head_dim,
 # ---------------------------------------------------------------------------
 
 
-def _fwd_wgmma_emulated(q, k, v, dtype, window):
+def _fwd_wgmma_emulated(q, k, v, dtype, window, tiles=None):
     """(O, lse) of the wgmma route, causal, from f32 tensors that hold
-    ``dtype`` values."""
-    bq, bkv = fa.FWD_WGMMA_TILES
+    ``dtype`` values; ``tiles`` (query rows, keys) of another route whose
+    arithmetic is the same (the 16-bit instances: 128 query rows and 64
+    keys up to head_dim 64), by default the wgmma route's."""
+    bq, bkv = tiles or fa.FWD_WGMMA_TILES
     s, h, d = q.shape
     group = h // k.shape[1]
     scale_log2 = torch.tensor(d ** -0.5 * LOG2E, dtype=torch.float32)

@@ -28,6 +28,7 @@ from tests.test_torch_flash_attention import (
     CASES,
     WIDE_F32_CASES,
     _both,
+    _fwd_wgmma_emulated,
     _np,
     _qkv,
 )
@@ -495,12 +496,13 @@ def _wide_bwd_emulated(q, k, v, dout, lse, delta, keep, dtype):
 
 
 @functools.cache
-def _wide_case(dtype, head_dim, window):
-    """Inputs of ``dtype`` at S = 256 (4 query heads, 2 KV heads), held in
-    f32, causal and, when given, over a window; lse and delta from an f64
-    forward, rounded to f32; dq, dk, dv recomputed in f64; the keep mask;
-    and the kernels' bound on |dS|, 2 max_i |dO_i| max_j |v_j|."""
-    s, h, kvh, d = 256, 4, 2, head_dim
+def _wide_case(dtype, head_dim, window, s=256, h=4, kvh=2):
+    """Inputs of ``dtype`` at S = ``s`` (``h`` query heads, ``kvh`` KV
+    heads; by default 256, 4 and 2), held in f32, causal and, when given,
+    over a window; lse and delta from an f64 forward, rounded to f32; dq,
+    dk, dv recomputed in f64; the keep mask; and the kernels' bound on
+    |dS|, 2 max_i |dO_i| max_j |v_j|."""
+    d = head_dim
     rng = np.random.default_rng(23)
     rnd = _ROUND[dtype]
     q, dout = (rnd(torch.from_numpy(rng.standard_normal((s, h, d))).float())
@@ -666,3 +668,176 @@ def test_dkv_parts_never_exceed_the_group():
                     assert parts & (parts - 1) == 0
                     tiles = -(-s // 64) * kv_heads
                     assert parts == 1 or tiles * parts // 2 <= sms
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of the backward kernels' wgmma route (bf16 and f16 at
+# head_dim 33-64: flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel),
+# emulated: the score products of 16-bit values summed in f32, P in base 2
+# (lse times log2 e) and dS in f32, both packed to the input's type as the
+# A operands of dQ += dS K (dq's KV tiles of BWD_DQ_WGMMA_TILES[1] keys,
+# added in order), dV += P^T dO and dK += dS^T Q (dk/dv's query tiles of
+# BWD_DKV_WGMMA_TILES[1] rows, every query head of the GQA group in turn,
+# into one running f32 sum); dk's scale applied in f32 and each gradient
+# rounded once.
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+#: chip_smoke.py's BWD_TOL, max abs error over max |gradient|
+WGMMA_BWD_TOL = {"float16": F16_BWD_TOL, "bfloat16": 3e-2}
+
+
+def _wgmma_bwd_emulated(q, k, v, dout, lse, delta, keep, dtype):
+    """(dq, dk, dv) of the backward wgmma route and the largest |dS| it
+    packs, from f32 tensors holding values of ``dtype``; ``keep`` (query,
+    key) as 0 and 1."""
+    s, h, d = q.shape
+    kvh = k.shape[1]
+    group = h // kvh
+    pack = _ROUND[dtype]
+    dq_keys, dkv_rows = fa.BWD_DQ_WGMMA_TILES[1], fa.BWD_DKV_WGMMA_TILES[1]
+    scale = d ** -0.5
+    scale_log2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    dq = torch.empty_like(q)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    ds_max = 0.0
+    for j in range(kvh):
+        kh, vh = k[:, j], v[:, j]
+        acc_k, acc_v = torch.zeros_like(kh), torch.zeros_like(vh)
+        for head in range(j * group, (j + 1) * group):
+            lse2 = lse[head] * torch.tensor(LOG2E, dtype=torch.float32)
+            p = torch.exp2(q[:, head] @ kh.T * scale_log2
+                           - lse2[:, None]) * keep
+            ds = p * (dout[:, head] @ vh.T - delta[head][:, None])
+            ds_max = max(ds_max, ds.abs().max().item())
+            p, ds = pack(p), pack(ds)
+            dq[:, head] = _tile_sum(ds, kh, dq_keys, dtype) * scale
+            for c in range(0, s, dkv_rows):
+                rows = slice(c, c + dkv_rows)
+                acc_v = acc_v + p[rows].T @ dout[rows, head]
+                acc_k = acc_k + ds[rows].T @ q[rows, head]
+        dk[:, j], dv[:, j] = acc_k * scale, acc_v
+    return tuple(pack(x) for x in (dq, dk, dv)), ds_max
+
+
+@pytest.mark.parametrize("window", [None, 32], ids=["causal", "window"])
+@pytest.mark.parametrize("head_dim", [40, 64])
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_bwd_wgmma_arithmetic_stays_inside_the_chip_bounds(dtype, head_dim,
+                                                           window):
+    """The backward wgmma route's order of sums (dq's 128-key tiles,
+    dk/dv's 64-row query tiles over a GQA group of 4, P^T and dS^T packed
+    to the input's type before the dV, dK and dQ products) at S = 512,
+    head_dim 40 and 64, causal and over a window: against an f64
+    recomputation from the same inputs, dq, dk and dv stay within
+    chip_smoke.py's BWD_TOL of their type, and |dS| within its bound,
+    far under f16's largest value."""
+    inputs, want, bound = _wide_case(dtype, head_dim, window, s=512, h=8,
+                                     kvh=2)
+    got, ds_max = _wgmma_bwd_emulated(*inputs, dtype)
+    errs = [((g.double() - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(got, want)]
+    assert max(errs) < WGMMA_BWD_TOL[dtype], errs
+    assert ds_max <= bound < F16_MAX / 10, (ds_max, bound)
+
+
+# (head_dim, dtype, whole 16-byte units, route): the backward wgmma route
+# takes only bf16 and f16 at head_dim 33-64 whose q, k, v and dO are whole
+# 16-byte units
+BWD_ROUTE_TABLE = [
+    (32, torch.bfloat16, True, "instance"),
+    (32, torch.float16, False, "instance"),
+    (33, torch.bfloat16, True, "wgmma"),
+    (33, torch.float16, False, "instance"),
+    (40, torch.bfloat16, True, "wgmma"),
+    (40, torch.float16, True, "wgmma"),
+    (40, torch.bfloat16, False, "instance"),
+    (64, torch.bfloat16, True, "wgmma"),
+    (64, torch.float16, True, "wgmma"),
+    (64, torch.float16, False, "instance"),
+    (64, torch.float32, True, "instance"),
+    (65, torch.bfloat16, True, "instance"),
+    (128, torch.float16, True, "instance"),
+    (256, torch.bfloat16, True, "instance"),
+    (257, torch.bfloat16, True, "wide"),
+    (1024, torch.float32, True, "wide"),
+    (1025, torch.float16, True, "stream"),
+]
+
+
+@pytest.mark.parametrize("head_dim,dtype,aligned,route", BWD_ROUTE_TABLE)
+def test_bwd_route_table(head_dim, dtype, aligned, route):
+    """Which route of the backward kernels each (head_dim, dtype, whole
+    16-byte units) takes; chip_smoke.py holds both launchers' own answers
+    (flash_bwd_dq_route, flash_bwd_dkv_route) to bwd_route at every shape
+    it launches."""
+    assert fa.bwd_route(head_dim, dtype, aligned) == route
+    assert route in fa.BWD_ROUTES
+
+
+class _EmulatedFlash(torch.autograd.Function):
+    """bf16 or f16 causal attention through the emulated arithmetic of the
+    kernels a 16-bit TinyLM at head_dim 33-64 runs on the card: the
+    forward's instance (128 query rows, 64-key tiles, P packed to the
+    input's type before P V) and the backward's wgmma route."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = _fwd_wgmma_emulated(q.float(), k.float(), v.float(),
+                                     q.dtype, None, tiles=(128, 64))
+        out = o.to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = fa.flash_bwd_delta(out, dout)
+        s = q.shape[0]
+        keep = torch.ones(s, s).tril()
+        dtype = str(q.dtype).removeprefix("torch.")
+        grads, _ = _wgmma_bwd_emulated(q.float(), k.float(), v.float(),
+                                       dout.float(), lse, delta, keep, dtype)
+        return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
+
+
+def test_llama_lm_bound_covers_the_kernels_bf16_arithmetic():
+    """Derives chip_smoke.py's llama_lm bounds (LLAMA_LOSS_TOL,
+    LLAMA_GRAD_TOL): a bf16 TinyLM at Llama-3.2-1B's head_dim (64) and GQA
+    group (4), narrow (dim 512, 8 heads, 2 KV heads, 2 layers) at S 512,
+    through the emulated arithmetic of the kernels it runs on the card
+    (_EmulatedFlash) against the same weights on the kernels' plain
+    versions (the flash plane on the CPU). Measured: the loss moves by
+    1.1e-4 and a parameter's gradient by at most 1.12% of its largest (1.7%
+    at dim 256, S 512, 1.15% at dim 512, S 1024; wq's or the embedding's).
+    The bounds leave ten times that on the loss and twice on the gradients
+    for the card's full width at S 2048, whose sums are longer."""
+    from unittest import mock
+
+    import chip_smoke
+    from fiber_tpu_torch.models import transformer
+    from fiber_tpu_torch.models.transformer import TinyLM
+
+    cfg = dict(vocab=256, dim=512, heads=8, kv_heads=2, pos="rope",
+               mlp_mult=4, max_seq=512, layers=2)
+    tokens = torch.randint(0, cfg["vocab"], (cfg["max_seq"],),
+                           generator=torch.Generator().manual_seed(9))
+    legs = {"kernels": lambda q, k, v, *, causal, window:
+            _EmulatedFlash.apply(q, k, v),
+            "plain": fa.flash_attention}
+    losses, grads = {}, {}
+    for leg, attention in legs.items():
+        with mock.patch.object(transformer, "flash_attention", attention):
+            model = TinyLM(**cfg, attention="flash", device="cpu",
+                           dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0))
+            loss = model.loss(tokens)
+            loss.backward()
+        losses[leg] = loss.item()
+        grads[leg] = {n: p.grad.float() for n, p in model.named_parameters()}
+    loss_err = abs(losses["kernels"] - losses["plain"])
+    rel = max(((grads["kernels"][n] - g).abs().max() / g.abs().max()).item()
+              for n, g in grads["plain"].items())
+    assert 0 < loss_err < chip_smoke.LLAMA_LOSS_TOL / 10, loss_err
+    assert 0 < rel < chip_smoke.LLAMA_GRAD_TOL / 2, rel

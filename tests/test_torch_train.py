@@ -8,7 +8,9 @@ forwards and backwards whose sums run in different orders; gradients are
 O(0.1) at these weights); after 3 AdamW steps, losses within 1e-5 and
 parameters within 1e-4 abs (Adam divides each gradient by its own root
 mean square, so a gradient near zero can move its parameter by up to lr
-on a rounding difference).
+on a rounding difference). The bf16 case (parameters cast to bf16 on both
+sides): loss within BF16_LOSS_TOL and every gradient leaf within
+BF16_GRAD_TOL of its largest value (see there).
 """
 
 import numpy as np
@@ -29,6 +31,19 @@ from tests.test_torch_transformer import CASES, SMALL, _pair
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-6
 PARAM_TOL = 1e-4
+#: Llama-3.2-1B's attention shape (head_dim 64, GQA 4:1) at a small width,
+#: its parameters cast to bf16 on both sides: the flash kernels' 16-bit
+#: backward route on the card. (attention, pos, kv_heads, window, widths)
+BF16_CASES = {"rope_d64_gqa4_bf16": ("flash", "rope", 1, None,
+                                     dict(dim=256, heads=4))}
+#: The bf16 case's bounds. JAX returns its loss in bf16 (log_softmax of
+#: bf16 logits), the port in f32: one bf16 ulp at |loss| in [2, 4) is
+#: 2^-6 (measured 0.0055). bf16 keeps 8 significant bits, and the two
+#: frameworks round activations, scores and gradients to bf16 at different
+#: places, two layers deep: max |difference| of a leaf over its largest
+#: |gradient| measured up to 0.0121; the bound is ten ulps of 2^-8.
+BF16_LOSS_TOL = 2.0 ** -6
+BF16_GRAD_TOL = 10 * 2.0 ** -8
 
 
 def _tokens(seed=1, batch=None):
@@ -44,9 +59,17 @@ def _max_leaf_err(torch_tree, jax_tree):
     return max(jax.tree_util.tree_leaves(errs))
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(CASES) + list(BF16_CASES))
 def test_loss_and_grads_match_jax(case):
-    jm, jparams, model = _pair(*CASES[case])
+    """Loss and gradients of one set of weights, f32, and bf16 for the
+    BF16_CASES (about 20 s: the JAX side's Pallas kernels in interpret
+    mode on bf16 inputs)."""
+    bf16 = case in BF16_CASES
+    jm, jparams, model = _pair(*(BF16_CASES if bf16 else CASES)[case])
+    if bf16:
+        jparams = jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16),
+                                         jparams)
+        model.to(torch.bfloat16)
     tokens = _tokens()
     want_loss, want_grads = jax.value_and_grad(jm.loss)(
         jparams, jnp.asarray(tokens))
@@ -56,12 +79,20 @@ def test_loss_and_grads_match_jax(case):
     loss.backward()
     assert before == (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
                       fa.flash_bwd_dkv.launches)   # the CPU runs no kernel
-    assert abs(loss.item() - float(want_loss)) < LOSS_TOL
+    assert abs(loss.item() - float(want_loss)) < (
+        BF16_LOSS_TOL if bf16 else LOSS_TOL)
     grads = convert.tinylm_tree_from_torch(
-        {n: p.grad for n, p in model.named_parameters()})
+        {n: p.grad.float() for n, p in model.named_parameters()})
     assert jax.tree_util.tree_structure(grads) == \
         jax.tree_util.tree_structure(want_grads)
-    assert _max_leaf_err(grads, want_grads) < GRAD_TOL
+    if not bf16:
+        assert _max_leaf_err(grads, want_grads) < GRAD_TOL
+        return
+    rel = jax.tree_util.tree_map(
+        lambda a, b: float(np.abs(a - np.asarray(b, np.float32)).max()
+                           / np.abs(np.asarray(b, np.float32)).max()),
+        grads, want_grads)
+    assert max(jax.tree_util.tree_leaves(rel)) < BF16_GRAD_TOL
 
 
 #: the AdamW cases: every TinyLM case at SMALL's widths. The head_dim 256
