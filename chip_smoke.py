@@ -76,7 +76,9 @@ import time
 # default --seq 16384), its GQA and sliding-window variants
 # (bench.py's window leg uses 1024), bench.py --attention's shape in bf16
 # and f16, Llama-3.2-1B's attention (32 query heads, 8 KV heads, head_dim
-# 64; the llama_lm phase's TinyLM at S 8192) in bf16 and f16, Gemma-2B's
+# 64; the llama_lm phase's TinyLM at S 8192) in bf16 and f16, Llama-3-8B's
+# (meta-llama/Meta-Llama-3-8B's config.json: 32 query heads, 8 KV heads,
+# head_dim 128) in bf16 at S 8192, Gemma-2B's
 # attention (8 query heads, 1 KV head, head_dim
 # 256; the gemma_lm phase's TinyLM at S 8192) in f32, bf16 and f16, and
 # DeepSeek-V4-Flash's (head_dim 512, 1 KV head; deepseek-ai/
@@ -92,6 +94,7 @@ MAIN_SHAPES = (
     ("attention_f16", 16384, 8, 8, 64, "float16", None),
     ("llama1b_bf16", 8192, 32, 8, 64, "bfloat16", None),
     ("llama1b_f16", 8192, 32, 8, 64, "float16", None),
+    ("llama8b_bf16", 8192, 32, 8, 128, "bfloat16", None),
     ("gemma_f32", 8192, 8, 1, 256, "float32", None),
     ("gemma_bf16", 8192, 8, 1, 256, "bfloat16", None),
     ("gemma_f16", 8192, 8, 1, 256, "float16", None),
@@ -112,10 +115,11 @@ MAIN_SHAPES = (
 # take their streamed route (1100 in f16). The dk/dv kernel's 256
 # instance splits a KV tile's query heads over a cluster of blocks where
 # the grid would not fill the card (DKV_PARTS_EDGES). bf16 and f16 at
-# 129-256 take the forward's wgmma route (FWD_ROUTE_EDGES), and at 33-64
+# 33-256 take the forward's wgmma route (FWD_ROUTE_EDGES), and at 33-64
 # the backward kernels' (BWD_ROUTE_EDGES): head_dim 64 and 40, a ragged S
 # of 333 with GQA 4:1, causal, over a window of 40 (shorter than a tile)
-# and not causal, in bf16 and f16.
+# and not causal, in bf16 and f16; the forward's also at head_dim 96
+# (ragged S 333, GQA 4:1, f16, causal) and 72 (bf16, not causal).
 EDGE_SHAPES = (
     ("edge_noncausal_d8", 100, 4, 2, 8, "float32", None, False),
     ("edge_d40_ragged", 77, 2, 2, 40, "float32", None, True),
@@ -142,6 +146,8 @@ EDGE_SHAPES = (
     ("edge_d40_gqa4_ragged_f16", 333, 8, 2, 40, "float16", None, True),
     ("edge_d64_noncausal_f16", 200, 4, 4, 64, "float16", None, False),
     ("edge_d40_noncausal_bf16", 150, 2, 1, 40, "bfloat16", None, False),
+    ("edge_d96_gqa4_ragged_f16", 333, 8, 2, 96, "float16", None, True),
+    ("edge_d72_noncausal_bf16", 150, 2, 1, 72, "bfloat16", None, False),
 )
 # The blocks that share each KV tile of the dk/dv kernel's 256 instance
 # (flash_bwd_dkv_parts) at two edges: 1 under MHA, where every block owns
@@ -190,14 +196,28 @@ BWD_ROUTE_EDGES = {"edge_d64_gqa4_window_bf16": "wgmma",
                    "edge_d65_bf16_scalar": "instance",
                    "edge_d64_bf16_unaligned": "instance",
                    "edge_d64_f16_stride65": "instance"}
-# The forward's route at the two edges that bound its wgmma route: head_dim
-# 196 in bf16 (392-byte rows, not whole 16-byte units, which TMA needs)
-# takes the mma.sync instance; head_dim 136 in f16 at S 100 (one partial
-# 128-row query tile, GQA 4:1) takes the wgmma route. Every shape's route
-# is the launcher's own answer (flash_fwd_route), held to
+# The forward's route at the edges that bound its wgmma route (bf16 and
+# f16 at head_dim 33-256 whose q, k and v are whole 16-byte units): on it
+# head_dim 136 in f16 at S 100 (one partial 128-row query tile, GQA 4:1),
+# 128 over a window, 96, 72, 64 and 40; off it head_dim 196 in bf16
+# (392-byte rows, not whole 16-byte units, which TMA needs), 64 in bf16
+# one element into its buffer, 65 in bf16 and 36 in f16 (rows not whole
+# 16-byte units), and head_dim 20 (32 or less). Every shape's route is the
+# launcher's own answer (flash_fwd_route), held to
 # flash_attention.fwd_route.
 FWD_ROUTE_EDGES = {"edge_d196_bf16_scalar": "instance",
-                   "edge_d136_gqa4_f16": "wgmma"}
+                   "edge_d136_gqa4_f16": "wgmma",
+                   "edge_d128_window": "wgmma",
+                   "edge_d64_gqa4_window_bf16": "wgmma",
+                   "edge_d40_gqa4_ragged_f16": "wgmma",
+                   "edge_d64_noncausal_f16": "wgmma",
+                   "edge_d40_noncausal_bf16": "wgmma",
+                   "edge_d96_gqa4_ragged_f16": "wgmma",
+                   "edge_d72_noncausal_bf16": "wgmma",
+                   "edge_d64_bf16_unaligned": "instance",
+                   "edge_d65_bf16_scalar": "instance",
+                   "edge_d36_f16_scalar": "instance",
+                   "edge_d20_bf16_scalar": "instance"}
 # The ring's off-diagonal forward launch, timed: one rank's 4096-row
 # block of bench.py --attention's shape against another rank's keys, not
 # causal. (name, S, heads, kv_heads, head_dim, dtype, window, causal)
@@ -303,9 +323,9 @@ V4_LR = 1e-4
 # vocabulary and rope base 10000 (Llama's: SwiGLU, 128,256 tokens, base
 # 500,000); 2 of its 16 layers, S 8192 of its 131,072 (the script's time).
 # bf16 weights from seed 0. The llama_lm phase runs one forward (the
-# forward kernel's instance route at head_dim 64), LLAMA_TRAIN_STEPS AdamW
-# steps at LLAMA_LR (the backward kernels' wgmma route), and the flash
-# plane against itself on the kernels' plain versions at S = GRAD_SEQ.
+# forward kernel's wgmma route at head_dim 64), LLAMA_TRAIN_STEPS AdamW
+# steps at LLAMA_LR (every kernel's wgmma route), and the flash plane
+# against itself on the kernels' plain versions at S = GRAD_SEQ.
 LLAMA_CFG = dict(vocab=256, dim=2048, heads=32, kv_heads=8, pos="rope",
                  mlp_mult=4, max_seq=8192, layers=2)
 LLAMA_TRAIN_STEPS = 3
@@ -318,8 +338,10 @@ LLAMA_LR = 1e-4
 # arithmetic through a bf16 TinyLM at head_dim 64 and GQA 4:1, narrow, on
 # the CPU (tests/test_torch_flash_backward.py,
 # test_llama_lm_bound_covers_the_kernels_bf16_arithmetic) moved the loss
-# by 1.1e-4 and a gradient by 1.12% of its largest (1.7% at dim 256): the
-# bounds are ten and two times that, for full width at S 2048.
+# by 1.1e-4 and a gradient by 1.12% of its largest (1.7% at dim 256) with
+# the forward's instance tiles, and by at most 6.3e-5 and 1.15% with its
+# wgmma route's: the bounds are ten and two times the former, for full
+# width at S 2048.
 LLAMA_LOSS_TOL = 5e-3
 LLAMA_GRAD_TOL = 0.05
 RANKS = 4
@@ -605,7 +627,7 @@ SERIALIZED = re.compile(r"C751[24]")
 # BWD_ROUTES), for the kernels line
 ROUTE_KERNELS = {
     "flash_fwd": {"instance": "flash_fwd_kernel<type, 16-256>",
-                  "wgmma": "flash_fwd_wgmma_kernel<bf16|f16, 256>",
+                  "wgmma": "flash_fwd_wgmma_kernel<bf16|f16, 64|128|256>",
                   "wide": "flash_fwd_wide_kernel<type, 512|576>",
                   "stream": "flash_fwd_stream_kernel<type, chunk>"},
     "flash_bwd_dq": {"instance": "flash_bwd_dq_kernel<type, 16-128>, "
@@ -629,6 +651,9 @@ ROUTE_KERNELS = {
 # route. A streamed template's shared memory does not depend on head_dim
 # either; the build reports it at STREAM_HEAD_DIM.
 HEAD_DIM_INSTANCES = (16, 32, 64, 128, 256)
+# The head_dims the forward's wgmma route pads to (a template per 16-bit
+# type and width); the backward's wgmma route has one width
+FWD_WGMMA_HEAD_DIMS = (64, 128, 256)
 # Warps an SM of the backward kernels' 256 instances (one block of two
 # groups of 4 warps), which the build checks
 SPLIT_WARPS = 8
@@ -727,7 +752,7 @@ def device_breakdown(torch, fn):
                 or e.name.startswith("Activity Buffer")):
             continue
         part = next((k for k in ("flash_fwd", "ring_exchange")
-                     if f"{k}_kernel" in e.name), "other")
+                     if _kernel_of(k, e.name)), "other")
         parts[part][0] += e.time_range.elapsed_us() / 1e3
         parts[part][1] += 1
         starts.append(e.time_range.start)
@@ -738,6 +763,13 @@ def device_breakdown(torch, fn):
     return {"ms": {k: v[0] for k, v in parts.items()},
             "launches": {k: v[1] for k, v in parts.items()},
             "busy_ms": busy, "span_ms": span, "idle_share": 1 - busy / span}
+
+
+def _kernel_of(kernel, name):
+    """Whether a device event's ``name`` is a launch of ``kernel``'s
+    library, on any of its routes (``flash_fwd_kernel``,
+    ``flash_fwd_wgmma_kernel``, ...)."""
+    return re.search(rf"{kernel}(_[a-z]+)?_kernel", name) is not None
 
 
 def card_line():
@@ -813,10 +845,24 @@ def phase_build():
                   f"{row['function']} spills")
         wide_routes = len(FWD_WIDE_HEAD_DIMS) if fwd else 1
         routes = len(HEAD_DIM_INSTANCES) + wide_routes + 1
-        # each wgmma route: one template per 16-bit type
+        # each wgmma route: one template per 16-bit type and width
+        wgmma_widths = len(FWD_WGMMA_HEAD_DIMS) if fwd else 1
         check(len(ptxas[name])
-              == len(DTYPE_CODE) * routes + len(WGMMA_ENGINE),
+              == len(DTYPE_CODE) * routes + len(WGMMA_ENGINE) * wgmma_widths,
               f"{name} templates built: {ptxas[name]}")
+    # The forward's wgmma tiles that the CPU tests emulate
+    # (FWD_WGMMA_TILES) are the library's own (flash_fwd_wgmma_tiles).
+    from fiber_tpu_torch.ops import flash_attention as fa
+
+    tiles = ctypes.CDLL(str(libs["flash_fwd"])).flash_fwd_wgmma_tiles
+    tiles.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    for dp in FWD_WGMMA_HEAD_DIMS:
+        rows, keys = ctypes.c_int(), ctypes.c_int()
+        check(tiles(dp, ctypes.byref(rows), ctypes.byref(keys)) == 0,
+              f"flash_fwd_wgmma_tiles({dp}) failed")
+        check((rows.value, keys.value) == fa.FWD_WGMMA_TILES[dp],
+              f"wgmma tiles at {dp}: the library's {(rows.value, keys.value)}"
+              f", FWD_WGMMA_TILES' {fa.FWD_WGMMA_TILES[dp]}")
     emit({"phase": "build", "seconds": secs,
           "libraries": {k: v.name for k, v in libs.items()},
           "sass_hmma": hmma, "sass_hgmma": hgmma, "ptxas": ptxas})
@@ -1732,9 +1778,9 @@ def _llama_grad_check(torch, cfg, state):
 
 def phase_llama_lm(torch, card):
     """TinyLM in bf16 at Llama-3.2-1B's attention widths (LLAMA_CFG): one
-    forward (flash_fwd once a layer, on the instance route), then
+    forward (flash_fwd once a layer, on the wgmma route), then
     LLAMA_TRAIN_STEPS AdamW steps (each flash kernel once a layer and
-    step, both backward kernels on the wgmma route), every kernel's count
+    step, every one on the wgmma route), every kernel's count
     at 0 before each and held exactly after, and every launch's route
     read from its own tensors (``_fwd_route``, ``_bwd_route``); tokens/s
     of both; then ``_llama_grad_check``. Emits the phase's line and
@@ -1798,7 +1844,7 @@ def phase_llama_lm(torch, card):
         check(tuple(logits.shape) == (seq, cfg["vocab"])
               and bool(torch.isfinite(logits.float()).all()),
               "llama_lm: shape or non-finite logits")
-        check(set(routes["flash_fwd"]) == {"instance"},
+        check(set(routes["flash_fwd"]) == {"wgmma"},
               f"llama_lm forward routes {routes['flash_fwd']}")
         fwd_routes = list(routes["flash_fwd"])
         fwd_ms = cuda_ms(torch, lambda: model.apply(tokens), reps=3)
@@ -1814,7 +1860,7 @@ def phase_llama_lm(torch, card):
     peak_bytes = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses),
           f"llama_lm: losses {losses}")
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(routes[name] == ["wgmma"] * layers * n_steps,
               f"llama_lm: {name} routes {routes[name]}")
     train_routes = {k: sorted(set(v)) for k, v in routes.items()}
@@ -4216,8 +4262,8 @@ def phase_trace(torch, card, items):
     """A ``profiling.trace`` region around a pool map of CUDA tensors and
     one ``flash_fwd`` call, whose output and lse are held against the
     plain attention on the same inputs; ``Pool.trace_dump`` then holds
-    the host spans and the card's events, ``flash_fwd_kernel`` among
-    them in a ``CUDA`` lane, and ``cli explain`` turns the dump and a
+    the host spans and the card's events, a ``flash_fwd`` kernel (its
+    wgmma route's at this shape) among them in a ``CUDA`` lane, and ``cli explain`` turns the dump and a
     ``flight_dump`` into a blame verdict."""
     import shutil
 
@@ -4273,10 +4319,10 @@ def phase_trace(torch, card, items):
     device_events = [e for e in events if e.get("ph") == "X" and
                      lanes.get(e.get("pid"), "").startswith("CUDA ")]
     flash = [e for e in device_events
-             if "flash_fwd_kernel" in e.get("name", "")]
+             if _kernel_of("flash_fwd", e.get("name", ""))]
     spans = [e for e in events if e.get("ph") == "X"
              and e.get("name") in ("pool.serialize", "worker.execute")]
-    check(flash, f"no flash_fwd_kernel event in a CUDA lane: {cuda_lanes}, "
+    check(flash, f"no flash_fwd kernel event in a CUDA lane: {cuda_lanes}, "
           f"{len(device_events)} device events: "
           f"{[e.get('name', '')[:40] for e in device_events]}")
     check(len(spans) >= len(items) + 1, f"{len(spans)} host spans")

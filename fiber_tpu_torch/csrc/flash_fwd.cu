@@ -46,32 +46,47 @@
 //   registers fewer than 64 rows' (which spilled 32 bytes a thread), and
 //   two buffers of each fit in 199,680 bytes of shared memory, where
 //   64-row ones would take 333 KB against the block's 227 KB.
-// - bf16 and f16 at head_dim 129-256 whose q, k and v are whole 16-byte
-//   units take the wgmma route instead (flash_fwd_wgmma_kernel<type, 256>;
-//   wgmma_sm90.cuh): the instance above runs one block of 4 warps an SM
-//   (168,960 bytes of shared memory), issue-bound on ldmatrix and mma.sync
-//   with nothing to hide their latency, each warp reading the whole K and V
-//   tiles for its 16 rows and Q again at every use. Here one block of three
-//   warpgroups owns 128 query rows of one head. A producer warpgroup (its
-//   registers given back by setmaxnreg) has one thread issue the TMA copies,
-//   in the 128-byte swizzle: Q once (4 boxes of 64 columns), then each KV
-//   tile's K and V (80 keys) into a ring of two stages, each copy
-//   completing on a full mbarrier and each stage handed back by an empty
-//   one (K as soon as the scores are computed, V after P V). Two consumer
-//   warpgroups own 64 query rows each and all 256 output columns (an m64n256
-//   f32 accumulator, 128 registers a thread): per KV tile S = Q K^T by
-//   wgmma m64n80k16 with both operands in shared memory (16 steps of depth
-//   16), the online softmax of the instances on the accumulator in
+// - bf16 and f16 at head_dim 33-256 whose q, k and v are whole 16-byte
+//   units take the wgmma route instead (flash_fwd_wgmma_kernel<type, DP>,
+//   head_dim padded to DP = 64, 128 or 256; wgmma_sm90.cuh): the instances
+//   above are issue-bound on ldmatrix and mma.sync with nothing to hide
+//   their latency, each warp reading the whole K and V tiles for its rows
+//   (and at 256 Q again at every use); at 64 they ran at 20-22% of their
+//   bound, at 256 at 20%. Here one block of a producer and NC consumer
+//   warpgroups owns 64 NC query rows of one head (GTile: 3 consumers at 64
+//   and 128, 2 at 256). The producer (its registers given back by
+//   setmaxnreg) has one thread issue the TMA copies, in the 128-byte
+//   swizzle: Q once (DP / 64 boxes of 64 columns), then each KV tile's K
+//   and V (128 keys at 64, 64 at 128, 80 at 256) into a ring of stages (3 at
+//   64 and 128, 2 at 256), each copy completing on a full mbarrier and each
+//   stage handed back by an empty one (K as soon as the scores are
+//   computed, V after P V). Each consumer owns 64 query rows and all DP
+//   output columns (an m64nDP f32 accumulator): per KV tile S = Q K^T by
+//   wgmma m64nBKVk16 with both operands in shared memory (DP / 16 steps of
+//   depth 16), the online softmax of the instances on the accumulator in
 //   registers (a warp's share of it is the m16n8 layout softmax_step
-//   takes), O rescaled, P packed to the input's type as the A fragment, and
-//   O += P V by wgmma m64n256k16, A from registers and V read in place as
-//   an MN-major operand. Each product is computed once per (warpgroup, KV
-//   tile), its operands read from shared memory by the tensor cores
-//   themselves; a tile none of a warpgroup's rows may use (past the causal
-//   diagonal, before the window) computes nothing. TMA fills rows past S
-//   and columns past head_dim with zeros, as the copy path does. f32 stays
-//   on mma.sync: a TF32 wgmma takes both operands K-major, and V as P V's B
-//   operand is not.
+//   takes), O rescaled, P packed to the input's type as the A fragment,
+//   and O += P V by wgmma m64nDPk16, A from registers and V read in place
+//   as an MN-major operand. At 256 the two products of a tile run in turn.
+//   At 64 and 128 the exponentials cost as much as the products (at D = 64
+//   one ex2 for every 256 product FLOPs, against the H100's 989 / 3.9
+//   TFLOP/s of products over special functions), so they must run under
+//   products: S of tile j is issued with P V of tile j - 1 (O rescaled
+//   first, so the sums keep the instances' order), and the consumers take
+//   turns to issue them on named barriers (ping-pong), one's softmax under
+//   another's products; a consumer's own softmax of tile j also runs while
+//   its P V of tile j - 1 does. There the grid is one dimension
+//   of blocks in order of their work, every head's heaviest causal tiles
+//   first, so that the lightest fill the last wave. Whether a tile has a
+//   masked entry is decided before its products are issued, so that no branch
+//   sits between a product and its wait. Each product is computed once per
+//   (warpgroup, KV tile), its operands read from shared memory by the
+//   tensor cores themselves; a tile none of a warpgroup's rows may use
+//   (past the causal diagonal, before the window) computes nothing. TMA
+//   fills rows past S and columns past head_dim with zeros, as the copy
+//   path does. f32 stays on mma.sync: a TF32 wgmma takes both operands
+//   K-major, and V as P V's B operand is not; head_dim 32 and less stays
+//   on the instances too.
 // - head_dim 257-576 takes the wide route (flash_fwd_wide_kernel<type, DP>,
 //   head_dim padded to DP = 512 or 576): no instance of the design above
 //   fits, as the output accumulator of 256 columns is already 128 registers a
@@ -461,8 +476,10 @@ __device__ __forceinline__ void accumulate(float (&o)[MT][DP / 8][4],
 // (key tile k0 of the block's query tile q0): masks them, updates the
 // running max m (base 2, scaled) and the thread's part of the running sum
 // l, leaves the probabilities in s, and gives each row's rescale of the
-// output in corr.
-template <int BQ, int BKV, int MT, int NJ>
+// output in corr. MASKED 0 or 1 says whether the tile has a masked entry,
+// where the caller has decided it (no branch on it is then compiled);
+// -1 decides here.
+template <int BQ, int BKV, int MT, int NJ, int MASKED = -1>
 __device__ __forceinline__ void softmax_step(
     float (&s)[MT][NJ][4], float (&m)[MT][2], float (&l)[MT][2],
     float (&corr)[MT][2], int q0, int k0, int wrow, int lane, int S,
@@ -474,10 +491,13 @@ __device__ __forceinline__ void softmax_step(
   // ragged keys); the same for the whole block, so no warp diverges.
   // Query rows past S are left unmasked: their Q rows are zeros, and
   // they are never written.
-  bool masked = k0 + BKV > S;
-  if (causal)
-    masked = masked || k0 + BKV - 1 > q0 ||
-             (window > 0 && q0 + BQ - 1 - k0 >= window);
+  bool masked = MASKED == 1;
+  if constexpr (MASKED < 0) {
+    masked = k0 + BKV > S;
+    if (causal)
+      masked = masked || k0 + BKV - 1 > q0 ||
+               (window > 0 && q0 + BQ - 1 - k0 >= window);
+  }
   Bits kept[MT];                  // bit 4j + e: entry s[mt][j][e] is kept
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -1064,14 +1084,14 @@ flash_fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_out(acc, m, l, o, lse, q0, wrow, lane, S, H, h, D, col0);
 }
 
-// The wgmma route (16-bit head_dim 129-256, whole 16-byte units; the
-// file's header says how it works and why): query rows a block, keys a KV
-// tile (80, FlashAttention-3's tile at this width: 5% faster than 64 on an
-// H100, with 230,472 bytes of shared memory), threads a block (a producer
-// and two consumer warpgroups), columns of a TMA box (128 bytes of a
-// 16-bit type, the swizzle's width), and the registers a thread of each
-// role keeps (24 to 256, multiples of 8, at most 65,536 a block: 128 x 40
-// + 256 x 232).
+// The wgmma route (16-bit head_dim 33-256, whole 16-byte units; the
+// file's header says how it works and why), at head_dim 129-256 (padded
+// to 256): query rows a block, keys a KV tile (80, FlashAttention-3's tile
+// at this width: 5% faster than 64 on an H100, with 230,472 bytes of
+// shared memory), threads a block (a producer and two consumer
+// warpgroups), and the registers a thread of each role keeps (24 to 256,
+// multiples of 8, at most 65,536 a block: 128 x 40 + 256 x 232). Columns
+// of a TMA box: 128 bytes of a 16-bit type, the swizzle's width.
 constexpr int G_BQ = 128;
 constexpr int G_BKV = 80;
 constexpr int G_NT = 384;
@@ -1079,26 +1099,71 @@ constexpr int G_BOX = TMA_COLS;
 constexpr int G_PRODUCER_REGS = 40;
 constexpr int G_CONSUMER_REGS = 232;
 
+// The wgmma route's tiles and roles at padded head_dim DP (64, 128 or
+// 256): NC consumer warpgroups of 64 query rows (BQ rows a block), BKV keys
+// a KV tile, NT threads (NC + 1 warpgroups), each role's registers, the
+// ring's STAGES, the order of the blocks (HEADS_FIRST: the heaviest causal
+// tiles of every head first, so that the lightest run last), and the
+// consumers' schedule. At 256 a consumer runs a tile's two products in
+// turn (S; softmax; P V). At 64 and 128 it is PIPELINED: S of tile j is
+// issued with P V of tile j - 1, and the softmax of tile j runs while
+// that P V does, so that the exponentials of a softmax (one for every 4 D
+// product FLOPs of a kept score: at D = 64 the special-function units'
+// time equals the tensor cores') run under products; the consumers issue
+// their products in turn (ping-pong), handing on named barriers, so that
+// one warpgroup's softmax also runs under another's products. What an H100
+// measured (NVIDIA H100 80GB HBM3, 700 W, kernel_ab.py, causal): at
+// (16384, 8, 64) bf16, two stages, 3 consumers of 160 registers with
+// ping-pong alone (the softmax after P V's wait) 0.624 ms, with the
+// softmax under P V too 0.633, that alone 0.680, neither 0.761; 2
+// consumers 0.660-0.779 (in turn 0.719); a third stage 0.606 against
+// 0.602 with the softmax under P V (a fourth 0.660); HEADS_FIRST 0.545
+// against 0.602; then, in one call, the softmax under P V 0.5214 against
+// 0.5408 after P V's wait. At (8192, 8, 1, 256) bf16 HEADS_FIRST took
+// 0.4260 against 0.5050 (256 keeps its 2-D grid for now). At (8192, 32,
+// 8, 128) bf16, 2 consumers and 128-key tiles with ping-pong and the
+// softmax under P V 0.986 ms, ping-pong alone 1.025, the softmax under P V
+// alone 1.200, neither 1.176, in turn 1.106; a third stage 0.921; 3
+// consumers (160 registers: S of 64 keys beside the m64n128 output) and
+// 64-key tiles 0.923 against 0.948 (ping-pong alone 0.972, a fourth stage
+// 1.094). At 64 these are FlashAttention-3's tiles (192 x 128).
+template <int DP> struct GTile {
+  static_assert(DP == 64 || DP == 128 || DP == 256, "64, 128 or 256");
+  static constexpr int NC = DP == 256 ? 2 : 3;
+  static constexpr int BQ = 64 * NC;
+  static constexpr int BKV = DP == 256 ? G_BKV : DP == 128 ? 64 : 128;
+  static constexpr int NT = 128 * (NC + 1);
+  static constexpr int PRODUCER_REGS = NC == 3 ? 32 : G_PRODUCER_REGS;
+  static constexpr int CONSUMER_REGS = NC == 3 ? 160 : G_CONSUMER_REGS;
+  static constexpr int STAGES = DP == 256 ? 2 : 3;
+  static constexpr bool PIPELINED = DP != 256;
+  static constexpr bool HEADS_FIRST = DP != 256;
+};
+static_assert(GTile<256>::BQ == G_BQ && GTile<256>::NT == G_NT,
+              "head_dim 129-256 keeps its tiles");
+
 // The wgmma route's shared memory for type T and padded head_dim DP, in
-// bytes: Q's boxes (G_BQ rows of 128 bytes each), one K or V tile (DP /
-// G_BOX boxes of G_BKV rows), and the block's total: 1024 to align the
-// tiles, Q, two stages of K and of V, and 9 mbarriers (Q full; K full, V
-// full, K empty and V empty of each stage).
+// bytes: Q's boxes (BQ rows of 128 bytes each), one K or V tile (DP /
+// G_BOX boxes of BKV rows), and the block's total: 1024 to align the
+// tiles, Q, the ring's stages of K and of V, and its mbarriers (Q full; K
+// full, V full, K empty and V empty of each stage).
 template <typename T, int DP> struct Gmma {
   static_assert(sizeof(T) == 2 && DP % G_BOX == 0, "16-bit, whole boxes");
   static constexpr int BOXES = DP / G_BOX;
-  static constexpr int Q_BOX = G_BQ * G_BOX * (int)sizeof(T);
-  static constexpr int KV_BOX = G_BKV * G_BOX * (int)sizeof(T);
+  static constexpr int Q_BOX = GTile<DP>::BQ * G_BOX * (int)sizeof(T);
+  static constexpr int KV_BOX = GTile<DP>::BKV * G_BOX * (int)sizeof(T);
   static constexpr int Q_BYTES = BOXES * Q_BOX;
   static constexpr int KV_BYTES = BOXES * KV_BOX;
-  static constexpr int SMEM = 1024 + Q_BYTES + 4 * KV_BYTES + 9 * 8;
+  static constexpr int STAGES = GTile<DP>::STAGES;
+  static constexpr int SMEM =
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + (1 + 4 * STAGES) * 8;
 };
 
 // The wgmma route's kernel. tq, tk and tv are the 3-D tensor maps (D,
-// heads, S) of q, k and v, with boxes of G_BOX columns, one head and G_BQ
-// (q) or G_BKV (k, v) rows.
+// heads, S) of q, k and v, with boxes of G_BOX columns, one head and BQ
+// (q) or BKV (k, v) rows.
 template <typename T, int DP>
-__global__ void __launch_bounds__(G_NT, 1)
+__global__ void __launch_bounds__(GTile<DP>::NT, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
@@ -1106,16 +1171,22 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        int H, int group, int D, int causal, int window,
                        float scale) {
   using G = Gmma<T, DP>;
-  static_assert(G_BKV == 80, "the score product is m64n80k16");
-  constexpr int NJ = G_BKV / 8;         // 8-key score tiles
+  using Tl = GTile<DP>;
+  constexpr int BQ = Tl::BQ, BKV = Tl::BKV, NC = Tl::NC, NS = Tl::STAGES;
+  constexpr int NJ = BKV / 8;           // 8-key score tiles
   extern __shared__ __align__(16) unsigned char gsmem_raw[];
-  // Shared-window addresses: Q, K's and V's two stages, the barriers.
+  // Shared-window addresses: Q, K's and V's stages, the barriers.
   const uint32_t sq = (smem_addr(gsmem_raw) + 1023) & ~1023u;
   const uint32_t sk = sq + G::Q_BYTES;
-  const uint32_t sv = sk + 2 * G::KV_BYTES;
-  const uint32_t q_full = sv + 2 * G::KV_BYTES;
-  const uint32_t k_full = q_full + 8, v_full = k_full + 16;
-  const uint32_t k_empty = v_full + 16, v_empty = k_empty + 16;
+  const uint32_t sv = sk + NS * G::KV_BYTES;
+  const uint32_t q_full = sv + NS * G::KV_BYTES;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * NS;
+  const uint32_t k_empty = v_full + 8 * NS, v_empty = k_empty + 8 * NS;
+  // KV tile it goes into stage it % NS of the ring; the parity of that
+  // stage's use is the phase its barriers wait for (a stage's first
+  // empty wait, for parity 1, passes at once).
+  auto stage = [](int it) { return (int)((uint32_t)it % NS); };
+  auto use = [](int it) { return ((uint32_t)it / NS) & 1; };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // The warpgroup, read from lane 0 so that the compiler knows that it is
@@ -1123,45 +1194,51 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // budgets (setmaxnreg), and the consumers' descriptors live in uniform
   // registers, as wgmma takes them.
   const int wg = __shfl_sync(0xffffffffu, warp / 4, 0);
-  const int h = blockIdx.y;
-  // Heaviest causal tiles (the last query rows) are scheduled first.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * G_BQ;
+  // Heaviest causal tiles (the last query rows) are scheduled first: with
+  // HEADS_FIRST every head's, the grid's blocks in order of their work
+  // (one dimension, the heads varying fastest), else each head's in turn.
+  int h, q0;
+  if constexpr (Tl::HEADS_FIRST) {
+    h = blockIdx.x % H;
+    q0 = (gridDim.x / H - 1 - blockIdx.x / H) * BQ;
+  } else {
+    h = blockIdx.y;
+    q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  }
   int kv_begin = 0, kv_end = S;
   if (causal) {
-    kv_end = min(S, q0 + G_BQ);
+    kv_end = min(S, q0 + BQ);
     if (window > 0) {
       const int lo = q0 - window + 1;
-      if (lo > 0) kv_begin = (lo / G_BKV) * G_BKV;
+      if (lo > 0) kv_begin = (lo / BKV) * BKV;
     }
   }
-  const int n_it = (kv_end - kv_begin + G_BKV - 1) / G_BKV;
+  const int n_it = (kv_end - kv_begin + BKV - 1) / BKV;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(k_full + 8 * s, 1);
       mbar_init(v_full + 8 * s, 1);
-      mbar_init(k_empty + 8 * s, 8);   // one arrival a consumer warp
-      mbar_init(v_empty + 8 * s, 8);
+      mbar_init(k_empty + 8 * s, 4 * NC);   // one arrival a consumer warp
+      mbar_init(v_empty + 8 * s, 4 * NC);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
   if (wg == 0) {
-    // The producer warpgroup; one thread issues every copy. The stage of
-    // tile it is it & 1, its use (it >> 1) & 1 the phase parity: a
-    // stage's first empty wait passes at once.
-    setmaxnreg_dec<G_PRODUCER_REGS>();
+    // The producer warpgroup; one thread issues every copy.
+    setmaxnreg_dec<Tl::PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, G::Q_BYTES);
       for (int b = 0; b < G::BOXES; ++b)
         tma_load_3d(sq + b * G::Q_BOX, &tq, q_full, b * G_BOX, h, q0);
       const int kvh = h / group;
       for (int it = 0; it < n_it; ++it) {
-        const int s = it & 1;
-        const uint32_t ph = (it >> 1) & 1;
-        const int k0 = kv_begin + it * G_BKV;
+        const int s = stage(it);
+        const uint32_t ph = use(it);
+        const int k0 = kv_begin + it * BKV;
         mbar_wait(k_empty + 8 * s, ph ^ 1);
         mbar_expect_tx(k_full + 8 * s, G::KV_BYTES);
         for (int b = 0; b < G::BOXES; ++b)
@@ -1177,7 +1254,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   } else {
     // A consumer warpgroup: query rows q0w.. (64 of them), the warp's 16
     // from 16 wq.
-    setmaxnreg_inc<G_CONSUMER_REGS>();
+    setmaxnreg_inc<Tl::CONSUMER_REGS>();
     const int wq = warp & 3, cw = wg - 1;
     const int q0w = q0 + 64 * cw;
     // Descriptors of the warpgroup's Q rows, of K's and of V's stage 0;
@@ -1190,72 +1267,206 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     zero(acc);
     float m[1][2] = {{kNegInf, kNegInf}}, l[1][2] = {{0.f, 0.f}};
     const float scale_log2 = scale * LOG2E;
+    // S = Q K^T of the tile in stage st, over DP / 16 steps of depth 16: 4
+    // a box, 32 bytes apart inside the swizzle atom (offsets in 16-byte
+    // units). Issued only: the caller commits and waits.
+    auto issue_s = [&](float (&s)[1][NJ][4], int st) {
+      const uint64_t dks = dk + st * (G::KV_BYTES >> 4);
+#pragma unroll
+      for (int b = 0; b < G::BOXES; ++b)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<T, NJ>(s[0], dq + ((b * G::Q_BOX + kk * 32) >> 4),
+                          dks + ((b * G::KV_BOX + kk * 32) >> 4), b | kk);
+    };
+    // O += P V of the tile in stage st: V's rows are the depth (16 keys,
+    // 2048 bytes a step), its boxes of 64 columns G::KV_BOX apart.
+    auto issue_pv = [&](const uint32_t (&p)[BKV / 16][4], int st) {
+      const uint64_t dvs = dv + st * (G::KV_BYTES >> 4);
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+        wgmma_rs<T, DP / 8>(acc[0], p[kk],
+                            dvs + ((kk * 16 * G_BOX * (int)sizeof(T)) >> 4),
+                            1);
+    };
+    // P (the probabilities in s) as A fragments, 16 keys a step.
+    auto pack_p = [&](uint32_t (&p)[BKV / 16][4], const float (&s)[1][NJ][4]) {
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        p[kk][0] = pack16<T>(s[0][2 * kk][0], s[0][2 * kk][1]);
+        p[kk][1] = pack16<T>(s[0][2 * kk][2], s[0][2 * kk][3]);
+        p[kk][2] = pack16<T>(s[0][2 * kk + 1][0], s[0][2 * kk + 1][1]);
+        p[kk][3] = pack16<T>(s[0][2 * kk + 1][2], s[0][2 * kk + 1][3]);
+      }
+    };
+    auto rescale = [&](const float (&corr)[1][2]) {
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[0][n][e] *= corr[0][e >> 1];
+    };
     mbar_wait(q_full, 0);
-    for (int it = 0; it < n_it; ++it) {
-      const int st = it & 1;
-      const uint32_t ph = (it >> 1) & 1;
-      const int k0 = kv_begin + it * G_BKV;
-      // No row of the warpgroup may use any key of the tile: past the
-      // causal diagonal, before the window, or rows past S.
-      const bool skip =
-          q0w >= S ||
-          (causal && (k0 > q0w + 63 ||
-                      (window > 0 && q0w - (k0 + G_BKV - 1) >= window)));
-      mbar_wait(k_full + 8 * st, ph);
-      float s[1][NJ][4];               // written whole by the first step
-      if (!skip) {
-        // S = Q K^T over DP / 16 steps of depth 16: 4 a box, 32 bytes
-        // apart inside the swizzle atom (offsets in 16-byte units).
-        const uint64_t dks = dk + st * (G::KV_BYTES >> 4);
-        fence_regs(s[0]);
-        wgmma_fence();
-#pragma unroll
-        for (int b = 0; b < G::BOXES; ++b)
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_ss_n80<T>(s[0], dq + ((b * G::Q_BOX + kk * 32) >> 4),
-                            dks + ((b * G::KV_BOX + kk * 32) >> 4), b | kk);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(s[0]);
-      }
-      if (lane == 0) mbar_arrive(k_empty + 8 * st);
-      uint32_t p[G_BKV / 16][4];       // P as A fragments, 16 keys a step
-      if (!skip) {
-        float corr[1][2];
-        softmax_step<64, G_BKV>(s, m, l, corr, q0w, k0, 16 * wq, lane, S,
-                                causal, window, scale_log2);
-#pragma unroll
-        for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[0][n][e] *= corr[0][e >> 1];
-#pragma unroll
-        for (int kk = 0; kk < G_BKV / 16; ++kk) {
-          p[kk][0] = pack16<T>(s[0][2 * kk][0], s[0][2 * kk][1]);
-          p[kk][1] = pack16<T>(s[0][2 * kk][2], s[0][2 * kk][3]);
-          p[kk][2] = pack16<T>(s[0][2 * kk + 1][0], s[0][2 * kk + 1][1]);
-          p[kk][3] = pack16<T>(s[0][2 * kk + 1][2], s[0][2 * kk + 1][3]);
+    if constexpr (!Tl::PIPELINED) {
+      for (int it = 0; it < n_it; ++it) {
+        const int st = stage(it);
+        const uint32_t ph = use(it);
+        const int k0 = kv_begin + it * BKV;
+        // No row of the warpgroup may use any key of the tile: past the
+        // causal diagonal, before the window, or rows past S.
+        const bool skip =
+            q0w >= S ||
+            (causal && (k0 > q0w + 63 ||
+                        (window > 0 && q0w - (k0 + BKV - 1) >= window)));
+        mbar_wait(k_full + 8 * st, ph);
+        float s[1][NJ][4];             // written whole by the first step
+        if (!skip) {
+          fence_regs(s[0]);
+          wgmma_fence();
+          issue_s(s, st);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(s[0]);
         }
+        if (lane == 0) mbar_arrive(k_empty + 8 * st);
+        uint32_t p[BKV / 16][4];
+        if (!skip) {
+          float corr[1][2];
+          softmax_step<64, BKV>(s, m, l, corr, q0w, k0, 16 * wq, lane, S,
+                                causal, window, scale_log2);
+          rescale(corr);
+          pack_p(p, s);
+        }
+        mbar_wait(v_full + 8 * st, ph);
+        if (!skip) {
+          fence_regs(acc[0]);
+          fence_regs(p);
+          wgmma_fence();
+          issue_pv(p, st);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc[0]);
+          fence_regs(p);
+        }
+        if (lane == 0) mbar_arrive(v_empty + 8 * st);
       }
-      mbar_wait(v_full + 8 * st, ph);
-      if (!skip) {
-        // O += P V: V's rows are the depth (16 keys, 2048 bytes a step),
-        // its boxes of 64 columns G::KV_BOX apart.
-        const uint64_t dvs = dv + st * (G::KV_BYTES >> 4);
+    } else {
+      // The tiles some row of the warpgroup may use, [lo, hi): those from
+      // the one holding its first row's earliest key (under a window) to
+      // the one holding its last row (causal); none for rows past S. The
+      // rest only pass their barriers on.
+      int lo = 0, hi = n_it;
+      if (q0w >= S) {
+        hi = 0;
+      } else if (causal) {
+        hi = min(n_it, (q0w + 63 - kv_begin) / BKV + 1);
+        if (window > 0) lo = max(0, (q0w - window + 1 - kv_begin) / BKV);
+      }
+      // The consumers issue their products in turn, warpgroup cw on named
+      // barrier 1 + cw, handing on to the next; every one takes n_it + 1
+      // turns (a tile each, and the last P V), the last consumer giving
+      // the first its first turn.
+      auto turn_begin = [&] { bar_sync(1 + cw, 256); };
+      auto turn_end = [&] { bar_arrive(1 + (cw + 1) % NC, 256); };
+      auto pass = [&](int it) {
+        turn_begin();
+        mbar_wait(k_full + 8 * stage(it), use(it));
+        mbar_wait(v_full + 8 * stage(it), use(it));
+        turn_end();
+        if (lane == 0) {
+          mbar_arrive(k_empty + 8 * stage(it));
+          mbar_arrive(v_empty + 8 * stage(it));
+        }
+      };
+      if (cw == NC - 1) bar_arrive(1, 256);
+      for (int it = 0; it < lo; ++it) pass(it);
+      float s[1][NJ][4];               // written whole by the first step
+      uint32_t p[BKV / 16][4];         // P of the last tile, as A fragments
+      float corr[1][2];                // and its rescale of O
+      if (lo < hi) {
+        // The first tile: S alone.
+        turn_begin();
+        mbar_wait(k_full + 8 * stage(lo), use(lo));
+        fence_regs(s[0]);
+        wgmma_fence();
+        issue_s(s, stage(lo));
+        wgmma_commit();
+        turn_end();
+        wgmma_wait<0>();
+        fence_regs(s[0]);
+        if (lane == 0) mbar_arrive(k_empty + 8 * stage(lo));
+        softmax_step<64, BKV>(s, m, l, corr, q0w, kv_begin + lo * BKV,
+                              16 * wq, lane, S, causal, window, scale_log2);
+        pack_p(p, s);
+      }
+      // Tile j: S of tile j and P V of tile j - 1 (O rescaled first: O =
+      // O corr + P V, in the instances' order), then the softmax of tile
+      // j. MASKED: whether the tile has a masked entry, decided outside,
+      // so that no branch sits between a product and its wait.
+      auto step = [&](int j, auto masked) {
+        const int st = stage(j), sp = stage(j - 1);
+        const int k0 = kv_begin + j * BKV;
+        turn_begin();
+        mbar_wait(v_full + 8 * sp, use(j - 1));
+        mbar_wait(k_full + 8 * st, use(j));
+        rescale(corr);
+        fence_regs(s[0]);
         fence_regs(acc[0]);
         fence_regs(p);
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < G_BKV / 16; ++kk)
-          wgmma_rs_n256<T>(acc[0], p[kk],
-                           dvs + ((kk * 16 * G_BOX * (int)sizeof(T)) >> 4),
-                           1);
+        issue_s(s, st);
         wgmma_commit();
+        issue_pv(p, sp);
+        wgmma_commit();
+        turn_end();
+        constexpr int MASKED = decltype(masked)::value;
+        wgmma_wait<1>();
+        fence_regs(s[0]);
+        softmax_step<64, BKV, 1, NJ, MASKED>(s, m, l, corr, q0w, k0, 16 * wq,
+                                             lane, S, causal, window,
+                                             scale_log2);
         wgmma_wait<0>();
         fence_regs(acc[0]);
         fence_regs(p);
+        if (lane == 0) {
+          mbar_arrive(k_empty + 8 * st);
+          mbar_arrive(v_empty + 8 * sp);
+        }
+        pack_p(p, s);
+      };
+      for (int j = lo + 1; j < hi; ++j) {
+        const int k0 = kv_begin + j * BKV;
+        const bool masked =
+            k0 + BKV > S ||
+            (causal && (k0 + BKV - 1 > q0w ||
+                        (window > 0 && q0w + 63 - k0 >= window)));
+        if (masked)
+          step(j, std::integral_constant<int, 1>());
+        else
+          step(j, std::integral_constant<int, 0>());
       }
-      if (lane == 0) mbar_arrive(v_empty + 8 * st);
+      if (lo < hi) {
+        // P V of the last tile.
+        const int sp = stage(hi - 1);
+        turn_begin();
+        mbar_wait(v_full + 8 * sp, use(hi - 1));
+        rescale(corr);
+        fence_regs(acc[0]);
+        fence_regs(p);
+        wgmma_fence();
+        issue_pv(p, sp);
+        wgmma_commit();
+        turn_end();
+        wgmma_wait<0>();
+        fence_regs(acc[0]);
+        fence_regs(p);
+        if (lane == 0) mbar_arrive(v_empty + 8 * sp);
+      } else {
+        turn_begin();
+        turn_end();
+      }
+      for (int it = hi; it < n_it; ++it) pass(it);
+      // The last consumer's last hand-on goes to the first.
+      if (cw == 0) bar_sync(1, 256);
     }
 
     // O = acc / l in q's type, two columns a 32-bit store; lse from the
@@ -1357,20 +1568,22 @@ template <typename T, int DP>
 cudaError_t launch_fwd_wgmma(const void* const* p, int S, int H, int KVH,
                              int D, const Strides& st, int causal,
                              int window, float scale, cudaStream_t stream) {
+  using Tl = GTile<DP>;
   constexpr int smem = Gmma<T, DP>::SMEM;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = tile_map<T>(&tq, p[0], D, H, S, st.q_ss, st.q_sh, G_BQ);
+  cudaError_t err = tile_map<T>(&tq, p[0], D, H, S, st.q_ss, st.q_sh, Tl::BQ);
   if (err == cudaSuccess)
-    err = tile_map<T>(&tk, p[1], D, KVH, S, st.k_ss, st.k_sh, G_BKV);
+    err = tile_map<T>(&tk, p[1], D, KVH, S, st.k_ss, st.k_sh, Tl::BKV);
   if (err == cudaSuccess)
-    err = tile_map<T>(&tv, p[2], D, KVH, S, st.v_ss, st.v_sh, G_BKV);
+    err = tile_map<T>(&tv, p[2], D, KVH, S, st.v_ss, st.v_sh, Tl::BKV);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<T, DP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + G_BQ - 1) / G_BQ, H);
-  flash_fwd_wgmma_kernel<T, DP><<<grid, G_NT, smem, stream>>>(
+  const int tiles = (S + Tl::BQ - 1) / Tl::BQ;
+  const dim3 grid = Tl::HEADS_FIRST ? dim3(tiles * H) : dim3(tiles, H);
+  flash_fwd_wgmma_kernel<T, DP><<<grid, Tl::NT, smem, stream>>>(
       tq, tk, tv, static_cast<T*>(const_cast<void*>(p[3])),
       static_cast<float*>(const_cast<void*>(p[4])), S, H, H / KVH, D, causal,
       window, scale);
@@ -1403,16 +1616,17 @@ using Launcher = cudaError_t (*)(const void* const*, int, int, int, int,
 
 // The forward's routes, by the codes flash_fwd_route gives them
 // (flash_attention.FWD_ROUTES): the instances (head_dim padded to 16, 32,
-// 64, 128 or 256), the wgmma route (bf16 and f16 at 129-256 whose q, k and
-// v all take the 16-byte copy path, as TMA needs), the wide route (257-576)
-// and the streamed route beyond.
+// 64, 128 or 256), the wgmma route (bf16 and f16 at 33-256 whose q, k and
+// v all take the 16-byte copy path, as TMA needs; head_dim padded to 64,
+// 128 or 256), the wide route (257-576) and the streamed route beyond.
+// f32 and head_dim 32 or less stay on the instances.
 enum Route { R_INSTANCE = 0, R_WGMMA = 1, R_WIDE = 2, R_STREAM = 3 };
 
 template <typename T>
 Route route_for(int D, int vec) {
   return D > W_MAX_DP ? R_STREAM
        : D > 256      ? R_WIDE
-       : sizeof(T) == 2 && D > 128 && vec == (VEC_Q | VEC_K | VEC_V)
+       : sizeof(T) == 2 && D > 32 && vec == (VEC_Q | VEC_K | VEC_V)
            ? R_WGMMA
            : R_INSTANCE;
 }
@@ -1420,7 +1634,10 @@ Route route_for(int D, int vec) {
 template <typename T>
 Launcher fwd_for(int D, int vec) {
   if constexpr (sizeof(T) == 2)
-    if (route_for<T>(D, vec) == R_WGMMA) return &launch_fwd_wgmma<T, 256>;
+    if (route_for<T>(D, vec) == R_WGMMA)
+      return D <= 64    ? &launch_fwd_wgmma<T, 64>
+           : D <= 128   ? &launch_fwd_wgmma<T, 128>
+                        : &launch_fwd_wgmma<T, 256>;
   return D <= 16 ? &launch_fwd<T, 16>
        : D <= 32 ? &launch_fwd<T, 32>
        : D <= 64 ? &launch_fwd<T, 64>
@@ -1434,7 +1651,10 @@ Launcher fwd_for(int D, int vec) {
 template <typename T>
 int smem_for(int D, int vec) {
   if constexpr (sizeof(T) == 2)
-    if (route_for<T>(D, vec) == R_WGMMA) return Gmma<T, 256>::SMEM;
+    if (route_for<T>(D, vec) == R_WGMMA)
+      return D <= 64    ? Gmma<T, 64>::SMEM
+           : D <= 128   ? Gmma<T, 128>::SMEM
+                        : Gmma<T, 256>::SMEM;
   return D <= 16 ? smem_bytes<T, 16>()
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
@@ -1488,6 +1708,22 @@ int flash_fwd_smem_bytes(int D, int dtype, int vec) {
   return dtype == 0   ? smem_for<float>(D, vec)
          : dtype == 1 ? smem_for<bf16>(D, vec)
                       : smem_for<f16>(D, vec);
+}
+
+// The wgmma route's tiles at padded head_dim DP (64, 128 or 256): query
+// rows a block into *rows and keys a KV tile into *keys. Returns 0, or
+// cudaErrorInvalidValue for another DP.
+int flash_fwd_wgmma_tiles(int DP, int* rows, int* keys) {
+  if (DP == 64) {
+    *rows = GTile<64>::BQ, *keys = GTile<64>::BKV;
+  } else if (DP == 128) {
+    *rows = GTile<128>::BQ, *keys = GTile<128>::BKV;
+  } else if (DP == 256) {
+    *rows = GTile<256>::BQ, *keys = GTile<256>::BKV;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
 const char* flash_fwd_error_string(int code) {

@@ -3,7 +3,7 @@
 // tiles copied by the Tensor Memory Accelerator (TMA): the shared-memory
 // matrix descriptor of the 128-byte swizzle, wgmma's fence, commit and
 // wait, the bf16 and f16 products m64nNk16 with A in shared memory (N 64,
-// 80, 128) and with A in registers (N 64, 256; B MN-major), the 3-D TMA
+// 80, 128) and with A in registers (N 64, 128, 256; B MN-major), the 3-D TMA
 // tile load and the host's tensor map of a (S, heads, head_dim) tensor,
 // mbarrier init, arrive, arrive.expect_tx and a wait on a phase, and
 // setmaxnreg. sm_90a only (wgmma and setmaxnreg exist for no other
@@ -225,6 +225,37 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)); \
   }
 
+#define FIBER_WGMMA_RS_N128_TB(NAME, TY)                                  \
+  __device__ __forceinline__ void NAME(float (&d)[16][4],                   \
+                                       const uint32_t (&a)[4], uint64_t db, \
+                                       int scale_d) {                        \
+    asm volatile(                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"             \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), \
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), \
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), \
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), \
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), \
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), \
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), \
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), \
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), \
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), \
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), \
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), \
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)); \
+  }
+
 FIBER_WGMMA_SS_N80(wgmma_ss_bf16_n80, "bf16")
 FIBER_WGMMA_SS_N80(wgmma_ss_f16_n80, "f16")
 FIBER_WGMMA_RS_N256_TB(wgmma_rs_bf16_n256_tb, "bf16")
@@ -235,17 +266,8 @@ FIBER_WGMMA_SS_N128(wgmma_ss_bf16_n128, "bf16")
 FIBER_WGMMA_SS_N128(wgmma_ss_f16_n128, "f16")
 FIBER_WGMMA_RS_N64_TB(wgmma_rs_bf16_n64_tb, "bf16")
 FIBER_WGMMA_RS_N64_TB(wgmma_rs_f16_n64_tb, "f16")
-
-// d (+)= A B^T, m64 x 80 x k16 of 16-bit type T, both operands in shared
-// memory, K-major (descriptors da, db); scale_d 0 overwrites d.
-template <typename T>
-__device__ __forceinline__ void wgmma_ss_n80(float (&d)[10][4], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  if constexpr (std::is_same_v<T, bf16>)
-    wgmma_ss_bf16_n80(d, da, db, scale_d);
-  else
-    wgmma_ss_f16_n80(d, da, db, scale_d);
-}
+FIBER_WGMMA_RS_N128_TB(wgmma_rs_bf16_n128_tb, "bf16")
+FIBER_WGMMA_RS_N128_TB(wgmma_rs_f16_n128_tb, "f16")
 
 // d (+)= A B, m64 x 256 x k16 of 16-bit type T: A the warp's fragment in
 // registers, B (k16 x n256) MN-major in shared memory (descriptor db).
@@ -259,17 +281,20 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[32][4],
     wgmma_rs_f16_n256_tb(d, a, db, scale_d);
 }
 
-// d (+)= A B^T, m64 x 8 NJ x k16 of 16-bit type T (NJ 8 or 16: 64 or 128
-// columns), both operands in shared memory, K-major; scale_d 0 overwrites
-// d.
+// d (+)= A B^T, m64 x 8 NJ x k16 of 16-bit type T (NJ 8, 10 or 16: 64, 80
+// or 128 columns), both operands in shared memory, K-major (descriptors
+// da, db); scale_d 0 overwrites d.
 template <typename T, int NJ>
 __device__ __forceinline__ void wgmma_ss(float (&d)[NJ][4], uint64_t da,
                                          uint64_t db, int scale_d) {
-  static_assert(NJ == 8 || NJ == 16, "m64n64k16 or m64n128k16");
+  static_assert(NJ == 8 || NJ == 10 || NJ == 16, "m64n64, n80 or n128");
   constexpr bool B16 = std::is_same_v<T, bf16>;
   if constexpr (NJ == 8) {
     if constexpr (B16) wgmma_ss_bf16_n64(d, da, db, scale_d);
     else wgmma_ss_f16_n64(d, da, db, scale_d);
+  } else if constexpr (NJ == 10) {
+    if constexpr (B16) wgmma_ss_bf16_n80(d, da, db, scale_d);
+    else wgmma_ss_f16_n80(d, da, db, scale_d);
   } else {
     if constexpr (B16) wgmma_ss_bf16_n128(d, da, db, scale_d);
     else wgmma_ss_f16_n128(d, da, db, scale_d);
@@ -286,6 +311,30 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
     wgmma_rs_bf16_n64_tb(d, a, db, scale_d);
   else
     wgmma_rs_f16_n64_tb(d, a, db, scale_d);
+}
+
+// d (+)= A B, m64 x 128 x k16 of 16-bit type T: A the warp's fragment in
+// registers, B (k16 x n128) MN-major in shared memory (descriptor db).
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  if constexpr (std::is_same_v<T, bf16>)
+    wgmma_rs_bf16_n128_tb(d, a, db, scale_d);
+  else
+    wgmma_rs_f16_n128_tb(d, a, db, scale_d);
+}
+
+// d (+)= A B, m64 x 8 ND x k16 of 16-bit type T (ND 8, 16 or 32: 64, 128
+// or 256 columns), A from registers, B MN-major in shared memory.
+template <typename T, int ND>
+__device__ __forceinline__ void wgmma_rs(float (&d)[ND][4],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  static_assert(ND == 8 || ND == 16 || ND == 32, "m64n64, n128 or n256");
+  if constexpr (ND == 8) wgmma_rs_n64<T>(d, a, db, scale_d);
+  else if constexpr (ND == 16) wgmma_rs_n128<T>(d, a, db, scale_d);
+  else wgmma_rs_n256<T>(d, a, db, scale_d);
 }
 
 // The mbarrier at `bar` (shared window address) expects `count` arrivals

@@ -12,9 +12,9 @@ are the JAX package's: q ``(S, heads, head_dim)``, k and v
 The kernels and the plain versions take f32, bf16 and f16 and any
 head_dim, as the Pallas kernels do: the kernels pad a head_dim up to 256
 to an instance of 16, 32, 64, 128 or 256 columns (the forward in bf16
-and f16 at 129-256 takes its wgmma route instead, :func:`fwd_route`,
-and the backward kernels in bf16 and f16 at 33-64 theirs,
-:func:`bwd_route`), and a larger one takes
+and f16 at 33-256 takes its wgmma route instead, padded to 64, 128 or
+256, :func:`fwd_route`, and the backward kernels in bf16 and f16 at
+33-64 theirs, :func:`bwd_route`), and a larger one takes
 their wide route (128-column output slices; in the forward the depth of
 the score products streamed in chunks; in the backward, to head_dim
 1024, a thread-block cluster of one block a slice that computes each
@@ -179,24 +179,32 @@ def _bwd_lib(name):
 #: the forward kernel's routes, in the order of the codes that
 #: ``flash_fwd_route`` in ``csrc/flash_fwd.cu`` gives them
 FWD_ROUTES = ("instance", "wgmma", "wide", "stream")
-#: query rows a block and keys a KV tile of the forward's wgmma route
-FWD_WGMMA_TILES = (128, 80)
+#: the forward's wgmma route by padded head_dim (``fwd_wgmma_width``):
+#: query rows a block and keys a KV tile, as ``GTile`` in
+#: ``csrc/flash_fwd.cu`` sets them (``flash_fwd_wgmma_tiles`` reports them)
+FWD_WGMMA_TILES = {64: (192, 128), 128: (192, 64), 256: (128, 80)}
+
+
+def fwd_wgmma_width(head_dim):
+    """The padded head_dim of the forward's wgmma template that takes
+    ``head_dim`` (33-256): 64, 128 or 256."""
+    return next(w for w in FWD_WGMMA_TILES if head_dim <= w)
 
 
 def fwd_route(head_dim, dtype, aligned):
     """The route of the forward kernel that a launch takes
-    (``FWD_ROUTES``): ``"wgmma"`` for bf16 and f16 at head_dim 129-256
+    (``FWD_ROUTES``): ``"wgmma"`` for bf16 and f16 at head_dim 33-256
     when q, k and v are all ``aligned`` (pointer, row and head strides
     and head_dim whole 16-byte units, as TMA needs), ``"instance"`` for
     every other head_dim up to 256 (the mma.sync instances padded to 16,
-    32, 64, 128 or 256), ``"wide"`` at 257-576 and ``"stream"`` above.
-    The launcher (``route_for`` in ``csrc/flash_fwd.cu``) decides the
-    same."""
+    32, 64, 128 or 256: f32, head_dim 32 or less, unaligned tensors),
+    ``"wide"`` at 257-576 and ``"stream"`` above. The launcher
+    (``route_for`` in ``csrc/flash_fwd.cu``) decides the same."""
     if head_dim > 576:
         return "stream"
     if head_dim > 256:
         return "wide"
-    if dtype != torch.float32 and head_dim > 128 and aligned:
+    if dtype != torch.float32 and head_dim > 32 and aligned:
         return "wgmma"
     return "instance"
 

@@ -45,7 +45,7 @@ from chip_smoke import check, emit
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 DEFAULT_SHAPES = ("gemma_f32", "gemma_bf16", "gemma_f16", "lm_f32",
                   "attention_bf16", "attention_f16", "llama1b_bf16",
-                  "llama1b_f16", "v4_f16")
+                  "llama1b_f16", "llama8b_bf16", "v4_f16")
 #: rounds of timings (every second one in reverse order), and launches a
 #: timing after one warm-up
 ROUNDS = 4

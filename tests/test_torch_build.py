@@ -99,6 +99,18 @@ def test_every_quoted_include_is_a_header_of_csrc():
     ("_ZN45_GLOBAL__N__5aa4ffdc_12_flash_fwd_cu_b294bfd022flash_fwd_wgmma_"
      "kernelI6__halfLi256EEEv14CUtensorMap_stS2_S2_PT_Pfiiiiiif",
      "flash_fwd_wgmma_kernel<float16,256>"),
+    ("_ZN45_GLOBAL__N__5aa4ffdc_12_flash_fwd_cu_b294bfd022flash_fwd_wgmma_"
+     "kernelI13__nv_bfloat16Li64EEEv14CUtensorMap_stS2_S2_PT_Pfiiiiiif",
+     "flash_fwd_wgmma_kernel<bfloat16,64>"),
+    ("_ZN45_GLOBAL__N__5aa4ffdc_12_flash_fwd_cu_b294bfd022flash_fwd_wgmma_"
+     "kernelI6__halfLi64EEEv14CUtensorMap_stS2_S2_PT_Pfiiiiiif",
+     "flash_fwd_wgmma_kernel<float16,64>"),
+    ("_ZN45_GLOBAL__N__5aa4ffdc_12_flash_fwd_cu_b294bfd022flash_fwd_wgmma_"
+     "kernelI13__nv_bfloat16Li128EEEv14CUtensorMap_stS2_S2_PT_Pfiiiiiif",
+     "flash_fwd_wgmma_kernel<bfloat16,128>"),
+    ("_ZN45_GLOBAL__N__5aa4ffdc_12_flash_fwd_cu_b294bfd022flash_fwd_wgmma_"
+     "kernelI6__halfLi128EEEv14CUtensorMap_stS2_S2_PT_Pfiiiiiif",
+     "flash_fwd_wgmma_kernel<float16,128>"),
     ("_Z20ring_exchange_kernelPKPKvPKPvPKxii", "ring_exchange_kernel"),
 ])
 def test_ptxas_report_names_each_template(tmp_path, monkeypatch, mangled,

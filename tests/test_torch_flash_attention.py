@@ -448,12 +448,13 @@ def test_fwd_wide_arithmetic_stays_inside_the_chip_bounds(dtype, head_dim,
 
 # ---------------------------------------------------------------------------
 # The arithmetic of csrc/flash_fwd.cu's wgmma route (flash_fwd_wgmma_kernel,
-# bf16 and f16 at head_dim 129-256), emulated: per 128-row query tile and
-# each of its KV tiles of FWD_WGMMA_TILES[1] keys (the causal end and the
-# window's start taken from the query tile), S = Q K^T (exact products of
-# 16-bit values summed in f32), the online softmax in base 2, O rescaled by
-# corr, P packed to the input's type and O += P V in f32, and O rounded
-# once.
+# bf16 and f16 at head_dim 33-256), emulated: per query tile and each of its
+# KV tiles (FWD_WGMMA_TILES of the head_dim's padded width, which
+# chip_smoke.py's build holds to the library's; the causal end and the
+# window's start taken from the query tile), S = Q K^T (exact
+# products of 16-bit values summed in f32), the online softmax in base 2, O
+# rescaled by corr, P packed to the input's type and O += P V in f32, and O
+# rounded once.
 # ---------------------------------------------------------------------------
 
 
@@ -461,8 +462,9 @@ def _fwd_wgmma_emulated(q, k, v, dtype, window, tiles=None):
     """(O, lse) of the wgmma route, causal, from f32 tensors that hold
     ``dtype`` values; ``tiles`` (query rows, keys) of another route whose
     arithmetic is the same (the 16-bit instances: 128 query rows and 64
-    keys up to head_dim 64), by default the wgmma route's."""
-    bq, bkv = tiles or fa.FWD_WGMMA_TILES
+    keys up to head_dim 64), by default the wgmma route's at this
+    head_dim."""
+    bq, bkv = tiles or fa.FWD_WGMMA_TILES[fa.fwd_wgmma_width(q.shape[2])]
     s, h, d = q.shape
     group = h // k.shape[1]
     scale_log2 = torch.tensor(d ** -0.5 * LOG2E, dtype=torch.float32)
@@ -495,13 +497,14 @@ def _fwd_wgmma_emulated(q, k, v, dtype, window, tiles=None):
 
 
 @pytest.mark.parametrize("window", [None, 128], ids=["causal", "window128"])
-@pytest.mark.parametrize("head_dim", [192, 256])
+@pytest.mark.parametrize("head_dim", [40, 64, 96, 128, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16],
                          ids=["f16", "bf16"])
 def test_fwd_wgmma_arithmetic_stays_inside_the_chip_bounds(dtype, head_dim,
                                                            window):
-    """The wgmma route's order of sums (128-row query tiles, 80-key tiles,
-    P packed to the input's type before P V) against an f64 recomputation
+    """The wgmma route's order of sums (each padded width's tiles from
+    FWD_WGMMA_TILES: 128-key tiles at 33-64, 64-key at 65-128, 80-key at
+    129-256; P packed to the input's type before P V) against an f64 recomputation
     from the same inputs at S = 512: O under F16_TOL in f16 and the bf16
     TOL in bf16, and lse under LSE_TOL."""
     inputs, want, want_lse = _wide_case(dtype, head_dim, window)
@@ -514,10 +517,15 @@ def test_fwd_wgmma_arithmetic_stays_inside_the_chip_bounds(dtype, head_dim,
 
 
 # (head_dim, dtype, aligned, route): the wgmma route takes only bf16 and
-# f16 at head_dim 129-256 whose q, k and v are whole 16-byte units
+# f16 at head_dim 33-256 whose q, k and v are whole 16-byte units
 FWD_ROUTE_TABLE = [
-    (64, torch.bfloat16, True, "instance"),
-    (128, torch.float16, True, "instance"),
+    (64, torch.bfloat16, True, "wgmma"),
+    (128, torch.float16, True, "wgmma"),
+    (40, torch.bfloat16, True, "wgmma"),
+    (96, torch.float16, True, "wgmma"),
+    (32, torch.bfloat16, True, "instance"),
+    (64, torch.float32, True, "instance"),
+    (96, torch.bfloat16, False, "instance"),
     (129, torch.bfloat16, True, "wgmma"),
     (136, torch.float16, True, "wgmma"),
     (192, torch.bfloat16, True, "wgmma"),
@@ -540,3 +548,14 @@ def test_fwd_route_table(head_dim, dtype, aligned, route):
     (flash_fwd_route) to fwd_route at every shape it launches."""
     assert fa.fwd_route(head_dim, dtype, aligned) == route
     assert route in fa.FWD_ROUTES
+
+
+@pytest.mark.parametrize("head_dim,width", [(33, 64), (64, 64), (65, 128),
+                                            (128, 128), (129, 256),
+                                            (256, 256)])
+def test_fwd_wgmma_width(head_dim, width):
+    """The padded width of the forward's wgmma template at each edge of its
+    three (csrc/flash_fwd.cu's fwd_for pads the same). That width's tiles,
+    FWD_WGMMA_TILES, are held to the library's own
+    (flash_fwd_wgmma_tiles) by chip_smoke.py's build phase."""
+    assert fa.fwd_wgmma_width(head_dim) == width

@@ -778,13 +778,13 @@ def test_bwd_route_table(head_dim, dtype, aligned, route):
 class _EmulatedFlash(torch.autograd.Function):
     """bf16 or f16 causal attention through the emulated arithmetic of the
     kernels a 16-bit TinyLM at head_dim 33-64 runs on the card: the
-    forward's instance (128 query rows, 64-key tiles, P packed to the
-    input's type before P V) and the backward's wgmma route."""
+    forward's wgmma route (its tiles at head_dim 64, P packed to the
+    input's type before P V) and the backward's."""
 
     @staticmethod
     def forward(ctx, q, k, v):
         o, lse = _fwd_wgmma_emulated(q.float(), k.float(), v.float(),
-                                     q.dtype, None, tiles=(128, 64))
+                                     q.dtype, None)
         out = o.to(q.dtype)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
@@ -808,11 +808,14 @@ def test_llama_lm_bound_covers_the_kernels_bf16_arithmetic():
     group (4), narrow (dim 512, 8 heads, 2 KV heads, 2 layers) at S 512,
     through the emulated arithmetic of the kernels it runs on the card
     (_EmulatedFlash) against the same weights on the kernels' plain
-    versions (the flash plane on the CPU). Measured: the loss moves by
-    1.1e-4 and a parameter's gradient by at most 1.12% of its largest (1.7%
-    at dim 256, S 512, 1.15% at dim 512, S 1024; wq's or the embedding's).
-    The bounds leave ten times that on the loss and twice on the gradients
-    for the card's full width at S 2048, whose sums are longer."""
+    versions (the flash plane on the CPU). Measured with the forward's
+    wgmma tiles: the loss moves by 9.5e-6 and a parameter's gradient by at
+    most 0.995% of its largest (3.2e-5 and 1.05% at dim 256, S 512; 6.3e-5
+    and 1.15% at dim 512, S 1024; wo's or the embedding's); with the
+    instance's tiles before, 1.1e-4 and 1.12% (1.7% at dim 256). The
+    bounds leave ten times the largest on the loss and twice on the
+    gradients for the card's full width at S 2048, whose sums are
+    longer."""
     from unittest import mock
 
     import chip_smoke
