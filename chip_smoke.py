@@ -115,11 +115,12 @@ MAIN_SHAPES = (
 # take their streamed route (1100 in f16). The dk/dv kernel's 256
 # instance splits a KV tile's query heads over a cluster of blocks where
 # the grid would not fill the card (DKV_PARTS_EDGES). bf16 and f16 at
-# 33-256 take the forward's wgmma route (FWD_ROUTE_EDGES), and at 33-64
+# 33-256 take the forward's wgmma route (FWD_ROUTE_EDGES), and at 33-128
 # the backward kernels' (BWD_ROUTE_EDGES): head_dim 64 and 40, a ragged S
 # of 333 with GQA 4:1, causal, over a window of 40 (shorter than a tile)
-# and not causal, in bf16 and f16; the forward's also at head_dim 96
-# (ragged S 333, GQA 4:1, f16, causal) and 72 (bf16, not causal).
+# and not causal, in bf16 and f16; head_dim 128 over a window of 100
+# (bf16), 96 (ragged S 333, GQA 4:1, f16, causal) and 72 (bf16, not
+# causal).
 EDGE_SHAPES = (
     ("edge_noncausal_d8", 100, 4, 2, 8, "float32", None, False),
     ("edge_d40_ragged", 77, 2, 2, 40, "float32", None, True),
@@ -160,8 +161,9 @@ DKV_PARTS_EDGES = {"edge_d256_mha_bf16": 1, "edge_d200_gqa8_ragged_f16": 8}
 # element into their buffers (rows 4 bytes off 16-byte alignment), on
 # the wide route head_dim 300 in f16 (600-byte rows) and an f32 offset,
 # head_dim 196 in bf16 (392-byte rows), which the forward's wgmma route
-# cannot take, and head_dim 36 in f16 (72-byte rows), 65 in bf16 and 64 in
-# bf16 one element into its buffer, which the backward's cannot.
+# cannot take, and head_dim 36 in f16 (72-byte rows), 65 in bf16, and 64
+# and 128 in bf16 one element into their buffers, which the backward's
+# cannot.
 # (name, S, heads, kv_heads, head_dim, dtype, window, causal, offset)
 SCALAR_EDGE_SHAPES = (
     ("edge_d20_bf16_scalar", 70, 2, 1, 20, "bfloat16", None, True, 0),
@@ -173,6 +175,7 @@ SCALAR_EDGE_SHAPES = (
     ("edge_d36_f16_scalar", 100, 4, 2, 36, "float16", None, True, 0),
     ("edge_d65_bf16_scalar", 100, 4, 1, 65, "bfloat16", None, True, 0),
     ("edge_d64_bf16_unaligned", 130, 4, 2, 64, "bfloat16", None, True, 1),
+    ("edge_d128_bf16_unaligned", 130, 4, 1, 128, "bfloat16", None, True, 1),
 )
 # A backward edge whose tensors are head_dim-64 views of wider rows (a row
 # stride of 4 x 65 elements, a head stride of 65), which the backward
@@ -183,27 +186,32 @@ STRIDED_EDGE_SHAPES = (
     ("edge_d64_f16_stride65", 200, 4, 2, 64, "float16", None, True, 1),
 )
 # The backward kernels' route at the edges that bound their wgmma route
-# (bf16 and f16 at head_dim 33-64 whose q, k, v and dO are whole 16-byte
-# units): on it head_dim 64 and 40; off it head_dim 36 in f16 (72-byte
-# rows), 65, a pointer one element off and a row stride of 65 elements.
+# (bf16 and f16 at head_dim 33-128 whose q, k, v and dO are whole 16-byte
+# units): on it head_dim 128, 96, 72, 64 and 40; off it head_dim 36 in f16
+# (72-byte rows), 65 (130-byte rows), a pointer one element off at 64 and
+# at 128, and a row stride of 65 elements.
 # Every shape's route is the launchers' own answer (flash_bwd_dq_route,
 # flash_bwd_dkv_route), held to flash_attention.bwd_route.
 BWD_ROUTE_EDGES = {"edge_d64_gqa4_window_bf16": "wgmma",
                    "edge_d40_gqa4_ragged_f16": "wgmma",
                    "edge_d64_noncausal_f16": "wgmma",
                    "edge_d40_noncausal_bf16": "wgmma",
+                   "edge_d128_window": "wgmma",
+                   "edge_d96_gqa4_ragged_f16": "wgmma",
+                   "edge_d72_noncausal_bf16": "wgmma",
                    "edge_d36_f16_scalar": "instance",
                    "edge_d65_bf16_scalar": "instance",
                    "edge_d64_bf16_unaligned": "instance",
+                   "edge_d128_bf16_unaligned": "instance",
                    "edge_d64_f16_stride65": "instance"}
 # The forward's route at the edges that bound its wgmma route (bf16 and
 # f16 at head_dim 33-256 whose q, k and v are whole 16-byte units): on it
 # head_dim 136 in f16 at S 100 (one partial 128-row query tile, GQA 4:1),
 # 128 over a window, 96, 72, 64 and 40; off it head_dim 196 in bf16
-# (392-byte rows, not whole 16-byte units, which TMA needs), 64 in bf16
-# one element into its buffer, 65 in bf16 and 36 in f16 (rows not whole
-# 16-byte units), and head_dim 20 (32 or less). Every shape's route is the
-# launcher's own answer (flash_fwd_route), held to
+# (392-byte rows, not whole 16-byte units, which TMA needs), 64 and 128
+# in bf16 one element into their buffers, 65 in bf16 and 36 in f16 (rows
+# not whole 16-byte units), and head_dim 20 (32 or less). Every shape's
+# route is the launcher's own answer (flash_fwd_route), held to
 # flash_attention.fwd_route.
 FWD_ROUTE_EDGES = {"edge_d196_bf16_scalar": "instance",
                    "edge_d136_gqa4_f16": "wgmma",
@@ -215,6 +223,7 @@ FWD_ROUTE_EDGES = {"edge_d196_bf16_scalar": "instance",
                    "edge_d96_gqa4_ragged_f16": "wgmma",
                    "edge_d72_noncausal_bf16": "wgmma",
                    "edge_d64_bf16_unaligned": "instance",
+                   "edge_d128_bf16_unaligned": "instance",
                    "edge_d65_bf16_scalar": "instance",
                    "edge_d36_f16_scalar": "instance",
                    "edge_d20_bf16_scalar": "instance"}
@@ -344,6 +353,30 @@ LLAMA_LR = 1e-4
 # width at S 2048.
 LLAMA_LOSS_TOL = 5e-3
 LLAMA_GRAD_TOL = 0.05
+# TinyLM in bf16 at Meta-Llama-3-8B's attention widths (meta-llama/
+# Meta-Llama-3-8B's config.json: hidden_size 4096, num_attention_heads 32,
+# num_key_value_heads 8, head_dim 128, intermediate_size 14336) with
+# TinyLM's own tanh-GELU MLP (mlp_mult 4: 16384 hidden), norms, byte
+# vocabulary and rope base 10000 (Llama's: SwiGLU, 128,256 tokens, base
+# 500,000); 2 of its 32 layers (the script's time), S 8192, its whole
+# context. bf16 weights from seed 0. The llama8b_lm phase runs what
+# llama_lm runs, every flash launch on the wgmma route at head_dim 128.
+LLAMA8B_CFG = dict(vocab=256, dim=4096, heads=32, kv_heads=8, pos="rope",
+                   mlp_mult=4, max_seq=8192, layers=2)
+# The llama8b_lm check's bounds, as LLAMA_LOSS_TOL and LLAMA_GRAD_TOL: the
+# same emulation at head_dim 128 and GQA 4:1, narrow (dim 512, 4 heads, 1
+# KV head, S 512; test_llama_lm_bound_covers_the_kernels_bf16_arithmetic's
+# head_dim-128 case) moved the loss by 6.7e-6 and a gradient by 1.09% of
+# its largest (blocks.1.wq), as the head_dim-64 case's 9.5e-6 and 0.995%:
+# the bounds are llama_lm's, for full width at S 2048, where llama_lm's
+# loss moved by 1.85e-4 and its gradients by 1.07% on an H100.
+LLAMA8B_LOSS_TOL = 5e-3
+LLAMA8B_GRAD_TOL = 0.05
+# The bf16 TinyLM phases: name -> (config, loss bound, gradient bound)
+LLAMA_PHASES = {
+    "llama_lm": (LLAMA_CFG, LLAMA_LOSS_TOL, LLAMA_GRAD_TOL),
+    "llama8b_lm": (LLAMA8B_CFG, LLAMA8B_LOSS_TOL, LLAMA8B_GRAD_TOL),
+}
 RANKS = 4
 RING_SHAPE = (16384, 8, 64, "bfloat16")
 # The planes in f16 (planes_wide): ring and Ulysses with local="flash" at
@@ -632,12 +665,14 @@ ROUTE_KERNELS = {
                   "stream": "flash_fwd_stream_kernel<type, chunk>"},
     "flash_bwd_dq": {"instance": "flash_bwd_dq_kernel<type, 16-128>, "
                                  "flash_bwd_dq_split_kernel<type, 256>",
-                     "wgmma": "flash_bwd_dq_wgmma_kernel<bf16|f16, 64>",
+                     "wgmma": "flash_bwd_dq_wgmma_kernel<bf16|f16, "
+                              "64|128>",
                      "wide": "flash_bwd_dq_wide_kernel<type, 32>",
                      "stream": "flash_bwd_dq_stream_kernel<type, chunk>"},
     "flash_bwd_dkv": {"instance": "flash_bwd_dkv_kernel<type, 16-128>, "
                                   "flash_bwd_dkv_split_kernel<type, 256>",
-                      "wgmma": "flash_bwd_dkv_wgmma_kernel<bf16|f16, 64>",
+                      "wgmma": "flash_bwd_dkv_wgmma_kernel<bf16|f16, "
+                               "64|128>",
                       "wide": "flash_bwd_dkv_wide_kernel<type, 32>",
                       "stream": "flash_bwd_dkv_stream_kernel<type, chunk>"},
 }
@@ -651,9 +686,10 @@ ROUTE_KERNELS = {
 # route. A streamed template's shared memory does not depend on head_dim
 # either; the build reports it at STREAM_HEAD_DIM.
 HEAD_DIM_INSTANCES = (16, 32, 64, 128, 256)
-# The head_dims the forward's wgmma route pads to (a template per 16-bit
-# type and width); the backward's wgmma route has one width
+# The head_dims the forward's and the backward's wgmma routes pad to (a
+# template per 16-bit type and width)
 FWD_WGMMA_HEAD_DIMS = (64, 128, 256)
+BWD_WGMMA_HEAD_DIMS = (64, 128)
 # Warps an SM of the backward kernels' 256 instances (one block of two
 # groups of 4 warps), which the build checks
 SPLIT_WARPS = 8
@@ -846,23 +882,32 @@ def phase_build():
         wide_routes = len(FWD_WIDE_HEAD_DIMS) if fwd else 1
         routes = len(HEAD_DIM_INSTANCES) + wide_routes + 1
         # each wgmma route: one template per 16-bit type and width
-        wgmma_widths = len(FWD_WGMMA_HEAD_DIMS) if fwd else 1
+        wgmma_widths = len(FWD_WGMMA_HEAD_DIMS if fwd
+                           else BWD_WGMMA_HEAD_DIMS)
         check(len(ptxas[name])
               == len(DTYPE_CODE) * routes + len(WGMMA_ENGINE) * wgmma_widths,
               f"{name} templates built: {ptxas[name]}")
-    # The forward's wgmma tiles that the CPU tests emulate
-    # (FWD_WGMMA_TILES) are the library's own (flash_fwd_wgmma_tiles).
+    # The wgmma tiles that the CPU tests emulate (FWD_WGMMA_TILES,
+    # BWD_DQ_WGMMA_TILES, BWD_DKV_WGMMA_TILES) are the libraries' own
+    # (flash_fwd_wgmma_tiles, flash_bwd_dq_wgmma_tiles,
+    # flash_bwd_dkv_wgmma_tiles).
     from fiber_tpu_torch.ops import flash_attention as fa
 
-    tiles = ctypes.CDLL(str(libs["flash_fwd"])).flash_fwd_wgmma_tiles
-    tiles.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
-    for dp in FWD_WGMMA_HEAD_DIMS:
-        rows, keys = ctypes.c_int(), ctypes.c_int()
-        check(tiles(dp, ctypes.byref(rows), ctypes.byref(keys)) == 0,
-              f"flash_fwd_wgmma_tiles({dp}) failed")
-        check((rows.value, keys.value) == fa.FWD_WGMMA_TILES[dp],
-              f"wgmma tiles at {dp}: the library's {(rows.value, keys.value)}"
-              f", FWD_WGMMA_TILES' {fa.FWD_WGMMA_TILES[dp]}")
+    for name, widths, want in (
+            ("flash_fwd", FWD_WGMMA_HEAD_DIMS, fa.FWD_WGMMA_TILES),
+            ("flash_bwd_dq", BWD_WGMMA_HEAD_DIMS, fa.BWD_DQ_WGMMA_TILES),
+            ("flash_bwd_dkv", BWD_WGMMA_HEAD_DIMS, fa.BWD_DKV_WGMMA_TILES)):
+        tiles = getattr(ctypes.CDLL(str(libs[name])), f"{name}_wgmma_tiles")
+        tiles.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+        check(set(want) == set(widths),
+              f"{name}: wgmma tiles for {sorted(want)}, widths {widths}")
+        for dp in widths:
+            a, b = ctypes.c_int(), ctypes.c_int()
+            check(tiles(dp, ctypes.byref(a), ctypes.byref(b)) == 0,
+                  f"{name}_wgmma_tiles({dp}) failed")
+            check((a.value, b.value) == want[dp],
+                  f"{name} wgmma tiles at {dp}: the library's "
+                  f"{(a.value, b.value)}, the Python copy's {want[dp]}")
     emit({"phase": "build", "seconds": secs,
           "libraries": {k: v.name for k, v in libs.items()},
           "sass_hmma": hmma, "sass_hgmma": hgmma, "ptxas": ptxas})
@@ -1732,12 +1777,12 @@ def phase_deepseek_v4_lm(torch, card):
     return _wide_lm(torch, card, "deepseek_v4_lm", V4_CFG, V4_LR)
 
 
-def _llama_grad_check(torch, cfg, state):
+def _llama_grad_check(torch, name, cfg, state, loss_tol, grad_tol):
     """The bf16 flash plane against itself on the kernels' plain versions
     (``_plain_flash_attention``) at S = GRAD_SEQ on ``cfg``'s widths and
     the bf16 weights ``state``: the loss, and each parameter's gradient
-    relative to the largest plain one, within LLAMA_LOSS_TOL and
-    LLAMA_GRAD_TOL."""
+    relative to the largest plain one, within ``loss_tol`` and
+    ``grad_tol`` (phase ``name``'s bounds, LLAMA_PHASES)."""
     from unittest import mock
 
     from fiber_tpu_torch.models import transformer
@@ -1750,41 +1795,46 @@ def _llama_grad_check(torch, cfg, state):
     planes = {"flash": contextlib.nullcontext(),
               "plain": mock.patch.object(transformer, "flash_attention",
                                          _plain_flash_attention(torch))}
+    # one model for both legs: drawing a TinyLM's bf16 weights on the CPU
+    # takes seconds at these widths, and load_state_dict replaces them
+    m = TinyLM(**cfg, attention="flash", device="cuda", dtype=torch.bfloat16)
+    m.load_state_dict(state)
     losses, grads = {}, {}
     for leg, plane in planes.items():
         with plane:
-            m = TinyLM(**cfg, attention="flash", device="cuda",
-                       dtype=torch.bfloat16)
-            m.load_state_dict(state)
             loss = m.loss(tokens)
             loss.backward()
         losses[leg] = loss.item()
         grads[leg] = {n: p.grad.float() for n, p in m.named_parameters()}
-        del m, loss
+        m.zero_grad(set_to_none=True)
+        del loss
+    del m
     loss_err = abs(losses["flash"] - losses["plain"])
     rel = {n: ((grads["flash"][n] - grads["plain"][n]).abs().max()
                / grads["plain"][n].abs().max()).item()
            for n in grads["plain"]}
     worst = max(rel, key=rel.get)
-    check(loss_err < LLAMA_LOSS_TOL, f"llama_lm S={GRAD_SEQ}: losses differ "
-          f"by {loss_err}")
-    check(rel[worst] < LLAMA_GRAD_TOL, f"llama_lm S={GRAD_SEQ}: {worst}'s "
+    check(loss_err < loss_tol, f"{name} S={GRAD_SEQ}: losses differ by "
+          f"{loss_err}")
+    check(rel[worst] < grad_tol, f"{name} S={GRAD_SEQ}: {worst}'s "
           f"gradient differs by {rel[worst]} of its largest")
     return {"S": GRAD_SEQ, "reference": "plain versions",
             "loss": losses["flash"], "loss_err": loss_err,
-            "loss_tol": LLAMA_LOSS_TOL, "max_grad_rel_err": rel[worst],
-            "worst_param": worst, "grad_tol": LLAMA_GRAD_TOL}
+            "loss_tol": loss_tol, "max_grad_rel_err": rel[worst],
+            "worst_param": worst, "grad_tol": grad_tol}
 
 
-def phase_llama_lm(torch, card):
-    """TinyLM in bf16 at Llama-3.2-1B's attention widths (LLAMA_CFG): one
+def phase_llama_lm(torch, card, name="llama_lm"):
+    """A bf16 TinyLM phase of LLAMA_PHASES (by default llama_lm, at
+    Llama-3.2-1B's attention widths; llama8b_lm at Meta-Llama-3-8B's): one
     forward (flash_fwd once a layer, on the wgmma route), then
     LLAMA_TRAIN_STEPS AdamW steps (each flash kernel once a layer and
     step, every one on the wgmma route), every kernel's count
     at 0 before each and held exactly after, and every launch's route
     read from its own tensors (``_fwd_route``, ``_bwd_route``); tokens/s
-    of both; then ``_llama_grad_check``. Emits the phase's line and
-    returns the forward's and the train steps' launches."""
+    of both; then ``_llama_grad_check`` within the phase's bounds. Emits
+    the phase's line and returns the forward's and the train steps'
+    launches."""
     from unittest import mock
 
     from fiber_tpu_torch.models.transformer import (
@@ -1795,7 +1845,7 @@ def phase_llama_lm(torch, card):
     from fiber_tpu_torch.ops import flash_attention as fa
     from fiber_tpu_torch.utils import flops
 
-    cfg = LLAMA_CFG
+    cfg, loss_tol, grad_tol = LLAMA_PHASES[name]
     layers, seq = cfg["layers"], cfg["max_seq"]
     model = TinyLM(**cfg, attention="flash", device="cuda",
                    dtype=torch.bfloat16,
@@ -1812,9 +1862,9 @@ def phase_llama_lm(torch, card):
         routes["flash_fwd"].append(_fwd_route(torch, q, k, v))
         return launch_fwd(q, k, v, *args, **kw)
 
-    def bwd_recorded(name, outs, q, k, v, dout, *args, **kw):
-        routes[name].append(_bwd_route(torch, q, k, v, dout))
-        return launch_bwd(name, outs, q, k, v, dout, *args, **kw)
+    def bwd_recorded(kernel, outs, q, k, v, dout, *args, **kw):
+        routes[kernel].append(_bwd_route(torch, q, k, v, dout))
+        return launch_bwd(kernel, outs, q, k, v, dout, *args, **kw)
 
     def counted(fn, want):
         """``fn()`` with every count at 0 before it and each launch's
@@ -1830,7 +1880,7 @@ def phase_llama_lm(torch, card):
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
         counts = _counts()
-        check(counts == want, f"llama_lm: launches {counts}, want {want}")
+        check(counts == want, f"{name}: launches {counts}, want {want}")
         return out, secs, counts
 
     def launches(fwd=0, bwd=0):
@@ -1843,9 +1893,9 @@ def phase_llama_lm(torch, card):
                                             launches(fwd=layers))
         check(tuple(logits.shape) == (seq, cfg["vocab"])
               and bool(torch.isfinite(logits.float()).all()),
-              "llama_lm: shape or non-finite logits")
+              f"{name}: shape or non-finite logits")
         check(set(routes["flash_fwd"]) == {"wgmma"},
-              f"llama_lm forward routes {routes['flash_fwd']}")
+              f"{name} forward routes {routes['flash_fwd']}")
         fwd_routes = list(routes["flash_fwd"])
         fwd_ms = cuda_ms(torch, lambda: model.apply(tokens), reps=3)
     del logits
@@ -1859,18 +1909,18 @@ def phase_llama_lm(torch, card):
         launches(fwd=layers * n_steps, bwd=layers * n_steps))
     peak_bytes = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses),
-          f"llama_lm: losses {losses}")
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        check(routes[name] == ["wgmma"] * layers * n_steps,
-              f"llama_lm: {name} routes {routes[name]}")
+          f"{name}: losses {losses}")
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(routes[kernel] == ["wgmma"] * layers * n_steps,
+              f"{name}: {kernel} routes {routes[kernel]}")
     train_routes = {k: sorted(set(v)) for k, v in routes.items()}
     step_ms = cuda_ms(torch, lambda: step(tokens), reps=2, warmup=0)
     n_fwd = flops.tinylm_flops_per_step(model, seq, train=False)
     n_train = flops.tinylm_flops_per_step(model, seq, train=True)
     del model, step
     torch.cuda.empty_cache()
-    grad = _llama_grad_check(torch, cfg, state)
-    emit({"phase": "llama_lm", "card": card, **cfg, "dtype": "bfloat16",
+    grad = _llama_grad_check(torch, name, cfg, state, loss_tol, grad_tol)
+    emit({"phase": name, "card": card, **cfg, "dtype": "bfloat16",
           "attention": "flash", "head_dim": cfg["dim"] // cfg["heads"],
           "params": params,
           "forward": {"launches": fwd_counts, "routes": sorted(set(
@@ -5454,6 +5504,9 @@ def main():
     torch.cuda.empty_cache()
     llama_launches = timed("llama_lm", phase_llama_lm, torch, card)
     torch.cuda.empty_cache()
+    llama8b_launches = timed("llama8b_lm", phase_llama_lm, torch, card,
+                             "llama8b_lm")
+    torch.cuda.empty_cache()
     timed("es", phase_es, torch)
     # The mesh phases measure inference too.
     with torch.no_grad():
@@ -5488,6 +5541,7 @@ def main():
     others = {"bfloat16": "attention_bf16", "float16": "attention_f16",
               "llama1b_bfloat16": "llama1b_bf16",
               "llama1b_float16": "llama1b_f16",
+              "llama8b_bfloat16": "llama8b_bf16",
               "head_dim256_float32": "gemma_f32",
               "head_dim256_bfloat16": "gemma_bf16",
               "head_dim256_float16": "gemma_f16",
@@ -5546,7 +5600,12 @@ def main():
                          entry["name"]],
                      launches_llama_lm_train=llama_launches["train"][
                          entry["name"]],
-                     llama_lm_train_steps=LLAMA_TRAIN_STEPS)
+                     llama_lm_train_steps=LLAMA_TRAIN_STEPS,
+                     launches_llama8b_lm_forward=llama8b_launches[
+                         "forward"][entry["name"]],
+                     launches_llama8b_lm_train=llama8b_launches["train"][
+                         entry["name"]],
+                     llama8b_lm_train_steps=LLAMA_TRAIN_STEPS)
     ring = ring_rows["attention_bf16_kv"]
     summary.append({
         "name": "ring_exchange", "max_abs_err": ring["max_abs_err"],

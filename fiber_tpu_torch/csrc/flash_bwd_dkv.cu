@@ -96,27 +96,35 @@
 //   On f32 each query tile's dV and dK products are summed from zero and
 //   then added to the running sums (add_xb() in mma_sm90.cuh).
 //   Both paddings make the fragment reads free of bank conflicts.
-// - bf16 and f16 at head_dim 33-64 whose q, k, v and dO are whole 16-byte
-//   units take the wgmma route instead (flash_bwd_dkv_wgmma_kernel<type,
-//   64>; wgmma_sm90.cuh), Hopper's warpgroup products fed by the Tensor
-//   Memory Accelerator, where the 64 instance runs warp-level mma.sync at
-//   a quarter of its bound. One block of three warpgroups owns one (KV
-//   head, 128-key tile). A producer warpgroup (its registers given back by
-//   setmaxnreg) has one thread issue the TMA copies in the 128-byte
-//   swizzle: K and V once, then Q and dO of each 64-row query tile (every
-//   query head of the GQA group, the tiles the mask lets through) into a
-//   ring of two stages, each completing on a full mbarrier and handed back
-//   by an empty one; one of its warps stores each tile's lse (times log2
-//   e) and delta beside them and arrives on the same full barrier (TMA
-//   cannot copy a row of lse whose S is not a multiple of 4). Two consumer
+// - bf16 and f16 at head_dim 33-128 whose q, k, v and dO are whole
+//   16-byte units take the wgmma route instead
+//   (flash_bwd_dkv_wgmma_kernel<type, 64 or 128>, head_dim padded to 64 or
+//   128; wgmma_sm90.cuh), Hopper's warpgroup products fed by the Tensor
+//   Memory Accelerator, where the 64 and 128 instances run warp-level
+//   mma.sync at a quarter of their bound. One block of three warpgroups
+//   owns one (KV head, 128-key tile). A producer warpgroup (its registers
+//   given back by setmaxnreg) has one thread issue the TMA copies in the
+//   128-byte swizzle, a 64-column box at a time (two a row at 128): K and
+//   V once, then Q and dO of each 64-row query tile (every query head of
+//   the GQA group, the tiles the mask lets through) into a ring of two
+//   stages, each completing on a full mbarrier and handed back by an
+//   empty one; one of its warps stores each tile's lse (times log2 e) and
+//   delta beside them and arrives on the same full barrier (TMA cannot
+//   copy a row of lse whose S is not a multiple of 4). Two consumer
 //   warpgroups own 64 keys each: S^T = K Q^T and dP^T = V dO^T by wgmma
 //   m64n64k16 with both operands in shared memory (one commit group, one
-//   wait), P^T and dS^T formed in the accumulators' registers and packed
-//   there to the input's type as the A fragments of dV += P^T dO and dK +=
-//   dS^T Q (m64n64k16, dO and Q read MN-major: their rows are the depth),
-//   so neither goes through shared memory. dk's scale is applied in f32 at
-//   the end. The block owns its outputs, with no atomics, and each score
-//   product is computed once a (KV tile, query tile).
+//   wait; at 128 the depth runs over both boxes), P^T and dS^T formed in
+//   the accumulators' registers and packed there to the input's type as
+//   the A fragments of dV += P^T dO and dK += dS^T Q (m64n64k16 at 64,
+//   m64n128k16 at 128; dO and Q read MN-major: their rows are the depth,
+//   their two boxes the descriptor's leading offset apart), so neither
+//   goes through shared memory. At 128 dK and dV are 128 accumulator
+//   registers a thread beside the 64 of S^T and dP^T: GTile<128> gives
+//   the roles budgets of 24 / 240 (40 / 232 at 64) and launches every KV
+//   head's heaviest causal tiles first (a 1-D grid, the heads varying
+//   fastest). dk's scale is applied in f32 at the end. The block owns its
+//   outputs, with no atomics, and each score product is computed once a
+//   (KV tile, query tile).
 // - head_dim 257-1024 takes the wide route (flash_bwd_dkv_wide_kernel):
 //   dk and dv over 512 columns would be 512 accumulator registers a
 //   thread. A thread-block cluster of n = ceil(D / 128) blocks (3 to 8,
@@ -536,39 +544,68 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// The wgmma route (bf16 and f16 at head_dim 33-64 whose q, k, v and dO
-// are whole 16-byte units; the file's header says how it works and why):
-// keys a block (two consumer warpgroups of 64), query rows a tile,
-// threads a block (a producer and two consumer warpgroups), and the
-// registers a thread of each role keeps (128 x 40 + 256 x 232 <= 65,536).
-constexpr int G_BKV = 128;
-constexpr int G_BQ = 64;
-constexpr int G_NT = 384;
-constexpr int G_PRODUCER_REGS = 40;
-constexpr int G_CONSUMER_REGS = 232;
+// The wgmma route (bf16 and f16 at head_dim 33-128 whose q, k, v and dO
+// are whole 16-byte units; the file's header says how it works and why),
+// by padded head_dim DP (64: 33-64; 128: 65-128): keys a block (two
+// consumer warpgroups of 64), query rows a tile, threads a block (a
+// producer and two consumer warpgroups), the registers a thread of each
+// role keeps (128 x 40 + 256 x 232 at 64; 128 x 24 + 256 x 240 at 128,
+// where dK and dV over 128 columns are 128 accumulator registers a
+// thread; at most 65,536 a block), the ring's stages, the order of the
+// blocks (HEADS_FIRST: the heaviest causal tiles of every KV head first,
+// the heads varying fastest, so that the lightest run last; else each
+// head's in turn), and the consumers' schedule (SPLIT: S^T and dP^T in
+// two commit groups, P^T formed while dP^T runs, the masked decision
+// taken before the products; else one group, and the decision after
+// them). What an H100 measured (NVIDIA H100 80GB HBM3, 700 W,
+// kernel_ab.py, at (8192, 32, 8, 128) bf16 causal): the 2-D grid 2.285
+// ms against 1.721 heads first; SPLIT 1.713 against 1.766; a third stage
+// 1.763 against 1.750; dV += P^T dO issued before dS^T is formed 1.795,
+// and with SPLIT too 1.758. At (8192, 32, 8, 64) the same body in one
+// commit group, with the masked decision taken before the products, took
+// 1.308 ms against 1.386 (not taken there: the head_dim-64 template is
+// kept as it was).
+template <int DP> struct GTile {
+  static_assert(DP == 64 || DP == 128, "64 or 128");
+  static constexpr int BKV = 128;
+  static constexpr int BQ = 64;
+  static constexpr int NT = 384;
+  static constexpr int PRODUCER_REGS = DP == 64 ? 40 : 24;
+  static constexpr int CONSUMER_REGS = DP == 64 ? 232 : 240;
+  static constexpr int STAGES = 2;
+  static constexpr bool HEADS_FIRST = DP != 64;
+  static constexpr bool SPLIT = DP != 64;
+};
 
-// The wgmma route's shared memory for type T, in bytes: a row (one TMA box
-// of 64 columns), the K or V tile, the Q or dO tile, a query tile's stage
-// (Q, then dO), and the block's total: 1024 to align the tiles, K, V, two
-// stages, the lse (base 2) and delta of each stage (f32), and 5 mbarriers
-// (K and V full; Q full and Q empty of each stage).
-template <typename T> struct Gmma {
-  static_assert(sizeof(T) == 2, "16-bit types");
+// The wgmma route's shared memory for type T and padded head_dim DP, in
+// bytes: a row's box (TMA_COLS columns: 128 bytes), a box of the K or V
+// tile and of the Q or dO tile, those tiles (DP / TMA_COLS boxes each), a
+// query tile's stage (Q, then dO), and the block's total: 1024 to align
+// the tiles, K, V, the ring's stages, the lse (base 2) and delta of each
+// stage (f32), and its mbarriers (K and V full; Q full and Q empty of
+// each stage).
+template <typename T, int DP> struct Gmma {
+  static_assert(sizeof(T) == 2 && DP % TMA_COLS == 0, "16-bit, whole boxes");
   static constexpr int ROW = TMA_COLS * (int)sizeof(T);
-  static constexpr int KV_BYTES = G_BKV * ROW;
-  static constexpr int Q_BYTES = G_BQ * ROW;
+  static constexpr int BOXES = DP / TMA_COLS;
+  static constexpr int KV_BOX = GTile<DP>::BKV * ROW;
+  static constexpr int Q_BOX = GTile<DP>::BQ * ROW;
+  static constexpr int KV_BYTES = BOXES * KV_BOX;
+  static constexpr int Q_BYTES = BOXES * Q_BOX;
   static constexpr int STAGE = 2 * Q_BYTES;
-  static constexpr int SMEM =
-      1024 + 2 * KV_BYTES + 2 * STAGE + 4 * G_BQ * (int)sizeof(float) + 5 * 8;
+  static constexpr int STAGES = GTile<DP>::STAGES;
+  static constexpr int SMEM = 1024 + 2 * KV_BYTES + STAGES * STAGE +
+                              STAGES * 2 * GTile<DP>::BQ * (int)sizeof(float) +
+                              (1 + 2 * STAGES) * 8;
 };
 
 // The wgmma route's kernel: one block of three warpgroups owns one (KV
-// head, 128-key tile) and both its outputs, summed over the query tiles
+// head, BKV-key tile) and both its outputs, summed over the query tiles
 // of every query head of the GQA group. tq, tk, tv and tdo are the 3-D
-// tensor maps (D, heads, S) of q, k, v and dO, with boxes of 64 columns,
-// one head and G_BQ (q, dO) or G_BKV (k, v) rows.
+// tensor maps (D, heads, S) of q, k, v and dO, with boxes of TMA_COLS
+// columns, one head and BQ (q, dO) or BKV (k, v) rows.
 template <typename T, int DP>
-__global__ void __launch_bounds__(G_NT, 1)
+__global__ void __launch_bounds__(GTile<DP>::NT, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
@@ -578,44 +615,56 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            T* __restrict__ dk, T* __restrict__ dv, int S,
                            int KVH, int group, int D, int causal, int window,
                            float scale) {
-  static_assert(DP == TMA_COLS, "head_dim 33-64: one box a row");
-  using G = Gmma<T>;
-  constexpr int NJ = G_BQ / 8;           // 8-query score tiles
+  using G = Gmma<T, DP>;
+  using Tl = GTile<DP>;
+  constexpr int BQ = Tl::BQ, BKV = Tl::BKV, NS = Tl::STAGES;
+  constexpr int NJ = BQ / 8;             // 8-query score tiles
   constexpr int ND = DP / 8;             // 8-column tiles of dk and dv
   extern __shared__ __align__(16) unsigned char gsmem_raw[];
-  // Shared-window addresses: K, V, the two query-tile stages (Q, then dO),
+  // Shared-window addresses: K, V, the query-tile stages (Q, then dO),
   // lse and delta of each stage, the barriers.
   const uint32_t base = smem_addr(gsmem_raw);
   const uint32_t sk = (base + 1023) & ~1023u;
   const uint32_t sv = sk + G::KV_BYTES;
   const uint32_t sq = sv + G::KV_BYTES;
-  const uint32_t slse = sq + 2 * G::STAGE;
-  const uint32_t kv_full = slse + 4 * G_BQ * (int)sizeof(float);
-  const uint32_t q_full = kv_full + 8, q_empty = q_full + 16;
-  // lse (base 2) and delta of stage s: G_BQ floats each, lse first.
+  const uint32_t slse = sq + NS * G::STAGE;
+  const uint32_t kv_full = slse + NS * 2 * BQ * (int)sizeof(float);
+  const uint32_t q_full = kv_full + 8, q_empty = q_full + 8 * NS;
+  // lse (base 2) and delta of stage s: BQ floats each, lse first.
   float* const lse_delta =
       reinterpret_cast<float*>(gsmem_raw + (slse - base));
+  // Query tile it goes into stage it % NS of the ring; the parity of that
+  // stage's use is the phase its barriers wait for (a stage's first
+  // empty wait, for parity 1, passes at once).
+  auto stage = [](int it) { return (int)((uint32_t)it % NS); };
+  auto use = [](int it) { return ((uint32_t)it / NS) & 1; };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // The warpgroup, read from lane 0 so that the compiler knows that it is
   // the same across the warp (flash_fwd.cu's wgmma route says why).
   const int wg = __shfl_sync(0xffffffffu, warp / 4, 0);
-  const int kvh = blockIdx.y;
   // Under causality the first KV tiles see the most query tiles; they
-  // have the lowest block index and are scheduled first.
-  const int k0 = blockIdx.x * G_BKV;
+  // are scheduled first.
+  int kvh, k0;
+  if constexpr (Tl::HEADS_FIRST) {
+    kvh = blockIdx.x % KVH;
+    k0 = blockIdx.x / KVH * BKV;
+  } else {
+    kvh = blockIdx.y;
+    k0 = blockIdx.x * BKV;
+  }
   // The transpose of _run_window, as in the instances.
   int q_begin = 0, q_end = S;
   if (causal) {
     q_begin = k0;
-    if (window > 0) q_end = min(S, k0 + G_BKV - 1 + window);
+    if (window > 0) q_end = min(S, k0 + BKV - 1 + window);
   }
-  const int n_qt = (q_end - q_begin + G_BQ - 1) / G_BQ;  // per query head
+  const int n_qt = (q_end - q_begin + BQ - 1) / BQ;  // per query head
   const int n_it = group * n_qt;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < NS; ++s) {
       // the copies' thread and the 32 lanes that store lse and delta
       mbar_init(q_full + 8 * s, 33);
       mbar_init(q_empty + 8 * s, 8);   // one arrival a consumer warp
@@ -625,40 +674,43 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (wg == 0) {
-    // The producer warpgroup. Its thread 0 issues every copy: K and V
-    // once, then Q and dO of each query tile (head it / n_qt of the
-    // group) into stage it & 1, whose use (it >> 1) & 1 is the phase
-    // parity (a stage's first empty wait passes at once); its warp 1
-    // stores the tile's lse (times log2 e) and delta beside them.
-    setmaxnreg_dec<G_PRODUCER_REGS>();
+    // The producer warpgroup. Its thread 0 issues every copy, box by box:
+    // K and V once, then Q and dO of each query tile (head it / n_qt of
+    // the group) into the ring; its warp 1 stores the tile's lse (times
+    // log2 e) and delta beside them.
+    setmaxnreg_dec<Tl::PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(kv_full, 2 * G::KV_BYTES);
-      tma_load_3d(sk, &tk, kv_full, 0, kvh, k0);
-      tma_load_3d(sv, &tv, kv_full, 0, kvh, k0);
+      for (int b = 0; b < G::BOXES; ++b) {
+        tma_load_3d(sk + b * G::KV_BOX, &tk, kv_full, b * TMA_COLS, kvh, k0);
+        tma_load_3d(sv + b * G::KV_BOX, &tv, kv_full, b * TMA_COLS, kvh, k0);
+      }
       for (int it = 0; it < n_it; ++it) {
-        const int s = it & 1;
-        const uint32_t ph = (it >> 1) & 1;
+        const int s = stage(it);
         const int h = kvh * group + it / n_qt;
-        const int q0 = q_begin + (it % n_qt) * G_BQ;
+        const int q0 = q_begin + (it % n_qt) * BQ;
         const uint32_t dst = sq + s * G::STAGE;
-        mbar_wait(q_empty + 8 * s, ph ^ 1);
+        mbar_wait(q_empty + 8 * s, use(it) ^ 1);
         mbar_expect_tx(q_full + 8 * s, G::STAGE);
-        tma_load_3d(dst, &tq, q_full + 8 * s, 0, h, q0);
-        tma_load_3d(dst + G::Q_BYTES, &tdo, q_full + 8 * s, 0, h, q0);
+        for (int b = 0; b < G::BOXES; ++b) {
+          tma_load_3d(dst + b * G::Q_BOX, &tq, q_full + 8 * s, b * TMA_COLS,
+                      h, q0);
+          tma_load_3d(dst + G::Q_BYTES + b * G::Q_BOX, &tdo, q_full + 8 * s,
+                      b * TMA_COLS, h, q0);
+        }
       }
     } else if (warp == 1) {
       for (int it = 0; it < n_it; ++it) {
-        const int s = it & 1;
-        const uint32_t ph = (it >> 1) & 1;
+        const int s = stage(it);
         const int h = kvh * group + it / n_qt;
-        const int q0 = q_begin + (it % n_qt) * G_BQ;
-        float* const dst = lse_delta + 2 * G_BQ * s;
-        mbar_wait(q_empty + 8 * s, ph ^ 1);
-        for (int i = lane; i < G_BQ; i += 32) {
+        const int q0 = q_begin + (it % n_qt) * BQ;
+        float* const dst = lse_delta + 2 * BQ * s;
+        mbar_wait(q_empty + 8 * s, use(it) ^ 1);
+        for (int i = lane; i < BQ; i += 32) {
           const int qi = q0 + i;
           const bool in = qi < S;
           dst[i] = in ? lse[(long long)h * S + qi] * LOG2E : 0.f;
-          dst[G_BQ + i] = in ? delta[(long long)h * S + qi] : 0.f;
+          dst[BQ + i] = in ? delta[(long long)h * S + qi] : 0.f;
         }
         mbar_arrive(q_full + 8 * s);
       }
@@ -666,20 +718,21 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   } else {
     // A consumer warpgroup: KV rows k0w.. (64 of them), the warp's 16 from
     // 16 wq.
-    setmaxnreg_inc<G_CONSUMER_REGS>();
+    setmaxnreg_inc<Tl::CONSUMER_REGS>();
     const int wq = warp & 3, cw = wg - 1;
     const int k0w = k0 + 64 * cw;
     const int g = lane >> 2, t = lane & 3;
     // Descriptors of the warpgroup's K and V rows (A, K-major), of stage
     // 0's Q and dO as the B of the score products (K-major) and as the B
-    // of P^T dO and dS^T Q (MN-major: their rows are the depth); a 16-deep
-    // step and a stage are offsets added to them (16-byte units).
+    // of P^T dO and dS^T Q (MN-major: their rows are the depth, their
+    // boxes of 64 columns G::Q_BOX apart); a box, a 16-deep step and a
+    // stage are offsets added to them (16-byte units).
     const uint64_t da_k = sw128_desc(sk + cw * 64 * G::ROW, 16, 1024);
     const uint64_t da_v = sw128_desc(sv + cw * 64 * G::ROW, 16, 1024);
     const uint64_t db_q = sw128_desc(sq, 16, 1024);
     const uint64_t db_do = sw128_desc(sq + G::Q_BYTES, 16, 1024);
-    const uint64_t db_qt = sw128_desc(sq, G::Q_BYTES, 1024);
-    const uint64_t db_dot = sw128_desc(sq + G::Q_BYTES, G::Q_BYTES, 1024);
+    const uint64_t db_qt = sw128_desc(sq, G::Q_BOX, 1024);
+    const uint64_t db_dot = sw128_desc(sq + G::Q_BYTES, G::Q_BOX, 1024);
     float acc_k[ND][4], acc_v[ND][4];
 #pragma unroll
     for (int n = 0; n < ND; ++n)
@@ -688,36 +741,144 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const float scale_log2 = scale * LOG2E;
     mbar_wait(kv_full, 0);
     for (int it = 0; it < n_it; ++it) {
-      const int st = it & 1;
-      const uint32_t ph = (it >> 1) & 1;
-      const int q0 = q_begin + (it % n_qt) * G_BQ;
+      const int st = stage(it);
+      const int q0 = q_begin + (it % n_qt) * BQ;
       const uint32_t off = st * (G::STAGE >> 4);
       // No key of the warpgroup is seen by any row of the tile: every row
       // before the keys, or past the window of the last key, or keys past
       // S.
       const bool skip =
           k0w >= S ||
-          (causal && (q0 + G_BQ - 1 < k0w ||
+          (causal && (q0 + BQ - 1 < k0w ||
                       (window > 0 && q0 - (k0w + 63) >= window)));
       // Some entry of the warpgroup's keys against the tile is masked.
       const bool masked =
-          q0 + G_BQ > S || k0w + 64 > S ||
+          q0 + BQ > S || k0w + 64 > S ||
           (causal && (q0 < k0w + 63 ||
-                      (window > 0 && q0 + G_BQ - 1 - k0w >= window)));
-      mbar_wait(q_full + 8 * st, ph);
-      if (!skip) {
-        // S^T = K Q^T and dP^T = V dO^T, 4 steps of depth 16 each, 32
-        // bytes apart inside the swizzle atom.
+                      (window > 0 && q0 + BQ - 1 - k0w >= window)));
+      mbar_wait(q_full + 8 * st, use(it));
+      if constexpr (Tl::SPLIT) {
+        // With Tl::SPLIT, the products of one query tile in stage st (offset
+        // off) at query row q0: S^T = K Q^T and dP^T = V dO^T in two commit
+        // groups (DP / 16 steps of depth 16 each: 4 a box, 32 bytes apart
+        // inside the swizzle atom), P^T = 2^(S^T scale log2 e - lse log2 e)
+        // (masked entries 0) formed in place of S^T while dP^T runs, dS^T =
+        // P^T o (dP^T - delta) in place of dP^T (the accumulators' columns are
+        // the tile's query rows), both packed to the input's type as A
+        // fragments (16 query rows a step), then dV += P^T dO and dK += dS^T Q
+        // (dO's and Q's rows the depth: 16 rows, 2048 bytes a step). MASKED:
+        // whether the tile has a masked entry, decided by the caller, so that
+        // no branch on it sits between a product and its wait. (Defined
+        // here, not for the head_dim-64 template too: there the unused
+        // lambda made its loop 2% slower on an H100, kernel_ab.py.)
+        auto tile = [&](auto masked) {
+          const float* const cl = lse_delta + 2 * BQ * st;
+          const float* const cd = cl + BQ;
+          float s[NJ][4], dp[NJ][4];
+          uint32_t ap[NJ / 2][4], ad[NJ / 2][4];
+          fence_regs(s);
+          fence_regs(dp);
+          wgmma_fence();
+#pragma unroll
+          for (int b = 0; b < G::BOXES; ++b)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss<T>(s, da_k + ((b * G::KV_BOX + kk * 32) >> 4),
+                          db_q + off + ((b * G::Q_BOX + kk * 32) >> 4),
+                          b | kk);
+          wgmma_commit();
+#pragma unroll
+          for (int b = 0; b < G::BOXES; ++b)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss<T>(dp, da_v + ((b * G::KV_BOX + kk * 32) >> 4),
+                          db_do + off + ((b * G::Q_BOX + kk * 32) >> 4),
+                          b | kk);
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs(s);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + 2 * t + (e & 1);
+              const float p = ex2(fmaf(s[j][e], scale_log2, -cl[col]));
+              if constexpr (decltype(masked)::value)
+                s[j][e] = keep(q0 + col, k0w + 16 * wq + g + 8 * (e >> 1), S,
+                               causal, window)
+                              ? p
+                              : 0.f;
+              else
+                s[j][e] = p;
+            }
+#pragma unroll
+          for (int kk = 0; kk < NJ / 2; ++kk) {
+            ap[kk][0] = pack16<T>(s[2 * kk][0], s[2 * kk][1]);
+            ap[kk][1] = pack16<T>(s[2 * kk][2], s[2 * kk][3]);
+            ap[kk][2] = pack16<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+            ap[kk][3] = pack16<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+          }
+          wgmma_wait<0>();
+          fence_regs(dp);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dp[j][e] = s[j][e] * (dp[j][e] - cd[8 * j + 2 * t + (e & 1)]);
+#pragma unroll
+          for (int kk = 0; kk < NJ / 2; ++kk) {
+            ad[kk][0] = pack16<T>(dp[2 * kk][0], dp[2 * kk][1]);
+            ad[kk][1] = pack16<T>(dp[2 * kk][2], dp[2 * kk][3]);
+            ad[kk][2] = pack16<T>(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+            ad[kk][3] = pack16<T>(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+          }
+          fence_regs(acc_v);
+          fence_regs(acc_k);
+          fence_regs(ap);
+          fence_regs(ad);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < NJ / 2; ++kk)
+            wgmma_rs<T, ND>(acc_v, ap[kk],
+                            db_dot + off + ((kk * 16 * G::ROW) >> 4), 1);
+#pragma unroll
+          for (int kk = 0; kk < NJ / 2; ++kk)
+            wgmma_rs<T, ND>(acc_k, ad[kk],
+                            db_qt + off + ((kk * 16 * G::ROW) >> 4), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc_v);
+          fence_regs(acc_k);
+          fence_regs(ap);
+          fence_regs(ad);
+        };
+        if (!skip) {
+          if (masked)
+            tile(std::true_type{});
+          else
+            tile(std::false_type{});
+        }
+      } else if (!skip) {
+        // S^T = K Q^T and dP^T = V dO^T, DP / 16 steps of depth 16 each:
+        // 4 a box, 32 bytes apart inside the swizzle atom.
         float s[NJ][4], dp[NJ][4];
         fence_regs(s);
         fence_regs(dp);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<T>(s, da_k + 2 * kk, db_q + off + 2 * kk, kk);
+        for (int b = 0; b < G::BOXES; ++b)
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<T>(dp, da_v + 2 * kk, db_do + off + 2 * kk, kk);
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<T>(s, da_k + ((b * G::KV_BOX + kk * 32) >> 4),
+                        db_q + off + ((b * G::Q_BOX + kk * 32) >> 4),
+                        b | kk);
+#pragma unroll
+        for (int b = 0; b < G::BOXES; ++b)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<T>(dp, da_v + ((b * G::KV_BOX + kk * 32) >> 4),
+                        db_do + off + ((b * G::Q_BOX + kk * 32) >> 4),
+                        b | kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
@@ -725,8 +886,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         // P^T = 2^(S^T scale log2 e - lse log2 e) (masked entries 0) in
         // place of S^T, dS^T = P^T o (dP^T - delta) in place of dP^T; the
         // accumulators' columns are the tile's query rows.
-        const float* const cl = lse_delta + 2 * G_BQ * st;
-        const float* const cd = cl + G_BQ;
+        const float* const cl = lse_delta + 2 * BQ * st;
+        const float* const cd = cl + BQ;
         if (masked) {
 #pragma unroll
           for (int j = 0; j < NJ; ++j)
@@ -774,11 +935,11 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < NJ / 2; ++kk)
-          wgmma_rs_n64<T>(acc_v, ap[kk],
+          wgmma_rs<T, ND>(acc_v, ap[kk],
                           db_dot + off + ((kk * 16 * G::ROW) >> 4), 1);
 #pragma unroll
         for (int kk = 0; kk < NJ / 2; ++kk)
-          wgmma_rs_n64<T>(acc_k, ad[kk],
+          wgmma_rs<T, ND>(acc_k, ad[kk],
                           db_qt + off + ((kk * 16 * G::ROW) >> 4), 1);
         wgmma_commit();
         wgmma_wait<0>();
@@ -1383,26 +1544,28 @@ cudaError_t launch_dkv(const void* const* p, int S, int H, int KVH, int D,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int DP>
 cudaError_t launch_dkv_wgmma(const void* const* p, int S, int H, int KVH,
                              int D, const Strides& st, int causal,
                              int window, float scale, cudaStream_t stream) {
-  constexpr int smem = Gmma<T>::SMEM;
+  using Tl = GTile<DP>;
+  constexpr int smem = Gmma<T, DP>::SMEM;
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = tile_map<T>(&tq, p[0], D, H, S, st.q_ss, st.q_sh, G_BQ);
+  cudaError_t err = tile_map<T>(&tq, p[0], D, H, S, st.q_ss, st.q_sh, Tl::BQ);
   if (err == cudaSuccess)
-    err = tile_map<T>(&tk, p[1], D, KVH, S, st.k_ss, st.k_sh, G_BKV);
+    err = tile_map<T>(&tk, p[1], D, KVH, S, st.k_ss, st.k_sh, Tl::BKV);
   if (err == cudaSuccess)
-    err = tile_map<T>(&tv, p[2], D, KVH, S, st.v_ss, st.v_sh, G_BKV);
+    err = tile_map<T>(&tv, p[2], D, KVH, S, st.v_ss, st.v_sh, Tl::BKV);
   if (err == cudaSuccess)
-    err = tile_map<T>(&tdo, p[3], D, H, S, st.do_ss, st.do_sh, G_BQ);
+    err = tile_map<T>(&tdo, p[3], D, H, S, st.do_ss, st.do_sh, Tl::BQ);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<T, TMA_COLS>,
+    err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<T, DP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + G_BKV - 1) / G_BKV, KVH);
-  flash_bwd_dkv_wgmma_kernel<T, TMA_COLS><<<grid, G_NT, smem, stream>>>(
+  const int tiles = (S + Tl::BKV - 1) / Tl::BKV;
+  const dim3 grid = Tl::HEADS_FIRST ? dim3(tiles * KVH) : dim3(tiles, KVH);
+  flash_bwd_dkv_wgmma_kernel<T, DP><<<grid, Tl::NT, smem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(p[4]),
       static_cast<const float*>(p[5]),
       static_cast<T*>(const_cast<void*>(p[6])),
@@ -1503,9 +1666,9 @@ constexpr int WIDE_MAX_D = W_COLS * X_MAX_N;
 
 // The routes, by the codes flash_bwd_dkv_route gives them
 // (flash_attention.BWD_ROUTES): the instances (head_dim padded to 16, 32,
-// 64, 128 or 256), the wgmma route (bf16 and f16 at 33-64 whose q, k, v
-// and dO all take the 16-byte copy path, as TMA needs), the wide route
-// (257-1024) and the streamed route beyond.
+// 64, 128 or 256), the wgmma route (bf16 and f16 at 33-128 whose q, k, v
+// and dO all take the 16-byte copy path, as TMA needs; head_dim padded to
+// 64 or 128), the wide route (257-1024) and the streamed route beyond.
 enum Route { R_INSTANCE = 0, R_WGMMA = 1, R_WIDE = 2, R_STREAM = 3 };
 constexpr int VEC_ALL = VEC_Q | VEC_K | VEC_V | VEC_DO;
 
@@ -1513,7 +1676,7 @@ template <typename T>
 Route route_for(int D, int vec) {
   return D > WIDE_MAX_D ? R_STREAM
        : D > 256        ? R_WIDE
-       : sizeof(T) == 2 && D > 32 && D <= TMA_COLS && vec == VEC_ALL
+       : sizeof(T) == 2 && D > 32 && D <= 128 && vec == VEC_ALL
            ? R_WGMMA
            : R_INSTANCE;
 }
@@ -1523,7 +1686,8 @@ Route route_for(int D, int vec) {
 template <typename T>
 Launcher dkv_for(int D, int vec) {
   if constexpr (sizeof(T) == 2)
-    if (route_for<T>(D, vec) == R_WGMMA) return &launch_dkv_wgmma<T>;
+    if (route_for<T>(D, vec) == R_WGMMA)
+      return D <= 64 ? &launch_dkv_wgmma<T, 64> : &launch_dkv_wgmma<T, 128>;
   return D <= 16 ? &launch_dkv<T, 16>
        : D <= 32 ? &launch_dkv<T, 32>
        : D <= 64 ? &launch_dkv<T, 64>
@@ -1536,7 +1700,8 @@ Launcher dkv_for(int D, int vec) {
 template <typename T>
 int smem_for(int D, int vec) {
   if constexpr (sizeof(T) == 2)
-    if (route_for<T>(D, vec) == R_WGMMA) return Gmma<T>::SMEM;
+    if (route_for<T>(D, vec) == R_WGMMA)
+      return D <= 64 ? Gmma<T, 64>::SMEM : Gmma<T, 128>::SMEM;
   return D <= 16 ? smem_bytes<T, 16>()
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
@@ -1552,8 +1717,10 @@ template <typename T>
 int warps_for(int D, int vec) {
   if constexpr (sizeof(T) == 2)
     if (route_for<T>(D, vec) == R_WGMMA)
-      return warps_per_sm(flash_bwd_dkv_wgmma_kernel<T, TMA_COLS>, G_NT,
-                          Gmma<T>::SMEM);
+      return D <= 64 ? warps_per_sm(flash_bwd_dkv_wgmma_kernel<T, 64>,
+                                    GTile<64>::NT, Gmma<T, 64>::SMEM)
+                     : warps_per_sm(flash_bwd_dkv_wgmma_kernel<T, 128>,
+                                    GTile<128>::NT, Gmma<T, 128>::SMEM);
   return D <= 16 ? warps_per_sm(flash_bwd_dkv_kernel<T, 16>, NT,
                                 smem_bytes<T, 16>())
        : D <= 32 ? warps_per_sm(flash_bwd_dkv_kernel<T, 32>, NT,
@@ -1648,6 +1815,20 @@ int flash_bwd_dkv_parts(int S, int KVH, int group, int D) {
   if (D <= 128 || D > 256) return 1;
   const int sms = sm_count();
   return sms < 0 ? sms : dkv_parts(S, KVH, group, sms);
+}
+
+// The wgmma route's tiles at padded head_dim DP (64 or 128): keys a block
+// into *keys and query rows a tile into *rows. Returns 0, or
+// cudaErrorInvalidValue for another DP.
+int flash_bwd_dkv_wgmma_tiles(int DP, int* keys, int* rows) {
+  if (DP == 64) {
+    *keys = GTile<64>::BKV, *rows = GTile<64>::BQ;
+  } else if (DP == 128) {
+    *keys = GTile<128>::BKV, *rows = GTile<128>::BQ;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
 const char* flash_bwd_dkv_error_string(int code) {

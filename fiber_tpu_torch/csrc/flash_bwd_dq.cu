@@ -45,25 +45,32 @@
 //   tile. A tensor whose pointer, strides or head_dim are not whole
 //   16-byte units takes a scalar load path instead (per tensor, chosen
 //   by the launcher).
-// - bf16 and f16 at head_dim 33-64 whose q, k, v and dO are whole 16-byte
-//   units take the wgmma route instead (flash_bwd_dq_wgmma_kernel<type,
-//   64>; wgmma_sm90.cuh), Hopper's warpgroup products fed by the Tensor
-//   Memory Accelerator: the 64 instance above runs warp-level mma.sync
-//   with ldmatrix and cp.async, each warp reading the whole K and V tiles
-//   for its 16 rows, at a quarter of its bound. One block of three
-//   warpgroups owns 128 query rows of one head. A producer warpgroup (its
-//   registers given back by setmaxnreg) has one thread issue the TMA
-//   copies in the 128-byte swizzle: Q and dO once, then each KV tile's K
-//   and V (128 keys, one 64-column box a row) into a ring of two stages,
-//   each copy completing on a full mbarrier and each stage handed back by
-//   an empty one (V once dP is computed, K after dS K). Two consumer
-//   warpgroups own 64 query rows each: S = Q K^T and dP = dO V^T by wgmma
-//   m64n128k16 with both operands in shared memory (one commit group, one
-//   wait), P and dS in the accumulators' registers, dS packed there to
-//   the input's type as the A fragments of dQ += dS K (m64n64k16, K read
-//   MN-major: its rows are the depth). As in the instance, the block owns
-//   its output, with no atomics, and each score product is computed once
-//   a (query tile, KV tile). The wgmma route of flash_fwd.cu says what
+// - bf16 and f16 at head_dim 33-128 whose q, k, v and dO are whole
+//   16-byte units take the wgmma route instead
+//   (flash_bwd_dq_wgmma_kernel<type, 64 or 128>, head_dim padded to 64 or
+//   128; wgmma_sm90.cuh), Hopper's warpgroup products fed by the Tensor
+//   Memory Accelerator: the 64 and 128 instances above run warp-level
+//   mma.sync with ldmatrix and cp.async, each warp reading the whole K
+//   and V tiles for its 16 rows, at a quarter of their bound. One block
+//   of three warpgroups owns 128 query rows of one head. A producer
+//   warpgroup (its registers given back by setmaxnreg) has one thread
+//   issue the TMA copies in the 128-byte swizzle, a 64-column box at a
+//   time (two a row at 128): Q and dO once, then each KV tile's K and V
+//   into a ring of two stages, each copy completing on a full mbarrier
+//   and each stage handed back by an empty one (V once dP is computed, K
+//   after dS K). Two consumer warpgroups own 64 query rows each: S = Q
+//   K^T and dP = dO V^T by wgmma with both operands in shared memory (one
+//   commit group, one wait; at 128 the depth runs over both boxes), P and
+//   dS in the accumulators' registers, dS packed there to the input's
+//   type as the A fragments of dQ += dS K (m64n64k16 at 64, m64n128k16 at
+//   128, K read MN-major: its rows are the depth, its two boxes the
+//   descriptor's leading offset apart). GTile<DP> gives each width's
+//   tiles and registers: 128-key tiles at 64; at 128, where dQ is 64
+//   accumulator registers a thread, 64-key tiles and budgets of 24 / 240,
+//   and every head's heaviest causal tiles launched first (a 1-D grid,
+//   the heads varying fastest). As in the instance, the block owns its
+//   output, with no atomics, and each score product is computed once a
+//   (query tile, KV tile). The wgmma route of flash_fwd.cu says what
 //   keeps ptxas from serializing the products (no trap block, roles
 //   branched on a warp-uniform index, no subroutine call in a consumer,
 //   no branch between a product and its wait).
@@ -924,36 +931,62 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_dq(acc, dq, q0, wrow, lane, S, H, h, D, col0 + wcol, scale);
 }
 
-// The wgmma route (bf16 and f16 at head_dim 33-64 whose q, k, v and dO
-// are whole 16-byte units; the file's header says how it works and why):
-// query rows a block, keys a KV tile, threads a block (a producer and two
-// consumer warpgroups), and the registers a thread of each role keeps (24
-// to 256, multiples of 8, at most 65,536 a block: 128 x 40 + 256 x 232).
-constexpr int G_BQ = 128;
-constexpr int G_BKV = 128;
-constexpr int G_NT = 384;
-constexpr int G_PRODUCER_REGS = 40;
-constexpr int G_CONSUMER_REGS = 232;
+// The wgmma route (bf16 and f16 at head_dim 33-128 whose q, k, v and dO
+// are whole 16-byte units; the file's header says how it works and why),
+// by padded head_dim DP (64: 33-64; 128: 65-128): query rows a block (two
+// consumer warpgroups of 64), keys a KV tile, threads a block (a producer
+// and two consumer warpgroups), the registers a thread of each role keeps
+// (24 to 256, multiples of 8, at most 65,536 a block: 128 x 40 + 256 x
+// 232 at 64; 128 x 24 + 256 x 240 at 128, where dQ's accumulator is twice
+// as wide), the ring's stages, the order of the blocks (HEADS_FIRST: the
+// heaviest causal tiles of every head first, the heads varying fastest,
+// so that the lightest run last; else each head's in turn), and the
+// consumers' schedule: a tile's products in turn (S and dP; dS; dQ += dS
+// K), or PIPELINED: S and dP of tile j issued with dQ += dS K of tile j -
+// 1, and dS of tile j formed while that runs, which holds two tiles of K
+// in the ring and so takes a third stage for the copies to run ahead.
+// What an H100 measured (NVIDIA H100 80GB HBM3, 700 W, kernel_ab.py, at
+// (8192, 32, 8, 128) bf16 causal): 128-key tiles spilled 48 bytes and
+// took 1.311 ms against 1.153 with 64-key ones; the 2-D grid 1.233
+// against 1.153 heads first; PIPELINED with three stages 1.049 against
+// 1.163 in turn.
+template <int DP> struct GTile {
+  static_assert(DP == 64 || DP == 128, "64 or 128");
+  static constexpr int BQ = 128;
+  static constexpr int BKV = DP == 64 ? 128 : 64;
+  static constexpr int NT = 384;
+  static constexpr int PRODUCER_REGS = DP == 64 ? 40 : 24;
+  static constexpr int CONSUMER_REGS = DP == 64 ? 232 : 240;
+  static constexpr int STAGES = DP == 64 ? 2 : 3;
+  static constexpr bool HEADS_FIRST = DP != 64;
+  static constexpr bool PIPELINED = DP != 64;
+};
 
-// The wgmma route's shared memory for type T, in bytes: a row (one TMA box
-// of 64 columns), the Q or dO tile, one K or V tile, and the block's
-// total: 1024 to align the tiles, Q, dO, two stages of K and of V, and 9
-// mbarriers (Q and dO full; K full, V full, K empty and V empty of each
-// stage).
-template <typename T> struct Gmma {
-  static_assert(sizeof(T) == 2, "16-bit types");
+// The wgmma route's shared memory for type T and padded head_dim DP, in
+// bytes: a box (TMA_COLS columns of a row: 128 bytes) of the Q or dO
+// tile and of one K or V tile, those tiles (DP / TMA_COLS boxes each),
+// and the block's total: 1024 to align the tiles, Q, dO, the ring's
+// stages of K and of V, and its mbarriers (Q and dO full; K full, V full,
+// K empty and V empty of each stage).
+template <typename T, int DP> struct Gmma {
+  static_assert(sizeof(T) == 2 && DP % TMA_COLS == 0, "16-bit, whole boxes");
   static constexpr int ROW = TMA_COLS * (int)sizeof(T);
-  static constexpr int Q_BYTES = G_BQ * ROW;
-  static constexpr int KV_BYTES = G_BKV * ROW;
-  static constexpr int SMEM = 1024 + 2 * Q_BYTES + 4 * KV_BYTES + 9 * 8;
+  static constexpr int BOXES = DP / TMA_COLS;
+  static constexpr int Q_BOX = GTile<DP>::BQ * ROW;
+  static constexpr int KV_BOX = GTile<DP>::BKV * ROW;
+  static constexpr int Q_BYTES = BOXES * Q_BOX;
+  static constexpr int KV_BYTES = BOXES * KV_BOX;
+  static constexpr int STAGES = GTile<DP>::STAGES;
+  static constexpr int SMEM =
+      1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + (1 + 4 * STAGES) * 8;
 };
 
 // The wgmma route's kernel: one block of three warpgroups owns one (query
-// head, 128-row query tile). tq, tk, tv and tdo are the 3-D tensor maps
-// (D, heads, S) of q, k, v and dO, with boxes of 64 columns, one head and
-// G_BQ (q, dO) or G_BKV (k, v) rows.
+// head, BQ-row query tile). tq, tk, tv and tdo are the 3-D tensor maps
+// (D, heads, S) of q, k, v and dO, with boxes of TMA_COLS columns, one
+// head and BQ (q, dO) or BKV (k, v) rows.
 template <typename T, int DP>
-__global__ void __launch_bounds__(G_NT, 1)
+__global__ void __launch_bounds__(GTile<DP>::NT, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
@@ -962,41 +995,53 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const float* __restrict__ delta,
                           T* __restrict__ dq, int S, int H, int group, int D,
                           int causal, int window, float scale) {
-  static_assert(DP == TMA_COLS, "head_dim 33-64: one box a row");
-  using G = Gmma<T>;
-  constexpr int NJ = G_BKV / 8;          // 8-key score tiles
+  using G = Gmma<T, DP>;
+  using Tl = GTile<DP>;
+  constexpr int BQ = Tl::BQ, BKV = Tl::BKV, NS = Tl::STAGES;
+  constexpr int NJ = BKV / 8;            // 8-key score tiles
   constexpr int ND = DP / 8;             // 8-column tiles of dq
   extern __shared__ __align__(16) unsigned char gsmem_raw[];
-  // Shared-window addresses: Q, dO, K's and V's two stages, the barriers.
+  // Shared-window addresses: Q, dO, K's and V's stages, the barriers.
   const uint32_t sq = (smem_addr(gsmem_raw) + 1023) & ~1023u;
   const uint32_t sdo = sq + G::Q_BYTES;
   const uint32_t sk = sdo + G::Q_BYTES;
-  const uint32_t sv = sk + 2 * G::KV_BYTES;
-  const uint32_t q_full = sv + 2 * G::KV_BYTES;
-  const uint32_t k_full = q_full + 8, v_full = k_full + 16;
-  const uint32_t k_empty = v_full + 16, v_empty = k_empty + 16;
+  const uint32_t sv = sk + NS * G::KV_BYTES;
+  const uint32_t q_full = sv + NS * G::KV_BYTES;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * NS;
+  const uint32_t k_empty = v_full + 8 * NS, v_empty = k_empty + 8 * NS;
+  // KV tile it goes into stage it % NS of the ring; the parity of that
+  // stage's use is the phase its barriers wait for (a stage's first
+  // empty wait, for parity 1, passes at once).
+  auto stage = [](int it) { return (int)((uint32_t)it % NS); };
+  auto use = [](int it) { return ((uint32_t)it / NS) & 1; };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // The warpgroup, read from lane 0 so that the compiler knows that it is
   // the same across the warp (each role then keeps its own register
   // budget; flash_fwd.cu's wgmma route says why).
   const int wg = __shfl_sync(0xffffffffu, warp / 4, 0);
-  const int h = blockIdx.y;
   // Heaviest causal tiles (the last query rows) are scheduled first.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * G_BQ;
+  int h, q0;
+  if constexpr (Tl::HEADS_FIRST) {
+    h = blockIdx.x % H;
+    q0 = (gridDim.x / H - 1 - blockIdx.x / H) * BQ;
+  } else {
+    h = blockIdx.y;
+    q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  }
   int kv_begin = 0, kv_end = S;
   if (causal) {
-    kv_end = min(S, q0 + G_BQ);
+    kv_end = min(S, q0 + BQ);
     if (window > 0) {
       const int lo = q0 - window + 1;
-      if (lo > 0) kv_begin = (lo / G_BKV) * G_BKV;
+      if (lo > 0) kv_begin = (lo / BKV) * BKV;
     }
   }
-  const int n_it = (kv_end - kv_begin + G_BKV - 1) / G_BKV;
+  const int n_it = (kv_end - kv_begin + BKV - 1) / BKV;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(k_full + 8 * s, 1);
       mbar_init(v_full + 8 * s, 1);
       mbar_init(k_empty + 8 * s, 8);   // one arrival a consumer warp
@@ -1008,30 +1053,35 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (wg == 0) {
     // The producer warpgroup; one thread issues every copy: Q and dO once,
-    // then K and V of each tile into stage it & 1, whose use (it >> 1) & 1
-    // is the phase parity (a stage's first empty wait passes at once).
-    setmaxnreg_dec<G_PRODUCER_REGS>();
+    // then K and V of each tile into the ring, box by box.
+    setmaxnreg_dec<Tl::PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, 2 * G::Q_BYTES);
-      tma_load_3d(sq, &tq, q_full, 0, h, q0);
-      tma_load_3d(sdo, &tdo, q_full, 0, h, q0);
+      for (int b = 0; b < G::BOXES; ++b) {
+        tma_load_3d(sq + b * G::Q_BOX, &tq, q_full, b * TMA_COLS, h, q0);
+        tma_load_3d(sdo + b * G::Q_BOX, &tdo, q_full, b * TMA_COLS, h, q0);
+      }
       const int kvh = h / group;
       for (int it = 0; it < n_it; ++it) {
-        const int s = it & 1;
-        const uint32_t ph = (it >> 1) & 1;
-        const int k0 = kv_begin + it * G_BKV;
+        const int s = stage(it);
+        const uint32_t ph = use(it);
+        const int k0 = kv_begin + it * BKV;
         mbar_wait(k_empty + 8 * s, ph ^ 1);
         mbar_expect_tx(k_full + 8 * s, G::KV_BYTES);
-        tma_load_3d(sk + s * G::KV_BYTES, &tk, k_full + 8 * s, 0, kvh, k0);
+        for (int b = 0; b < G::BOXES; ++b)
+          tma_load_3d(sk + s * G::KV_BYTES + b * G::KV_BOX, &tk,
+                      k_full + 8 * s, b * TMA_COLS, kvh, k0);
         mbar_wait(v_empty + 8 * s, ph ^ 1);
         mbar_expect_tx(v_full + 8 * s, G::KV_BYTES);
-        tma_load_3d(sv + s * G::KV_BYTES, &tv, v_full + 8 * s, 0, kvh, k0);
+        for (int b = 0; b < G::BOXES; ++b)
+          tma_load_3d(sv + s * G::KV_BYTES + b * G::KV_BOX, &tv,
+                      v_full + 8 * s, b * TMA_COLS, kvh, k0);
       }
     }
   } else {
     // A consumer warpgroup: query rows q0w.. (64 of them), the warp's 16
     // from 16 wq.
-    setmaxnreg_inc<G_CONSUMER_REGS>();
+    setmaxnreg_inc<Tl::CONSUMER_REGS>();
     const int wq = warp & 3, cw = wg - 1;
     const int q0w = q0 + 64 * cw;
     const int g = lane >> 2, t = lane & 3;
@@ -1048,13 +1098,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     // Descriptors of the warpgroup's Q and dO rows (A, K-major), of K's
     // and V's stage 0 as the B of the score products (K-major) and of K's
-    // as the B of dS K (MN-major: its rows are the depth); a 16-deep step
-    // and a stage are offsets added to them (16-byte units).
+    // as the B of dS K (MN-major: its rows are the depth, its boxes of 64
+    // columns G::KV_BOX apart); a box, a 16-deep step and a stage are
+    // offsets added to them (16-byte units).
     const uint64_t da_q = sw128_desc(sq + cw * 64 * G::ROW, 16, 1024);
     const uint64_t da_do = sw128_desc(sdo + cw * 64 * G::ROW, 16, 1024);
     const uint64_t db_k = sw128_desc(sk, 16, 1024);
     const uint64_t db_v = sw128_desc(sv, 16, 1024);
-    const uint64_t db_kt = sw128_desc(sk, G::KV_BYTES, 1024);
+    const uint64_t db_kt = sw128_desc(sk, G::KV_BOX, 1024);
     float acc[ND][4];
 #pragma unroll
     for (int n = 0; n < ND; ++n)
@@ -1062,47 +1113,139 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
     const float scale_log2 = scale * LOG2E;
     mbar_wait(q_full, 0);
-    for (int it = 0; it < n_it; ++it) {
-      const int st = it & 1;
-      const uint32_t ph = (it >> 1) & 1;
-      const int k0 = kv_begin + it * G_BKV;
-      const uint32_t off = st * (G::KV_BYTES >> 4);
-      // No row of the warpgroup may use any key of the tile: past the
-      // causal diagonal, before the window, or rows past S.
-      const bool skip =
-          q0w >= S ||
-          (causal && (k0 > q0w + 63 ||
-                      (window > 0 && q0w - (k0 + G_BKV - 1) >= window)));
-      // Some entry of the warpgroup's rows against the tile is masked.
-      const bool masked =
-          k0 + G_BKV > S ||
-          (causal && (k0 + G_BKV - 1 > q0w ||
-                      (window > 0 && q0w + 63 - k0 >= window)));
-      mbar_wait(k_full + 8 * st, ph);
-      mbar_wait(v_full + 8 * st, ph);
-      float s[NJ][4], dp[NJ][4];       // written whole by the first step
-      if (!skip) {
-        // S = Q K^T and dP = dO V^T, 4 steps of depth 16 each, 32 bytes
-        // apart inside the swizzle atom.
-        fence_regs(s);
-        fence_regs(dp);
-        wgmma_fence();
+    // The tile loop in turn keeps its code apart from the pipelined one:
+    // built from the pipelined loop's lambdas, the head_dim-64 template ran
+    // 0.8% slower on an H100 (kernel_ab.py, four 64 shapes, twice).
+    if constexpr (!Tl::PIPELINED) {
+      for (int it = 0; it < n_it; ++it) {
+        const int st = stage(it);
+        const uint32_t ph = use(it);
+        const int k0 = kv_begin + it * BKV;
+        const uint32_t off = st * (G::KV_BYTES >> 4);
+        // No row of the warpgroup may use any key of the tile: past the
+        // causal diagonal, before the window, or rows past S.
+        const bool skip =
+            q0w >= S ||
+            (causal && (k0 > q0w + 63 ||
+                        (window > 0 && q0w - (k0 + BKV - 1) >= window)));
+        // Some entry of the warpgroup's rows against the tile is masked.
+        const bool masked =
+            k0 + BKV > S ||
+            (causal && (k0 + BKV - 1 > q0w ||
+                        (window > 0 && q0w + 63 - k0 >= window)));
+        mbar_wait(k_full + 8 * st, ph);
+        mbar_wait(v_full + 8 * st, ph);
+        float s[NJ][4], dp[NJ][4];       // written whole by the first step
+        if (!skip) {
+          // S = Q K^T and dP = dO V^T, DP / 16 steps of depth 16 each: 4 a
+          // box, 32 bytes apart inside the swizzle atom.
+          fence_regs(s);
+          fence_regs(dp);
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<T>(s, da_q + 2 * kk, db_k + off + 2 * kk, kk);
+          for (int b = 0; b < G::BOXES; ++b)
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<T>(dp, da_do + 2 * kk, db_v + off + 2 * kk, kk);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(s);
-        fence_regs(dp);
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss<T>(s, da_q + ((b * G::Q_BOX + kk * 32) >> 4),
+                          db_k + off + ((b * G::KV_BOX + kk * 32) >> 4),
+                          b | kk);
+#pragma unroll
+          for (int b = 0; b < G::BOXES; ++b)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss<T>(dp, da_do + ((b * G::Q_BOX + kk * 32) >> 4),
+                          db_v + off + ((b * G::KV_BOX + kk * 32) >> 4),
+                          b | kk);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(s);
+          fence_regs(dp);
+        }
+        if (lane == 0) mbar_arrive(v_empty + 8 * st);
+        if (!skip) {
+          // dS = P o (dP - delta), P = 2^(S scale log2 e - lse log2 e)
+          // (masked entries 0), in place of S.
+          if (masked) {
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int qi = q0w + 16 * wq + g + 8 * (e >> 1);
+                const int kj = k0 + 8 * j + 2 * t + (e & 1);
+                const float p =
+                    keep(qi, kj, S, causal, window)
+                        ? ex2(fmaf(s[j][e], scale_log2, -lse2[e >> 1]))
+                        : 0.f;
+                s[j][e] = p * (dp[j][e] - dlt[e >> 1]);
+              }
+          } else {
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                s[j][e] = ex2(fmaf(s[j][e], scale_log2, -lse2[e >> 1])) *
+                          (dp[j][e] - dlt[e >> 1]);
+          }
+          // dS as A fragments of the input's type, 16 keys a step; then dQ
+          // += dS K, K's rows the depth (16 keys, 2048 bytes a step).
+          uint32_t a[BKV / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < BKV / 16; ++kk) {
+            a[kk][0] = pack16<T>(s[2 * kk][0], s[2 * kk][1]);
+            a[kk][1] = pack16<T>(s[2 * kk][2], s[2 * kk][3]);
+            a[kk][2] = pack16<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+            a[kk][3] = pack16<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+          }
+          fence_regs(acc);
+          fence_regs(a);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BKV / 16; ++kk)
+            wgmma_rs<T, ND>(acc, a[kk],
+                            db_kt + off + ((kk * 16 * G::ROW) >> 4), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc);
+          fence_regs(a);
+        }
+        if (lane == 0) mbar_arrive(k_empty + 8 * st);
       }
-      if (lane == 0) mbar_arrive(v_empty + 8 * st);
-      if (!skip) {
-        // dS = P o (dP - delta), P = 2^(S scale log2 e - lse log2 e)
-        // (masked entries 0), in place of S.
-        if (masked) {
+    } else {
+      float s[NJ][4], dp[NJ][4];         // written whole by the first step
+      uint32_t a[BKV / 16][4];           // dS as A fragments
+      // S = Q K^T and dP = dO V^T of the tile in stage st, DP / 16 steps of
+      // depth 16 each: 4 a box, 32 bytes apart inside the swizzle atom.
+      // Issued only: the caller commits and waits.
+      auto issue_scores = [&](int st) {
+        const uint32_t off = st * (G::KV_BYTES >> 4);
+#pragma unroll
+        for (int b = 0; b < G::BOXES; ++b)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<T>(s, da_q + ((b * G::Q_BOX + kk * 32) >> 4),
+                        db_k + off + ((b * G::KV_BOX + kk * 32) >> 4), b | kk);
+#pragma unroll
+        for (int b = 0; b < G::BOXES; ++b)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<T>(dp, da_do + ((b * G::Q_BOX + kk * 32) >> 4),
+                        db_v + off + ((b * G::KV_BOX + kk * 32) >> 4), b | kk);
+      };
+      // dQ += dS K of the tile in stage st, K's rows the depth (16 keys,
+      // 2048 bytes a step). Issued only.
+      auto issue_dq = [&](int st) {
+        const uint32_t off = st * (G::KV_BYTES >> 4);
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk)
+          wgmma_rs<T, ND>(acc, a[kk], db_kt + off + ((kk * 16 * G::ROW) >> 4),
+                          1);
+      };
+      // dS = P o (dP - delta), P = 2^(S scale log2 e - lse log2 e) (masked
+      // entries 0), in place of S, for the tile at key k0. MASKED: whether
+      // the tile has a masked entry, decided by the caller, so that no
+      // branch on it sits between a product and its wait.
+      auto form_ds = [&](int k0, auto masked) {
+        if constexpr (decltype(masked)::value) {
 #pragma unroll
           for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -1123,29 +1266,110 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
               s[j][e] = ex2(fmaf(s[j][e], scale_log2, -lse2[e >> 1])) *
                         (dp[j][e] - dlt[e >> 1]);
         }
-        // dS as A fragments of the input's type, 16 keys a step; then dQ
-        // += dS K, K's rows the depth (16 keys, 2048 bytes a step).
-        uint32_t a[G_BKV / 16][4];
+      };
+      // dS (in s) packed to the input's type as A fragments, 16 keys a step.
+      auto pack_ds = [&] {
 #pragma unroll
-        for (int kk = 0; kk < G_BKV / 16; ++kk) {
+        for (int kk = 0; kk < BKV / 16; ++kk) {
           a[kk][0] = pack16<T>(s[2 * kk][0], s[2 * kk][1]);
           a[kk][1] = pack16<T>(s[2 * kk][2], s[2 * kk][3]);
           a[kk][2] = pack16<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
           a[kk][3] = pack16<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
         }
+      };
+      // Some entry of the warpgroup's rows against the tile at k0 is masked.
+      auto masked_at = [&](int k0) {
+        return k0 + BKV > S ||
+               (causal && (k0 + BKV - 1 > q0w ||
+                           (window > 0 && q0w + 63 - k0 >= window)));
+      };
+      // The tiles some row of the warpgroup may use, [lo, hi): those from
+      // the one holding its first row's earliest key (under a window) to
+      // the one holding its last row (causal); none for rows past S. The
+      // rest only pass their barriers on.
+      int lo = 0, hi = n_it;
+      if (q0w >= S) {
+        hi = 0;
+      } else if (causal) {
+        hi = min(n_it, (q0w + 63 - kv_begin) / BKV + 1);
+        if (window > 0) lo = max(0, (q0w - window + 1 - kv_begin) / BKV);
+      }
+      auto pass = [&](int it) {
+        mbar_wait(k_full + 8 * stage(it), use(it));
+        mbar_wait(v_full + 8 * stage(it), use(it));
+        if (lane == 0) {
+          mbar_arrive(k_empty + 8 * stage(it));
+          mbar_arrive(v_empty + 8 * stage(it));
+        }
+      };
+      for (int it = 0; it < lo; ++it) pass(it);
+      if (lo < hi) {
+        // The first tile: its scores alone, then its dS.
+        mbar_wait(k_full + 8 * stage(lo), use(lo));
+        mbar_wait(v_full + 8 * stage(lo), use(lo));
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+        issue_scores(stage(lo));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        if (lane == 0) mbar_arrive(v_empty + 8 * stage(lo));
+        const int k0 = kv_begin + lo * BKV;
+        if (masked_at(k0))
+          form_ds(k0, std::true_type{});
+        else
+          form_ds(k0, std::false_type{});
+        pack_ds();
+      }
+      // Tile j: its scores issued with dQ += dS K of tile j - 1, and its
+      // dS formed while that product runs.
+      auto step = [&](int j, auto masked) {
+        const int st = stage(j), sp = stage(j - 1);
+        mbar_wait(k_full + 8 * st, use(j));
+        mbar_wait(v_full + 8 * st, use(j));
+        fence_regs(s);
+        fence_regs(dp);
         fence_regs(acc);
         fence_regs(a);
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < G_BKV / 16; ++kk)
-          wgmma_rs_n64<T>(acc, a[kk],
-                          db_kt + off + ((kk * 16 * G::ROW) >> 4), 1);
+        issue_scores(st);
+        wgmma_commit();
+        issue_dq(sp);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        fence_regs(dp);
+        form_ds(kv_begin + j * BKV, masked);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(a);
+        if (lane == 0) {
+          mbar_arrive(v_empty + 8 * st);
+          mbar_arrive(k_empty + 8 * sp);
+        }
+        pack_ds();
+      };
+      for (int j = lo + 1; j < hi; ++j) {
+        if (masked_at(kv_begin + j * BKV))
+          step(j, std::true_type{});
+        else
+          step(j, std::false_type{});
+      }
+      if (lo < hi) {
+        // The last tile's dQ += dS K.
+        fence_regs(acc);
+        fence_regs(a);
+        wgmma_fence();
+        issue_dq(stage(hi - 1));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
         fence_regs(a);
+        if (lane == 0) mbar_arrive(k_empty + 8 * stage(hi - 1));
       }
-      if (lane == 0) mbar_arrive(k_empty + 8 * st);
+      for (int it = hi; it < n_it; ++it) pass(it);
     }
 
     // dq = scale * acc in q's type, two columns a 32-bit store (head_dim
@@ -1221,26 +1445,28 @@ cudaError_t launch_dq_split(const void* const* p, int S, int H, int KVH,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int DP>
 cudaError_t launch_dq_wgmma(const void* const* p, int S, int H, int KVH,
                             int D, const Strides& st, int causal, int window,
                             float scale, cudaStream_t stream) {
-  constexpr int smem = Gmma<T>::SMEM;
+  using Tl = GTile<DP>;
+  constexpr int smem = Gmma<T, DP>::SMEM;
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = tile_map<T>(&tq, p[0], D, H, S, st.q_ss, st.q_sh, G_BQ);
+  cudaError_t err = tile_map<T>(&tq, p[0], D, H, S, st.q_ss, st.q_sh, Tl::BQ);
   if (err == cudaSuccess)
-    err = tile_map<T>(&tk, p[1], D, KVH, S, st.k_ss, st.k_sh, G_BKV);
+    err = tile_map<T>(&tk, p[1], D, KVH, S, st.k_ss, st.k_sh, Tl::BKV);
   if (err == cudaSuccess)
-    err = tile_map<T>(&tv, p[2], D, KVH, S, st.v_ss, st.v_sh, G_BKV);
+    err = tile_map<T>(&tv, p[2], D, KVH, S, st.v_ss, st.v_sh, Tl::BKV);
   if (err == cudaSuccess)
-    err = tile_map<T>(&tdo, p[3], D, H, S, st.do_ss, st.do_sh, G_BQ);
+    err = tile_map<T>(&tdo, p[3], D, H, S, st.do_ss, st.do_sh, Tl::BQ);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<T, TMA_COLS>,
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<T, DP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + G_BQ - 1) / G_BQ, H);
-  flash_bwd_dq_wgmma_kernel<T, TMA_COLS><<<grid, G_NT, smem, stream>>>(
+  const int tiles = (S + Tl::BQ - 1) / Tl::BQ;
+  const dim3 grid = Tl::HEADS_FIRST ? dim3(tiles * H) : dim3(tiles, H);
+  flash_bwd_dq_wgmma_kernel<T, DP><<<grid, Tl::NT, smem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(p[4]),
       static_cast<const float*>(p[5]),
       static_cast<T*>(const_cast<void*>(p[6])), S, H, H / KVH, D, causal,
@@ -1301,9 +1527,9 @@ constexpr int WIDE_MAX_D = W_COLS * X_MAX_N;
 
 // The routes, by the codes flash_bwd_dq_route gives them
 // (flash_attention.BWD_ROUTES): the instances (head_dim padded to 16, 32,
-// 64, 128 or 256), the wgmma route (bf16 and f16 at 33-64 whose q, k, v
-// and dO all take the 16-byte copy path, as TMA needs), the wide route
-// (257-1024) and the streamed route beyond.
+// 64, 128 or 256), the wgmma route (bf16 and f16 at 33-128 whose q, k, v
+// and dO all take the 16-byte copy path, as TMA needs; head_dim padded to
+// 64 or 128), the wide route (257-1024) and the streamed route beyond.
 enum Route { R_INSTANCE = 0, R_WGMMA = 1, R_WIDE = 2, R_STREAM = 3 };
 constexpr int VEC_ALL = VEC_Q | VEC_K | VEC_V | VEC_DO;
 
@@ -1311,7 +1537,7 @@ template <typename T>
 Route route_for(int D, int vec) {
   return D > WIDE_MAX_D ? R_STREAM
        : D > 256        ? R_WIDE
-       : sizeof(T) == 2 && D > 32 && D <= TMA_COLS && vec == VEC_ALL
+       : sizeof(T) == 2 && D > 32 && D <= 128 && vec == VEC_ALL
            ? R_WGMMA
            : R_INSTANCE;
 }
@@ -1321,7 +1547,8 @@ Route route_for(int D, int vec) {
 template <typename T>
 Launcher dq_for(int D, int vec) {
   if constexpr (sizeof(T) == 2)
-    if (route_for<T>(D, vec) == R_WGMMA) return &launch_dq_wgmma<T>;
+    if (route_for<T>(D, vec) == R_WGMMA)
+      return D <= 64 ? &launch_dq_wgmma<T, 64> : &launch_dq_wgmma<T, 128>;
   return D <= 16 ? &launch_dq<T, 16>
        : D <= 32 ? &launch_dq<T, 32>
        : D <= 64 ? &launch_dq<T, 64>
@@ -1334,7 +1561,8 @@ Launcher dq_for(int D, int vec) {
 template <typename T>
 int smem_for(int D, int vec) {
   if constexpr (sizeof(T) == 2)
-    if (route_for<T>(D, vec) == R_WGMMA) return Gmma<T>::SMEM;
+    if (route_for<T>(D, vec) == R_WGMMA)
+      return D <= 64 ? Gmma<T, 64>::SMEM : Gmma<T, 128>::SMEM;
   return D <= 16 ? smem_bytes<T, 16>()
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
@@ -1350,8 +1578,10 @@ template <typename T>
 int warps_for(int D, int vec) {
   if constexpr (sizeof(T) == 2)
     if (route_for<T>(D, vec) == R_WGMMA)
-      return warps_per_sm(flash_bwd_dq_wgmma_kernel<T, TMA_COLS>, G_NT,
-                          Gmma<T>::SMEM);
+      return D <= 64 ? warps_per_sm(flash_bwd_dq_wgmma_kernel<T, 64>,
+                                    GTile<64>::NT, Gmma<T, 64>::SMEM)
+                     : warps_per_sm(flash_bwd_dq_wgmma_kernel<T, 128>,
+                                    GTile<128>::NT, Gmma<T, 128>::SMEM);
   return D <= 16 ? warps_per_sm(flash_bwd_dq_kernel<T, 16>, NT,
                                 smem_bytes<T, 16>())
        : D <= 32 ? warps_per_sm(flash_bwd_dq_kernel<T, 32>, NT,
@@ -1436,6 +1666,20 @@ int flash_bwd_dq_warps_per_sm(int D, int dtype, int vec) {
   return dtype == 0   ? warps_for<float>(D, vec)
          : dtype == 1 ? warps_for<bf16>(D, vec)
                       : warps_for<f16>(D, vec);
+}
+
+// The wgmma route's tiles at padded head_dim DP (64 or 128): query rows a
+// block into *rows and keys a KV tile into *keys. Returns 0, or
+// cudaErrorInvalidValue for another DP.
+int flash_bwd_dq_wgmma_tiles(int DP, int* rows, int* keys) {
+  if (DP == 64) {
+    *rows = GTile<64>::BQ, *keys = GTile<64>::BKV;
+  } else if (DP == 128) {
+    *rows = GTile<128>::BQ, *keys = GTile<128>::BKV;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
 const char* flash_bwd_dq_error_string(int code) {

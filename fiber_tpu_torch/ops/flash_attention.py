@@ -378,25 +378,36 @@ def dkv_parts(s, kv_heads, group, sms):
 #: ``flash_bwd_dq_route`` and ``flash_bwd_dkv_route`` in
 #: ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` give them
 BWD_ROUTES = ("instance", "wgmma", "wide", "stream")
-#: the backward kernels' wgmma route: dq's query rows a block and keys a KV
-#: tile; dk/dv's keys a block and query rows a tile
-BWD_DQ_WGMMA_TILES = (128, 128)
-BWD_DKV_WGMMA_TILES = (128, 64)
+#: the backward kernels' wgmma route by padded head_dim
+#: (``bwd_wgmma_width``): dq's query rows a block and keys a KV tile;
+#: dk/dv's keys a block and query rows a tile, as ``GTile`` in
+#: ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` sets them
+#: (``flash_bwd_dq_wgmma_tiles`` and ``flash_bwd_dkv_wgmma_tiles`` report
+#: them)
+BWD_DQ_WGMMA_TILES = {64: (128, 128), 128: (128, 64)}
+BWD_DKV_WGMMA_TILES = {64: (128, 64), 128: (128, 64)}
+
+
+def bwd_wgmma_width(head_dim):
+    """The padded head_dim of the backward kernels' wgmma templates that
+    take ``head_dim`` (33-128): 64 or 128."""
+    return next(w for w in BWD_DQ_WGMMA_TILES if head_dim <= w)
 
 
 def bwd_route(head_dim, dtype, aligned):
     """The route of both backward kernels that a launch takes
-    (``BWD_ROUTES``): ``"wgmma"`` for bf16 and f16 at head_dim 33-64 when
-    q, k, v and dO are all ``aligned`` (pointer, row and head strides and
-    head_dim whole 16-byte units, as TMA needs), ``"instance"`` for every
-    other head_dim up to 256 (the mma.sync instances padded to 16, 32,
-    64, 128 or 256), ``"wide"`` at 257-1024 and ``"stream"`` above. The
-    launchers (``route_for`` in each backward source) decide the same."""
+    (``BWD_ROUTES``): ``"wgmma"`` for bf16 and f16 at head_dim 33-128
+    when q, k, v and dO are all ``aligned`` (pointer, row and head strides
+    and head_dim whole 16-byte units, as TMA needs), ``"instance"`` for
+    every other head_dim up to 256 (the mma.sync instances padded to 16,
+    32, 64, 128 or 256), ``"wide"`` at 257-1024 and ``"stream"`` above.
+    The launchers (``route_for`` in each backward source) decide the
+    same."""
     if head_dim > 1024:
         return "stream"
     if head_dim > 256:
         return "wide"
-    if dtype != torch.float32 and 32 < head_dim <= 64 and aligned:
+    if dtype != torch.float32 and 32 < head_dim <= 128 and aligned:
         return "wgmma"
     return "instance"
 

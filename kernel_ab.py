@@ -21,10 +21,12 @@ this checkout's forward's O and lse) against the plain backward within
 ``chip_smoke.BWD_TOL``, each with a second launch equal bit for bit;
 then, after an untimed round, each kernel of each tree timed by CUDA
 events, the trees in order and then in reverse in every pair of rounds
-(parent, change, change, parent), and the library's forward and
-backward timed in the same call with the backend
-``torch._fused_sdp_choice`` picks for each. One JSON line a shape, after
-the card's name and power limit (``nvidia-smi``) and the build's.
+(parent, change, change, parent), each timing followed by the card's SM
+clock, temperature and power draw as NVML reads them then (``card``,
+beside ``ms``), and the library's forward and backward timed in the same
+call with the backend ``torch._fused_sdp_choice`` picks for each. One
+JSON line a shape, after the card's name and power limit
+(``nvidia-smi``) and the build's.
 """
 
 from __future__ import annotations
@@ -50,6 +52,42 @@ DEFAULT_SHAPES = ("gemma_f32", "gemma_bf16", "gemma_f16", "lm_f32",
 #: timing after one warm-up
 ROUNDS = 4
 REPS = 5
+#: NVML's codes of the SM clock (nvmlClockType_t) and of the GPU's own
+#: temperature sensor (nvmlTemperatureSensors_t)
+NVML_CLOCK_SM = 1
+NVML_TEMPERATURE_GPU = 0
+
+
+def card_state_reader():
+    """A function that reads the first card's SM clock (MHz),
+    temperature (C) and power draw (W) through NVML (``ctypes``, as
+    ``fiber_tpu_torch.telemetry.device`` loads it) into a dict."""
+    from fiber_tpu_torch.telemetry.device import _load_nvml
+
+    lib = _load_nvml()
+    handle = ctypes.c_void_p()
+    check(lib.nvmlDeviceGetHandleByIndex_v2(0, ctypes.byref(handle)) == 0,
+          "NVML has no card 0")
+    for fn, args in (("nvmlDeviceGetClockInfo", [ctypes.c_int]),
+                     ("nvmlDeviceGetTemperature", [ctypes.c_int]),
+                     ("nvmlDeviceGetPowerUsage", [])):
+        getattr(lib, fn).argtypes = [ctypes.c_void_p, *args,
+                                     ctypes.POINTER(ctypes.c_uint)]
+        getattr(lib, fn).restype = ctypes.c_int
+
+    def read():
+        clock, temp, milliwatts = (ctypes.c_uint() for _ in range(3))
+        check(lib.nvmlDeviceGetClockInfo(handle, NVML_CLOCK_SM,
+                                         ctypes.byref(clock)) == 0
+              and lib.nvmlDeviceGetTemperature(handle, NVML_TEMPERATURE_GPU,
+                                               ctypes.byref(temp)) == 0
+              and lib.nvmlDeviceGetPowerUsage(handle,
+                                              ctypes.byref(milliwatts)) == 0,
+              "NVML could not read the card's clock, temperature or power")
+        return {"sm_clock_mhz": clock.value, "temperature_c": temp.value,
+                "power_w": milliwatts.value / 1000}
+
+    return read
 
 
 def build_tree(tree, src, out, kernels):
@@ -110,6 +148,7 @@ def main(argv=None):
     check(len(trees) >= 2, "give two trees or more")
     card = chip_smoke.card_line()
     print(card, flush=True)
+    card_state = card_state_reader()
     out_dir = pathlib.Path(tempfile.mkdtemp(prefix="kernel_ab_"))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(trees)) as pool:
@@ -183,12 +222,12 @@ def main(argv=None):
                           f"{tree} {kernel} at {name}: err {err}, lse err "
                           f"{lse_err}")
                     entry[kernel] = {"max_abs_err": err, "lse_err": lse_err,
-                                     "ms": []}
+                                     "ms": [], "card": []}
                 else:
                     _, rel = chip_smoke._bwd_errors(first, want[kernel])
                     check(rel < chip_smoke.BWD_TOL[dt],
                           f"{tree} {kernel} at {name}: rel err {rel}")
-                    entry[kernel] = {"rel_err": rel, "ms": []}
+                    entry[kernel] = {"rel_err": rel, "ms": [], "card": []}
                 check(all(torch.equal(chip_smoke._bits(torch, a),
                                       chip_smoke._bits(torch, b))
                           for a, b in zip(first, bufs[kernel])),
@@ -204,8 +243,10 @@ def main(argv=None):
         for r in range(ROUNDS):
             for tree in (order if r % 2 == 0 else order[::-1]):
                 for kernel in kernels:
-                    row["trees"][tree][kernel]["ms"].append(chip_smoke.cuda_ms(
+                    timed = row["trees"][tree][kernel]
+                    timed["ms"].append(chip_smoke.cuda_ms(
                         torch, lambda: launch(tree, kernel), reps=REPS))
+                    timed["card"].append(card_state())
         for entry in row["trees"].values():
             for kernel in kernels:
                 times = entry[kernel]["ms"]

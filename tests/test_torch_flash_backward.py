@@ -672,14 +672,14 @@ def test_dkv_parts_never_exceed_the_group():
 
 # ---------------------------------------------------------------------------
 # The arithmetic of the backward kernels' wgmma route (bf16 and f16 at
-# head_dim 33-64: flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel),
+# head_dim 33-128: flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel),
 # emulated: the score products of 16-bit values summed in f32, P in base 2
 # (lse times log2 e) and dS in f32, both packed to the input's type as the
-# A operands of dQ += dS K (dq's KV tiles of BWD_DQ_WGMMA_TILES[1] keys,
-# added in order), dV += P^T dO and dK += dS^T Q (dk/dv's query tiles of
-# BWD_DKV_WGMMA_TILES[1] rows, every query head of the GQA group in turn,
-# into one running f32 sum); dk's scale applied in f32 and each gradient
-# rounded once.
+# A operands of dQ += dS K (dq's KV tiles of the keys BWD_DQ_WGMMA_TILES
+# gives the head_dim's padded width, added in order), dV += P^T dO and dK
+# += dS^T Q (dk/dv's query tiles of the rows BWD_DKV_WGMMA_TILES gives it,
+# every query head of the GQA group in turn, into one running f32 sum);
+# dk's scale applied in f32 and each gradient rounded once.
 # ---------------------------------------------------------------------------
 
 LOG2E = 1.4426950408889634
@@ -695,7 +695,9 @@ def _wgmma_bwd_emulated(q, k, v, dout, lse, delta, keep, dtype):
     kvh = k.shape[1]
     group = h // kvh
     pack = _ROUND[dtype]
-    dq_keys, dkv_rows = fa.BWD_DQ_WGMMA_TILES[1], fa.BWD_DKV_WGMMA_TILES[1]
+    width = fa.bwd_wgmma_width(d)
+    dq_keys = fa.BWD_DQ_WGMMA_TILES[width][1]
+    dkv_rows = fa.BWD_DKV_WGMMA_TILES[width][1]
     scale = d ** -0.5
     scale_log2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
     dq = torch.empty_like(q)
@@ -721,14 +723,16 @@ def _wgmma_bwd_emulated(q, k, v, dout, lse, delta, keep, dtype):
 
 
 @pytest.mark.parametrize("window", [None, 32], ids=["causal", "window"])
-@pytest.mark.parametrize("head_dim", [40, 64])
+@pytest.mark.parametrize("head_dim", [40, 64, 96, 128])
 @pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
 def test_bwd_wgmma_arithmetic_stays_inside_the_chip_bounds(dtype, head_dim,
                                                            window):
-    """The backward wgmma route's order of sums (dq's 128-key tiles,
-    dk/dv's 64-row query tiles over a GQA group of 4, P^T and dS^T packed
-    to the input's type before the dV, dK and dQ products) at S = 512,
-    head_dim 40 and 64, causal and over a window: against an f64
+    """The backward wgmma route's order of sums (each padded width's tiles
+    from BWD_DQ_WGMMA_TILES and BWD_DKV_WGMMA_TILES: dq's 128-key tiles at
+    33-64 and 64-key ones at 65-128, dk/dv's 64-row query tiles over a
+    GQA group of 4, P^T and dS^T packed to the input's type before the
+    dV, dK and dQ products) at S = 512, head_dim 40, 64, 96 and 128,
+    causal and over a window: against an f64
     recomputation from the same inputs, dq, dk and dv stay within
     chip_smoke.py's BWD_TOL of their type, and |dS| within its bound,
     far under f16's largest value."""
@@ -742,8 +746,8 @@ def test_bwd_wgmma_arithmetic_stays_inside_the_chip_bounds(dtype, head_dim,
 
 
 # (head_dim, dtype, whole 16-byte units, route): the backward wgmma route
-# takes only bf16 and f16 at head_dim 33-64 whose q, k, v and dO are whole
-# 16-byte units
+# takes only bf16 and f16 at head_dim 33-128 whose q, k, v and dO are
+# whole 16-byte units
 BWD_ROUTE_TABLE = [
     (32, torch.bfloat16, True, "instance"),
     (32, torch.float16, False, "instance"),
@@ -756,13 +760,30 @@ BWD_ROUTE_TABLE = [
     (64, torch.float16, True, "wgmma"),
     (64, torch.float16, False, "instance"),
     (64, torch.float32, True, "instance"),
-    (65, torch.bfloat16, True, "instance"),
-    (128, torch.float16, True, "instance"),
+    (65, torch.bfloat16, False, "instance"),   # 130-byte rows
+    (128, torch.float16, True, "wgmma"),
     (256, torch.bfloat16, True, "instance"),
     (257, torch.bfloat16, True, "wide"),
     (1024, torch.float32, True, "wide"),
     (1025, torch.float16, True, "stream"),
+    (72, torch.bfloat16, True, "wgmma"),
+    (96, torch.float16, True, "wgmma"),
+    (128, torch.bfloat16, True, "wgmma"),
+    (128, torch.bfloat16, False, "instance"),
+    (128, torch.float32, True, "instance"),
+    (129, torch.bfloat16, True, "instance"),
 ]
+
+
+@pytest.mark.parametrize("head_dim,width", [(33, 64), (64, 64), (65, 128),
+                                            (96, 128), (128, 128)])
+def test_bwd_wgmma_width(head_dim, width):
+    """The padded width of the backward kernels' wgmma templates at each
+    edge of their two (both sources' dq_for and dkv_for pad the same).
+    That width's tiles, BWD_DQ_WGMMA_TILES and BWD_DKV_WGMMA_TILES, are
+    held to the libraries' own (flash_bwd_dq_wgmma_tiles,
+    flash_bwd_dkv_wgmma_tiles) by chip_smoke.py's build phase."""
+    assert fa.bwd_wgmma_width(head_dim) == width
 
 
 @pytest.mark.parametrize("head_dim,dtype,aligned,route", BWD_ROUTE_TABLE)
@@ -777,9 +798,9 @@ def test_bwd_route_table(head_dim, dtype, aligned, route):
 
 class _EmulatedFlash(torch.autograd.Function):
     """bf16 or f16 causal attention through the emulated arithmetic of the
-    kernels a 16-bit TinyLM at head_dim 33-64 runs on the card: the
-    forward's wgmma route (its tiles at head_dim 64, P packed to the
-    input's type before P V) and the backward's."""
+    kernels a 16-bit TinyLM at head_dim 33-128 runs on the card: the
+    forward's wgmma route (its tiles at the head_dim's padded width, P
+    packed to the input's type before P V) and the backward's."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -802,28 +823,45 @@ class _EmulatedFlash(torch.autograd.Function):
         return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
 
 
-def test_llama_lm_bound_covers_the_kernels_bf16_arithmetic():
-    """Derives chip_smoke.py's llama_lm bounds (LLAMA_LOSS_TOL,
-    LLAMA_GRAD_TOL): a bf16 TinyLM at Llama-3.2-1B's head_dim (64) and GQA
-    group (4), narrow (dim 512, 8 heads, 2 KV heads, 2 layers) at S 512,
+#: (chip_smoke.LLAMA_PHASES' phase, TinyLM config) whose bounds each case
+#: of test_llama_lm_bound_covers_the_kernels_bf16_arithmetic derives, by
+#: head_dim: Llama-3.2-1B's (64) and Meta-Llama-3-8B's (128), each with
+#: its GQA group of 4, narrow
+LLAMA_BOUND_CASES = {
+    64: ("llama_lm", dict(vocab=256, dim=512, heads=8, kv_heads=2,
+                          pos="rope", mlp_mult=4, max_seq=512, layers=2)),
+    128: ("llama8b_lm", dict(vocab=256, dim=512, heads=4, kv_heads=1,
+                             pos="rope", mlp_mult=4, max_seq=512, layers=2)),
+}
+
+
+@pytest.mark.parametrize("head_dim", list(LLAMA_BOUND_CASES))
+def test_llama_lm_bound_covers_the_kernels_bf16_arithmetic(head_dim):
+    """Derives chip_smoke.py's bounds of the bf16 TinyLM phases
+    (LLAMA_PHASES: LLAMA_LOSS_TOL and LLAMA_GRAD_TOL at head_dim 64,
+    LLAMA8B_LOSS_TOL and LLAMA8B_GRAD_TOL at 128): a bf16 TinyLM at the
+    phase's head_dim and GQA group (4), narrow (at 64 dim 512, 8 heads, 2
+    KV heads; at 128 dim 512, 4 heads, 1 KV head; 2 layers) at S 512,
     through the emulated arithmetic of the kernels it runs on the card
     (_EmulatedFlash) against the same weights on the kernels' plain
-    versions (the flash plane on the CPU). Measured with the forward's
-    wgmma tiles: the loss moves by 9.5e-6 and a parameter's gradient by at
-    most 0.995% of its largest (3.2e-5 and 1.05% at dim 256, S 512; 6.3e-5
-    and 1.15% at dim 512, S 1024; wo's or the embedding's); with the
-    instance's tiles before, 1.1e-4 and 1.12% (1.7% at dim 256). The
-    bounds leave ten times the largest on the loss and twice on the
-    gradients for the card's full width at S 2048, whose sums are
-    longer."""
+    versions (the flash plane on the CPU). Measured at 64 with the
+    forward's wgmma tiles: the loss moves by 9.5e-6 and a parameter's
+    gradient by at most 0.995% of its largest (3.2e-5 and 1.05% at dim
+    256, S 512; 6.3e-5 and 1.15% at dim 512, S 1024; wo's or the
+    embedding's); with the instance's tiles before, 1.1e-4 and 1.12%
+    (1.7% at dim 256). At 128, with both routes' head_dim-128 tiles:
+    6.7e-6 and 1.09% (blocks.1.wq's). The bounds leave ten times the
+    largest on the loss and twice on the gradients for the card's full
+    width at S 2048, whose sums are longer."""
     from unittest import mock
 
     import chip_smoke
     from fiber_tpu_torch.models import transformer
     from fiber_tpu_torch.models.transformer import TinyLM
 
-    cfg = dict(vocab=256, dim=512, heads=8, kv_heads=2, pos="rope",
-               mlp_mult=4, max_seq=512, layers=2)
+    phase, cfg = LLAMA_BOUND_CASES[head_dim]
+    assert cfg["dim"] // cfg["heads"] == head_dim
+    _, loss_tol, grad_tol = chip_smoke.LLAMA_PHASES[phase]
     tokens = torch.randint(0, cfg["vocab"], (cfg["max_seq"],),
                            generator=torch.Generator().manual_seed(9))
     legs = {"kernels": lambda q, k, v, *, causal, window:
@@ -842,5 +880,5 @@ def test_llama_lm_bound_covers_the_kernels_bf16_arithmetic():
     loss_err = abs(losses["kernels"] - losses["plain"])
     rel = max(((grads["kernels"][n] - g).abs().max() / g.abs().max()).item()
               for n, g in grads["plain"].items())
-    assert 0 < loss_err < chip_smoke.LLAMA_LOSS_TOL / 10, loss_err
-    assert 0 < rel < chip_smoke.LLAMA_GRAD_TOL / 2, rel
+    assert 0 < loss_err < loss_tol / 10, loss_err
+    assert 0 < rel < grad_tol / 2, rel
