@@ -112,15 +112,19 @@ MAIN_SHAPES = (
 # not, and in f16 over a window at a small S, the forward wide route's
 # last width); 577 (f16, small S) is the first width of the forward's
 # streamed route, and 1024 at a small S; above 1024 the backward kernels
-# take their streamed route (1100 in f16). The dk/dv kernel's 256
-# instance splits a KV tile's query heads over a cluster of blocks where
-# the grid would not fill the card (DKV_PARTS_EDGES). bf16 and f16 at
-# 33-256 take the forward's wgmma route (FWD_ROUTE_EDGES), and at 33-128
-# the backward kernels' (BWD_ROUTE_EDGES): head_dim 64 and 40, a ragged S
+# take their streamed route (1100 in f16). The dk/dv kernel at 129-256
+# (its 256 instance and its wgmma route alike) splits a KV tile's query
+# heads over a cluster of blocks where the grid would not fill the card
+# (DKV_PARTS_EDGES). bf16 and f16 at 33-256 take the forward's wgmma
+# route (FWD_ROUTE_EDGES) and the backward kernels' (BWD_ROUTE_EDGES):
+# head_dim 64 and 40, a ragged S
 # of 333 with GQA 4:1, causal, over a window of 40 (shorter than a tile)
 # and not causal, in bf16 and f16; head_dim 128 over a window of 100
 # (bf16), 96 (ragged S 333, GQA 4:1, f16, causal) and 72 (bf16, not
-# causal).
+# causal). At 129-256 the backward's wgmma route takes head_dim 256 in
+# bf16 over a window of 40 with Gemma's GQA 8:1 at a ragged S of 333 (8
+# parts a KV tile) and 160 in f16, not causal, beside the older edges
+# there (136, 160, 192, 200 and 256), which it now takes too.
 EDGE_SHAPES = (
     ("edge_noncausal_d8", 100, 4, 2, 8, "float32", None, False),
     ("edge_d40_ragged", 77, 2, 2, 40, "float32", None, True),
@@ -149,8 +153,10 @@ EDGE_SHAPES = (
     ("edge_d40_noncausal_bf16", 150, 2, 1, 40, "bfloat16", None, False),
     ("edge_d96_gqa4_ragged_f16", 333, 8, 2, 96, "float16", None, True),
     ("edge_d72_noncausal_bf16", 150, 2, 1, 72, "bfloat16", None, False),
+    ("edge_d256_gqa8_window_bf16", 333, 8, 1, 256, "bfloat16", 40, True),
+    ("edge_d160_noncausal_f16", 200, 2, 1, 160, "float16", None, False),
 )
-# The blocks that share each KV tile of the dk/dv kernel's 256 instance
+# The blocks that share each KV tile of the dk/dv kernel at 129-256
 # (flash_bwd_dkv_parts) at two edges: 1 under MHA, where every block owns
 # its tile alone, and 8, the most, with a GQA group of 8 at a ragged S of
 # 6 KV tiles, where 8 blocks sum their partials across a cluster.
@@ -160,9 +166,9 @@ DKV_PARTS_EDGES = {"edge_d256_mha_bf16": 1, "edge_d200_gqa8_ragged_f16": 8}
 # a whole number of 8-element vectors), f32 tensors that start one
 # element into their buffers (rows 4 bytes off 16-byte alignment), on
 # the wide route head_dim 300 in f16 (600-byte rows) and an f32 offset,
-# head_dim 196 in bf16 (392-byte rows), which the forward's wgmma route
-# cannot take, and head_dim 36 in f16 (72-byte rows), 65 in bf16, and 64
-# and 128 in bf16 one element into their buffers, which the backward's
+# head_dim 196 in bf16 (392-byte rows), which neither wgmma route can
+# take, and head_dim 36 in f16 (72-byte rows), 65 in bf16, and 64, 128 and
+# 256 in bf16 one element into their buffers, which the backward's
 # cannot.
 # (name, S, heads, kv_heads, head_dim, dtype, window, causal, offset)
 SCALAR_EDGE_SHAPES = (
@@ -176,6 +182,7 @@ SCALAR_EDGE_SHAPES = (
     ("edge_d65_bf16_scalar", 100, 4, 1, 65, "bfloat16", None, True, 0),
     ("edge_d64_bf16_unaligned", 130, 4, 2, 64, "bfloat16", None, True, 1),
     ("edge_d128_bf16_unaligned", 130, 4, 1, 128, "bfloat16", None, True, 1),
+    ("edge_d256_bf16_unaligned", 130, 4, 1, 256, "bfloat16", None, True, 1),
 )
 # A backward edge whose tensors are head_dim-64 views of wider rows (a row
 # stride of 4 x 65 elements, a head stride of 65), which the backward
@@ -186,12 +193,13 @@ STRIDED_EDGE_SHAPES = (
     ("edge_d64_f16_stride65", 200, 4, 2, 64, "float16", None, True, 1),
 )
 # The backward kernels' route at the edges that bound their wgmma route
-# (bf16 and f16 at head_dim 33-128 whose q, k, v and dO are whole 16-byte
-# units): on it head_dim 128, 96, 72, 64 and 40; off it head_dim 36 in f16
-# (72-byte rows), 65 (130-byte rows), a pointer one element off at 64 and
-# at 128, and a row stride of 65 elements.
-# Every shape's route is the launchers' own answer (flash_bwd_dq_route,
-# flash_bwd_dkv_route), held to flash_attention.bwd_route.
+# (bf16 and f16 at head_dim 33-256 whose q, k, v and dO are whole 16-byte
+# units): on it head_dim 256, 200, 160, 128, 96, 72, 64 and 40; off it
+# head_dim 36 in f16 (72-byte rows), 65 (130-byte rows), 196 in bf16
+# (392-byte rows), a pointer one element off at 64, 128 and 256, and a row
+# stride of 65 elements. Every shape's route is the launchers' own answer
+# (flash_bwd_dq_route, flash_bwd_dkv_route), held to
+# flash_attention.bwd_route.
 BWD_ROUTE_EDGES = {"edge_d64_gqa4_window_bf16": "wgmma",
                    "edge_d40_gqa4_ragged_f16": "wgmma",
                    "edge_d64_noncausal_f16": "wgmma",
@@ -203,7 +211,20 @@ BWD_ROUTE_EDGES = {"edge_d64_gqa4_window_bf16": "wgmma",
                    "edge_d65_bf16_scalar": "instance",
                    "edge_d64_bf16_unaligned": "instance",
                    "edge_d128_bf16_unaligned": "instance",
-                   "edge_d64_f16_stride65": "instance"}
+                   "edge_d64_f16_stride65": "instance",
+                   "edge_d256_gqa8_window_bf16": "wgmma",
+                   "edge_d160_noncausal_f16": "wgmma",
+                   "edge_d200_gqa8_ragged_f16": "wgmma",
+                   "edge_d256_mha_bf16": "wgmma",
+                   "edge_d196_bf16_scalar": "instance",
+                   "edge_d256_bf16_unaligned": "instance"}
+# Backward edges in 16 bits at head_dim 129-256 whose second launch of each
+# kernel must give the same dq, dk and dv bits as the first (as at the main
+# shapes): on the wgmma route, where the parts of a KV tile sum in a
+# cluster, and off it, on the 256 instances.
+BWD_REPEAT_EDGES = ("edge_d256_gqa8_window_bf16", "edge_d160_noncausal_f16",
+                    "edge_d200_gqa8_ragged_f16", "edge_d196_bf16_scalar",
+                    "edge_d256_bf16_unaligned")
 # The forward's route at the edges that bound its wgmma route (bf16 and
 # f16 at head_dim 33-256 whose q, k and v are whole 16-byte units): on it
 # head_dim 136 in f16 at S 100 (one partial 128-row query tile, GQA 4:1),
@@ -224,6 +245,7 @@ FWD_ROUTE_EDGES = {"edge_d196_bf16_scalar": "instance",
                    "edge_d72_noncausal_bf16": "wgmma",
                    "edge_d64_bf16_unaligned": "instance",
                    "edge_d128_bf16_unaligned": "instance",
+                   "edge_d256_bf16_unaligned": "instance",
                    "edge_d65_bf16_scalar": "instance",
                    "edge_d36_f16_scalar": "instance",
                    "edge_d20_bf16_scalar": "instance"}
@@ -372,10 +394,23 @@ LLAMA8B_CFG = dict(vocab=256, dim=4096, heads=32, kv_heads=8, pos="rope",
 # loss moved by 1.85e-4 and its gradients by 1.07% on an H100.
 LLAMA8B_LOSS_TOL = 5e-3
 LLAMA8B_GRAD_TOL = 0.05
+# TinyLM in bf16 at Gemma-2B's attention widths (GEMMA_CFG, the gemma_lm
+# phase's model in bf16; its lr, GEMMA_LR, is LLAMA_LR): the gemma_bf16_lm
+# phase runs what llama_lm runs, every flash launch on the wgmma route at
+# head_dim 256 (8 query heads over 1 KV head). Its bounds, as
+# LLAMA_LOSS_TOL and LLAMA_GRAD_TOL: the same emulation at head_dim 256
+# with one KV head, narrow (dim 512, 2 heads, S 512;
+# test_llama_lm_bound_covers_the_kernels_bf16_arithmetic's head_dim-256
+# case) moved the loss by 1.7e-4 and a gradient by 1.15% of its largest
+# (the embedding's): the bounds are llama_lm's, which leave more than ten
+# and two times those, for full width at S 2048.
+GEMMA_BF16_LOSS_TOL = 5e-3
+GEMMA_BF16_GRAD_TOL = 0.05
 # The bf16 TinyLM phases: name -> (config, loss bound, gradient bound)
 LLAMA_PHASES = {
     "llama_lm": (LLAMA_CFG, LLAMA_LOSS_TOL, LLAMA_GRAD_TOL),
     "llama8b_lm": (LLAMA8B_CFG, LLAMA8B_LOSS_TOL, LLAMA8B_GRAD_TOL),
+    "gemma_bf16_lm": (GEMMA_CFG, GEMMA_BF16_LOSS_TOL, GEMMA_BF16_GRAD_TOL),
 }
 RANKS = 4
 RING_SHAPE = (16384, 8, 64, "bfloat16")
@@ -666,13 +701,13 @@ ROUTE_KERNELS = {
     "flash_bwd_dq": {"instance": "flash_bwd_dq_kernel<type, 16-128>, "
                                  "flash_bwd_dq_split_kernel<type, 256>",
                      "wgmma": "flash_bwd_dq_wgmma_kernel<bf16|f16, "
-                              "64|128>",
+                              "64|128|256>",
                      "wide": "flash_bwd_dq_wide_kernel<type, 32>",
                      "stream": "flash_bwd_dq_stream_kernel<type, chunk>"},
     "flash_bwd_dkv": {"instance": "flash_bwd_dkv_kernel<type, 16-128>, "
                                   "flash_bwd_dkv_split_kernel<type, 256>",
                       "wgmma": "flash_bwd_dkv_wgmma_kernel<bf16|f16, "
-                               "64|128>",
+                               "64|128|256>",
                       "wide": "flash_bwd_dkv_wide_kernel<type, 32>",
                       "stream": "flash_bwd_dkv_stream_kernel<type, chunk>"},
 }
@@ -689,7 +724,7 @@ HEAD_DIM_INSTANCES = (16, 32, 64, 128, 256)
 # The head_dims the forward's and the backward's wgmma routes pad to (a
 # template per 16-bit type and width)
 FWD_WGMMA_HEAD_DIMS = (64, 128, 256)
-BWD_WGMMA_HEAD_DIMS = (64, 128)
+BWD_WGMMA_HEAD_DIMS = (64, 128, 256)
 # Warps an SM of the backward kernels' 256 instances (one block of two
 # groups of 4 warps), which the build checks
 SPLIT_WARPS = 8
@@ -1270,14 +1305,14 @@ def _bwd_times(torch, q, k, v, dout, lse, delta, window):
 
 def phase_kernels_bwd(torch, card):
     """Both backward kernels against the plain backward at every edge,
-    mesh-block and main shape, from the forward kernel's (O, lse) and a random dO; a
-    random lse cotangent on the edge and mesh-block shapes and on one
-    main shape. At the main shapes a second launch of each kernel on the
-    same inputs must give the same dq, dk and dv bit for bit (no
-    atomics, a fixed order). Every row carries its route (``_bwd_route``,
-    BWD_ROUTE_EDGES at the edges of the wgmma route), the blocks that
-    share each KV tile of dk/dv (``_dkv_parts``, DKV_PARTS_EDGES at two
-    edges) and its seconds."""
+    mesh-block and main shape, from the forward kernel's (O, lse) and a
+    random dO; a random lse cotangent on the edge and mesh-block shapes
+    and on one main shape. At the main shapes and BWD_REPEAT_EDGES a
+    second launch of each kernel on the same inputs must give the same
+    dq, dk and dv bit for bit (no atomics, a fixed order). Every row
+    carries its route (``_bwd_route``, BWD_ROUTE_EDGES at the edges of
+    the wgmma route), the blocks that share each KV tile of dk/dv
+    (``_dkv_parts``, DKV_PARTS_EDGES at two edges) and its seconds."""
     from fiber_tpu_torch.ops import flash_attention as fa
     from fiber_tpu_torch.utils import flops
 
@@ -1338,7 +1373,7 @@ def phase_kernels_bwd(torch, card):
             check(ds_bound < F16_MAX, f"{name}: |dS| may reach {ds_bound}, "
                   f"past f16's {F16_MAX}")
             row["ds_bound"] = ds_bound
-        if name in mains:
+        if name in mains or name in BWD_REPEAT_EDGES:
             dq2 = fa.flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
             dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
             torch.cuda.synchronize()
@@ -1349,6 +1384,7 @@ def phase_kernels_bwd(torch, card):
                   f"{name}: two flash_bwd_dkv launches differ")
             row["dq_bitwise_repeat"] = row["dkv_bitwise_repeat"] = True
             del dq2, dk2, dv2
+        if name in mains:
             row.update(_bwd_times(torch, q, k, v, dout, lse, delta, window))
             main[name] = row
         row["seconds"] = time.perf_counter() - t0
@@ -1826,15 +1862,15 @@ def _llama_grad_check(torch, name, cfg, state, loss_tol, grad_tol):
 
 def phase_llama_lm(torch, card, name="llama_lm"):
     """A bf16 TinyLM phase of LLAMA_PHASES (by default llama_lm, at
-    Llama-3.2-1B's attention widths; llama8b_lm at Meta-Llama-3-8B's): one
-    forward (flash_fwd once a layer, on the wgmma route), then
-    LLAMA_TRAIN_STEPS AdamW steps (each flash kernel once a layer and
-    step, every one on the wgmma route), every kernel's count
-    at 0 before each and held exactly after, and every launch's route
-    read from its own tensors (``_fwd_route``, ``_bwd_route``); tokens/s
-    of both; then ``_llama_grad_check`` within the phase's bounds. Emits
-    the phase's line and returns the forward's and the train steps'
-    launches."""
+    Llama-3.2-1B's attention widths; llama8b_lm at Meta-Llama-3-8B's,
+    gemma_bf16_lm at Gemma-2B's): one forward (flash_fwd once a layer,
+    on the wgmma route), then LLAMA_TRAIN_STEPS AdamW steps (each flash
+    kernel once a layer and step, every one on the wgmma route), every
+    kernel's count at 0 before each and held exactly after, and every
+    launch's route read from its own tensors (``_fwd_route``,
+    ``_bwd_route``); tokens/s of both; then ``_llama_grad_check`` within
+    the phase's bounds. Emits the phase's line and returns the forward's
+    and the train steps' launches."""
     from unittest import mock
 
     from fiber_tpu_torch.models.transformer import (
@@ -5507,6 +5543,9 @@ def main():
     llama8b_launches = timed("llama8b_lm", phase_llama_lm, torch, card,
                              "llama8b_lm")
     torch.cuda.empty_cache()
+    gemma_bf16_launches = timed("gemma_bf16_lm", phase_llama_lm, torch,
+                                card, "gemma_bf16_lm")
+    torch.cuda.empty_cache()
     timed("es", phase_es, torch)
     # The mesh phases measure inference too.
     with torch.no_grad():
@@ -5605,7 +5644,12 @@ def main():
                          "forward"][entry["name"]],
                      launches_llama8b_lm_train=llama8b_launches["train"][
                          entry["name"]],
-                     llama8b_lm_train_steps=LLAMA_TRAIN_STEPS)
+                     llama8b_lm_train_steps=LLAMA_TRAIN_STEPS,
+                     launches_gemma_bf16_lm_forward=gemma_bf16_launches[
+                         "forward"][entry["name"]],
+                     launches_gemma_bf16_lm_train=gemma_bf16_launches[
+                         "train"][entry["name"]],
+                     gemma_bf16_lm_train_steps=LLAMA_TRAIN_STEPS)
     ring = ring_rows["attention_bf16_kv"]
     summary.append({
         "name": "ring_exchange", "max_abs_err": ring["max_abs_err"],

@@ -27,8 +27,9 @@
 // The head_dim-256 instances of both kernels (flash_bwd_*_split_kernel)
 // pass whole score tiles between the two warp groups of one block in the
 // same row layout (scatter_rows, gather_rows), and the dk/dv instance's
-// cluster of parts sums its partial dk and dv with the same remote stores
-// (st_peer) and barriers (cluster_sync).
+// cluster of parts, like the dk/dv wgmma route's at head_dim 129-256,
+// sums its partial dk and dv with the same remote stores (st_peer) and
+// barriers (cluster_sync).
 
 #pragma once
 
@@ -59,6 +60,13 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
+}
+
+// Blocks of this block's cluster (1 in a launch without clusters).
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
 }
 
 // Every thread of the cluster's blocks arrives, then waits for all:

@@ -42,44 +42,44 @@
 //   registers), from the causal diagonal on and, with a window, up to k0
 //   + 63 + window. dk and dv accumulate in registers; a block owns its
 //   outputs, so there are no atomics and the gradients repeat bit for bit.
-// - head_dim 129-256 pads to one 256 instance (flash_bwd_dkv_split_kernel):
-//   dk and dv over 256 columns would be 256 accumulator registers a
-//   thread, so one block of 8 warps owns the (KV head, 64-row KV tile) and
-//   all 256 output columns, in two groups of 4 warps, 16 KV rows a warp
-//   in each group. Group A computes S^T = K Q^T over the full depth, P^T,
-//   and holds dV; group B computes dP^T = V dO^T over the full depth,
-//   reads P^T (f32) from shared memory to form dS^T, and holds dK: one
-//   128-register accumulator a thread, and 8 warps an SM. Per query tile
-//   only P^T crosses between the groups, inside the block: group A stores
-//   it and arrives on a named barrier, group B waits there (bar.sync over
-//   the block's 256 threads), and the block barrier that opens the next
-//   tile frees the buffer. Each score product is thus computed once a
-//   (KV tile, query tile): 4 products of 64 x BQ x 256 (S^T, dP^T, dV,
-//   dK), where blocks that each owned a 128-column half of dk and dv
-//   would compute S^T and dP^T in each half, 6. The other split with the
-//   same count, groups that each own 128
-//   columns of both dk and dv, would exchange P^T and dS^T, one exchange
-//   more; here group B needs P^T anyway, and A's dV and B's dK products
-//   are of one size, so the groups stay in step; on an H100 the other
-//   split ran 3-4% slower in 16 bits and spilled in f32. Query tiles are
-//   64 rows in a 16-bit type (the accumulator and a 16 x 64 score tile
-//   fit the 255 registers a thread that 8 warps an SM leave; 32-row
-//   tiles ran 20% slower), 32 in f32 (one query-tile buffer; two would
-//   not fit the block's shared memory), whose 3xTF32 products add two
-//   accumulator tiles a pass (four spilled).
-//   With few KV heads one block a KV tile would not fill the card (one
-//   KV head at S 8192 gives 128 blocks for 132 SMs, and under causality
-//   the first does twice the mean work), so the launcher splits each KV
-//   tile's work over `parts` blocks (dkv_parts(): a power of two, at most
-//   the GQA group and 8, doubled while the grid has no more blocks than
-//   the card has SMs), each taking a share of the group's query heads.
-//   The parts of a tile form a thread-block cluster; after the loop they
-//   sum their f32 partial dk and dv through distributed shared memory
-//   (cluster_sm90.cuh's remote stores, into the shared memory the tiles
-//   used): block r owns rows [64 r / parts, 64 (r + 1) / parts) of the
-//   tile, every block stores those rows of its partials there, and the
-//   owner adds the parts in rank order and writes them. The order is
-//   fixed, so two launches agree bit for bit, with no atomics.
+// - f32 at head_dim 129-256, and bf16 and f16 there whose tensors are not
+//   whole 16-byte units, pad to one 256 instance
+//   (flash_bwd_dkv_split_kernel): dk and dv over 256 columns would be 256
+//   accumulator registers a thread, so one block of 8 warps owns the (KV
+//   head, 64-row KV tile) and all 256 output columns, in two groups of 4
+//   warps, 16 KV rows a warp in each group. Group A computes S^T = K Q^T
+//   over the full depth, P^T, and holds dV; group B computes dP^T = V dO^T
+//   over the full depth, reads P^T (f32) from shared memory to form dS^T,
+//   and holds dK: one 128-register accumulator a thread, and 8 warps an SM.
+//   Per query tile only P^T crosses between the groups, inside the block:
+//   group A stores it and arrives on a named barrier, group B waits there
+//   (bar.sync over the block's 256 threads), and the block barrier that
+//   opens the next tile frees the buffer. Each score product is thus
+//   computed once a (KV tile, query tile): 4 products of 64 x BQ x 256
+//   (S^T, dP^T, dV, dK), where blocks that each owned a 128-column half of
+//   dk and dv would compute S^T and dP^T in each half, 6. The other split
+//   with the same count, groups that each own 128 columns of both dk and
+//   dv, would exchange P^T and dS^T, one exchange more; here group B needs
+//   P^T anyway, and A's dV and B's dK products are of one size, so the
+//   groups stay in step; on an H100 the other split ran 3-4% slower in 16
+//   bits and spilled in f32. Query tiles are 64 rows in a 16-bit type (the
+//   accumulator and a 16 x 64 score tile fit the 255 registers a thread
+//   that 8 warps an SM leave; 32-row tiles ran 20% slower), 32 in f32 (one
+//   query-tile buffer; two would not fit the block's shared memory), whose
+//   3xTF32 products add two accumulator tiles a pass (four spilled). With
+//   few KV heads one block a KV tile would not fill the card (one KV head
+//   at S 8192 gives 128 blocks for 132 SMs, and under causality the first
+//   does twice the mean work), so the launcher splits each KV tile's work
+//   over `parts` blocks (dkv_parts(): a power of two, at most the GQA group
+//   and 8, doubled while the grid has no more blocks than the card has
+//   SMs), each taking a share of the group's query heads. The parts of a
+//   tile form a thread-block cluster; after the loop they sum their f32
+//   partial dk and dv through distributed shared memory (cluster_sm90.cuh's
+//   remote stores, into the shared memory the tiles used): block r owns
+//   rows [64 r / parts, 64 (r + 1) / parts) of the tile, every block stores
+//   those rows of its partials there, and the owner adds the parts in rank
+//   order and writes them. The order is fixed, so two launches agree bit
+//   for bit, with no atomics.
 // - Per query tile a warp computes S^T = K Q^T and dP^T = V dO^T for its
 //   16 rows (accumulator fragments), P^T and dS^T from them in registers,
 //   then dV += P^T dO and dK += dS^T Q. P^T and dS^T never leave the
@@ -96,35 +96,41 @@
 //   On f32 each query tile's dV and dK products are summed from zero and
 //   then added to the running sums (add_xb() in mma_sm90.cuh).
 //   Both paddings make the fragment reads free of bank conflicts.
-// - bf16 and f16 at head_dim 33-128 whose q, k, v and dO are whole
-//   16-byte units take the wgmma route instead
-//   (flash_bwd_dkv_wgmma_kernel<type, 64 or 128>, head_dim padded to 64 or
-//   128; wgmma_sm90.cuh), Hopper's warpgroup products fed by the Tensor
-//   Memory Accelerator, where the 64 and 128 instances run warp-level
-//   mma.sync at a quarter of their bound. One block of three warpgroups
-//   owns one (KV head, 128-key tile). A producer warpgroup (its registers
-//   given back by setmaxnreg) has one thread issue the TMA copies in the
-//   128-byte swizzle, a 64-column box at a time (two a row at 128): K and
-//   V once, then Q and dO of each 64-row query tile (every query head of
-//   the GQA group, the tiles the mask lets through) into a ring of two
-//   stages, each completing on a full mbarrier and handed back by an
-//   empty one; one of its warps stores each tile's lse (times log2 e) and
-//   delta beside them and arrives on the same full barrier (TMA cannot
-//   copy a row of lse whose S is not a multiple of 4). Two consumer
-//   warpgroups own 64 keys each: S^T = K Q^T and dP^T = V dO^T by wgmma
-//   m64n64k16 with both operands in shared memory (one commit group, one
-//   wait; at 128 the depth runs over both boxes), P^T and dS^T formed in
-//   the accumulators' registers and packed there to the input's type as
-//   the A fragments of dV += P^T dO and dK += dS^T Q (m64n64k16 at 64,
-//   m64n128k16 at 128; dO and Q read MN-major: their rows are the depth,
-//   their two boxes the descriptor's leading offset apart), so neither
-//   goes through shared memory. At 128 dK and dV are 128 accumulator
-//   registers a thread beside the 64 of S^T and dP^T: GTile<128> gives
-//   the roles budgets of 24 / 240 (40 / 232 at 64) and launches every KV
-//   head's heaviest causal tiles first (a 1-D grid, the heads varying
-//   fastest). dk's scale is applied in f32 at the end. The block owns its
-//   outputs, with no atomics, and each score product is computed once a
-//   (KV tile, query tile).
+// - bf16 and f16 at head_dim 33-256 whose q, k, v and dO are whole 16-byte
+//   units take the wgmma route instead (flash_bwd_dkv_wgmma_kernel<type,
+//   64, 128 or 256>, head_dim padded to 64, 128 or 256; wgmma_sm90.cuh),
+//   Hopper's warpgroup products fed by the Tensor Memory Accelerator, where
+//   the 64, 128 and 256 instances run warp-level mma.sync at a quarter of
+//   their bound. One block of three warpgroups owns one (KV head, 128-key
+//   tile). A producer warpgroup (its registers given back by setmaxnreg)
+//   has one thread issue the TMA copies in the 128-byte swizzle, a
+//   64-column box at a time (two a row at 128): K and V once, then Q and dO
+//   of each 64-row query tile (every query head of the GQA group, the tiles
+//   the mask lets through) into a ring of two stages, each completing on a
+//   full mbarrier and handed back by an empty one; one of its warps stores
+//   each tile's lse (times log2 e) and delta beside them and arrives on the
+//   same full barrier (TMA cannot copy a row of lse whose S is not a
+//   multiple of 4). Two consumer warpgroups own 64 keys each: S^T = K Q^T
+//   and dP^T = V dO^T by wgmma m64n64k16 with both operands in shared
+//   memory (one commit group, one wait; at 128 the depth runs over both
+//   boxes), P^T and dS^T formed in the accumulators' registers and packed
+//   there to the input's type as the A fragments of dV += P^T dO and dK +=
+//   dS^T Q (m64n64k16 at 64, m64n128k16 at 128; dO and Q read MN-major:
+//   their rows are the depth, their two boxes the descriptor's leading
+//   offset apart), so neither goes through shared memory. At 128 dK and dV
+//   are 128 accumulator registers a thread beside the 64 of S^T and dP^T:
+//   GTile<128> gives the roles budgets of 24 / 240 (40 / 232 at 64) and
+//   launches every KV head's heaviest causal tiles first (a 1-D grid, the
+//   heads varying fastest). dk's scale is applied in f32 at the end. The
+//   block owns its outputs, with no atomics, and each score product is
+//   computed once a (KV tile, query tile). At 256 dK and dV over 256
+//   columns would be 256 accumulator registers a thread, so the 256
+//   instance's split moves onto the warpgroups (dkv_wgmma_pairs): a block
+//   owns a 64-key tile, consumer A computes S^T and P^T and holds dV,
+//   consumer B computes dP^T, forms dS^T from A's P^T (passed through 16 KB
+//   of shared memory) and holds dK; K and V (64 KB), two stages of 64-row Q
+//   and dO tiles (128 KB) and P^T take 215,096 bytes, and the parts of a KV
+//   tile sum over a cluster, as the 256 instance's do (above).
 // - head_dim 257-1024 takes the wide route (flash_bwd_dkv_wide_kernel):
 //   dk and dv over 512 columns would be 512 accumulator registers a
 //   thread. A thread-block cluster of n = ceil(D / 128) blocks (3 to 8,
@@ -544,14 +550,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// The wgmma route (bf16 and f16 at head_dim 33-128 whose q, k, v and dO
+// The wgmma route (bf16 and f16 at head_dim 33-256 whose q, k, v and dO
 // are whole 16-byte units; the file's header says how it works and why),
-// by padded head_dim DP (64: 33-64; 128: 65-128): keys a block (two
-// consumer warpgroups of 64), query rows a tile, threads a block (a
-// producer and two consumer warpgroups), the registers a thread of each
-// role keeps (128 x 40 + 256 x 232 at 64; 128 x 24 + 256 x 240 at 128,
-// where dK and dV over 128 columns are 128 accumulator registers a
-// thread; at most 65,536 a block), the ring's stages, the order of the
+// by padded head_dim DP (64: 33-64; 128: 65-128; 256: 129-256): keys a
+// block (two consumer warpgroups of 64 at 64 and 128; at 256 both
+// consumers own the same 64, one holding dV and the other dK), query
+// rows a tile, threads a block (a producer and two consumer warpgroups),
+// the registers a thread of each role keeps (128 x 40 + 256 x 232 at 64;
+// 128 x 24 + 256 x 240 at 128 and 256, where dK and dV over 128 columns,
+// or one of them over 256, are 128 accumulator registers a thread; at
+// most 65,536 a block), the ring's stages, the order of the
 // blocks (HEADS_FIRST: the heaviest causal tiles of every KV head first,
 // the heads varying fastest, so that the lightest run last; else each
 // head's in turn), and the consumers' schedule (SPLIT: S^T and dP^T in
@@ -564,26 +572,30 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // and with SPLIT too 1.758. At (8192, 32, 8, 64) the same body in one
 // commit group, with the masked decision taken before the products, took
 // 1.308 ms against 1.386 (not taken there: the head_dim-64 template is
-// kept as it was).
+// kept as it was). At (8192, 8, 1, 256) bf16 (the SM clock 1,725-1,980
+// MHz): a second P^T buffer 0.857 ms against 0.858 with one (not kept: 16
+// KB more), and four parts a KV tile in place of dkv_parts()'s two 1.000
+// against 0.858.
 template <int DP> struct GTile {
-  static_assert(DP == 64 || DP == 128, "64 or 128");
-  static constexpr int BKV = 128;
+  static_assert(DP == 64 || DP == 128 || DP == 256, "64, 128 or 256");
+  static constexpr int BKV = DP == 256 ? 64 : 128;
   static constexpr int BQ = 64;
   static constexpr int NT = 384;
   static constexpr int PRODUCER_REGS = DP == 64 ? 40 : 24;
   static constexpr int CONSUMER_REGS = DP == 64 ? 232 : 240;
   static constexpr int STAGES = 2;
   static constexpr bool HEADS_FIRST = DP != 64;
-  static constexpr bool SPLIT = DP != 64;
+  static constexpr bool SPLIT = DP == 128;
 };
 
 // The wgmma route's shared memory for type T and padded head_dim DP, in
 // bytes: a row's box (TMA_COLS columns: 128 bytes), a box of the K or V
 // tile and of the Q or dO tile, those tiles (DP / TMA_COLS boxes each), a
-// query tile's stage (Q, then dO), and the block's total: 1024 to align
-// the tiles, K, V, the ring's stages, the lse (base 2) and delta of each
-// stage (f32), and its mbarriers (K and V full; Q full and Q empty of
-// each stage).
+// query tile's stage (Q, then dO), P^T (f32) passed between the consumers
+// at 256, and the block's total: 1024 to align the tiles, K, V, the
+// ring's stages, the lse (base 2) and delta of each stage (f32), P^T, and
+// its mbarriers (K and V full; Q full and Q empty of each stage; at 256
+// P^T full and P^T empty).
 template <typename T, int DP> struct Gmma {
   static_assert(sizeof(T) == 2 && DP % TMA_COLS == 0, "16-bit, whole boxes");
   static constexpr int ROW = TMA_COLS * (int)sizeof(T);
@@ -594,27 +606,29 @@ template <typename T, int DP> struct Gmma {
   static constexpr int Q_BYTES = BOXES * Q_BOX;
   static constexpr int STAGE = 2 * Q_BYTES;
   static constexpr int STAGES = GTile<DP>::STAGES;
+  static constexpr bool PAIRS = DP == 256;
+  static constexpr int PT_BYTES =
+      PAIRS ? GTile<DP>::BKV * GTile<DP>::BQ * (int)sizeof(float) : 0;
   static constexpr int SMEM = 1024 + 2 * KV_BYTES + STAGES * STAGE +
                               STAGES * 2 * GTile<DP>::BQ * (int)sizeof(float) +
-                              (1 + 2 * STAGES) * 8;
+                              PT_BYTES + (1 + 2 * STAGES + 2 * PAIRS) * 8;
 };
+static_assert(GTile<256>::BKV == BKV, "dkv_parts() counts 64-key tiles");
 
-// The wgmma route's kernel: one block of three warpgroups owns one (KV
-// head, BKV-key tile) and both its outputs, summed over the query tiles
-// of every query head of the GQA group. tq, tk, tv and tdo are the 3-D
-// tensor maps (D, heads, S) of q, k, v and dO, with boxes of TMA_COLS
-// columns, one head and BQ (q, dO) or BKV (k, v) rows.
+// The wgmma route's body at head_dim 33-128 (DP 64 or 128; inlined into
+// flash_bwd_dkv_wgmma_kernel, below): one block of three warpgroups owns
+// one (KV head, BKV-key tile) and both its outputs, summed over the query
+// tiles of every query head of the GQA group, each consumer 64 of the
+// keys. tq, tk, tv and tdo are the kernel's 3-D tensor maps (D, heads, S)
+// of q, k, v and dO, with boxes of TMA_COLS columns, one head and BQ (q,
+// dO) or BKV (k, v) rows.
 template <typename T, int DP>
-__global__ void __launch_bounds__(GTile<DP>::NT, 1)
-flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                           const __grid_constant__ CUtensorMap tk,
-                           const __grid_constant__ CUtensorMap tv,
-                           const __grid_constant__ CUtensorMap tdo,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           T* __restrict__ dk, T* __restrict__ dv, int S,
-                           int KVH, int group, int D, int causal, int window,
-                           float scale) {
+__device__ __forceinline__ void dkv_wgmma_tiles(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    const CUtensorMap& tdo, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk,
+    T* __restrict__ dv, int S, int KVH, int group, int D, int causal,
+    int window, float scale) {
   using G = Gmma<T, DP>;
   using Tl = GTile<DP>;
   constexpr int BQ = Tl::BQ, BKV = Tl::BKV, NS = Tl::STAGES;
@@ -970,6 +984,344 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   }
+}
+
+// The wgmma route's body at head_dim 129-256 (DP 256; inlined into
+// flash_bwd_dkv_wgmma_kernel, below). dK and dV over 256 columns for 64
+// keys are 128 f32 accumulator registers a thread each, so no consumer
+// holds both: one block of three warpgroups owns one (KV head, 64-key
+// tile), and both consumers own all 64 keys. Consumer A computes S^T = K
+// Q^T, forms P^T, hands it to consumer B through shared memory (f32, each
+// thread's fragment as whole float4s, under the P^T full and empty
+// mbarriers) and holds dV += P^T dO; consumer B computes dP^T = V dO^T,
+// forms dS^T = P^T o (dP^T - delta) from A's P^T and holds dK += dS^T Q.
+// Each score product is thus computed once a (KV tile, query tile), and
+// the two consumers' products are of one size, so they stay in step: B's
+// dS^T waits for A's P^T, and A's next S^T for B's read of it. The block
+// takes the query heads [rank group / parts, (rank + 1) group / parts) of
+// its GQA group, where parts is the size of its thread-block cluster
+// (dkv_parts(); 1 in a launch without clusters) and rank its place there;
+// the parts sum their f32 partial dk and dv through distributed shared
+// memory in rank order, as the 256 instance's do (its comment says how),
+// so that two launches agree bit for bit with no atomics.
+template <typename T>
+__device__ __forceinline__ void dkv_wgmma_pairs(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    const CUtensorMap& tdo, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk,
+    T* __restrict__ dv, int S, int KVH, int group, int D, int causal,
+    int window, float scale) {
+  constexpr int DP = 256;
+  using G = Gmma<T, DP>;
+  using Tl = GTile<DP>;
+  static_assert(!Tl::SPLIT, "the consumers' schedule is their own");
+  constexpr int BQ = Tl::BQ, BKV = Tl::BKV, NS = Tl::STAGES;
+  constexpr int NJ = BQ / 8;             // 8-query score tiles
+  constexpr int ND = DP / 8;             // 8-column tiles of dk or dv
+  constexpr int CT = 128;                // threads of a consumer
+  extern __shared__ __align__(16) unsigned char gsmem_raw[];
+  // Shared-window addresses: K, V, the query-tile stages (Q, then dO),
+  // lse and delta of each stage, P^T, the barriers.
+  const uint32_t base = smem_addr(gsmem_raw);
+  const uint32_t sk = (base + 1023) & ~1023u;
+  const uint32_t sv = sk + G::KV_BYTES;
+  const uint32_t sq = sv + G::KV_BYTES;
+  const uint32_t slse = sq + NS * G::STAGE;
+  const uint32_t spt = slse + NS * 2 * BQ * (int)sizeof(float);
+  const uint32_t kv_full = spt + G::PT_BYTES;
+  const uint32_t q_full = kv_full + 8, q_empty = q_full + 8 * NS;
+  const uint32_t pt_full = q_empty + 8 * NS, pt_empty = pt_full + 8;
+  float* const lse_delta =
+      reinterpret_cast<float*>(gsmem_raw + (slse - base));
+  // P^T: float4 j of consumer thread c at j * CT + c, the same entries in
+  // A's S^T fragment and B's dP^T fragment
+  float4* const pt = reinterpret_cast<float4*>(gsmem_raw + (spt - base));
+  auto stage = [](int it) { return (int)((uint32_t)it % NS); };
+  auto use = [](int it) { return ((uint32_t)it / NS) & 1; };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // The warpgroup, read from lane 0 so that the compiler knows that it is
+  // the same across the warp (flash_fwd.cu's wgmma route says why).
+  const int wg = __shfl_sync(0xffffffffu, warp / 4, 0);
+  // The parts of one KV tile are neighbours in the grid (a cluster along
+  // x); the KV heads vary fastest, and under causality the first KV
+  // tiles, which see the most query tiles, are scheduled first.
+  const int parts = (int)cluster_size();
+  const int rank = blockIdx.x % parts;
+  const int tile = blockIdx.x / parts;
+  const int kvh = tile % KVH, k0 = tile / KVH * BKV;
+  const int h_begin = rank * group / parts;
+  const int n_heads = (rank + 1) * group / parts - h_begin;
+  // The transpose of _run_window, as in the instances.
+  int q_begin = 0, q_end = S;
+  if (causal) {
+    q_begin = k0;
+    if (window > 0) q_end = min(S, k0 + BKV - 1 + window);
+  }
+  const int n_qt = (q_end - q_begin + BQ - 1) / BQ;  // per query head
+  const int n_it = n_heads * n_qt;                   // at least 1
+  // The tile's rows each part of the cluster sums (below).
+  const int own = BKV / parts;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      // the copies' thread and the 32 lanes that store lse and delta
+      mbar_init(q_full + 8 * s, 33);
+      mbar_init(q_empty + 8 * s, 8);   // one arrival a consumer warp
+    }
+    mbar_init(pt_full, CT);            // every thread of A
+    mbar_init(pt_empty, CT);           // every thread of B
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // The producer warpgroup, as in dkv_wgmma_tiles: K and V once, then Q
+    // and dO of each query tile of the block's heads into the ring, and
+    // the tile's lse (times log2 e) and delta beside them.
+    setmaxnreg_dec<Tl::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * G::KV_BYTES);
+      for (int b = 0; b < G::BOXES; ++b) {
+        tma_load_3d(sk + b * G::KV_BOX, &tk, kv_full, b * TMA_COLS, kvh, k0);
+        tma_load_3d(sv + b * G::KV_BOX, &tv, kv_full, b * TMA_COLS, kvh, k0);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = stage(it);
+        const int h = kvh * group + h_begin + it / n_qt;
+        const int q0 = q_begin + (it % n_qt) * BQ;
+        const uint32_t dst = sq + s * G::STAGE;
+        mbar_wait(q_empty + 8 * s, use(it) ^ 1);
+        mbar_expect_tx(q_full + 8 * s, G::STAGE);
+        for (int b = 0; b < G::BOXES; ++b) {
+          tma_load_3d(dst + b * G::Q_BOX, &tq, q_full + 8 * s, b * TMA_COLS,
+                      h, q0);
+          tma_load_3d(dst + G::Q_BYTES + b * G::Q_BOX, &tdo, q_full + 8 * s,
+                      b * TMA_COLS, h, q0);
+        }
+      }
+    } else if (warp == 1) {
+      for (int it = 0; it < n_it; ++it) {
+        const int s = stage(it);
+        const int h = kvh * group + h_begin + it / n_qt;
+        const int q0 = q_begin + (it % n_qt) * BQ;
+        float* const dst = lse_delta + 2 * BQ * s;
+        mbar_wait(q_empty + 8 * s, use(it) ^ 1);
+        for (int i = lane; i < BQ; i += 32) {
+          const int qi = q0 + i;
+          const bool in = qi < S;
+          dst[i] = in ? lse[(long long)h * S + qi] * LOG2E : 0.f;
+          dst[BQ + i] = in ? delta[(long long)h * S + qi] : 0.f;
+        }
+        mbar_arrive(q_full + 8 * s);
+      }
+    }
+    // The consumers' two cluster barriers around the parts' sum.
+    if (parts > 1) {
+      cluster_sync();
+      cluster_sync();
+    }
+  } else {
+    // A consumer warpgroup: A (wg 1) or B (wg 2); the warp's 16 keys from
+    // 16 wq, its thread c of the warpgroup's CT.
+    setmaxnreg_inc<Tl::CONSUMER_REGS>();
+    const bool is_b = wg == 2;
+    const int wq = warp & 3, c = threadIdx.x - CT * wg;
+    const int g = lane >> 2, t = lane & 3;
+    // Descriptors of K (A) or V (B) as the A of the score product
+    // (K-major), of stage 0's Q (A) or dO (B) as its B (K-major), and of
+    // stage 0's dO (A) or Q (B) as the B of dV += P^T dO or dK += dS^T Q
+    // (MN-major: their rows are the depth, their boxes of 64 columns
+    // G::Q_BOX apart); a box, a 16-deep step and a stage are offsets
+    // added to them (16-byte units).
+    const uint64_t da = sw128_desc(is_b ? sv : sk, 16, 1024);
+    const uint64_t db = sw128_desc(sq + (is_b ? G::Q_BYTES : 0), 16, 1024);
+    const uint64_t db_t =
+        sw128_desc(sq + (is_b ? 0 : G::Q_BYTES), G::Q_BOX, 1024);
+    float acc[ND][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    const float scale_log2 = scale * LOG2E;
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int st = stage(it);
+      const int q0 = q_begin + (it % n_qt) * BQ;
+      const uint32_t off = st * (G::STAGE >> 4);
+      const uint32_t ph = (uint32_t)it & 1;   // P^T's phase
+      // Some entry of the keys against the tile is masked (every tile
+      // the loop visits has one that is not).
+      const bool masked =
+          q0 + BQ > S || k0 + BKV > S ||
+          (causal && (q0 < k0 + BKV - 1 ||
+                      (window > 0 && q0 + BQ - 1 - k0 >= window)));
+      const float* const cl = lse_delta + 2 * BQ * st;
+      const float* const cd = cl + BQ;
+      mbar_wait(q_full + 8 * st, use(it));
+      // S^T = K Q^T (A) or dP^T = V dO^T (B), DP / 16 steps of depth 16
+      // each: 4 a box, 32 bytes apart inside the swizzle atom. The
+      // accumulators' columns are the tile's query rows.
+      float x[NJ][4];
+      fence_regs(x);
+      wgmma_fence();
+#pragma unroll
+      for (int b = 0; b < G::BOXES; ++b)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<T>(x, da + ((b * G::KV_BOX + kk * 32) >> 4),
+                      db + off + ((b * G::Q_BOX + kk * 32) >> 4), b | kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+      if (!is_b) {
+        // P^T = 2^(S^T scale log2 e - lse log2 e), masked entries 0, in
+        // place of S^T; then to B, once B has read the previous tile's.
+        if (masked) {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + 2 * t + (e & 1);
+              const float p = ex2(fmaf(x[j][e], scale_log2, -cl[col]));
+              x[j][e] = keep(q0 + col, k0 + 16 * wq + g + 8 * (e >> 1), S,
+                             causal, window)
+                            ? p
+                            : 0.f;
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + 2 * t + (e & 1);
+              x[j][e] = ex2(fmaf(x[j][e], scale_log2, -cl[col]));
+            }
+        }
+        mbar_wait(pt_empty, ph ^ 1);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          pt[j * CT + c] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+        mbar_arrive(pt_full);
+      } else {
+        // dS^T = P^T o (dP^T - delta) in place of dP^T, once A's P^T is
+        // in; then the buffer back to A.
+        mbar_wait(pt_full, ph);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float4 p = pt[j * CT + c];
+          const float* const dl = cd + 8 * j + 2 * t;
+          x[j][0] = p.x * (x[j][0] - dl[0]);
+          x[j][1] = p.y * (x[j][1] - dl[1]);
+          x[j][2] = p.z * (x[j][2] - dl[0]);
+          x[j][3] = p.w * (x[j][3] - dl[1]);
+        }
+        mbar_arrive(pt_empty);
+      }
+      // P^T (A) or dS^T (B) as A fragments of the input's type, 16 query
+      // rows a step; then dV += P^T dO or dK += dS^T Q, dO's and Q's rows
+      // the depth (16 rows, 2048 bytes a step).
+      uint32_t a[NJ / 2][4];
+#pragma unroll
+      for (int kk = 0; kk < NJ / 2; ++kk) {
+        a[kk][0] = pack16<T>(x[2 * kk][0], x[2 * kk][1]);
+        a[kk][1] = pack16<T>(x[2 * kk][2], x[2 * kk][3]);
+        a[kk][2] = pack16<T>(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+        a[kk][3] = pack16<T>(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+      }
+      fence_regs(acc);
+      fence_regs(a);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NJ / 2; ++kk)
+        wgmma_rs<T, ND>(acc, a[kk], db_t + off + ((kk * 16 * G::ROW) >> 4),
+                        1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(a);
+      if (lane == 0) mbar_arrive(q_empty + 8 * st);
+    }
+
+    // dk = scale * acc (B) and dv = acc (A) in k's type, two columns a
+    // 32-bit store (head_dim is a whole number of 8-column units on this
+    // route).
+    T* const out = is_b ? dk : dv;
+    const float f = is_b ? scale : 1.f;
+    if (parts == 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int kj = k0 + 16 * wq + g + 8 * r;
+        if (kj >= S) continue;
+        T* const row = out + ((long long)kj * KVH + kvh) * D;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          const int col = 8 * n + 2 * t;
+          if (col < D)
+            *reinterpret_cast<uint32_t*>(row + col) =
+                pack16<T>(acc[n][2 * r] * f, acc[n][2 * r + 1] * f);
+        }
+      }
+    } else {
+      // The cluster's sum of the parts' partial dv and dk: block r owns
+      // rows [r own, r own + own) of the tile; xr (over the tiles' shared
+      // memory) holds dv's then dk's receive rows, row r own + lr of each
+      // being block r's partial of owned row lr.
+      constexpr int LR = DP + X_PAD;
+      float* const xr = reinterpret_cast<float*>(gsmem_raw + (sk - base));
+      // Every block of the cluster is done with its tiles' shared memory.
+      cluster_sync();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * wq + g + 8 * h;
+        const int o = row / own;
+        const int xrow = (is_b ? BKV : 0) + rank * own + row - o * own;
+        const uint32_t at = peer_addr(xr + xrow * LR + 2 * t, o);
+#pragma unroll
+        for (int n = 0; n < ND; ++n)
+          st_peer(at + 32 * n, acc[n][2 * h], acc[n][2 * h + 1]);
+      }
+      // Every part's rows are in their owners' buffers.
+      cluster_sync();
+      for (int i = threadIdx.x - CT; i < 2 * own * (DP / 4); i += 2 * CT) {
+        const int m = i / (own * (DP / 4));      // 0: dv, 1: dk
+        const int lr = i / (DP / 4) % own, col = i % (DP / 4) * 4;
+        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int r = 0; r < parts; ++r)
+          add4(sum, *reinterpret_cast<const float4*>(
+                        xr + (m * BKV + r * own + lr) * LR + col));
+        const int kj = k0 + rank * own + lr;
+        if (kj >= S || col >= D) continue;
+        const float fm = m ? scale : 1.f;
+        *reinterpret_cast<uint2*>((m ? dk : dv) +
+                                  ((long long)kj * KVH + kvh) * D + col) =
+            make_uint2(pack16<T>(sum.x * fm, sum.y * fm),
+                       pack16<T>(sum.z * fm, sum.w * fm));
+      }
+    }
+  }
+}
+
+// The wgmma route's kernel: dkv_wgmma_tiles at head_dim 33-128,
+// dkv_wgmma_pairs at 129-256.
+template <typename T, int DP>
+__global__ void __launch_bounds__(GTile<DP>::NT, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dk, T* __restrict__ dv, int S,
+                           int KVH, int group, int D, int causal, int window,
+                           float scale) {
+  if constexpr (DP == 256)
+    dkv_wgmma_pairs<T>(tq, tk, tv, tdo, lse, delta, dk, dv, S, KVH, group,
+                       D, causal, window, scale);
+  else
+    dkv_wgmma_tiles<T, DP>(tq, tk, tv, tdo, lse, delta, dk, dv, S, KVH,
+                           group, D, causal, window, scale);
 }
 
 // Dynamic shared memory of one block of the 256 instance: K and V, the
@@ -1544,6 +1896,15 @@ cudaError_t launch_dkv(const void* const* p, int S, int H, int KVH, int D,
   return cudaGetLastError();
 }
 
+// SMs of the current device, or minus the CUDA error.
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return err == cudaSuccess ? sms : -(int)err;
+}
+
 template <typename T, int DP>
 cudaError_t launch_dkv_wgmma(const void* const* p, int S, int H, int KVH,
                              int D, const Strides& st, int causal,
@@ -1564,6 +1925,23 @@ cudaError_t launch_dkv_wgmma(const void* const* p, int S, int H, int KVH,
                                smem);
   if (err != cudaSuccess) return err;
   const int tiles = (S + Tl::BKV - 1) / Tl::BKV;
+  if constexpr (Gmma<T, DP>::PAIRS) {
+    // The parts of a KV tile form a cluster, as the 256 instance's do;
+    // one part is a plain launch.
+    const int sms = sm_count();
+    if (sms < 0) return static_cast<cudaError_t>(-sms);
+    const int parts = dkv_parts(S, KVH, H / KVH, sms);
+    ClusterLaunch l(dim3(tiles * KVH * parts), Tl::NT, smem, stream, parts);
+    if (parts == 1) l.cfg.numAttrs = 0;
+    err = cudaLaunchKernelEx(
+        &l.cfg, flash_bwd_dkv_wgmma_kernel<T, DP>, tq, tk, tv, tdo,
+        static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
+        static_cast<T*>(const_cast<void*>(p[6])),
+        static_cast<T*>(const_cast<void*>(p[7])), S, KVH, H / KVH, D, causal,
+        window, scale);
+    const cudaError_t last = cudaGetLastError();
+    return err != cudaSuccess ? err : last;
+  }
   const dim3 grid = Tl::HEADS_FIRST ? dim3(tiles * KVH) : dim3(tiles, KVH);
   flash_bwd_dkv_wgmma_kernel<T, DP><<<grid, Tl::NT, smem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(p[4]),
@@ -1572,15 +1950,6 @@ cudaError_t launch_dkv_wgmma(const void* const* p, int S, int H, int KVH,
       static_cast<T*>(const_cast<void*>(p[7])), S, KVH, H / KVH, D, causal,
       window, scale);
   return cudaGetLastError();
-}
-
-// SMs of the current device, or minus the CUDA error.
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return err == cudaSuccess ? sms : -(int)err;
 }
 
 template <typename T, int DP>
@@ -1666,9 +2035,10 @@ constexpr int WIDE_MAX_D = W_COLS * X_MAX_N;
 
 // The routes, by the codes flash_bwd_dkv_route gives them
 // (flash_attention.BWD_ROUTES): the instances (head_dim padded to 16, 32,
-// 64, 128 or 256), the wgmma route (bf16 and f16 at 33-128 whose q, k, v
+// 64, 128 or 256), the wgmma route (bf16 and f16 at 33-256 whose q, k, v
 // and dO all take the 16-byte copy path, as TMA needs; head_dim padded to
-// 64 or 128), the wide route (257-1024) and the streamed route beyond.
+// 64, 128 or 256), the wide route (257-1024) and the streamed route
+// beyond.
 enum Route { R_INSTANCE = 0, R_WGMMA = 1, R_WIDE = 2, R_STREAM = 3 };
 constexpr int VEC_ALL = VEC_Q | VEC_K | VEC_V | VEC_DO;
 
@@ -1676,9 +2046,8 @@ template <typename T>
 Route route_for(int D, int vec) {
   return D > WIDE_MAX_D ? R_STREAM
        : D > 256        ? R_WIDE
-       : sizeof(T) == 2 && D > 32 && D <= 128 && vec == VEC_ALL
-           ? R_WGMMA
-           : R_INSTANCE;
+       : sizeof(T) == 2 && D > 32 && vec == VEC_ALL ? R_WGMMA
+                                                    : R_INSTANCE;
 }
 
 // The template instances with head_dim padded to 16, 32, 64, 128 or 256,
@@ -1687,7 +2056,9 @@ template <typename T>
 Launcher dkv_for(int D, int vec) {
   if constexpr (sizeof(T) == 2)
     if (route_for<T>(D, vec) == R_WGMMA)
-      return D <= 64 ? &launch_dkv_wgmma<T, 64> : &launch_dkv_wgmma<T, 128>;
+      return D <= 64 ? &launch_dkv_wgmma<T, 64>
+           : D <= 128 ? &launch_dkv_wgmma<T, 128>
+                      : &launch_dkv_wgmma<T, 256>;
   return D <= 16 ? &launch_dkv<T, 16>
        : D <= 32 ? &launch_dkv<T, 32>
        : D <= 64 ? &launch_dkv<T, 64>
@@ -1701,7 +2072,9 @@ template <typename T>
 int smem_for(int D, int vec) {
   if constexpr (sizeof(T) == 2)
     if (route_for<T>(D, vec) == R_WGMMA)
-      return D <= 64 ? Gmma<T, 64>::SMEM : Gmma<T, 128>::SMEM;
+      return D <= 64 ? Gmma<T, 64>::SMEM
+           : D <= 128 ? Gmma<T, 128>::SMEM
+                      : Gmma<T, 256>::SMEM;
   return D <= 16 ? smem_bytes<T, 16>()
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
@@ -1719,8 +2092,10 @@ int warps_for(int D, int vec) {
     if (route_for<T>(D, vec) == R_WGMMA)
       return D <= 64 ? warps_per_sm(flash_bwd_dkv_wgmma_kernel<T, 64>,
                                     GTile<64>::NT, Gmma<T, 64>::SMEM)
-                     : warps_per_sm(flash_bwd_dkv_wgmma_kernel<T, 128>,
-                                    GTile<128>::NT, Gmma<T, 128>::SMEM);
+           : D <= 128 ? warps_per_sm(flash_bwd_dkv_wgmma_kernel<T, 128>,
+                                     GTile<128>::NT, Gmma<T, 128>::SMEM)
+                      : warps_per_sm(flash_bwd_dkv_wgmma_kernel<T, 256>,
+                                     GTile<256>::NT, Gmma<T, 256>::SMEM);
   return D <= 16 ? warps_per_sm(flash_bwd_dkv_kernel<T, 16>, NT,
                                 smem_bytes<T, 16>())
        : D <= 32 ? warps_per_sm(flash_bwd_dkv_kernel<T, 32>, NT,
@@ -1808,8 +2183,9 @@ int flash_bwd_dkv_warps_per_sm(int D, int dtype, int vec) {
                       : warps_for<f16>(D, vec);
 }
 
-// Blocks of the head_dim-256 instance that share each KV tile in a launch
-// on the current device (dkv_parts()); 1 for a head_dim outside 129-256;
+// Blocks of the head_dim-256 instance, or of the wgmma route's 256
+// template, that share each KV tile in a launch on the current device
+// (dkv_parts(), the same for both); 1 for a head_dim outside 129-256;
 // minus a CUDA error.
 int flash_bwd_dkv_parts(int S, int KVH, int group, int D) {
   if (D <= 128 || D > 256) return 1;
@@ -1817,14 +2193,16 @@ int flash_bwd_dkv_parts(int S, int KVH, int group, int D) {
   return sms < 0 ? sms : dkv_parts(S, KVH, group, sms);
 }
 
-// The wgmma route's tiles at padded head_dim DP (64 or 128): keys a block
-// into *keys and query rows a tile into *rows. Returns 0, or
+// The wgmma route's tiles at padded head_dim DP (64, 128 or 256): keys a
+// block into *keys and query rows a tile into *rows. Returns 0, or
 // cudaErrorInvalidValue for another DP.
 int flash_bwd_dkv_wgmma_tiles(int DP, int* keys, int* rows) {
   if (DP == 64) {
     *keys = GTile<64>::BKV, *rows = GTile<64>::BQ;
   } else if (DP == 128) {
     *keys = GTile<128>::BKV, *rows = GTile<128>::BQ;
+  } else if (DP == 256) {
+    *keys = GTile<256>::BKV, *rows = GTile<256>::BQ;
   } else {
     return (int)cudaErrorInvalidValue;
   }

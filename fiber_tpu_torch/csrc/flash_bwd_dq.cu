@@ -45,13 +45,14 @@
 //   tile. A tensor whose pointer, strides or head_dim are not whole
 //   16-byte units takes a scalar load path instead (per tensor, chosen
 //   by the launcher).
-// - bf16 and f16 at head_dim 33-128 whose q, k, v and dO are whole
+// - bf16 and f16 at head_dim 33-256 whose q, k, v and dO are whole
 //   16-byte units take the wgmma route instead
-//   (flash_bwd_dq_wgmma_kernel<type, 64 or 128>, head_dim padded to 64 or
-//   128; wgmma_sm90.cuh), Hopper's warpgroup products fed by the Tensor
-//   Memory Accelerator: the 64 and 128 instances above run warp-level
-//   mma.sync with ldmatrix and cp.async, each warp reading the whole K
-//   and V tiles for its 16 rows, at a quarter of their bound. One block
+//   (flash_bwd_dq_wgmma_kernel<type, 64, 128 or 256>, head_dim padded to
+//   64, 128 or 256; wgmma_sm90.cuh), Hopper's warpgroup products fed by
+//   the Tensor Memory Accelerator: the 64, 128 and 256 instances above
+//   run warp-level mma.sync with ldmatrix and cp.async, each warp reading
+//   the whole K and V tiles for its 16 rows, at a quarter of their bound
+//   (the 256 instance at 22%). One block
 //   of three warpgroups owns 128 query rows of one head. A producer
 //   warpgroup (its registers given back by setmaxnreg) has one thread
 //   issue the TMA copies in the 128-byte swizzle, a 64-column box at a
@@ -68,32 +69,36 @@
 //   tiles and registers: 128-key tiles at 64; at 128, where dQ is 64
 //   accumulator registers a thread, 64-key tiles and budgets of 24 / 240,
 //   and every head's heaviest causal tiles launched first (a 1-D grid,
-//   the heads varying fastest). As in the instance, the block owns its
+//   the heads varying fastest); at 256, where dQ is 128 registers a
+//   thread and Q and dO of 128 rows alone take 128 KB, 32-key tiles
+//   (m64n32k16 score products, dQ += dS K by m64n256k16) in three
+//   stages, 230,504 bytes. As in the instance, the block owns its
 //   output, with no atomics, and each score product is computed once a
 //   (query tile, KV tile). The wgmma route of flash_fwd.cu says what
 //   keeps ptxas from serializing the products (no trap block, roles
 //   branched on a warp-uniform index, no subroutine call in a consumer,
 //   no branch between a product and its wait).
-// - head_dim 129-256 pads to one 256 instance (flash_bwd_dq_split_kernel),
-//   where dq over 256 columns would be 128 accumulator registers a thread
-//   beside both score tiles, which left room for one block of 4 warps an
-//   SM. One block of 8 warps owns the (query head, 64-row query tile), in
-//   two groups of 4 warps, 16 query rows a warp in each group. Group A
-//   computes S = Q K^T over the full depth and P, and stores P (f32) to
-//   shared memory; group B computes dP = dO V^T over the full depth, reads
-//   A's P to form dS = P (dP - delta), and stores dS (packed to a 16-bit
-//   input's type, f32 for f32) to shared memory, each exchange a named
-//   barrier over the block's 256 threads (the producing group arrives,
-//   the other waits). Then each group adds dS K into its 128 of dq's
-//   columns (64 accumulator registers a thread): group B from its own
-//   registers, group A from the shared dS, which holds the same packed
-//   bits. So each score product is computed once a (query tile, KV tile),
-//   3 products of 64 x BKV x 256, and an SM runs 8 warps (beside both
-//   score tiles, a 256-column accumulator leaves room for 4). K and V tiles are 64 rows in a 16-bit type (two buffers:
-//   230 KB of shared memory; 32-row tiles ran 18% slower on an H100) and
-//   32 in f32, single-buffered (the next tile's copy after a barrier at
-//   the end of this one), since the f32 Q and dO tiles alone take 133
-//   KB.
+// - f32 at head_dim 129-256, and bf16 and f16 there whose tensors are not
+//   whole 16-byte units, pad to one 256 instance
+//   (flash_bwd_dq_split_kernel), where dq over 256 columns would be 128
+//   accumulator registers a thread beside both score tiles, which left room
+//   for one block of 4 warps an SM. One block of 8 warps owns the (query
+//   head, 64-row query tile), in two groups of 4 warps, 16 query rows a
+//   warp in each group. Group A computes S = Q K^T over the full depth and
+//   P, and stores P (f32) to shared memory; group B computes dP = dO V^T
+//   over the full depth, reads A's P to form dS = P (dP - delta), and
+//   stores dS (packed to a 16-bit input's type, f32 for f32) to shared
+//   memory, each exchange a named barrier over the block's 256 threads (the
+//   producing group arrives, the other waits). Then each group adds dS K
+//   into its 128 of dq's columns (64 accumulator registers a thread): group
+//   B from its own registers, group A from the shared dS, which holds the
+//   same packed bits. So each score product is computed once a (query tile,
+//   KV tile), 3 products of 64 x BKV x 256, and an SM runs 8 warps (beside
+//   both score tiles, a 256-column accumulator leaves room for 4). K and V
+//   tiles are 64 rows in a 16-bit type (two buffers: 230 KB of shared
+//   memory; 32-row tiles ran 18% slower on an H100) and 32 in f32,
+//   single-buffered (the next tile's copy after a barrier at the end of
+//   this one), since the f32 Q and dO tiles alone take 133 KB.
 // - head_dim 257-1024 takes the wide route (flash_bwd_dq_wide_kernel): a
 //   dq accumulator of 512 columns would be 256 registers a thread, and
 //   full-width tiles do not fit. A thread-block cluster of n = ceil(D /
@@ -931,29 +936,32 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_dq(acc, dq, q0, wrow, lane, S, H, h, D, col0 + wcol, scale);
 }
 
-// The wgmma route (bf16 and f16 at head_dim 33-128 whose q, k, v and dO
-// are whole 16-byte units; the file's header says how it works and why),
-// by padded head_dim DP (64: 33-64; 128: 65-128): query rows a block (two
-// consumer warpgroups of 64), keys a KV tile, threads a block (a producer
+// The wgmma route (bf16 and f16 at head_dim 33-256 whose q, k, v and dO are
+// whole 16-byte units; the file's header says how it works and why), by
+// padded head_dim DP (64: 33-64; 128: 65-128; 256: 129-256): query rows a
+// block (two consumer warpgroups of 64), keys a KV tile (32 at 256, where Q
+// and dO of 128 rows take 128 KB of the 227), threads a block (a producer
 // and two consumer warpgroups), the registers a thread of each role keeps
-// (24 to 256, multiples of 8, at most 65,536 a block: 128 x 40 + 256 x
-// 232 at 64; 128 x 24 + 256 x 240 at 128, where dQ's accumulator is twice
-// as wide), the ring's stages, the order of the blocks (HEADS_FIRST: the
-// heaviest causal tiles of every head first, the heads varying fastest,
-// so that the lightest run last; else each head's in turn), and the
-// consumers' schedule: a tile's products in turn (S and dP; dS; dQ += dS
-// K), or PIPELINED: S and dP of tile j issued with dQ += dS K of tile j -
-// 1, and dS of tile j formed while that runs, which holds two tiles of K
-// in the ring and so takes a third stage for the copies to run ahead.
-// What an H100 measured (NVIDIA H100 80GB HBM3, 700 W, kernel_ab.py, at
-// (8192, 32, 8, 128) bf16 causal): 128-key tiles spilled 48 bytes and
-// took 1.311 ms against 1.153 with 64-key ones; the 2-D grid 1.233
-// against 1.153 heads first; PIPELINED with three stages 1.049 against
-// 1.163 in turn.
+// (24 to 256, multiples of 8, at most 65,536 a block: 128 x 40 + 256 x 232
+// at 64; 128 x 24 + 256 x 240 at 128 and 256, where dQ's accumulator is two
+// and four times as wide), the ring's stages, the order of the blocks
+// (HEADS_FIRST: the heaviest causal tiles of every head first, the heads
+// varying fastest, so that the lightest run last; else each head's in
+// turn), and the consumers' schedule: a tile's products in turn (S and dP;
+// dS; dQ += dS K), or PIPELINED: S and dP of tile j issued with dQ += dS K
+// of tile j - 1, and dS of tile j formed while that runs, which holds two
+// tiles of K in the ring and so takes a third stage for the copies to run
+// ahead. What an H100 measured (NVIDIA H100 80GB HBM3, 700 W, kernel_ab.py,
+// at (8192, 32, 8, 128) bf16 causal): 128-key tiles spilled 48 bytes and
+// took 1.311 ms against 1.153 with 64-key ones; the 2-D grid 1.233 against
+// 1.153 heads first; PIPELINED with three stages 1.049 against 1.163 in
+// turn. At (8192, 8, 1, 256) bf16 (32-key tiles, the SM clock 1,725-1,980
+// MHz): two stages 1.001 ms against 0.643 with three, and in turn 0.674
+// against 0.643 PIPELINED.
 template <int DP> struct GTile {
-  static_assert(DP == 64 || DP == 128, "64 or 128");
+  static_assert(DP == 64 || DP == 128 || DP == 256, "64, 128 or 256");
   static constexpr int BQ = 128;
-  static constexpr int BKV = DP == 64 ? 128 : 64;
+  static constexpr int BKV = DP == 64 ? 128 : DP == 128 ? 64 : 32;
   static constexpr int NT = 384;
   static constexpr int PRODUCER_REGS = DP == 64 ? 40 : 24;
   static constexpr int CONSUMER_REGS = DP == 64 ? 232 : 240;
@@ -1527,9 +1535,10 @@ constexpr int WIDE_MAX_D = W_COLS * X_MAX_N;
 
 // The routes, by the codes flash_bwd_dq_route gives them
 // (flash_attention.BWD_ROUTES): the instances (head_dim padded to 16, 32,
-// 64, 128 or 256), the wgmma route (bf16 and f16 at 33-128 whose q, k, v
+// 64, 128 or 256), the wgmma route (bf16 and f16 at 33-256 whose q, k, v
 // and dO all take the 16-byte copy path, as TMA needs; head_dim padded to
-// 64 or 128), the wide route (257-1024) and the streamed route beyond.
+// 64, 128 or 256), the wide route (257-1024) and the streamed route
+// beyond.
 enum Route { R_INSTANCE = 0, R_WGMMA = 1, R_WIDE = 2, R_STREAM = 3 };
 constexpr int VEC_ALL = VEC_Q | VEC_K | VEC_V | VEC_DO;
 
@@ -1537,9 +1546,8 @@ template <typename T>
 Route route_for(int D, int vec) {
   return D > WIDE_MAX_D ? R_STREAM
        : D > 256        ? R_WIDE
-       : sizeof(T) == 2 && D > 32 && D <= 128 && vec == VEC_ALL
-           ? R_WGMMA
-           : R_INSTANCE;
+       : sizeof(T) == 2 && D > 32 && vec == VEC_ALL ? R_WGMMA
+                                                    : R_INSTANCE;
 }
 
 // The template instances with head_dim padded to 16, 32, 64, 128 or 256,
@@ -1548,7 +1556,9 @@ template <typename T>
 Launcher dq_for(int D, int vec) {
   if constexpr (sizeof(T) == 2)
     if (route_for<T>(D, vec) == R_WGMMA)
-      return D <= 64 ? &launch_dq_wgmma<T, 64> : &launch_dq_wgmma<T, 128>;
+      return D <= 64 ? &launch_dq_wgmma<T, 64>
+           : D <= 128 ? &launch_dq_wgmma<T, 128>
+                      : &launch_dq_wgmma<T, 256>;
   return D <= 16 ? &launch_dq<T, 16>
        : D <= 32 ? &launch_dq<T, 32>
        : D <= 64 ? &launch_dq<T, 64>
@@ -1562,7 +1572,9 @@ template <typename T>
 int smem_for(int D, int vec) {
   if constexpr (sizeof(T) == 2)
     if (route_for<T>(D, vec) == R_WGMMA)
-      return D <= 64 ? Gmma<T, 64>::SMEM : Gmma<T, 128>::SMEM;
+      return D <= 64 ? Gmma<T, 64>::SMEM
+           : D <= 128 ? Gmma<T, 128>::SMEM
+                      : Gmma<T, 256>::SMEM;
   return D <= 16 ? smem_bytes<T, 16>()
        : D <= 32 ? smem_bytes<T, 32>()
        : D <= 64 ? smem_bytes<T, 64>()
@@ -1580,8 +1592,10 @@ int warps_for(int D, int vec) {
     if (route_for<T>(D, vec) == R_WGMMA)
       return D <= 64 ? warps_per_sm(flash_bwd_dq_wgmma_kernel<T, 64>,
                                     GTile<64>::NT, Gmma<T, 64>::SMEM)
-                     : warps_per_sm(flash_bwd_dq_wgmma_kernel<T, 128>,
-                                    GTile<128>::NT, Gmma<T, 128>::SMEM);
+           : D <= 128 ? warps_per_sm(flash_bwd_dq_wgmma_kernel<T, 128>,
+                                     GTile<128>::NT, Gmma<T, 128>::SMEM)
+                      : warps_per_sm(flash_bwd_dq_wgmma_kernel<T, 256>,
+                                     GTile<256>::NT, Gmma<T, 256>::SMEM);
   return D <= 16 ? warps_per_sm(flash_bwd_dq_kernel<T, 16>, NT,
                                 smem_bytes<T, 16>())
        : D <= 32 ? warps_per_sm(flash_bwd_dq_kernel<T, 32>, NT,
@@ -1668,14 +1682,16 @@ int flash_bwd_dq_warps_per_sm(int D, int dtype, int vec) {
                       : warps_for<f16>(D, vec);
 }
 
-// The wgmma route's tiles at padded head_dim DP (64 or 128): query rows a
-// block into *rows and keys a KV tile into *keys. Returns 0, or
+// The wgmma route's tiles at padded head_dim DP (64, 128 or 256): query
+// rows a block into *rows and keys a KV tile into *keys. Returns 0, or
 // cudaErrorInvalidValue for another DP.
 int flash_bwd_dq_wgmma_tiles(int DP, int* rows, int* keys) {
   if (DP == 64) {
     *rows = GTile<64>::BQ, *keys = GTile<64>::BKV;
   } else if (DP == 128) {
     *rows = GTile<128>::BQ, *keys = GTile<128>::BKV;
+  } else if (DP == 256) {
+    *rows = GTile<256>::BQ, *keys = GTile<256>::BKV;
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,13 +1,12 @@
-// Device helpers for the flash-attention kernels that run their products
-// on Hopper's warpgroup-level tensor-core instruction, wgmma, with their
-// tiles copied by the Tensor Memory Accelerator (TMA): the shared-memory
-// matrix descriptor of the 128-byte swizzle, wgmma's fence, commit and
-// wait, the bf16 and f16 products m64nNk16 with A in shared memory (N 64,
-// 80, 128) and with A in registers (N 64, 128, 256; B MN-major), the 3-D TMA
+// Device helpers for the flash-attention kernels that run their products on
+// Hopper's warpgroup-level tensor-core instruction, wgmma, with their tiles
+// copied by the Tensor Memory Accelerator (TMA): the shared-memory matrix
+// descriptor of the 128-byte swizzle, wgmma's fence, commit and wait, the
+// bf16 and f16 products m64nNk16 with A in shared memory (N 32, 64, 80,
+// 128) and with A in registers (N 64, 128, 256; B MN-major), the 3-D TMA
 // tile load and the host's tensor map of a (S, heads, head_dim) tensor,
 // mbarrier init, arrive, arrive.expect_tx and a wait on a phase, and
-// setmaxnreg. sm_90a only (wgmma and setmaxnreg exist for no other
-// target).
+// setmaxnreg. sm_90a only (wgmma and setmaxnreg exist for no other target).
 //
 // Layouts. TMA's CU_TENSOR_MAP_SWIZZLE_128B writes a box of 64 16-bit
 // columns (128 bytes) and R rows as R rows of 128 bytes, the 16-byte unit
@@ -154,6 +153,21 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)); \
   }
 
+#define FIBER_WGMMA_SS_N32(NAME, TY)                                      \
+  __device__ __forceinline__ void NAME(float (&d)[4][4], uint64_t da,        \
+                                       uint64_t db, int scale_d) {          \
+    asm volatile(                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"                                 \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), \
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]) \
+      : "l"(da), "l"(db), "r"(scale_d));                                   \
+  }
+
 #define FIBER_WGMMA_SS_N64(NAME, TY)                                      \
   __device__ __forceinline__ void NAME(float (&d)[8][4], uint64_t da,        \
                                        uint64_t db, int scale_d) {          \
@@ -260,6 +274,8 @@ FIBER_WGMMA_SS_N80(wgmma_ss_bf16_n80, "bf16")
 FIBER_WGMMA_SS_N80(wgmma_ss_f16_n80, "f16")
 FIBER_WGMMA_RS_N256_TB(wgmma_rs_bf16_n256_tb, "bf16")
 FIBER_WGMMA_RS_N256_TB(wgmma_rs_f16_n256_tb, "f16")
+FIBER_WGMMA_SS_N32(wgmma_ss_bf16_n32, "bf16")
+FIBER_WGMMA_SS_N32(wgmma_ss_f16_n32, "f16")
 FIBER_WGMMA_SS_N64(wgmma_ss_bf16_n64, "bf16")
 FIBER_WGMMA_SS_N64(wgmma_ss_f16_n64, "f16")
 FIBER_WGMMA_SS_N128(wgmma_ss_bf16_n128, "bf16")
@@ -281,15 +297,19 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[32][4],
     wgmma_rs_f16_n256_tb(d, a, db, scale_d);
 }
 
-// d (+)= A B^T, m64 x 8 NJ x k16 of 16-bit type T (NJ 8, 10 or 16: 64, 80
-// or 128 columns), both operands in shared memory, K-major (descriptors
-// da, db); scale_d 0 overwrites d.
+// d (+)= A B^T, m64 x 8 NJ x k16 of 16-bit type T (NJ 4, 8, 10 or 16: 32,
+// 64, 80 or 128 columns), both operands in shared memory, K-major
+// (descriptors da, db); scale_d 0 overwrites d.
 template <typename T, int NJ>
 __device__ __forceinline__ void wgmma_ss(float (&d)[NJ][4], uint64_t da,
                                          uint64_t db, int scale_d) {
-  static_assert(NJ == 8 || NJ == 10 || NJ == 16, "m64n64, n80 or n128");
+  static_assert(NJ == 4 || NJ == 8 || NJ == 10 || NJ == 16,
+                "m64n32, n64, n80 or n128");
   constexpr bool B16 = std::is_same_v<T, bf16>;
-  if constexpr (NJ == 8) {
+  if constexpr (NJ == 4) {
+    if constexpr (B16) wgmma_ss_bf16_n32(d, da, db, scale_d);
+    else wgmma_ss_f16_n32(d, da, db, scale_d);
+  } else if constexpr (NJ == 8) {
     if constexpr (B16) wgmma_ss_bf16_n64(d, da, db, scale_d);
     else wgmma_ss_f16_n64(d, da, db, scale_d);
   } else if constexpr (NJ == 10) {

@@ -14,7 +14,7 @@ head_dim, as the Pallas kernels do: the kernels pad a head_dim up to 256
 to an instance of 16, 32, 64, 128 or 256 columns (the forward in bf16
 and f16 at 33-256 takes its wgmma route instead, padded to 64, 128 or
 256, :func:`fwd_route`, and the backward kernels in bf16 and f16 at
-33-64 theirs, :func:`bwd_route`), and a larger one takes
+33-256 theirs, :func:`bwd_route`), and a larger one takes
 their wide route (128-column output slices; in the forward the depth of
 the score products streamed in chunks; in the backward, to head_dim
 1024, a thread-block cluster of one block a slice that computes each
@@ -353,16 +353,17 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, dlse=None, *,
                                causal=causal, window=window)
 
 
-#: KV rows a block of the dk/dv kernel owns, and the most blocks of its
-#: head_dim-256 instance that share one KV tile (a cluster's portable size)
+#: KV rows a block of the dk/dv kernel owns at head_dim 129-256, and the
+#: most blocks there that share one KV tile (a cluster's portable size)
 _DKV_TILE = 64
 _DKV_MAX_PARTS = 8
 
 
 def dkv_parts(s, kv_heads, group, sms):
-    """Blocks of the dk/dv kernel's head_dim-256 instance (head_dim
-    129-256) that share one KV tile, each taking a share of the GQA
-    group's query heads and their partial dk and dv summed in a cluster:
+    """Blocks of the dk/dv kernel at head_dim 129-256 (its head_dim-256
+    instance and its wgmma route's 256 template alike) that share one KV
+    tile, each taking a share of the GQA group's query heads and their
+    partial dk and dv summed in a cluster:
     a power of two, at most ``group`` and 8, doubled while the grid (KV
     tiles x ``kv_heads`` x parts) has no more blocks than the card's
     ``sms`` SMs. The kernel's launcher (``dkv_parts`` in
@@ -384,30 +385,31 @@ BWD_ROUTES = ("instance", "wgmma", "wide", "stream")
 #: ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` sets them
 #: (``flash_bwd_dq_wgmma_tiles`` and ``flash_bwd_dkv_wgmma_tiles`` report
 #: them)
-BWD_DQ_WGMMA_TILES = {64: (128, 128), 128: (128, 64)}
-BWD_DKV_WGMMA_TILES = {64: (128, 64), 128: (128, 64)}
+BWD_DQ_WGMMA_TILES = {64: (128, 128), 128: (128, 64), 256: (128, 32)}
+BWD_DKV_WGMMA_TILES = {64: (128, 64), 128: (128, 64), 256: (64, 64)}
 
 
 def bwd_wgmma_width(head_dim):
     """The padded head_dim of the backward kernels' wgmma templates that
-    take ``head_dim`` (33-128): 64 or 128."""
+    take ``head_dim`` (33-256): 64, 128 or 256."""
     return next(w for w in BWD_DQ_WGMMA_TILES if head_dim <= w)
 
 
 def bwd_route(head_dim, dtype, aligned):
     """The route of both backward kernels that a launch takes
-    (``BWD_ROUTES``): ``"wgmma"`` for bf16 and f16 at head_dim 33-128
+    (``BWD_ROUTES``): ``"wgmma"`` for bf16 and f16 at head_dim 33-256
     when q, k, v and dO are all ``aligned`` (pointer, row and head strides
     and head_dim whole 16-byte units, as TMA needs), ``"instance"`` for
     every other head_dim up to 256 (the mma.sync instances padded to 16,
-    32, 64, 128 or 256), ``"wide"`` at 257-1024 and ``"stream"`` above.
+    32, 64, 128 or 256: f32, head_dim 32 or less, unaligned tensors),
+    ``"wide"`` at 257-1024 and ``"stream"`` above.
     The launchers (``route_for`` in each backward source) decide the
     same."""
     if head_dim > 1024:
         return "stream"
     if head_dim > 256:
         return "wide"
-    if dtype != torch.float32 and 32 < head_dim <= 128 and aligned:
+    if dtype != torch.float32 and head_dim > 32 and aligned:
         return "wgmma"
     return "instance"
 

@@ -4,7 +4,8 @@ of their sources in turns, in one process on one NVIDIA card, beside the
 library's attention (SDPA).
 
     python3 kernel_ab.py --tree parent=DIR --tree change=fiber_tpu_torch/csrc \
-        [--kernels flash_fwd,flash_bwd_dq,flash_bwd_dkv] [--shapes ...]
+        [--kernels flash_fwd,flash_bwd_dq,flash_bwd_dkv] [--shapes ...] \
+        [--rounds N]
 
 Each ``--tree NAME=DIR`` names a directory of kernel sources
 (``flash_fwd.cu``, ``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu`` and the
@@ -16,17 +17,17 @@ port's nvcc flags (one nvcc a source, all started together), and what
 ptxas reports of each template is printed. Then at each shape (a name of
 ``chip_smoke.MAIN_SHAPES``, causal): inputs from a seed, and for every
 tree the forward held against the plain forward within
-``chip_smoke.TOL`` and ``LSE_TOL``, and both backward kernels (from
-this checkout's forward's O and lse) against the plain backward within
+``chip_smoke.TOL`` and ``LSE_TOL``, and both backward kernels (from this
+checkout's forward's O and lse) against the plain backward within
 ``chip_smoke.BWD_TOL``, each with a second launch equal bit for bit;
 then, after an untimed round, each kernel of each tree timed by CUDA
-events, the trees in order and then in reverse in every pair of rounds
-(parent, change, change, parent), each timing followed by the card's SM
-clock, temperature and power draw as NVML reads them then (``card``,
-beside ``ms``), and the library's forward and backward timed in the same
-call with the backend ``torch._fused_sdp_choice`` picks for each. One
-JSON line a shape, after the card's name and power limit
-(``nvidia-smi``) and the build's.
+events over ``--rounds`` rounds (4 by default), the trees in order and
+then in reverse in every pair of rounds (parent, change, change,
+parent), each timing followed by the card's SM clock, temperature and
+power draw as NVML reads them then (``card``, beside ``ms``), and the
+library's forward and backward timed in the same call with the backend
+``torch._fused_sdp_choice`` picks for each. One JSON line a shape, after
+the card's name and power limit (``nvidia-smi``) and the build's.
 """
 
 from __future__ import annotations
@@ -130,7 +131,10 @@ def main(argv=None):
                     help="names of chip_smoke.MAIN_SHAPES")
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help=f"the kernels timed, of {','.join(KERNELS)}")
+    ap.add_argument("--rounds", type=int, default=ROUNDS,
+                    help="rounds of timings, every second one in reverse")
     args = ap.parse_args(argv)
+    check(args.rounds >= 1, f"--rounds {args.rounds}: one or more")
     kernels = tuple(k for k in KERNELS if k in args.kernels.split(","))
     check(kernels and len(kernels) == len(args.kernels.split(",")),
           f"--kernels {args.kernels}: name some of {KERNELS}")
@@ -240,7 +244,7 @@ def main(argv=None):
             for kernel in kernels:
                 chip_smoke.cuda_ms(torch, lambda: launch(tree, kernel),
                                    reps=REPS)
-        for r in range(ROUNDS):
+        for r in range(args.rounds):
             for tree in (order if r % 2 == 0 else order[::-1]):
                 for kernel in kernels:
                     timed = row["trees"][tree][kernel]

@@ -672,14 +672,16 @@ def test_dkv_parts_never_exceed_the_group():
 
 # ---------------------------------------------------------------------------
 # The arithmetic of the backward kernels' wgmma route (bf16 and f16 at
-# head_dim 33-128: flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel),
+# head_dim 33-256: flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel),
 # emulated: the score products of 16-bit values summed in f32, P in base 2
 # (lse times log2 e) and dS in f32, both packed to the input's type as the
 # A operands of dQ += dS K (dq's KV tiles of the keys BWD_DQ_WGMMA_TILES
 # gives the head_dim's padded width, added in order), dV += P^T dO and dK
 # += dS^T Q (dk/dv's query tiles of the rows BWD_DKV_WGMMA_TILES gives it,
-# every query head of the GQA group in turn, into one running f32 sum);
-# dk's scale applied in f32 and each gradient rounded once.
+# every query head of a part's share of the GQA group in turn, into one
+# running f32 sum; at 256 the parts of a KV tile, dkv_parts() on an H100,
+# then added in rank order, as the 256 instances' are); dk's scale
+# applied in f32 and each gradient rounded once.
 # ---------------------------------------------------------------------------
 
 LOG2E = 1.4426950408889634
@@ -698,6 +700,7 @@ def _wgmma_bwd_emulated(q, k, v, dout, lse, delta, keep, dtype):
     width = fa.bwd_wgmma_width(d)
     dq_keys = fa.BWD_DQ_WGMMA_TILES[width][1]
     dkv_rows = fa.BWD_DKV_WGMMA_TILES[width][1]
+    parts = fa.dkv_parts(s, kvh, group, H100_SMS) if width == 256 else 1
     scale = d ** -0.5
     scale_log2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
     dq = torch.empty_like(q)
@@ -705,39 +708,48 @@ def _wgmma_bwd_emulated(q, k, v, dout, lse, delta, keep, dtype):
     ds_max = 0.0
     for j in range(kvh):
         kh, vh = k[:, j], v[:, j]
-        acc_k, acc_v = torch.zeros_like(kh), torch.zeros_like(vh)
-        for head in range(j * group, (j + 1) * group):
-            lse2 = lse[head] * torch.tensor(LOG2E, dtype=torch.float32)
-            p = torch.exp2(q[:, head] @ kh.T * scale_log2
-                           - lse2[:, None]) * keep
-            ds = p * (dout[:, head] @ vh.T - delta[head][:, None])
-            ds_max = max(ds_max, ds.abs().max().item())
-            p, ds = pack(p), pack(ds)
-            dq[:, head] = _tile_sum(ds, kh, dq_keys, dtype) * scale
-            for c in range(0, s, dkv_rows):
-                rows = slice(c, c + dkv_rows)
-                acc_v = acc_v + p[rows].T @ dout[rows, head]
-                acc_k = acc_k + ds[rows].T @ q[rows, head]
-        dk[:, j], dv[:, j] = acc_k * scale, acc_v
+        sum_k, sum_v = torch.zeros_like(kh), torch.zeros_like(vh)
+        for r in range(parts):
+            acc_k, acc_v = torch.zeros_like(kh), torch.zeros_like(vh)
+            for ih in range(r * group // parts, (r + 1) * group // parts):
+                head = j * group + ih
+                lse2 = lse[head] * torch.tensor(LOG2E, dtype=torch.float32)
+                p = torch.exp2(q[:, head] @ kh.T * scale_log2
+                               - lse2[:, None]) * keep
+                ds = p * (dout[:, head] @ vh.T - delta[head][:, None])
+                ds_max = max(ds_max, ds.abs().max().item())
+                p, ds = pack(p), pack(ds)
+                dq[:, head] = _tile_sum(ds, kh, dq_keys, dtype) * scale
+                for c in range(0, s, dkv_rows):
+                    rows = slice(c, c + dkv_rows)
+                    acc_v = acc_v + p[rows].T @ dout[rows, head]
+                    acc_k = acc_k + ds[rows].T @ q[rows, head]
+            sum_k, sum_v = sum_k + acc_k, sum_v + acc_v
+        dk[:, j], dv[:, j] = sum_k * scale, sum_v
     return tuple(pack(x) for x in (dq, dk, dv)), ds_max
 
 
 @pytest.mark.parametrize("window", [None, 32], ids=["causal", "window"])
-@pytest.mark.parametrize("head_dim", [40, 64, 96, 128])
+@pytest.mark.parametrize("head_dim", [40, 64, 96, 128, 160, 256])
 @pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
 def test_bwd_wgmma_arithmetic_stays_inside_the_chip_bounds(dtype, head_dim,
                                                            window):
     """The backward wgmma route's order of sums (each padded width's tiles
     from BWD_DQ_WGMMA_TILES and BWD_DKV_WGMMA_TILES: dq's 128-key tiles at
-    33-64 and 64-key ones at 65-128, dk/dv's 64-row query tiles over a
-    GQA group of 4, P^T and dS^T packed to the input's type before the
-    dV, dK and dQ products) at S = 512, head_dim 40, 64, 96 and 128,
-    causal and over a window: against an f64
-    recomputation from the same inputs, dq, dk and dv stay within
-    chip_smoke.py's BWD_TOL of their type, and |dS| within its bound,
-    far under f16's largest value."""
+    33-64, 64-key ones at 65-128 and 32-key ones at 129-256, dk/dv's
+    64-row query tiles, P^T and dS^T packed to the input's type before the
+    dV, dK and dQ products) at S = 512, head_dim 40, 64, 96 and 128 over a
+    GQA group of 4, and 160 and 256 over Gemma's group of 8, whose dk and
+    dv the launcher splits over 8 parts of a KV tile on an H100, summed in
+    rank order; causal and over a window: against an f64 recomputation
+    from the same inputs, dq, dk and dv stay within chip_smoke.py's
+    BWD_TOL of their type, and |dS| within its bound, far under f16's
+    largest value."""
+    kvh = 1 if head_dim > 128 else 2
     inputs, want, bound = _wide_case(dtype, head_dim, window, s=512, h=8,
-                                     kvh=2)
+                                     kvh=kvh)
+    if head_dim > 128:        # the parts' sum is part of what is held
+        assert fa.dkv_parts(512, kvh, 8 // kvh, H100_SMS) == 8
     got, ds_max = _wgmma_bwd_emulated(*inputs, dtype)
     errs = [((g.double() - w).abs().max() / w.abs().max()).item()
             for g, w in zip(got, want)]
@@ -746,7 +758,7 @@ def test_bwd_wgmma_arithmetic_stays_inside_the_chip_bounds(dtype, head_dim,
 
 
 # (head_dim, dtype, whole 16-byte units, route): the backward wgmma route
-# takes only bf16 and f16 at head_dim 33-128 whose q, k, v and dO are
+# takes only bf16 and f16 at head_dim 33-256 whose q, k, v and dO are
 # whole 16-byte units
 BWD_ROUTE_TABLE = [
     (32, torch.bfloat16, True, "instance"),
@@ -762,7 +774,7 @@ BWD_ROUTE_TABLE = [
     (64, torch.float32, True, "instance"),
     (65, torch.bfloat16, False, "instance"),   # 130-byte rows
     (128, torch.float16, True, "wgmma"),
-    (256, torch.bfloat16, True, "instance"),
+    (256, torch.bfloat16, True, "wgmma"),
     (257, torch.bfloat16, True, "wide"),
     (1024, torch.float32, True, "wide"),
     (1025, torch.float16, True, "stream"),
@@ -771,15 +783,22 @@ BWD_ROUTE_TABLE = [
     (128, torch.bfloat16, True, "wgmma"),
     (128, torch.bfloat16, False, "instance"),
     (128, torch.float32, True, "instance"),
-    (129, torch.bfloat16, True, "instance"),
+    (129, torch.bfloat16, True, "wgmma"),
+    (160, torch.float16, True, "wgmma"),
+    (200, torch.bfloat16, True, "wgmma"),
+    (256, torch.float16, True, "wgmma"),
+    (256, torch.bfloat16, False, "instance"),
+    (256, torch.float32, True, "instance"),
+    (196, torch.bfloat16, False, "instance"),  # 392-byte rows
 ]
 
 
 @pytest.mark.parametrize("head_dim,width", [(33, 64), (64, 64), (65, 128),
-                                            (96, 128), (128, 128)])
+                                            (96, 128), (128, 128), (129, 256),
+                                            (256, 256)])
 def test_bwd_wgmma_width(head_dim, width):
     """The padded width of the backward kernels' wgmma templates at each
-    edge of their two (both sources' dq_for and dkv_for pad the same).
+    edge of their three (both sources' dq_for and dkv_for pad the same).
     That width's tiles, BWD_DQ_WGMMA_TILES and BWD_DKV_WGMMA_TILES, are
     held to the libraries' own (flash_bwd_dq_wgmma_tiles,
     flash_bwd_dkv_wgmma_tiles) by chip_smoke.py's build phase."""
@@ -798,7 +817,7 @@ def test_bwd_route_table(head_dim, dtype, aligned, route):
 
 class _EmulatedFlash(torch.autograd.Function):
     """bf16 or f16 causal attention through the emulated arithmetic of the
-    kernels a 16-bit TinyLM at head_dim 33-128 runs on the card: the
+    kernels a 16-bit TinyLM at head_dim 33-256 runs on the card: the
     forward's wgmma route (its tiles at the head_dim's padded width, P
     packed to the input's type before P V) and the backward's."""
 
@@ -826,12 +845,15 @@ class _EmulatedFlash(torch.autograd.Function):
 #: (chip_smoke.LLAMA_PHASES' phase, TinyLM config) whose bounds each case
 #: of test_llama_lm_bound_covers_the_kernels_bf16_arithmetic derives, by
 #: head_dim: Llama-3.2-1B's (64) and Meta-Llama-3-8B's (128), each with
-#: its GQA group of 4, narrow
+#: its GQA group of 4, and Gemma-2B's (256) with one KV head, narrow
 LLAMA_BOUND_CASES = {
     64: ("llama_lm", dict(vocab=256, dim=512, heads=8, kv_heads=2,
                           pos="rope", mlp_mult=4, max_seq=512, layers=2)),
     128: ("llama8b_lm", dict(vocab=256, dim=512, heads=4, kv_heads=1,
                              pos="rope", mlp_mult=4, max_seq=512, layers=2)),
+    256: ("gemma_bf16_lm", dict(vocab=256, dim=512, heads=2, kv_heads=1,
+                                pos="rope", mlp_mult=8, max_seq=512,
+                                layers=2)),
 }
 
 
@@ -839,9 +861,11 @@ LLAMA_BOUND_CASES = {
 def test_llama_lm_bound_covers_the_kernels_bf16_arithmetic(head_dim):
     """Derives chip_smoke.py's bounds of the bf16 TinyLM phases
     (LLAMA_PHASES: LLAMA_LOSS_TOL and LLAMA_GRAD_TOL at head_dim 64,
-    LLAMA8B_LOSS_TOL and LLAMA8B_GRAD_TOL at 128): a bf16 TinyLM at the
-    phase's head_dim and GQA group (4), narrow (at 64 dim 512, 8 heads, 2
-    KV heads; at 128 dim 512, 4 heads, 1 KV head; 2 layers) at S 512,
+    LLAMA8B_LOSS_TOL and LLAMA8B_GRAD_TOL at 128, GEMMA_BF16_LOSS_TOL and
+    GEMMA_BF16_GRAD_TOL at 256): a bf16 TinyLM at the
+    phase's head_dim and GQA group (4; 2 at 256), narrow (at 64 dim 512, 8
+    heads, 2 KV heads; at 128 dim 512, 4 heads, 1 KV head; at 256 dim 512,
+    2 heads, 1 KV head; 2 layers) at S 512,
     through the emulated arithmetic of the kernels it runs on the card
     (_EmulatedFlash) against the same weights on the kernels' plain
     versions (the flash plane on the CPU). Measured at 64 with the
@@ -850,9 +874,12 @@ def test_llama_lm_bound_covers_the_kernels_bf16_arithmetic(head_dim):
     256, S 512; 6.3e-5 and 1.15% at dim 512, S 1024; wo's or the
     embedding's); with the instance's tiles before, 1.1e-4 and 1.12%
     (1.7% at dim 256). At 128, with both routes' head_dim-128 tiles:
-    6.7e-6 and 1.09% (blocks.1.wq's). The bounds leave ten times the
-    largest on the loss and twice on the gradients for the card's full
-    width at S 2048, whose sums are longer."""
+    6.7e-6 and 1.09% (blocks.1.wq's). At 256 (Gemma's one KV head; dim
+    512, 2 heads), with the forward's 80-key tiles and the backward's
+    32-key dq tiles and summed dk/dv parts: 1.7e-4 and 1.15% (embed's).
+    The bounds leave ten times the largest on the loss and twice on the
+    gradients for the card's full width at S 2048, whose sums are
+    longer."""
     from unittest import mock
 
     import chip_smoke
